@@ -1,0 +1,65 @@
+// C interface of the aligner's CUDA kernels (loaded with ctypes by
+// soundswallower_tpu_torch/utils/cuda_build.py).
+//
+// Every launcher takes raw device pointers, sizes and a cudaStream_t,
+// launches on that stream without synchronising, allocates nothing,
+// and returns cudaGetLastError() of its launch.  Shapes are runtime
+// arguments: a new transcript, batch size, used-codebook count or
+// frame count never costs a build.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SST_WORST_SCORE (-0x20000000)
+#define SST_TMAT_WORST (-255)
+#define SST_SENSCR_SHIFT 10
+#define SST_MAX_NEG_ASCR 96
+#define SST_MAX_TOPN 8
+#define SST_MAX_DENSITIES 128
+
+extern "C" {
+
+// K1: wire dequant + batch CMN + 1s_c_d_dd dynamic features.
+// planes uint8 [2, B, T, ncep] (plane 0 = low byte), n_frames int32 [B]
+// -> out float32 [B, T, 3, ncep].
+int sst_feat(const uint8_t* planes, const int32_t* n_frames, float* out,
+             int B, int T, int ncep, float inv_scale, int do_cmn,
+             cudaStream_t stream);
+
+// K2: Mahalanobis fold + top-N + cross-codebook norm.
+// feats f32 [N, F, L]; means/var_t f32 [Cu, F, D, L]; det f32 [Cu, F, D]
+// -> s int32 [N, Cu, F, topn] (normalized, clamped to 96),
+//    cw int32 [N, Cu, F, topn] (density indices).
+int sst_dist_topn_norm(const float* feats, const float* means,
+                       const float* var_t, const float* det, int32_t* s,
+                       int32_t* cw, int N, int Cu, int F, int D, int L,
+                       int topn, cudaStream_t stream);
+
+// K3: senone evaluation in graph-state order.
+// s/cw int32 [N, Cu, F, topn]; mixw uint8 [F, D, S]; cb_pos int32 [S];
+// table int32 [table_len] (8-bit log-add table) -> out int32 [N, S].
+int sst_senone_eval(const int32_t* s, const int32_t* cw, const uint8_t* mixw,
+                    const int32_t* cb_pos, const int32_t* table,
+                    int table_len, int32_t* out, int N, int Cu, int F, int D,
+                    int S, int topn, int wrap_u8, cudaStream_t stream);
+
+// K4: whole-utterance lane Viterbi + final-node select + backtrace.
+// sen int32 [B, T, P*3]; n_frames int32 [B]; tp int32 [P, 3, 4];
+// pred_idx/pred_pen int32 [P, K]; pred_ok uint8 [P, K];
+// astart/aend/entry int32 [P]; fin int32 [n_fin]
+// -> tok int16 [B, T, P*3] (scratch), path int16 [B, T], fscore int32 [B].
+int sst_viterbi_batch(const int32_t* sen, const int32_t* n_frames,
+                      const int32_t* tp, const int32_t* pred_idx,
+                      const int32_t* pred_pen, const uint8_t* pred_ok,
+                      const int32_t* astart, const int32_t* aend,
+                      const int32_t* entry, const int32_t* fin, int B, int T,
+                      int P, int K, int n_fin, int16_t* tok, int16_t* path,
+                      int32_t* fscore, cudaStream_t stream);
+
+// Dynamic shared memory sst_viterbi_batch needs for P phones.
+int sst_viterbi_smem_bytes(int P);
+
+const char* sst_error_string(int err);
+
+}  // extern "C"

@@ -1,0 +1,232 @@
+// K4 `viterbi_batch`: the shared-graph batch Viterbi, final-node select
+// and backtrace in one persistent kernel.
+//
+// Replaces the jitted XLA programs B4 and B5 of the JAX package:
+// soundswallower_tpu/ops/align_jax.py align_viterbi_batch (with
+// make_vit_step_lanes, _eval_3st_lanes, vit_carry0_lanes), the
+// final-node select of soundswallower_tpu/aligner.py _vit_full.run and
+// align_jax.py backtrace_batch.
+//
+// Bound: latency of the frame recurrence.  The TPU program ran one scan
+// step per frame with the batch in the vector lanes; here one block owns
+// one utterance row and loops over all frames itself (no launch per
+// frame), with the row's Viterbi state (score/hist [P,3], out_score/
+// out_hist [P]) in shared memory and one thread per phone.  Each frame
+// reads the row's S = 3P senone scores and writes S int16 tokens; two
+// block barriers order the HMM update, the predecessor max and the
+// entries.  Rows run in parallel, one block each.
+//
+// Integer semantics follow the JAX program exactly: state_align_search's
+// renormalization, hmm.c's update including the reuse of t2 when the 0->2
+// skip is absent, K predecessor slots in edge order with a strict `>`,
+// first-max final-node select, and the backtrace's masked lookup, which
+// yields -2^30 (int16 0) for a state outside [0, S).  Additions wrap like
+// XLA's int32 (unsigned arithmetic).
+#include <climits>
+
+#include "sst_kernels.h"
+
+namespace {
+
+constexpr int32_t kWorst = SST_WORST_SCORE;
+constexpr int32_t kMissing = -(1 << 30);  // backtrace_batch's masked-max floor
+
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+
+__host__ __device__ inline size_t smem_bytes(int P) {
+  // score, hist [3P] + out_score, out_hist [P] + 32 warp maxima, then
+  // active_next [P] bytes
+  return (size_t)(8 * P + 32) * sizeof(int32_t) + (size_t)P;
+}
+
+__global__ void viterbi_kernel(
+    const int32_t* __restrict__ sen, const int32_t* __restrict__ n_frames,
+    const int32_t* __restrict__ tp, const int32_t* __restrict__ pred_idx,
+    const int32_t* __restrict__ pred_pen, const uint8_t* __restrict__ pred_ok,
+    const int32_t* __restrict__ astart, const int32_t* __restrict__ aend,
+    const int32_t* __restrict__ entry, const int32_t* __restrict__ fin, int T,
+    int P, int K, int n_fin, int16_t* __restrict__ tok,
+    int16_t* __restrict__ path, int32_t* __restrict__ fscore) {
+  extern __shared__ int32_t sm[];
+  int32_t* score = sm;            // [P, 3]
+  int32_t* hist = score + 3 * P;  // [P, 3]
+  int32_t* osc = hist + 3 * P;    // [P] out_score
+  int32_t* ohi = osc + P;         // [P] out_hist
+  int32_t* wmax = ohi + P;        // [32]
+  uint8_t* anext = reinterpret_cast<uint8_t*>(wmax + 32);  // [P]
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int nwarps = (nthr + 31) >> 5;
+  const int n = n_frames[b];
+  const int S = 3 * P;
+
+  for (int p = tid; p < P; p += nthr) {
+    score[3 * p] = entry[p];
+    score[3 * p + 1] = kWorst;
+    score[3 * p + 2] = kWorst;
+    hist[3 * p] = hist[3 * p + 1] = hist[3 * p + 2] = -1;
+    osc[p] = kWorst;
+    ohi[p] = -1;
+  }
+  int32_t best_prev = 0;
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const int32_t* sen_t = sen + ((size_t)b * T + t) * S;
+    const bool valid = t < n;
+    const bool renorm = wsub(best_prev, 0x300000) < kWorst;
+    int32_t lbest = kWorst;
+    // -- HMM update (_eval_3st_lanes) --
+    for (int p = tid; p < P; p += nthr) {
+      const bool act = t >= astart[p] && t <= aend[p] && valid;
+      int32_t sc0 = score[3 * p], sc1 = score[3 * p + 1], sc2 = score[3 * p + 2];
+      if (renorm) {
+        if (sc0 > kWorst) sc0 = wsub(sc0, best_prev);
+        if (sc1 > kWorst) sc1 = wsub(sc1, best_prev);
+        if (sc2 > kWorst) sc2 = wsub(sc2, best_prev);
+      }
+      const int32_t h0 = hist[3 * p], h1 = hist[3 * p + 1], h2 = hist[3 * p + 2];
+      const int32_t* tq = tp + 12 * p;  // tprob(i, j) = -tq[4 * i + j]
+      const int32_t s0 = wsub(sc0, sen_t[3 * p]);
+      const int32_t s1 = wsub(sc1, sen_t[3 * p + 1]);
+      const int32_t s2 = wsub(sc2, sen_t[3 * p + 2]);
+      int32_t bst = kWorst;
+      // state 3 (non-emitting exit)
+      const int32_t x1 = wsub(s2, tq[4 * 2 + 3]);
+      const int32_t x2 = (-tq[4 * 1 + 3] > SST_TMAT_WORST) ? wsub(s1, tq[4 * 1 + 3]) : INT_MIN;
+      if (act && s1 > kWorst) {
+        const int32_t s3 = max(x1 > x2 ? x1 : x2, kWorst);
+        osc[p] = s3;
+        ohi[p] = x1 > x2 ? h2 : h1;
+        bst = s3;
+      }
+      // state 2; t2 carries over from state 3 when 0->2 is absent
+      const int32_t a0 = wsub(s2, tq[4 * 2 + 2]);
+      const int32_t a1 = wsub(s1, tq[4 * 1 + 2]);
+      const int32_t a2 = (-tq[4 * 0 + 2] > SST_TMAT_WORST) ? wsub(s0, tq[4 * 0 + 2]) : x2;
+      const bool br = a0 > a1;
+      const bool use2 = br ? a2 > a0 : a2 > a1;
+      const int32_t ns2 = max(use2 ? a2 : (br ? a0 : a1), kWorst);
+      const int32_t nh2 = use2 ? h0 : (br ? h2 : h1);
+      // state 1
+      const int32_t b0 = wsub(s1, tq[4 * 1 + 1]);
+      const int32_t b1 = wsub(s0, tq[4 * 0 + 1]);
+      const int32_t ns1 = max(b0 > b1 ? b0 : b1, kWorst);
+      const int32_t nh1 = b0 > b1 ? h1 : h0;
+      // state 0
+      const int32_t ns0 = max(wsub(s0, tq[0]), kWorst);
+      if (act) {
+        bst = max(bst, max(ns2, max(ns1, ns0)));
+        sc0 = ns0;
+        sc1 = ns1;
+        sc2 = ns2;
+        hist[3 * p + 1] = nh1;
+        hist[3 * p + 2] = nh2;
+      }
+      score[3 * p] = sc0;
+      score[3 * p + 1] = sc1;
+      score[3 * p + 2] = sc2;
+      anext[p] = act && t + 1 <= aend[p];
+      lbest = max(lbest, bst);
+    }
+    // block-wide best over active phones
+    lbest = __reduce_max_sync(0xffffffffu, lbest);
+    if ((tid & 31) == 0) wmax[tid >> 5] = lbest;
+    __syncthreads();
+    int32_t best = kWorst;
+    for (int w = 0; w < nwarps; ++w) best = max(best, wmax[w]);
+
+    // -- phone transitions, entries and token record --
+    const int nf = t + 1;
+    for (int p = tid; p < P; p += nthr) {
+      int32_t es = kWorst, eh = -1;
+      bool eok = false;
+      for (int k = 0; k < K; ++k) {
+        const int src = pred_idx[p * K + k];
+        const bool ok = pred_ok[p * K + k] && anext[src];
+        const int32_t val = ok ? wadd(osc[src], pred_pen[p * K + k]) : kWorst;
+        if (val > es) {  // strict: the first slot wins ties
+          es = val;
+          eh = ohi[src];
+          eok = ok;
+        }
+      }
+      if (!eok) eh = -1;
+      const bool act = t >= astart[p] && t <= aend[p] && valid;
+      const bool enter = eok && nf >= astart[p] && nf <= aend[p] && valid &&
+                         (!act || es > score[3 * p]);
+      if (enter) {
+        score[3 * p] = es;
+        hist[3 * p] = eh;
+      }
+      int16_t* tk = tok + ((size_t)b * T + t) * S + 3 * p;
+      if (act || enter) {
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          tk[e] = (int16_t)hist[3 * p + e];
+          hist[3 * p + e] = 3 * p + e;
+        }
+      } else {
+        tk[0] = tk[1] = tk[2] = -1;
+      }
+    }
+    best_prev = best;
+    __syncthreads();
+  }
+
+  if (tid == 0) {
+    // final-node select: first max over the final nodes
+    int fnode = fin[0];
+    int32_t fbest = osc[fnode];
+    for (int i = 1; i < n_fin; ++i) {
+      const int32_t v = osc[fin[i]];
+      if (v > fbest) {
+        fbest = v;
+        fnode = fin[i];
+      }
+    }
+    fscore[b] = osc[fnode];
+    // backtrace (backtrace_batch); the tokens are this block's own
+    // global writes, visible after the loop's last barrier
+    int32_t cur = ohi[fnode];
+    for (int t = T - 1; t >= 0; --t) {
+      const int32_t cand = (cur >= 0 && cur < S)
+          ? (int32_t)tok[((size_t)b * T + t) * S + cur] : kMissing;
+      path[(size_t)b * T + t] = (int16_t)(t < n ? cur : -1);
+      if (t < n - 1) cur = cand;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int sst_viterbi_smem_bytes(int P) { return (int)smem_bytes(P); }
+
+extern "C" int sst_viterbi_batch(const int32_t* sen, const int32_t* n_frames,
+                                 const int32_t* tp, const int32_t* pred_idx,
+                                 const int32_t* pred_pen,
+                                 const uint8_t* pred_ok, const int32_t* astart,
+                                 const int32_t* aend, const int32_t* entry,
+                                 const int32_t* fin, int B, int T, int P,
+                                 int K, int n_fin, int16_t* tok, int16_t* path,
+                                 int32_t* fscore, cudaStream_t stream) {
+  if (P <= 0 || K <= 0 || n_fin <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0) return (int)cudaSuccess;
+  const size_t smem = smem_bytes(P);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int threads = min(1024, (P + 31) / 32 * 32);
+  viterbi_kernel<<<B, threads, smem, stream>>>(
+      sen, n_frames, tp, pred_idx, pred_pen, pred_ok, astart, aend, entry, fin,
+      T, P, K, n_fin, tok, path, fscore);
+  return (int)cudaGetLastError();
+}

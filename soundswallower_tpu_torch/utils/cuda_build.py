@@ -1,0 +1,134 @@
+"""Build-on-first-use loader for the CUDA kernels in ``csrc/``.
+
+Every ``csrc/*.cu`` compiles with ``nvcc`` into one shared library with
+a plain C interface (``csrc/sst_kernels.h``), loaded with ``ctypes``.
+The library is rebuilt whenever a source or header is newer than it,
+the same rule as ``soundswallower_tpu/utils/native_build.py``, so a
+stale binary never runs in place of the source it claims to be.
+
+``-fmad=false``: the kernels reproduce the JAX package's float32
+results bit for bit, and FMA contraction would change the rounding of
+the distance fold (``native/Makefile`` builds the host FE with
+``-ffp-contract=off`` for the same reason).  No ``--use_fast_math``.
+
+Nothing here runs at import: ``lib()`` builds on its first call, which
+only a wrapper handed a CUDA tensor makes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+SONAME = "libsst_cuda.so"
+NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-fmad=false",
+              "-Xcompiler", "-fPIC", "-shared"]
+
+_LIB: ctypes.CDLL | None = None
+_LOCK = threading.Lock()
+# seconds the last build took (0.0 when the library was up to date)
+build_seconds = 0.0
+build_log = ""
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the launchers (csrc/sst_kernels.h); every launcher
+# returns the cudaError_t of its launch
+_SIGS = {
+    "sst_feat": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "sst_dist_topn_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P],
+    "sst_senone_eval": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    "sst_viterbi_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _I, _I, _I, _P, _P, _P, _P],
+    "sst_viterbi_smem_bytes": [_I],
+}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _stale(so: str) -> bool:
+    if not os.path.exists(so):
+        return True
+    t = os.path.getmtime(so)
+    deps = sources() + glob.glob(os.path.join(CSRC, "*.h"))
+    return any(os.path.getmtime(p) > t for p in deps)
+
+
+def build() -> str:
+    """Compile csrc/*.cu into _build/libsst_cuda.so if stale; returns
+    its path.  The compiler's output stays in ``build_log``."""
+    global build_seconds, build_log
+    so = os.path.join(BUILD_DIR, SONAME)
+    if not _stale(so):
+        build_seconds = 0.0
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    build_seconds = time.perf_counter() - t0
+    build_log = r.stdout + r.stderr
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built and loaded on first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            dll = ctypes.CDLL(build())
+            for name, argtypes in _SIGS.items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            dll.sst_error_string.argtypes = [_I]
+            dll.sst_error_string.restype = ctypes.c_char_p
+            _LIB = dll
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if err != 0:
+        msg = _LIB.sst_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def check_tensor(t, dtype, name: str, device=None) -> None:
+    """What a launcher takes: the dtype, contiguous, on the device."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def stream(t) -> int:
+    """Handle of PyTorch's current stream on t's device."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,216 @@
+"""Write a synthetic PTM acoustic model from a seed.
+
+No acoustic model ships with the repository, so the PyTorch port's
+tests and ``chip_smoke.py`` run on a model made here.  ``width="en-us"``
+has the published width of CMU Sphinx en-us (ptm): 42 CI phones
+(incl. SIL and two noise phones), 5,126 senones of which 126 are CI,
+3-state left-to-right HMMs, 42 codebooks x 3 streams x 128 Gaussians x
+13 dims, top-4.  ``width="small"`` keeps only the phones of its words,
+32 Gaussians and a few CD senones per phone: the same code paths at a
+size the CPU tests afford.
+
+The weights are random, the shapes and tying are real: CD senones are
+tied by base phone, so the PTM codebook of a senone is its base phone's
+(``sen2cimap``), and triphones exist for every word position of the
+dictionary's words, plus enough others to reference every senone.
+Means and variances are drawn around the per-dimension statistics of
+``tests/golden/austen-en/feat.f32`` so that top-4 sets are not
+degenerate.  The mixture weights are an 8-bit sendump.
+
+Only numpy's MT19937 (``RandomState``) bits, IEEE arithmetic and
+``math.fsum``/``sqrt`` are used, so the files are the same bytes on any
+machine.  Usage: ``python tools/make_synth_model.py OUTDIR [en-us|small]``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import sys
+
+import numpy as np
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if _REPO not in sys.path:
+    sys.path.insert(0, _REPO)
+
+from soundswallower_tpu_torch._shared import load  # noqa: E402
+
+s3 = load("s3file")
+
+EN_US_PHONES = (
+    "+NSN+ +SPN+ AA AE AH AO AW AY B CH D DH EH ER EY F G HH IH IY JH K L M "
+    "N NG OW OY P R S SH SIL T TH UH UW V W Y Z ZH").split()
+FILLERS = {"SIL", "+NSN+", "+SPN+"}
+WORDS = [
+    ("he", "HH IY"), ("was", "W AA Z"), ("was(2)", "W AH Z"),
+    ("not", "N AA T"), ("an", "AE N"), ("an(2)", "AH N"), ("ill", "IH L"),
+    ("disposed", "D IH S P OW Z D"), ("young", "Y AH NG"), ("man", "M AE N"),
+]
+NOISE = [("<s>", "SIL"), ("</s>", "SIL"), ("<sil>", "SIL"),
+         ("[NOISE]", "+NSN+"), ("[SPEECH]", "+SPN+")]
+# en-us feat_params (tests/test_fe.py) + batch CMN, 1s_c_d_dd, 3x13, top-4
+FEAT_PARAMS = {
+    "lowerf": 130, "upperf": 3700, "nfilt": 20, "transform": "dct",
+    "lifter": 22, "remove_noise": True, "cmn": "current",
+    "feat": "1s_c_d_dd", "svspec": "0-12/13-25/26-38", "topn": 4,
+}
+WIDTHS = {
+    # n_cd: CD senones in all; n_density: Gaussians per codebook
+    "en-us": dict(n_cd=5000, n_density=128),
+    "small": dict(n_cd=18 * 12, n_density=32),
+}
+FEAT_GOLDEN = os.path.join(_REPO, "tests", "golden", "austen-en", "feat.f32")
+
+
+def _normal(rng: np.random.RandomState, shape) -> np.ndarray:
+    """Approximately standard normal (Irwin-Hall of 12 uniforms):
+    uniform bits and additions only, identical on every machine."""
+    z = np.zeros(shape, np.float64)
+    for _ in range(12):
+        z = z + rng.random_sample(shape)
+    return z - 6.0
+
+
+def _feat_stats():
+    """Per-(stream, dim) mean and standard deviation of the austen
+    features, summed exactly (math.fsum)."""
+    f = np.fromfile(FEAT_GOLDEN, np.float32).reshape(-1, 3, 13)
+    f = f.astype(np.float64)
+    mean = np.zeros((3, 13))
+    sd = np.zeros((3, 13))
+    for i in range(3):
+        for j in range(13):
+            col = f[:, i, j].tolist()
+            m = math.fsum(col) / len(col)
+            mean[i, j] = m
+            sd[i, j] = math.sqrt(math.fsum((x - m) ** 2 for x in col)
+                                 / len(col))
+    return mean, sd
+
+
+def _triphones(phones, rng, pools):
+    """(base, lc, rc, wpos) keys: every word position the dictionary
+    needs, then random other contexts until each base phone has a
+    triphone per senone of its largest state pool."""
+    speech = [p for p in phones if p not in FILLERS]
+    ctx = speech + ["SIL"]
+    keys: dict[str, list] = {b: [] for b in speech}
+    seen = set()
+
+    def add(b, l, r, w):
+        if (b, l, r, w) not in seen:
+            seen.add((b, l, r, w))
+            keys[b].append((b, l, r, w))
+
+    for _, pron in WORDS:
+        p = pron.split()
+        if len(p) == 1:
+            for l in ctx:
+                for r in ctx:
+                    add(p[0], l, r, "s")
+            continue
+        for l in ctx:
+            add(p[0], l, p[1], "b")
+        for r in ctx:
+            add(p[-1], p[-2], r, "e")
+        for i in range(1, len(p) - 1):
+            add(p[i], p[i - 1], p[i + 1], "i")
+    for b in speech:
+        need = max(len(pl) for pl in pools[b])
+        while len(keys[b]) < need:
+            add(b, ctx[rng.randint(len(ctx))], ctx[rng.randint(len(ctx))],
+                "bei"[rng.randint(3)])
+    return [k for b in speech for k in sorted(keys[b])]
+
+
+def make_synth_model(outdir: str, seed: int = 0,
+                     width: str = "en-us") -> str:
+    """Write mdef, means, variances, sendump, transition_matrices,
+    feat_params.json, dict.txt and noisedict.txt into outdir."""
+    w = WIDTHS[width]
+    rng = np.random.RandomState(seed)
+    if width == "en-us":
+        phones = list(EN_US_PHONES)
+    else:
+        used = {ph for _, pron in WORDS for ph in pron.split()}
+        phones = sorted(used | {"SIL"})
+    n_ci = len(phones)
+    speech = [p for p in phones if p not in FILLERS]
+    n_ci_sen = 3 * n_ci
+    n_cd = w["n_cd"]
+    n_sen = n_ci_sen + n_cd
+    D = w["n_density"]
+
+    # CD senones: a contiguous block per base phone, split by HMM state
+    pools, pos = {}, n_ci_sen
+    for i, b in enumerate(speech):
+        cnt = n_cd // len(speech) + (1 if i < n_cd % len(speech) else 0)
+        block = np.arange(pos, pos + cnt)
+        pos += cnt
+        pools[b] = [block[j::3][rng.permutation(len(block[j::3]))]
+                    for j in range(3)]
+    tri = _triphones(phones, rng, pools)
+    count = {b: 0 for b in speech}
+    pid = {p: i for i, p in enumerate(phones)}
+    lines = ["0.3", f"{n_ci} n_base", f"{len(tri)} n_tri",
+             f"{4 * (n_ci + len(tri))} n_state_map", f"{n_sen} n_tied_state",
+             f"{n_ci_sen} n_tied_ci_state", f"{n_ci} n_tied_tmat",
+             "#", "# Columns definitions",
+             "#base lft  rt p attrib tmat      ... state id's ..."]
+    for i, p in enumerate(phones):
+        attrib = "filler" if p in FILLERS else "n/a"
+        lines.append(f"{p} - - - {attrib} {i} {3 * i} {3 * i + 1} "
+                     f"{3 * i + 2} N")
+    for b, l, r, wpos in tri:
+        k = count[b]
+        count[b] += 1
+        sen = [int(pl[k % len(pl)]) for pl in pools[b]]
+        lines.append(f"{b} {l} {r} {wpos} n/a {pid[b]} "
+                     f"{sen[0]} {sen[1]} {sen[2]} N")
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "mdef"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+    # Gaussians around the austen feature statistics
+    mean, sd = _feat_stats()
+    shape = (n_ci, 3, D, 13)
+    means = mean[None, :, None, :] + 0.8 * sd[None, :, None, :] \
+        * _normal(rng, shape)
+    scale = sd[None, :, None, :] * (0.35 + 0.5 * rng.random_sample(shape))
+    s3.write_gauden_params(os.path.join(outdir, "means"),
+                           means.astype(np.float32), [13, 13, 13])
+    s3.write_gauden_params(os.path.join(outdir, "variances"),
+                           (scale * scale).astype(np.float32), [13, 13, 13])
+
+    # 8-bit mixture weights: negated log weights, a few strong densities
+    u = rng.random_sample((3, D, n_sen))
+    mixw = 159 - np.floor(150.0 * (u * u * u * u))
+    s3.write_sendump_8b(os.path.join(outdir, "sendump"),
+                        mixw.astype(np.uint8))
+
+    # left-to-right transition matrices; odd phones get a 0->2 skip
+    tp = np.zeros((n_ci, 3, 4), np.float64)
+    for i in range(n_ci):
+        stay = 0.55 + 0.3 * rng.random_sample(3)
+        skip = 0.05 if i % 2 else 0.0
+        tp[i, 0, 0], tp[i, 0, 1], tp[i, 0, 2] = stay[0], 1 - stay[0] - skip, skip
+        tp[i, 1, 1], tp[i, 1, 2] = stay[1], 1 - stay[1]
+        tp[i, 2, 2], tp[i, 2, 3] = stay[2], 1 - stay[2]
+    s3.write_tmat_params(os.path.join(outdir, "transition_matrices"),
+                         tp.astype(np.float32))
+
+    with open(os.path.join(outdir, "feat_params.json"), "w") as fh:
+        json.dump(FEAT_PARAMS, fh, indent=1, sort_keys=True)
+    with open(os.path.join(outdir, "dict.txt"), "w") as fh:
+        fh.writelines(f"{wd} {pron}\n" for wd, pron in WORDS)
+    with open(os.path.join(outdir, "noisedict.txt"), "w") as fh:
+        fh.writelines(f"{wd} {pron}\n" for wd, pron in NOISE
+                      if pron.split()[0] in pid)
+    return outdir
+
+
+if __name__ == "__main__":
+    make_synth_model(sys.argv[1], 0, sys.argv[2] if len(sys.argv) > 2
+                     else "en-us")

@@ -1,0 +1,131 @@
+"""Where a same-transcript batch's time goes in the PyTorch/CUDA port.
+
+On one CUDA device, with the synthetic en-us-width model
+(tools/make_synth_model.py, seed 0) and B copies of the 8 golden austen
+utterances (tools/make_torch_synth_golden.py):
+
+* host stages, timed alone: the C++ front end for the batch
+  (``process_list_i16p`` per upload chunk) and the native segment
+  extraction;
+* steady-state cadence of ``align_batch_begin``/``align_batch_end``
+  pipelined over N batches (median and mean wall time per batch;
+  audio-seconds per second as all N batches' audio over their whole
+  window, and at the median cadence);
+* a torch.profiler trace of 3 pipelined batches: device time by kernel
+  and the device's busy share of the window.
+
+Prints one JSON object.
+Usage: ``python tools/profile_torch_batch.py [B] [N]``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+sys.path.insert(0, os.path.join(REPO, "tools"))
+
+import torch  # noqa: E402
+
+from make_synth_model import make_synth_model  # noqa: E402
+from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
+                                     austen_audio)
+from soundswallower_tpu_torch.aligner import TorchAligner  # noqa: E402
+
+
+def main(B: int = 256, N: int = 8) -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_batch: needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    with tempfile.TemporaryDirectory() as d:
+        make_synth_model(d, seed=0, width="en-us")
+        al = TorchAligner(hmm=d, samprate=SAMPRATE, device="cuda")
+    audios = [austen_audio(i % N_UTT) for i in range(B)]
+    texts = [TEXT] * B
+    audio_s = sum(len(a) for a in audios) / SAMPRATE
+    for _ in range(2):                                   # warm up
+        al.align_batch(audios, texts)
+    torch.cuda.synchronize()
+
+    # host stages alone
+    _, _, Tmax = al._batch_shape(audios)
+    chunk = al._chunk_size(B)
+    fe_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for i0 in range(0, B, chunk):
+            al.native_fe.process_list_i16p(audios[i0:i0 + chunk], Tmax,
+                                           al.wire_scale)
+        fe_ms.append((time.perf_counter() - t0) * 1e3)
+    h = al.align_batch_begin(audios, texts)
+    h.done.synchronize()
+    paths = h.paths.numpy()
+    ex_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        al._extract_batch_native(h.g, paths, h.Ts, h.realB)
+        ex_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # pipelined cadence
+    walls = []
+    prev = al.align_batch_begin(audios, texts)
+    t_prev = time.perf_counter()
+    for _ in range(N):
+        nxt = al.align_batch_begin(audios, texts)
+        al.align_batch_end(prev)
+        now = time.perf_counter()
+        walls.append((now - t_prev) * 1e3)
+        t_prev, prev = now, nxt
+    al.align_batch_end(prev)
+
+    # device view of 3 pipelined batches
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prev = al.align_batch_begin(audios, texts)
+        for _ in range(2):
+            nxt = al.align_batch_begin(audios, texts)
+            al.align_batch_end(prev)
+            prev = nxt
+        al.align_batch_end(prev)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel: dict[str, float] = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
+            by_kernel[ev.key[:80]] = dt / 1e3 / 3          # ms per batch
+    busy = sum(by_kernel.values()) * 3
+    med = statistics.median(walls)
+    out = {
+        "gpu": smi, "B": B, "Tmax": Tmax, "audio_s_per_batch": audio_s,
+        "host_fe_ms": statistics.median(fe_ms),
+        "extract_ms": statistics.median(ex_ms),
+        "batch_wall_ms_median": med,
+        "batch_wall_ms_mean": statistics.fmean(walls),
+        "batch_wall_ms_all": walls,
+        "audio_s_per_s": N * audio_s / (sum(walls) / 1e3),
+        "audio_s_per_s_at_median_cadence": audio_s / (med / 1e3),
+        "device_ms_per_batch_by_kernel": dict(sorted(
+            by_kernel.items(), key=lambda kv: -kv[1])),
+        "device_busy_share": busy / window_ms if window_ms else None,
+        "profile_window_ms": window_ms,
+    }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main(*(int(a) for a in sys.argv[1:3]))
