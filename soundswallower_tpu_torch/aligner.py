@@ -1,21 +1,31 @@
-"""TorchAligner: same-transcript batch forced alignment on PyTorch.
+"""TorchAligner: batch forced alignment on PyTorch.
 
-Port of the batch path of ``soundswallower_tpu/aligner.py`` (TpuAligner):
-host C++ MFCC -> int16 byte-plane wire -> upload -> K1 dynamic features
--> K2/K3 graph-restricted senone scores -> K4 Viterbi, final-node select
-and backtrace -> download -> native segment extraction
-(``native/sst_seg.cpp``).  Host modules (config, model, dictionary,
-phone graph, native FE, segment extraction library) are the JAX
-package's own, loaded through ``_shared``.
+Port of the batch paths of ``soundswallower_tpu/aligner.py``
+(TpuAligner):
+
+* same transcript: host C++ MFCC -> int16 byte-plane wire -> upload ->
+  K1 dynamic features -> K2/K3 graph-restricted senone scores -> K4
+  Viterbi, final-node select and backtrace -> download -> native
+  segment extraction (``native/sst_seg.cpp``);
+* different transcripts (_batch_begin_mixed, ReadAlongs' one transcript
+  per document): the same front end, then K2/K3 over the working-set
+  union of the batch's senones (or the full inventory, K2/K3/K7, once
+  the union passes UNION_MAX_FRAC of it), K5's per-row column gather,
+  and K6 over a stack of per-row graphs;
+* ``align_batch_scored``: always the full-inventory route, with token
+  scores, and Python extraction of per-word, per-phone and (with
+  ``want_states``) per-state scores.
+
+Host modules (config, model, dictionary, phone graph, native FE,
+segment extraction library) are the JAX package's own, loaded through
+``_shared``.
 
 ``device="cuda"`` runs the hand-written kernels (``csrc/``) and raises
 if no CUDA device is present; ``device="cpu"`` runs their plain PyTorch
 versions.  Nothing falls back from one to the other.
 
-Batches of different transcripts run one group per transcript
-(TpuAligner's ``SST_MIXED=grouped`` dispatch); the single-dispatch mixed
-path is still to be ported (ROADMAP.md B6), as are ``want_scores``, the
-ms backend, 5-state models, ``decode*``, ``stream``,
+Still to be ported: ``want_scores`` on the same-transcript path, the ms
+and semi backends, 5-state models, ``decode*``, ``stream``,
 ``align_longform_batch``, ``use_mesh`` and ``update_mllr``.
 """
 
@@ -30,9 +40,11 @@ import torch
 from ._shared import load
 from .fe.feat import feat
 from .fe.frontend import Frontend
-from .ops.align_torch import (WORST_SCORE, VitConsts, build_pred_table,
-                              viterbi_batch)
-from .ops.senscore_torch import GraphScorer, score_frames_graph
+from .ops.align_torch import (WORST_SCORE, RowVitConsts, VitConsts,
+                              build_pred_table, row_consts_from_numpy,
+                              stack_graphs, viterbi_batch, viterbi_rows)
+from .ops.senscore_torch import (GraphScorer, dense_scorer, gather_cols,
+                                 score_frames, score_frames_graph)
 from .utils import to_device
 
 Config = load("config").Config
@@ -111,23 +123,24 @@ class GraphConsts:
 
 
 @dataclass(eq=False)
-class _Batch:
-    """Handle of a dispatched same-transcript batch."""
+class _Stack:
+    """A stacked batch of graphs on the device (_stacked_graphs)."""
 
-    g: AlignGraph
+    vit: RowVitConsts
+    sencols: torch.Tensor    # int32 [B, P*3] scorer columns
+
+
+@dataclass(eq=False)
+class _Batch:
+    """Handle of a dispatched batch."""
+
+    graphs: list             # [realB] AlignGraph of each row
     Ts: np.ndarray           # [realB] frame counts
     paths: torch.Tensor      # int16 [B, Tmax], host (pinned on CUDA)
     fscore: torch.Tensor     # int32 [B], host
     realB: int
+    pscore: torch.Tensor | None = None   # int32 [B, Tmax] path scores
     done: torch.cuda.Event | None = None
-
-
-@dataclass(eq=False)
-class _Grouped:
-    """Handle of a mixed-transcript batch: one _Batch per transcript."""
-
-    n: int
-    parts: list              # (row indices, _Batch)
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -177,8 +190,13 @@ class TorchAligner:
         self.graph_k_floor = 0
         self.graph_w_floor = 0
         self.want_scores = False
+        self.want_states = False
+        self.dense = dense_scorer(self.am, self.device)
         self._graph_cache: dict[str, AlignGraph] = {}
         self._graph_const_cache: dict[int, GraphConsts] = {}
+        self._uni: dict | None = None
+        self._stack_cache: dict[tuple, _Stack] = {}
+        self._seg_tab_cache: dict[tuple, tuple] = {}
         self._fe_pool = ThreadPoolExecutor(max_workers=1)
 
     # -- graph -------------------------------------------------------------
@@ -241,14 +259,45 @@ class TorchAligner:
 
     def align_batch(self, audios: list[np.ndarray], texts: list[str],
                     dist_mode: str = "fold") -> list[list[WordSeg]]:
-        """Batch alignment.  A batch of one transcript is one dispatch;
-        mixed transcripts run one group per transcript, and an
-        utterance whose transcript has an unknown word stays None."""
+        """Batch alignment.  A batch of one transcript is one dispatch of
+        the same-transcript path; different transcripts are one
+        multi-graph dispatch, and an utterance whose transcript has an
+        unknown word stays None."""
         self._fold_only(dist_mode)
         if len(set(texts)) == 1:
             return self._batch_end(self._batch_begin(
                 self.graph_for_text(texts[0]), audios))
-        return self._batch_end(self._begin_grouped(audios, texts, True))
+        out: list = [None] * len(audios)
+        graphs, idxs = [], []
+        for i, t in enumerate(texts):
+            try:
+                graphs.append(self.graph_for_text(t))
+            except KeyError:
+                continue
+            idxs.append(i)
+        if not idxs:
+            return out
+        h = self._batch_begin_mixed(graphs, [audios[i] for i in idxs])
+        for i, segs in zip(idxs, self._batch_end(h)):
+            out[i] = segs
+        return out
+
+    def align_batch_scored(self, audios: list[np.ndarray], texts: list[str],
+                           dist_mode: str = "fold") -> list:
+        """Batch alignment with per-word and per-phone scores (and
+        per-state segments under ``want_states``): always the
+        multi-graph dispatch on the full-inventory scorer, whose 0 =
+        best per frame gives scores in the units of the reference's
+        result JSON (TpuAligner.align_batch_scored).  Unknown words
+        raise KeyError."""
+        self._fold_only(dist_mode)
+        graphs = [self.graph_for_text(t) for t in texts]
+        prev = self.want_scores
+        self.want_scores = True
+        try:
+            return self._batch_end(self._batch_begin_mixed(graphs, audios))
+        finally:
+            self.want_scores = prev
 
     def align_batch_begin(self, audios: list[np.ndarray], texts: list[str],
                           dist_mode: str = "fold"):
@@ -257,30 +306,12 @@ class TorchAligner:
         self._fold_only(dist_mode)
         if len(set(texts)) == 1:
             return self._batch_begin(self.graph_for_text(texts[0]), audios)
-        return self._begin_grouped(audios, texts, False)
+        return self._batch_begin_mixed(
+            [self.graph_for_text(t) for t in texts], audios)
 
     def align_batch_end(self, handle) -> list[list[WordSeg]]:
         """Fetch and extract the results of an align_batch_begin batch."""
         return self._batch_end(handle)
-
-    def _begin_grouped(self, audios, texts, skip_unknown: bool) -> _Grouped:
-        """One same-transcript batch per distinct transcript, all
-        dispatched before any is collected (TpuAligner's grouped mixed
-        dispatch, aligner.py:580-599)."""
-        groups: dict[str, list[int]] = {}
-        for i, t in enumerate(texts):
-            groups.setdefault(t, []).append(i)
-        parts = []
-        for t, idxs in groups.items():
-            try:
-                g = self.graph_for_text(t)
-            except KeyError:
-                if skip_unknown:
-                    continue
-                raise
-            parts.append((idxs, self._batch_begin(
-                g, [audios[i] for i in idxs])))
-        return _Grouped(len(audios), parts)
 
     # -- pipelined batch -------------------------------------------------------
 
@@ -323,17 +354,15 @@ class TorchAligner:
         score buffer -> K4 over the whole batch -> download into pinned
         host buffers, with an event recorded after the copies."""
         if self.want_scores:
-            raise _unported("want_scores=True", "A7")
+            raise _unported("want_scores=True on a same-transcript batch",
+                            "A7")
         realB = len(audios)
         if realB == 0:
-            return _Batch(g, np.zeros(0, np.int64),
-                          torch.zeros((0, 0), dtype=torch.int16),
-                          torch.zeros(0, dtype=torch.int32), 0)
+            return self._empty()
         audios, Ts, Tmax = self._batch_shape(audios)
         Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
         chunks = self._chunk_feats(audios, Ts_d, Tmax)
         c = self._graph_consts(g)
-        cuda = self.device.type == "cuda"
         sen = torch.empty((len(audios), Tmax, c.gs.S), dtype=torch.int32,
                           device=self.device)
         for i0, _, feats in chunks:
@@ -341,37 +370,150 @@ class TorchAligner:
             score_frames_graph(c.gs, feats.view(n * Tmax, 3, -1),
                                out=sen[i0:i0 + n].view(n * Tmax, -1))
         path, fscore = viterbi_batch(sen, Ts_d, c.vit)
+        return self._download([g] * realB, Ts[:realB], realB, path, fscore)
+
+    def _batch_begin_mixed(self, graphs: list, audios) -> _Batch:
+        """One dispatch for a batch of different transcripts
+        (TpuAligner._batch_begin_mixed): the same bucketing and chunked
+        front end as _batch_begin; per chunk, K2/K3 over the working-set
+        union (_union_scorer), or K2/K3/K7 over the full inventory under
+        ``want_scores`` or once the union is dense, then K5 into one
+        [B, Tmax, S] buffer in each row's graph-state order; then K6
+        over the stacked per-row graphs, with token scores under
+        ``want_scores``; pinned downloads with an event after them."""
+        realB = len(audios)
+        if realB == 0:
+            return self._empty()
+        audios, Ts, Tmax = self._batch_shape(audios)
+        graphs = list(graphs) + [graphs[-1]] * (len(audios) - realB)
+        uni = None if self.want_scores else self._union_scorer(graphs)
+        if uni is None:
+            st = self._stacked_graphs(graphs)
+        else:
+            st = self._stacked_graphs(graphs, remap=uni["pos"],
+                                      remap_ver=uni["ver"])
+        Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
+        chunks = self._chunk_feats(audios, Ts_d, Tmax)
+        sen = torch.empty((len(audios), Tmax, st.sencols.shape[1]),
+                          dtype=torch.int32, device=self.device)
+        for i0, _, feats in chunks:
+            n = feats.shape[0]
+            flat = feats.view(n * Tmax, 3, -1)
+            if uni is None:
+                src = score_frames(self.dense, flat)            # int16
+            else:
+                src = score_frames_graph(uni["gs"], flat)       # int32
+            gather_cols(src.view(n, Tmax, -1), st.sencols[i0:i0 + n],
+                        out=sen[i0:i0 + n])
+        path, pscore, fscore = viterbi_rows(sen, Ts_d, st.vit,
+                                            self.want_scores)
+        return self._download(graphs[:realB], Ts[:realB], realB, path,
+                              fscore, pscore)
+
+    # mixed batches switch from the union scorer to the full inventory
+    # once the working set covers this share of the senones
+    UNION_MAX_FRAC = 0.6
+
+    def _union_scorer(self, graphs: list) -> dict | None:
+        """The working-set union scorer of mixed batches, as
+        TpuAligner._union_scorer keeps it: the union of every senone
+        the aligner's mixed batches have used grows monotonically, its
+        column count Spad buckets to multiples of 256 and never shrinks,
+        pad columns score senone 0 (so senone 0's codebook joins the
+        union's codebook norm), and once the set passes UNION_MAX_FRAC of
+        the inventory ``dense`` turns on for good (None: score the full
+        inventory).  Scores therefore depend on the batches seen before.
+        """
+        u = self._uni
+        if u is None:
+            u = self._uni = dict(ver=0, senset=np.zeros(0, np.int64),
+                                 gs=None, Spad=0, dense=False,
+                                 pos=np.full(self.am.n_sen, -1, np.int32))
+        if u["dense"]:
+            return None
+        need = np.unique(np.concatenate(
+            [g.senid.ravel() for g in graphs]).astype(np.int64))
+        if u["gs"] is None or np.any(u["pos"][need] < 0):
+            senset = np.unique(np.concatenate([u["senset"], need]))
+            if len(senset) > self.UNION_MAX_FRAC * self.am.n_sen:
+                u["dense"] = True
+                return None
+            Spad = max(256, -(-len(senset) // 256) * 256, u["Spad"])
+            senid_flat = np.zeros(Spad, np.int64)   # pad columns: senone 0
+            senid_flat[: len(senset)] = senset
+            pos = np.full(self.am.n_sen, -1, np.int32)
+            pos[senset] = np.arange(len(senset), dtype=np.int32)
+            gs = GraphScorer.build(self.am, senid_flat, self.device)
+            u.update(ver=u["ver"] + 1, senset=senset, Spad=Spad, pos=pos,
+                     gs=gs)
+        return u
+
+    def _stacked_graphs(self, graphs: list, remap: np.ndarray | None = None,
+                        remap_ver: int = 0) -> _Stack:
+        """stack_graphs on the device, cached by (graph serials, union
+        version, size-class floors), 32 entries, first in first out.
+        ``remap`` maps senones to scorer columns: the union's positions,
+        or the identity of the full inventory's senone order."""
+        key = (tuple(g.serial for g in graphs), remap_ver,
+               self.graph_p_floor, self.graph_k_floor, self.graph_w_floor)
+        st = self._stack_cache.get(key)
+        if st is None:
+            raw = stack_graphs(graphs, self.am.tmat.astype(np.int32),
+                               np.arange(self.am.n_sen) if remap is None
+                               else remap,
+                               p_floor=self.graph_p_floor,
+                               k_floor=self.graph_k_floor,
+                               w_floor=self.graph_w_floor)
+            st = _Stack(row_consts_from_numpy(raw, self.device),
+                        to_device(raw["sencols"], np.int32, self.device))
+            if len(self._stack_cache) >= 32:
+                self._stack_cache.pop(next(iter(self._stack_cache)))
+            self._stack_cache[key] = st
+        return st
+
+    def _empty(self) -> _Batch:
+        return _Batch([], np.zeros(0, np.int64),
+                      torch.zeros((0, 0), dtype=torch.int16),
+                      torch.zeros(0, dtype=torch.int32), 0)
+
+    def _download(self, graphs, Ts, realB, path, fscore,
+                  pscore=None) -> _Batch:
+        """The batch handle; on CUDA the results are copied into pinned
+        host buffers, with an event recorded after the copies."""
         done = None
-        if cuda:
-            path_h = torch.empty(path.shape, dtype=path.dtype,
-                                 pin_memory=True)
-            fs_h = torch.empty(fscore.shape, dtype=fscore.dtype,
-                               pin_memory=True)
-            path_h.copy_(path, non_blocking=True)
-            fs_h.copy_(fscore, non_blocking=True)
+        if self.device.type == "cuda":
+            def host(t):
+                if t is None:
+                    return None
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                return h
+
+            path, fscore, pscore = host(path), host(fscore), host(pscore)
             done = torch.cuda.Event()
             done.record()
-            path, fscore = path_h, fs_h
-        return _Batch(g, Ts[:realB], path, fscore, realB, done)
+        return _Batch(graphs, Ts, path, fscore, realB, pscore, done)
 
     def _upload(self, t: torch.Tensor) -> torch.Tensor:
         if self.device.type == "cpu":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _batch_end(self, handle) -> list:
-        if isinstance(handle, _Grouped):
-            out: list = [None] * handle.n
-            for idxs, h in handle.parts:
-                for i, segs in zip(idxs, self._batch_end(h)):
-                    out[i] = segs
-            return out
+    def _batch_end(self, handle: _Batch) -> list:
+        """Wait for the downloads; native extraction on the unscored
+        path, Python extraction (scores, states) otherwise."""
         if handle.done is not None:
             handle.done.synchronize()
         if handle.realB == 0:
             return []
-        return self._extract_batch_native(handle.g, handle.paths.numpy(),
-                                          handle.Ts, handle.realB)
+        paths = handle.paths.numpy()
+        if handle.pscore is None and not self.want_states:
+            return self._extract_batch_native(handle.graphs, paths,
+                                              handle.Ts, handle.realB)
+        pscores = None if handle.pscore is None else handle.pscore.numpy()
+        return [self._extract_safe(g, paths[i], int(handle.Ts[i]),
+                                   None if pscores is None else pscores[i])
+                for i, g in enumerate(handle.graphs)]
 
     # -- segment extraction ------------------------------------------------------
 
@@ -394,15 +536,40 @@ class TorchAligner:
             self._segl = lib
         return self._segl
 
-    def _extract_batch_native(self, g: AlignGraph, paths: np.ndarray,
+    def _seg_tables(self, graphs: list) -> tuple:
+        """Node tables of the rows' graphs for sst_extract_batch: each
+        distinct graph's word_of/variant_of/cipid once, concatenated,
+        and each row's offset into them; cached per graph tuple (64
+        entries, first in first out), as TpuAligner does."""
+        key = tuple(g.serial for g in graphs)
+        tab = self._seg_tab_cache.get(key)
+        if tab is None:
+            start: dict[int, int] = {}
+            uniq = []
+            pos = 0
+            for g in graphs:
+                if g.serial not in start:
+                    start[g.serial] = pos
+                    pos += len(g.word_of)
+                    uniq.append(g)
+            offs = np.zeros(len(graphs) + 1, np.int64)
+            offs[:len(graphs)] = [start[g.serial] for g in graphs]
+            tab = tuple(np.concatenate([getattr(g, name) for g in uniq])
+                        .astype(np.int32)
+                        for name in ("word_of", "variant_of", "cipid")) \
+                + (offs,)
+            if len(self._seg_tab_cache) >= 64:
+                self._seg_tab_cache.pop(next(iter(self._seg_tab_cache)))
+            self._seg_tab_cache[key] = tab
+        return tab
+
+    def _extract_batch_native(self, graphs: list, paths: np.ndarray,
                               Ts: np.ndarray, realB: int) -> list:
         """Whole-batch segment extraction with native/sst_seg.cpp (the
-        library TpuAligner._extract_batch_native calls, same tables)."""
+        library TpuAligner._extract_batch_native calls, same tables),
+        one graph per row."""
         lib = self._seg_lib()
-        wo = g.word_of.astype(np.int32)
-        vo = g.variant_of.astype(np.int32)
-        cp = g.cipid.astype(np.int32)
-        offs = np.zeros(realB + 1, np.int64)
+        wo, vo, cp, offs = self._seg_tables(graphs)
         paths = np.ascontiguousarray(paths[:realB], np.int16)
         Ts64 = np.ascontiguousarray(Ts[:realB], np.int64)
         cap = int(Ts64.sum()) + realB
@@ -410,14 +577,13 @@ class TorchAligner:
         w = [np.empty(cap, np.int32) for _ in range(5)]
         p = [np.empty(cap, np.int32) for _ in range(3)]
         rc = lib.sst_extract_batch(
-            paths, realB, paths.shape[1], Ts64, g.senid.shape[1], wo, vo, cp,
-            offs, nw, *w, *p, cap, cap)
+            paths, realB, paths.shape[1], Ts64, graphs[0].senid.shape[1],
+            wo, vo, cp, offs, nw, *w, *p, cap, cap)
         if rc != 0:
             raise RuntimeError(f"sst_extract_batch failed ({rc})")
         w_kind, w_var, w_start, w_dur, w_np = w
         p_ci, p_start, p_dur = p
-        ci = [self.am.mdef.ciphone_str(i)
-              for i in range(self.am.mdef.n_ciphone)]
+        ci = self._ci_strs()
         out: list = []
         wi = pi = 0
         for b in range(realB):
@@ -439,6 +605,110 @@ class TorchAligner:
             out.append(segs)
         return out
 
+    def _ci_strs(self) -> list[str]:
+        if not hasattr(self, "_ci_str_list"):
+            m = self.am.mdef
+            self._ci_str_list = [m.ciphone_str(i)
+                                 for i in range(m.n_ciphone)]
+        return self._ci_str_list
+
+    def _extract(self, g: AlignGraph, path: np.ndarray, T: int,
+                 pscore: np.ndarray | None = None) -> list[WordSeg]:
+        """Decoded state path -> word/phone segments (TpuAligner._extract).
+
+        state_align_search_finish's boundary rule
+        (state_align_search.c:236-255): a state's segment starts at the
+        frame after its backpointer changes, so interior boundaries
+        shift by +1.  With ``pscore`` (the cumulative path score per
+        frame) a phone's score is the difference across its segment and
+        a word's the sum of its phones (ps_alignment.c:316-352); with
+        ``want_states`` each phone also carries its HMM-state segments
+        (senone id, start, duration, score)."""
+        if path[T - 1] < 0:
+            raise RuntimeError("Alignment failed to reach final state")
+        p = np.asarray(path[:T])
+        ch = np.nonzero(p[1:] != p[:-1])[0]     # change between ch, ch+1
+        E = g.senid.shape[1]
+        # state runs [starts, ends); only the last can be empty
+        n_runs = len(ch) + 1
+        states = np.empty(n_runs, np.int64)
+        states[:-1] = p[ch]
+        states[-1] = int(p[T - 1])
+        starts = np.empty(n_runs, np.int64)
+        starts[0] = 0
+        starts[1:] = ch + 2
+        ends = np.empty(n_runs, np.int64)
+        ends[:-1] = ch + 2
+        ends[-1] = T
+        if n_runs > 1 and ends[-1] == starts[-1]:
+            states, starts, ends = states[:-1], starts[:-1], ends[:-1]
+        nodes = states // E
+        # consecutive runs of one node make a phone segment
+        pb = np.nonzero(np.concatenate(([True], nodes[1:] != nodes[:-1])))[0]
+        p_node = nodes[pb].tolist()
+        p_start = starts[pb]
+        p_end = np.concatenate((p_start[1:], ends[-1:]))
+
+        def span_scores(lo, hi):
+            if pscore is None:
+                return [0] * len(lo)
+            ps = np.asarray(pscore)
+            top = ps[hi - 1].astype(np.int64)
+            bot = np.where(lo > 0, ps[np.maximum(lo, 1) - 1],
+                           0).astype(np.int64)
+            return (top - bot).tolist()
+
+        p_sc = span_scores(p_start, p_end)
+        p_dur = (p_end - p_start).tolist()
+        p_start = p_start.tolist()
+        st_per_phone = None
+        if self.want_states:
+            senids = np.asarray(g.senid)[nodes, states % E].tolist()
+            r_sc = span_scores(starts, ends)
+            pb2 = pb.tolist() + [len(nodes)]
+            r_starts = starts.tolist()
+            r_durs = (ends - starts).tolist()
+            st_per_phone = [
+                [(senids[j], r_starts[j], r_durs[j], r_sc[j])
+                 for j in range(pb2[i], pb2[i + 1])]
+                for i in range(len(pb))]
+        ci_strs = self._ci_strs()
+        cur_word = None
+        cur = None
+        out: list[WordSeg] = []
+        for i, (node, start, dur, sc) in enumerate(
+                zip(p_node, p_start, p_dur, p_sc)):
+            w = int(g.word_of[node])
+            ci = ci_strs[int(g.cipid[node])]
+            sts = None if st_per_phone is None else [st_per_phone[i]]
+            if w < 0:
+                out.append(WordSeg("<sil>", start, dur, score=sc,
+                                   phones=[(ci, start, dur, sc)],
+                                   states=sts))
+                cur_word = None
+                continue
+            if cur_word != w:
+                cur = WordSeg(self.dict.wordstr(int(g.variant_of[node])),
+                              start, 0, phones=[],
+                              states=None if st_per_phone is None else [])
+                out.append(cur)
+                cur_word = w
+            cur.duration += dur
+            cur.score += sc
+            cur.phones.append((ci, start, dur, sc))
+            if st_per_phone is not None:
+                cur.states.append(st_per_phone[i])
+        return out
+
+    def _extract_safe(self, g: AlignGraph, path: np.ndarray, T: int,
+                      pscore: np.ndarray | None = None):
+        """_extract, with an unreachable final state failing only that
+        row (None)."""
+        try:
+            return self._extract(g, path, T, pscore)
+        except RuntimeError:
+            return None
+
     # -- not ported yet ----------------------------------------------------------
 
     def decode(self, *a, **k):
@@ -457,6 +727,3 @@ class TorchAligner:
 
     def update_mllr(self, *a, **k):
         raise _unported("update_mllr", "A14")
-
-    def align_batch_scored(self, *a, **k):
-        raise _unported("align_batch_scored / want_scores", "A7")

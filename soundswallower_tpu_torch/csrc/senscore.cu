@@ -4,7 +4,9 @@
 // K2 replaces the jitted XLA programs B2 and the top-N/norm half of B3
 // of the JAX package: soundswallower_tpu/ops/senscore_jax.py
 // _dist_stage_graph (+ _int_dist) and _topn_sen_stage_graph (+
-// _topn_argmax).  The TPU program wrote the [N, Cu, F, D] int32
+// _topn_argmax); over all codebooks (Cu = n_cb) also B7's _dist_stage
+// and _topn_stage and the norm of _sen_eval, the function of the
+// removed Pallas kernel P1 (tools/exp_pallas2.py dist_topn_fused2).  The TPU program wrote the [N, Cu, F, D] int32
 // distance tensor to HBM between two dispatches; here it lives only in
 // registers: each warp folds the 128 densities of one (frame, codebook,
 // stream), picks its top N by warp argmax, and only the N winners and
@@ -22,9 +24,12 @@
 // Bound: gathers, 2*F*topn 4-byte reads + F*topn byte reads per
 // (frame, state).
 //
-// Both are bit-equal to the JAX programs: the fold is rounded op by op
-// (__fsub_rn/__fmul_rn, built with -fmad=false), float->int truncates
-// with an explicit INT_MIN clamp, and every tie goes to the lowest index.
+// Both are bit-equal to the JAX programs: the fold is rounded as XLA's
+// CPU backend rounds it (each step one fused multiply-add of the rounded
+// square, written out with intrinsics; built with -fmad=false so that
+// nothing else contracts), float->int truncates with an explicit
+// INT_MIN clamp, and every tie goes to the lowest index.  K3 at the
+// full inventory (S = n_sen, cb_pos = sen2cb) is B7's mixture eval.
 #include <climits>
 
 #include "sst_kernels.h"
@@ -73,7 +78,9 @@ __global__ void dist_topn_norm_kernel(
         float acc = det[cf * D + d];
         for (int l = 0; l < L; ++l) {
           const float diff = __fsub_rn(xf[l], mu[l]);
-          acc = __fsub_rn(acc, __fmul_rn(__fmul_rn(diff, diff), vr[l]));
+          // acc - (diff * diff) * var, the product unrounded: the FMA
+          // XLA's CPU backend makes of the JAX fold
+          acc = __fmaf_rn(-__fmul_rn(diff, diff), vr[l], acc);
         }
         v[k] = int_dist(acc);
       } else {

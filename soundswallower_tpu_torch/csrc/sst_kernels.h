@@ -57,8 +57,38 @@ int sst_viterbi_batch(const int32_t* sen, const int32_t* n_frames,
                       int P, int K, int n_fin, int16_t* tok, int16_t* path,
                       int32_t* fscore, cudaStream_t stream);
 
-// Dynamic shared memory sst_viterbi_batch needs for P phones.
+// Dynamic shared memory sst_viterbi_batch and sst_viterbi_rows need for
+// P phones.
 int sst_viterbi_smem_bytes(int P);
+
+// K5: per-row column gather.  src int16 or int32 (elem_bytes 2 or 4)
+// [B, T, Sx]; cols int32 [B, S] -> out int32 [B, T, S].
+int sst_gather_cols(const void* src, int elem_bytes, const int32_t* cols,
+                    int32_t* out, int B, int T, int Sx, int S,
+                    cudaStream_t stream);
+
+// K6: per-row-graph lane Viterbi + masked final select + backtrace.
+// sen int32 [B, T, P*3]; n_frames int32 [B]; tp int32 [B, P, 3, 4];
+// pred_idx/pred_pen int32 [B, P, K]; pred_ok uint8 [B, P, K];
+// band_pen int32 / band_ok uint8 [B, W, P] (W > 0: the band form, else
+// NULL and the K-slot form); astart/aend/entry int32 [B, P];
+// final_mask uint8 [B, P] -> tok int16 [B, T, P*3] (scratch), tsc int32
+// [B, T, P*3] (scratch, NULL without scores), path int16 [B, T], pscore
+// int32 [B, T] (NULL without scores), fscore int32 [B].
+int sst_viterbi_rows(const int32_t* sen, const int32_t* n_frames,
+                     const int32_t* tp, const int32_t* pred_idx,
+                     const int32_t* pred_pen, const uint8_t* pred_ok,
+                     const int32_t* band_pen, const uint8_t* band_ok,
+                     const int32_t* astart, const int32_t* aend,
+                     const int32_t* entry, const uint8_t* final_mask, int B,
+                     int T, int P, int K, int W, int16_t* tok, int32_t* tsc,
+                     int16_t* path, int32_t* pscore, int32_t* fscore,
+                     cudaStream_t stream);
+
+// K7: ptm's per-frame tail.  in int32 [N, S] -> out int16 [N, S] =
+// int16(in) - int16(min over the frame's S scores).
+int sst_frame_best_sub(const int32_t* in, int16_t* out, int N, int S,
+                       cudaStream_t stream);
 
 const char* sst_error_string(int err);
 

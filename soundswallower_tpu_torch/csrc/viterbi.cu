@@ -22,27 +22,12 @@
 // first-max final-node select, and the backtrace's masked lookup, which
 // yields -2^30 (int16 0) for a state outside [0, S).  Additions wrap like
 // XLA's int32 (unsigned arithmetic).
-#include <climits>
-
-#include "sst_kernels.h"
+#include "viterbi_step.h"
 
 namespace {
 
-constexpr int32_t kWorst = SST_WORST_SCORE;
-constexpr int32_t kMissing = -(1 << 30);  // backtrace_batch's masked-max floor
-
-__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a + (uint32_t)b);
-}
-__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
-  return (int32_t)((uint32_t)a - (uint32_t)b);
-}
-
-__host__ __device__ inline size_t smem_bytes(int P) {
-  // score, hist [3P] + out_score, out_hist [P] + 32 warp maxima, then
-  // active_next [P] bytes
-  return (size_t)(8 * P + 32) * sizeof(int32_t) + (size_t)P;
-}
+using sst::kMissing;
+using sst::kWorst;
 
 __global__ void viterbi_kernel(
     const int32_t* __restrict__ sen, const int32_t* __restrict__ n_frames,
@@ -62,7 +47,6 @@ __global__ void viterbi_kernel(
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int nwarps = (nthr + 31) >> 5;
   const int n = n_frames[b];
   const int S = 3 * P;
 
@@ -80,67 +64,18 @@ __global__ void viterbi_kernel(
   for (int t = 0; t < T; ++t) {
     const int32_t* sen_t = sen + ((size_t)b * T + t) * S;
     const bool valid = t < n;
-    const bool renorm = wsub(best_prev, 0x300000) < kWorst;
+    const bool renorm = sst::wsub(best_prev, 0x300000) < kWorst;
     int32_t lbest = kWorst;
     // -- HMM update (_eval_3st_lanes) --
     for (int p = tid; p < P; p += nthr) {
       const bool act = t >= astart[p] && t <= aend[p] && valid;
-      int32_t sc0 = score[3 * p], sc1 = score[3 * p + 1], sc2 = score[3 * p + 2];
-      if (renorm) {
-        if (sc0 > kWorst) sc0 = wsub(sc0, best_prev);
-        if (sc1 > kWorst) sc1 = wsub(sc1, best_prev);
-        if (sc2 > kWorst) sc2 = wsub(sc2, best_prev);
-      }
-      const int32_t h0 = hist[3 * p], h1 = hist[3 * p + 1], h2 = hist[3 * p + 2];
-      const int32_t* tq = tp + 12 * p;  // tprob(i, j) = -tq[4 * i + j]
-      const int32_t s0 = wsub(sc0, sen_t[3 * p]);
-      const int32_t s1 = wsub(sc1, sen_t[3 * p + 1]);
-      const int32_t s2 = wsub(sc2, sen_t[3 * p + 2]);
-      int32_t bst = kWorst;
-      // state 3 (non-emitting exit)
-      const int32_t x1 = wsub(s2, tq[4 * 2 + 3]);
-      const int32_t x2 = (-tq[4 * 1 + 3] > SST_TMAT_WORST) ? wsub(s1, tq[4 * 1 + 3]) : INT_MIN;
-      if (act && s1 > kWorst) {
-        const int32_t s3 = max(x1 > x2 ? x1 : x2, kWorst);
-        osc[p] = s3;
-        ohi[p] = x1 > x2 ? h2 : h1;
-        bst = s3;
-      }
-      // state 2; t2 carries over from state 3 when 0->2 is absent
-      const int32_t a0 = wsub(s2, tq[4 * 2 + 2]);
-      const int32_t a1 = wsub(s1, tq[4 * 1 + 2]);
-      const int32_t a2 = (-tq[4 * 0 + 2] > SST_TMAT_WORST) ? wsub(s0, tq[4 * 0 + 2]) : x2;
-      const bool br = a0 > a1;
-      const bool use2 = br ? a2 > a0 : a2 > a1;
-      const int32_t ns2 = max(use2 ? a2 : (br ? a0 : a1), kWorst);
-      const int32_t nh2 = use2 ? h0 : (br ? h2 : h1);
-      // state 1
-      const int32_t b0 = wsub(s1, tq[4 * 1 + 1]);
-      const int32_t b1 = wsub(s0, tq[4 * 0 + 1]);
-      const int32_t ns1 = max(b0 > b1 ? b0 : b1, kWorst);
-      const int32_t nh1 = b0 > b1 ? h1 : h0;
-      // state 0
-      const int32_t ns0 = max(wsub(s0, tq[0]), kWorst);
-      if (act) {
-        bst = max(bst, max(ns2, max(ns1, ns0)));
-        sc0 = ns0;
-        sc1 = ns1;
-        sc2 = ns2;
-        hist[3 * p + 1] = nh1;
-        hist[3 * p + 2] = nh2;
-      }
-      score[3 * p] = sc0;
-      score[3 * p + 1] = sc1;
-      score[3 * p + 2] = sc2;
+      lbest = max(lbest, sst::hmm_update(score + 3 * p, hist + 3 * p, osc + p,
+                                         ohi + p, tp + 12 * p, sen_t + 3 * p,
+                                         act, renorm, best_prev));
       anext[p] = act && t + 1 <= aend[p];
-      lbest = max(lbest, bst);
     }
     // block-wide best over active phones
-    lbest = __reduce_max_sync(0xffffffffu, lbest);
-    if ((tid & 31) == 0) wmax[tid >> 5] = lbest;
-    __syncthreads();
-    int32_t best = kWorst;
-    for (int w = 0; w < nwarps; ++w) best = max(best, wmax[w]);
+    const int32_t best = sst::block_max(lbest, wmax);
 
     // -- phone transitions, entries and token record --
     const int nf = t + 1;
@@ -150,7 +85,7 @@ __global__ void viterbi_kernel(
       for (int k = 0; k < K; ++k) {
         const int src = pred_idx[p * K + k];
         const bool ok = pred_ok[p * K + k] && anext[src];
-        const int32_t val = ok ? wadd(osc[src], pred_pen[p * K + k]) : kWorst;
+        const int32_t val = ok ? sst::wadd(osc[src], pred_pen[p * K + k]) : kWorst;
         if (val > es) {  // strict: the first slot wins ties
           es = val;
           eh = ohi[src];
@@ -206,7 +141,7 @@ __global__ void viterbi_kernel(
 
 }  // namespace
 
-extern "C" int sst_viterbi_smem_bytes(int P) { return (int)smem_bytes(P); }
+extern "C" int sst_viterbi_smem_bytes(int P) { return (int)sst::smem_bytes(P); }
 
 extern "C" int sst_viterbi_batch(const int32_t* sen, const int32_t* n_frames,
                                  const int32_t* tp, const int32_t* pred_idx,
@@ -218,7 +153,7 @@ extern "C" int sst_viterbi_batch(const int32_t* sen, const int32_t* n_frames,
                                  int32_t* fscore, cudaStream_t stream) {
   if (P <= 0 || K <= 0 || n_fin <= 0) return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
-  const size_t smem = smem_bytes(P);
+  const size_t smem = sst::smem_bytes(P);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,21 +1,27 @@
-"""Shared-graph batch Viterbi, final-node select and backtrace (kernel K4).
+"""Batch Viterbi, final-node select and backtrace (kernels K4 and K6).
 
 Port of ``soundswallower_tpu/ops/align_jax.py`` align_viterbi_batch
 (make_vit_step_lanes, _eval_3st_lanes, vit_carry0_lanes) and
-backtrace_batch, with the final-node select of
-``soundswallower_tpu/aligner.py`` _vit_full.run: graph-state scores
-[B, T, S=P*3] int32 in, the decoded state path [B, T] int16 and the
-final score [B] int32 out.
+backtrace_batch, in its two graph forms:
+
+* K4 ``viterbi_batch``: one graph shared by the batch, with the
+  final-node select of ``soundswallower_tpu/aligner.py`` _vit_full.run;
+* K6 ``viterbi_rows``: a graph per row (``stack_graphs``), with the
+  masked select of _vit_full_mg.run, the banded predecessor form and,
+  under ``with_scores``, the token-score stack and path scores.
+
+Graph-state scores [B, T, S=P*3] int32 in, the decoded state path
+[B, T] int16 and the final score [B] int32 out.
 
 Per frame, as the JAX step: the renormalization rule
 (state_align_search.c:193-197) per row, hmm.c's 3-state update with the
 t2 reuse when the 0->2 skip is absent, the best score over active
-phones, K predecessor slots in edge order with a strict ``>``, the enter
-rule, and the int16 token record.  After the last frame: the first max
-over the final nodes, then the backtrace.  A row whose final state is
-negative (no final node reached) gets the path values of the JAX
-program: its masked lookup yields -2^30, which int16 holds as 0, and
-``path[n-1] < 0`` is what extraction reads.
+phones, the predecessor max with a strict ``>`` (K slots in edge order,
+or band slots in offset-descending order), the enter rule, and the
+int16 token record.  A row whose final state is negative (no final node
+reached) gets the path values of the JAX program: its masked lookup
+yields -2^30, which int16 holds as 0, and ``path[n-1] < 0`` is what
+extraction reads.
 
 The 3-state topology and S < 32767 (int16 token stacks) only; the
 5-state branch and int32 stacks are still to be ported (ROADMAP.md B4).
@@ -28,7 +34,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._shared import load
 from ..utils import cuda_build, to_device
+
+pad_graph_to = load("ops.align_graph").pad_graph_to
 
 WORST_SCORE = -0x20000000
 TMAT_WORST = -255
@@ -63,9 +72,80 @@ def build_pred_table(edge_src, edge_dst, edge_pen, n_nodes: int,
     return pred_idx, pred_pen, pred_ok
 
 
+def stack_graphs(graphs: list, tmat: np.ndarray, sen_remap: np.ndarray,
+                 p_mult: int = 32, k_mult: int = 2,
+                 p_floor: int = 0, k_floor: int = 0,
+                 w_mult: int = 8, w_floor: int = 0,
+                 w_cap: int = 64) -> dict:
+    """A batch of (generally different) graphs padded to one (P, K, W)
+    size class and stacked, as ``align_graph.stack_graphs`` does; a copy
+    because that function imports align_jax (and so jax) when called.
+
+    Returns host arrays: tp [B,P,3,4] int32, pred_idx/pred_pen [B,P,K]
+    int32, pred_ok [B,P,K] bool, astart/aend/entry [B,P] int32,
+    final_mask [B,P] bool, sencols [B,P*3] int32 (``sen_remap`` of each
+    state's senone), P, K, W; and, when every edge is a forward edge of
+    span 1..``w_cap``, band_pen/band_ok [B,W,P] with slot i holding the
+    edge p-(W-i) -> p (duplicate edges merged by max penalty)."""
+    B = len(graphs)
+    E = graphs[0].senid.shape[1]
+    P = max(len(g.ssid) for g in graphs)
+    P = max(-(-P // p_mult) * p_mult, p_floor)
+    K = 1
+    for g in graphs:
+        if len(g.edge_dst):
+            K = max(K, int(np.bincount(g.edge_dst).max()))
+    K = max(-(-K // k_mult) * k_mult, k_floor)
+    tp = np.zeros((B, P) + tmat.shape[1:], np.int32)
+    pi = np.zeros((B, P, K), np.int32)
+    pp = np.zeros((B, P, K), np.int32)
+    pk = np.zeros((B, P, K), bool)
+    astart = np.ones((B, P), np.int32)
+    aend = np.zeros((B, P), np.int32)
+    entry = np.full((B, P), WORST_SCORE, np.int32)
+    final_mask = np.zeros((B, P), bool)
+    sencols = np.zeros((B, P * E), np.int32)
+    dmax = 0
+    banded = True
+    for g in graphs:
+        if len(g.edge_dst):
+            off = g.edge_dst - g.edge_src
+            if off.min() < 1 or off.max() > w_cap:
+                banded = False
+                break
+            dmax = max(dmax, int(off.max()))
+    W = 0
+    band_pen = band_ok = None
+    if banded and dmax:
+        W = max(-(-dmax // w_mult) * w_mult, w_floor)
+        band_pen = np.full((B, W, P), -(1 << 30), np.int32)
+        band_ok = np.zeros((B, W, P), bool)
+    for b, g0 in enumerate(graphs):
+        g = pad_graph_to(g0, P)
+        tp[b] = tmat[g.tmatid]
+        pi[b], pp[b], pk[b] = build_pred_table(
+            g.edge_src, g.edge_dst, g.edge_pen, P, k_pad=K)
+        astart[b] = g.astart
+        aend[b] = g.aend
+        entry[b] = np.where(g.is_entry, g.entry_pen, WORST_SCORE)
+        final_mask[b, g.final_nodes] = True
+        sencols[b] = sen_remap[g.senid].reshape(-1)
+        if band_pen is not None and len(g.edge_dst):
+            slot = W - (g.edge_dst - g.edge_src)
+            np.maximum.at(band_pen[b], (slot, g.edge_dst), g.edge_pen)
+            band_ok[b][slot, g.edge_dst] = True
+    out = dict(tp=tp, pred_idx=pi, pred_pen=pp, pred_ok=pk,
+               astart=astart, aend=aend, entry=entry,
+               final_mask=final_mask, sencols=sencols, P=P, K=K, W=W)
+    if band_pen is not None:
+        out["band_pen"] = band_pen
+        out["band_ok"] = band_ok
+    return out
+
+
 @dataclass(eq=False)
 class VitConsts:
-    """Device constants of one graph's Viterbi."""
+    """Device constants of one graph's Viterbi (K4)."""
 
     tp: torch.Tensor         # int32 [P, 3, 4] quantized negated tmat
     pred_idx: torch.Tensor   # int32 [P, K]
@@ -81,27 +161,126 @@ class VitConsts:
         return self.tp.shape[0]
 
 
+@dataclass(eq=False)
+class RowVitConsts:
+    """Device constants of a stacked batch of graphs, one per row (K6)."""
+
+    tp: torch.Tensor         # int32 [B, P, 3, 4]
+    pred_idx: torch.Tensor   # int32 [B, P, K]
+    pred_pen: torch.Tensor   # int32 [B, P, K]
+    pred_ok: torch.Tensor    # uint8 [B, P, K]
+    astart: torch.Tensor     # int32 [B, P]
+    aend: torch.Tensor       # int32 [B, P]
+    entry: torch.Tensor      # int32 [B, P]
+    final_mask: torch.Tensor  # uint8 [B, P]
+    band_pen: torch.Tensor | None = None  # int32 [B, W, P]
+    band_ok: torch.Tensor | None = None   # uint8 [B, W, P]
+
+    @property
+    def P(self) -> int:
+        return self.tp.shape[1]
+
+
+def _check_3state(tp) -> None:
+    if tuple(np.shape(tp)[-2:]) != (3, 4):
+        raise NotImplementedError(
+            "only 3-state HMMs are ported (ROADMAP.md B4: 5-state branch)")
+
+
 def graph_consts_from_numpy(c: dict, device="cpu") -> VitConsts:
     """VitConsts from host arrays under the keys of the JAX aligner's
     ``_graph_consts`` dict (tp, pi, pp, pk, ast, aen, entry, fin)."""
     def dev(a, dtype):
         return to_device(a, dtype, device)
 
-    tp = np.asarray(c["tp"])
-    if tp.shape[1:] != (3, 4):
-        raise NotImplementedError(
-            "only 3-state HMMs are ported (ROADMAP.md B4: 5-state branch)")
+    _check_3state(c["tp"])
     return VitConsts(
-        tp=dev(tp, np.int32), pred_idx=dev(c["pi"], np.int32),
+        tp=dev(c["tp"], np.int32), pred_idx=dev(c["pi"], np.int32),
         pred_pen=dev(c["pp"], np.int32), pred_ok=dev(c["pk"], np.uint8),
         astart=dev(c["ast"], np.int32), aend=dev(c["aen"], np.int32),
         entry=dev(c["entry"], np.int32), fin=dev(c["fin"], np.int32))
 
 
-def viterbi_batch_plain(sen: torch.Tensor, n_frames: torch.Tensor,
-                        c: VitConsts):
-    """Plain PyTorch version of K4: sen int32 [B, T, S], n_frames int32
-    [B] -> (path int16 [B, T], fscore int32 [B])."""
+def row_consts_from_numpy(st: dict, device="cpu") -> RowVitConsts:
+    """RowVitConsts from host arrays under the keys of ``stack_graphs``
+    (the port's or the JAX package's, or the JAX aligner's
+    ``_stacked_graphs`` read as numpy); no band when the dict has
+    none."""
+    def dev(key, dtype):
+        return to_device(st[key], dtype, device)
+
+    _check_3state(st["tp"])
+    band = "band_pen" in st and st["band_pen"] is not None
+    return RowVitConsts(
+        tp=dev("tp", np.int32), pred_idx=dev("pred_idx", np.int32),
+        pred_pen=dev("pred_pen", np.int32), pred_ok=dev("pred_ok", np.uint8),
+        astart=dev("astart", np.int32), aend=dev("aend", np.int32),
+        entry=dev("entry", np.int32),
+        final_mask=dev("final_mask", np.uint8),
+        band_pen=dev("band_pen", np.int32) if band else None,
+        band_ok=dev("band_ok", np.uint8) if band else None)
+
+
+# -- plain versions ------------------------------------------------------------
+
+def _kslot_enter(pred_idx, pred_pen, pred_ok):
+    """Predecessor max over K slots in edge order, strict ``>`` (the
+    first slot wins ties); tables [B or 1, P, K]."""
+    def enter(osc, ohi, anext):
+        B, P = osc.shape
+        worst = torch.full_like(osc, WORST_SCORE)
+        es, eh = worst, torch.full_like(ohi, -1)
+        eok = torch.zeros_like(anext)
+        for k in range(pred_idx.shape[2]):
+            src = pred_idx[:, :, k].long().expand(B, P)
+            ok = pred_ok[:, :, k].bool() & anext.gather(1, src)
+            val = torch.where(ok, osc.gather(1, src) + pred_pen[:, :, k],
+                              worst)
+            upd = val > es
+            es = torch.where(upd, val, es)
+            eh = torch.where(upd, ohi.gather(1, src), eh)
+            eok = torch.where(upd, ok, eok)
+        return es, eh, eok
+    return enter
+
+
+def _shift_down(x: torch.Tensor, d: int, fill) -> torch.Tensor:
+    """x [B, P] with column p reading column p-d; the first d take fill."""
+    out = torch.full_like(x, fill)
+    if d < x.shape[1]:
+        out[:, d:] = x[:, :-d]
+    return out
+
+
+def _band_enter(band_pen, band_ok):
+    """Predecessor max over band slots i = 0..W-1 (the edge p-(W-i) ->
+    p: offset descending, source ascending), strict ``>``."""
+    W = band_pen.shape[1]
+    ok_b = band_ok.bool()
+
+    def enter(osc, ohi, anext):
+        worst = torch.full_like(osc, WORST_SCORE)
+        es, eh = worst, torch.full_like(ohi, -1)
+        eok = torch.zeros_like(anext)
+        for i in range(W):
+            d = W - i
+            ok = ok_b[:, i] & _shift_down(anext, d, False)
+            val = torch.where(ok, _shift_down(osc, d, WORST_SCORE)
+                              + band_pen[:, i], worst)
+            upd = val > es
+            es = torch.where(upd, val, es)
+            eh = torch.where(upd, _shift_down(ohi, d, -1), eh)
+            eok = torch.where(upd, ok, eok)
+        return es, eh, eok
+    return enter
+
+
+def _forward_plain(sen, n_frames, tp, astart, aend, entry, enter,
+                   with_scores: bool):
+    """The frame recurrence: sen int32 [B, T, S]; tp [P, 3, 4] (shared)
+    or [B, P, 3, 4]; astart/aend/entry [P] or [B, P]; ``enter`` the
+    predecessor max.  Returns the int16 token stack [B, T, S], the token
+    scores (int32, or None), out_score and out_hist [B, P]."""
     B, T, S = sen.shape
     P = S // 3
     dev = sen.device
@@ -110,24 +289,26 @@ def viterbi_batch_plain(sen: torch.Tensor, n_frames: torch.Tensor,
     def full(shape, v):
         return torch.full(shape, v, dtype=i32, device=dev)
 
-    worst = torch.tensor(WORST_SCORE, dtype=i32, device=dev)
-    int_min = torch.tensor(-2147483648, dtype=i32, device=dev)
-    tp = c.tp
+    def rowwise(x):                                             # [B|1, P]
+        return x[None] if x.ndim == 1 else x
 
     def tprob(i, j):
-        return -tp[:, i, j][None]                               # [1, P]
+        return rowwise(-tp[..., i, j])
 
-    ast, aen = c.astart[None], c.aend[None]
-    pred_ok = c.pred_ok.bool()
+    worst = torch.tensor(WORST_SCORE, dtype=i32, device=dev)
+    int_min = torch.tensor(-2147483648, dtype=i32, device=dev)
+    ast, aen = rowwise(astart), rowwise(aend)
     n = n_frames.to(i32)[:, None]                               # [B, 1]
     score = full((B, P, 3), WORST_SCORE)
-    score[:, :, 0] = c.entry[None]
+    score[:, :, 0] = rowwise(entry)
     hist = full((B, P, 3), -1)
     osc = full((B, P), WORST_SCORE)
     ohi = full((B, P), -1)
     best_prev = full((B,), 0)
     sidx = torch.arange(S, dtype=i32, device=dev).view(1, P, 3)
     tok = torch.empty((B, T, S), dtype=torch.int16, device=dev)
+    tsc = torch.empty((B, T, S), dtype=i32, device=dev) if with_scores \
+        else None
     for t in range(T):
         valid = t < n
         active = (t >= ast) & (t <= aen) & valid                # [B, P]
@@ -167,70 +348,126 @@ def viterbi_batch_plain(sen: torch.Tensor, n_frames: torch.Tensor,
         hist = torch.where(act3, torch.stack([h0, nh1, nh2], -1), hist)
         best = torch.where(active, best, worst).amax(dim=1)     # [B]
 
-        # phone transitions: K slots in edge order, strict > (first wins)
+        # phone transitions and the enter rule
         nf = t + 1
-        active_next = active & (nf <= aen)
-        es = full((B, P), WORST_SCORE)
-        eh = full((B, P), -1)
-        eok = torch.zeros((B, P), dtype=torch.bool, device=dev)
-        for k in range(c.pred_idx.shape[1]):
-            src = c.pred_idx[:, k].long()
-            ok_k = pred_ok[:, k][None] & active_next[:, src]
-            val_k = torch.where(ok_k, osc[:, src] + c.pred_pen[:, k][None],
-                                worst)
-            upd = val_k > es
-            es = torch.where(upd, val_k, es)
-            eh = torch.where(upd, ohi[:, src], eh)
-            eok = torch.where(upd, ok_k, eok)
+        es, eh, eok = enter(osc, ohi, active & (nf <= aen))
         eh = torch.where(eok, eh, torch.full_like(eh, -1))
         can = eok & (nf >= ast) & (nf <= aen) & valid
-        enter = can & (~active | (es > score[..., 0]))
-        score[..., 0] = torch.where(enter, es, score[..., 0])
-        hist[..., 0] = torch.where(enter, eh, hist[..., 0])
-        rec = (active | enter)[..., None]
+        enter_now = can & (~active | (es > score[..., 0]))
+        score[..., 0] = torch.where(enter_now, es, score[..., 0])
+        hist[..., 0] = torch.where(enter_now, eh, hist[..., 0])
+        rec = (active | enter_now)[..., None]
         tok[:, t] = torch.where(rec, hist, -1).to(torch.int16).view(B, S)
+        if with_scores:
+            tsc[:, t] = torch.where(rec, score, -1).view(B, S)
         hist = torch.where(rec, sidx, hist)
         best_prev = best
+    return tok, tsc, osc, ohi
 
-    # final-node select: first max over the final nodes
-    rows = torch.arange(B, device=dev)
-    fsc = osc[:, c.fin.long()]                                  # [B, F]
-    nfin = fsc.shape[1]
-    first = torch.where(fsc == fsc.amax(dim=1, keepdim=True),
-                        torch.arange(nfin, device=dev)[None], nfin).amin(1)
-    fnode = c.fin.long()[first]
-    fscore = osc[rows, fnode]
-    cur = ohi[rows, fnode]
-    # backtrace (backtrace_batch)
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum along dim 1."""
+    n = x.shape[1]
+    idx = torch.arange(n, device=x.device)[None]
+    return torch.where(x == x.amax(dim=1, keepdim=True), idx, n).amin(1)
+
+
+def _backtrace_plain(tok, tsc, cur, cur_score, n_frames):
+    """backtrace_batch: walk the token stack from the final state ``cur``
+    [B]; path int16 [B, T] and, with token scores, the path scores
+    int32 [B, T] (starting from ``cur_score``)."""
+    B, T, S = tok.shape
+    i32 = torch.int32
+    rows = torch.arange(B, device=tok.device)
     nn = n_frames.to(i32)
-    path = torch.empty((B, T), dtype=i32, device=dev)
+    path = torch.empty((B, T), dtype=i32, device=tok.device)
+    pscore = None if tsc is None else torch.empty_like(path)
     for t in range(T - 1, -1, -1):
         inside = (cur >= 0) & (cur < S)
-        cand = torch.where(inside, tok[rows, t, cur.clamp(0, S - 1).long()]
-                           .to(i32), MISSING)
+        at = cur.clamp(0, S - 1).long()
+        cand = torch.where(inside, tok[rows, t, at].to(i32), MISSING)
         path[:, t] = torch.where(t < nn, cur, -1)
-        cur = torch.where(t < nn - 1, cand, cur)
-    return path.to(torch.int16), fscore
+        move = t < nn - 1
+        if tsc is not None:
+            csc = torch.where(inside, tsc[rows, t, at], MISSING)
+            pscore[:, t] = torch.where(t < nn, cur_score, -1)
+            cur_score = torch.where(move, csc, cur_score)
+        cur = torch.where(move, cand, cur)
+    return path.to(torch.int16), pscore
+
+
+def viterbi_batch_plain(sen: torch.Tensor, n_frames: torch.Tensor,
+                        c: VitConsts):
+    """Plain PyTorch version of K4: sen int32 [B, T, S], n_frames int32
+    [B] -> (path int16 [B, T], fscore int32 [B])."""
+    tok, _, osc, ohi = _forward_plain(
+        sen, n_frames, c.tp, c.astart, c.aend, c.entry,
+        _kslot_enter(c.pred_idx[None], c.pred_pen[None], c.pred_ok[None]),
+        False)
+    # final-node select: first max over the final nodes
+    rows = torch.arange(sen.shape[0], device=sen.device)
+    fnode = c.fin.long()[_first_argmax(osc[:, c.fin.long()])]
+    path, _ = _backtrace_plain(tok, None, ohi[rows, fnode],
+                               None, n_frames)
+    return path, osc[rows, fnode]
+
+
+def viterbi_rows_plain(sen: torch.Tensor, n_frames: torch.Tensor,
+                       c: RowVitConsts, with_scores: bool = False):
+    """Plain PyTorch version of K6: sen int32 [B, T, S], n_frames int32
+    [B] -> (path int16 [B, T], pscore int32 [B, T] or None, fscore
+    int32 [B])."""
+    if c.band_pen is not None:
+        enter = _band_enter(c.band_pen, c.band_ok)
+    else:
+        enter = _kslot_enter(c.pred_idx, c.pred_pen, c.pred_ok)
+    tok, tsc, osc, ohi = _forward_plain(sen, n_frames, c.tp, c.astart,
+                                        c.aend, c.entry, enter, with_scores)
+    # masked select: first max over node index; a row that reached no
+    # final node backtraces from -1
+    rows = torch.arange(sen.shape[0], device=sen.device)
+    fsc = torch.where(c.final_mask.bool(), osc,
+                      torch.full_like(osc, WORST_SCORE))
+    node = _first_argmax(fsc)
+    fscore = fsc[rows, node]
+    fstate = torch.where(fscore > WORST_SCORE, ohi[rows, node],
+                         torch.full_like(fscore, -1))
+    path, pscore = _backtrace_plain(tok, tsc, fstate, fscore, n_frames)
+    return path, pscore, fscore
+
+
+# -- kernels -----------------------------------------------------------------
+
+def _check_viterbi_shape(name: str, sen: torch.Tensor, P: int) -> None:
+    S = sen.shape[2]
+    if S != 3 * P:
+        raise ValueError(f"{name}: S={S} for P={P} 3-state phones")
+    if S >= 32767:
+        raise NotImplementedError(
+            "S >= 32767 needs int32 token stacks (ROADMAP.md B4)")
+    if sen.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {sen.device}")
+
+
+def _check_smem(name: str, P: int):
+    """The kernel library, after checking that P phones fit a block's
+    shared memory (K4 and K6 share the layout)."""
+    lib = cuda_build.lib()
+    need = lib.sst_viterbi_smem_bytes(P)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: P={P} phones need {need} bytes "
+                         f"of shared memory, more than {MAX_SMEM_BYTES}")
+    return lib
 
 
 def viterbi_batch(sen: torch.Tensor, n_frames: torch.Tensor, c: VitConsts):
     """K4: sen int32 [B, T, S], n_frames int32 [B] -> (path int16
     [B, T], fscore int32 [B])."""
-    B, T, S = sen.shape
-    if S != 3 * c.P:
-        raise ValueError(f"viterbi_batch: S={S} for P={c.P} 3-state phones")
-    if S >= 32767:
-        raise NotImplementedError(
-            "S >= 32767 needs int32 token stacks (ROADMAP.md B4)")
+    _check_viterbi_shape("viterbi_batch", sen, c.P)
     if sen.device.type == "cpu":
         return viterbi_batch_plain(sen, n_frames, c)
-    if sen.device.type != "cuda":
-        raise ValueError(f"viterbi_batch: unsupported device {sen.device}")
-    lib = cuda_build.lib()
-    need = lib.sst_viterbi_smem_bytes(c.P)
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"viterbi_batch: P={c.P} phones need {need} bytes "
-                         f"of shared memory, more than {MAX_SMEM_BYTES}")
+    B, T, S = sen.shape
+    lib = _check_smem("viterbi_batch", c.P)
     dev = sen.device
     ck = cuda_build.check_tensor
     ck(sen, torch.int32, "sen")
@@ -255,3 +492,55 @@ def viterbi_batch(sen: torch.Tensor, n_frames: torch.Tensor, c: VitConsts):
 
 
 viterbi_batch.launches = 0
+
+
+def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
+                 c: RowVitConsts, with_scores: bool = False):
+    """K6: sen int32 [B, T, S], n_frames int32 [B], a graph per row ->
+    (path int16 [B, T], pscore int32 [B, T] or None, fscore int32
+    [B])."""
+    _check_viterbi_shape("viterbi_rows", sen, c.P)
+    B, T, S = sen.shape
+    if c.tp.shape[0] != B:
+        raise ValueError(f"viterbi_rows: {c.tp.shape[0]} graphs for "
+                         f"{B} rows")
+    if sen.device.type == "cpu":
+        return viterbi_rows_plain(sen, n_frames, c, with_scores)
+    lib = _check_smem("viterbi_rows", c.P)
+    dev = sen.device
+    ck = cuda_build.check_tensor
+    ck(sen, torch.int32, "sen")
+    ck(n_frames, torch.int32, "n_frames", dev)
+    for name in ("tp", "pred_idx", "pred_pen", "astart", "aend", "entry"):
+        ck(getattr(c, name), torch.int32, name, dev)
+    ck(c.pred_ok, torch.uint8, "pred_ok", dev)
+    ck(c.final_mask, torch.uint8, "final_mask", dev)
+    W = 0
+    band_pen = band_ok = 0
+    if c.band_pen is not None:
+        ck(c.band_pen, torch.int32, "band_pen", dev)
+        ck(c.band_ok, torch.uint8, "band_ok", dev)
+        W = c.band_pen.shape[1]
+        band_pen, band_ok = c.band_pen.data_ptr(), c.band_ok.data_ptr()
+    tok = torch.empty((B, T, S), dtype=torch.int16, device=dev)
+    path = torch.empty((B, T), dtype=torch.int16, device=dev)
+    fscore = torch.empty(B, dtype=torch.int32, device=dev)
+    tsc = pscore = None
+    if with_scores:
+        tsc = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+        pscore = torch.empty((B, T), dtype=torch.int32, device=dev)
+    err = lib.sst_viterbi_rows(
+        sen.data_ptr(), n_frames.data_ptr(), c.tp.data_ptr(),
+        c.pred_idx.data_ptr(), c.pred_pen.data_ptr(), c.pred_ok.data_ptr(),
+        band_pen, band_ok, c.astart.data_ptr(), c.aend.data_ptr(),
+        c.entry.data_ptr(), c.final_mask.data_ptr(), B, T, c.P,
+        c.pred_idx.shape[2], W, tok.data_ptr(),
+        0 if tsc is None else tsc.data_ptr(), path.data_ptr(),
+        0 if pscore is None else pscore.data_ptr(), fscore.data_ptr(),
+        cuda_build.stream(sen))
+    cuda_build.check(err, "viterbi_rows")
+    viterbi_rows.launches += 1
+    return path, pscore, fscore
+
+
+viterbi_rows.launches = 0

@@ -1,22 +1,45 @@
-"""Graph-restricted senone scoring (kernels K2 and K3).
+"""Senone scoring: graph-restricted and full-inventory (kernels K2, K3,
+K5 and K7).
 
-Port of the graph-restricted scorer of
-``soundswallower_tpu/ops/senscore_jax.py`` (GraphScorer,
-_dist_stage_graph, _topn_sen_stage_graph, score_frames_graph): distances
-and top-N only for the codebooks a graph uses, mixture evaluation only
-for its S = P*3 states, scores in graph-state order, not 0-normalized.
+Port of ``soundswallower_tpu/ops/senscore_jax.py``:
+
+* the graph-restricted scorer (GraphScorer, _dist_stage_graph,
+  _topn_sen_stage_graph, score_frames_graph): distances and top-N only
+  for the codebooks a graph (or a working-set union) uses, mixture
+  evaluation only for its S states, scores in column order, not
+  0-normalized;
+* the full-inventory ptm scorer (ScorerTables, _dist_stage,
+  _topn_stage, _sen_eval, score_frames): the same two kernels over every
+  codebook and senone, then the per-frame tail, int16 and 0 = best.  It
+  emits senone order: the JAX package's codebook-grouped layout (G =
+  n_grp * 128 columns) was a TPU device, and ``sencols`` index senones
+  directly (the remap is the identity);
+* ``aligner.py`` _gather_cols, the per-row column gather of the mixed
+  batch.
+
+Kernels:
 
 * K2 ``dist_topn_norm``: the float32 Mahalanobis fold
-  ``d = det - sum_l (x_l - mu_l)^2 * var_l`` in dim order, truncation to
-  int32 with an INT_MIN clamp, the top N of D densities (lowest index on
+  ``d = det - sum_l (x_l - mu_l)^2 * var_l`` in dim order, each step
+  ``d - sq * var`` a fused multiply-add (one rounding) as XLA's CPU
+  backend contracts the JAX fold, truncation to int32 with an INT_MIN
+  clamp, the top N of D densities (lowest index on
   ties, distinct indices even at the clamp), then codebook_norm: ``>>
   SENSCR_SHIFT``, the max over codebooks of each stream's top score,
-  negated and clamped to 96.
+  negated and clamped to 96.  Over all codebooks it is the function of
+  the removed Pallas kernel ``tools/exp_pallas2.py`` dist_topn_fused2.
 * K3 ``senone_eval``: per (frame, state) the sum over streams of the
   8-bit log-add over j of ``mixw[f, cw_j, s] + s_j`` (``& 0xFF`` for the
   semi 4-bit quirk).  mixw is gathered directly from [F, D, S] uint8 and
   the log-add reads the 8-bit table, which equals the JAX package's
   staircase.
+* K7 ``frame_best_sub``: ptm's per-frame tail (_sen_eval): the int32
+  scores cast to int16 (wrapping), minus the int16 cast of the frame's
+  minimum int32 score.
+* K5 ``gather_cols``: ``out[b, t, s] = src[b, t, cols[b, s]]`` from an
+  int32 or int16 source, widened to int32, with jnp.take_along_axis's
+  index rule (a negative index wraps once, one past the end reads the
+  dtype's minimum).
 
 Two TPU devices of the JAX scorer are gone: the bf16 one-hot ``wsel``
 matmul (a direct gather here) and the duplicate codebook row at
@@ -24,7 +47,9 @@ matmul (a direct gather here) and the duplicate codebook row at
 change the cross-codebook max).
 
 The plain versions use no ``torch.topk`` (its tie order is unspecified),
-no matmul and no ``torch.sum``.
+no matmul and no ``torch.sum``; K2's and K3's work through the frames
+in blocks, so that their intermediates stay near 256 MB at the
+full-inventory shapes.
 """
 
 from __future__ import annotations
@@ -40,6 +65,13 @@ from ..utils import cuda_build, to_device
 SENSCR_SHIFT = load("logmath").SENSCR_SHIFT
 MAX_NEG_ASCR = 96
 INT_MIN = -2147483648
+PLAIN_BLOCK_BYTES = 1 << 28  # working set of one frame block, plain K2/K3
+
+
+def _frame_blocks(n: int, bytes_per_frame: int):
+    """Slices of at most PLAIN_BLOCK_BYTES // bytes_per_frame frames."""
+    step = max(1, PLAIN_BLOCK_BYTES // max(1, bytes_per_frame))
+    return [slice(i, min(n, i + step)) for i in range(0, max(n, 1), step)]
 
 
 @dataclass(eq=False)
@@ -115,13 +147,55 @@ def scorer_from_jax_arrays(gs, device="cpu") -> GraphScorer:
     S = len(cb_pos)
     rows = cb_pos[None, :] * D + np.arange(D)[:, None]          # [D, S]
     mixw_s = wsel[:, rows, np.arange(S)[None, :]]               # [F, D, S]
-    thresh = np.asarray(gs.table_thresh, np.int64)
-    d = np.arange(int(thresh.max()) + 1)
-    table = (d[:, None] < thresh[None, :]).sum(1)
     return scorer_from_numpy(
         means, np.asarray(gs.var_t, np.float32)[:Cu],
         np.asarray(gs.det, np.float32)[:Cu], mixw_s.astype(np.int64),
-        cb_pos, table, gs.max_topn, gs.wrap_u8, device)
+        cb_pos, _staircase_table(gs.table_thresh), gs.max_topn, gs.wrap_u8,
+        device)
+
+
+def _staircase_table(thresh) -> np.ndarray:
+    """The 8-bit log-add table from the JAX scorer's staircase
+    thresholds: table[d] = sum_k [d < thresh_k]."""
+    thresh = np.asarray(thresh, np.int64)
+    d = np.arange(int(thresh.max()) + 1)
+    return (d[:, None] < thresh[None, :]).sum(1)
+
+
+def dense_scorer(am, device) -> GraphScorer:
+    """The full-inventory ptm scorer (ScorerTables.from_am's tables):
+    every codebook, every senone, columns in senone order."""
+    if am.backend != "ptm" or am.mixw_wrap_u8:
+        raise NotImplementedError(
+            f"the full-inventory scorer of the {am.backend} backend is not "
+            "ported (ROADMAP.md B7/B8)")
+    return scorer_from_numpy(
+        am.means, am.var_t, am.det, am.mixw_dense(), am.sen2cb,
+        logadd_table(am), am.max_topn, am.mixw_wrap_u8, device)
+
+
+def dense_scorer_from_jax_tables(tables, device="cpu") -> GraphScorer:
+    """The port's full-inventory scorer holding exactly the tables of a
+    JAX ``ScorerTables`` (its arrays read as numpy): the grouped mixture
+    weights ``mixw_g [F, G, D, M]`` back in senone order through
+    ``sen_remap``, each senone's codebook from ``cb_of``, and the log-add
+    table rebuilt from its staircase thresholds."""
+    if tables.backend != "ptm":
+        raise NotImplementedError(
+            f"the full-inventory scorer of the {tables.backend} backend is "
+            "not ported (ROADMAP.md B7/B8)")
+    remap = np.asarray(tables.sen_remap, np.int64)
+    mixw_g = np.asarray(tables.mixw_g)
+    M = mixw_g.shape[3]
+    grp, slot = remap // M, remap % M
+    mixw_s = mixw_g[:, grp, :, slot]                            # [S, F, D]
+    return scorer_from_numpy(
+        np.asarray(tables.means, np.float32),
+        np.asarray(tables.var_t, np.float32),
+        np.asarray(tables.det, np.float32),
+        np.transpose(mixw_s, (1, 2, 0)).astype(np.int64),
+        np.asarray(tables.cb_of)[grp], _staircase_table(tables.table_thresh),
+        tables.max_topn, tables.wrap_u8, device)
 
 
 # -- K2 ----------------------------------------------------------------------
@@ -129,11 +203,47 @@ def scorer_from_jax_arrays(gs, device="cpu") -> GraphScorer:
 def dist_topn_norm_plain(feats: torch.Tensor, gs: GraphScorer):
     """Plain PyTorch version of K2: feats f32 [N, F, L] -> (s, cw) int32
     [N, Cu, F, topn]."""
+    parts = [_dist_topn_norm_block(feats[b], gs)
+             for b in _frame_blocks(feats.shape[0], 64 * gs.det.numel())]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def fma_sub_plain(acc: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """float32 ``acc - a * b`` rounded once, as a fused multiply-add.
+    The product of two float32 values is exact in float64, so the only
+    error left is the float64 subtraction's rounding, which can change
+    the float32 result only where the float64 difference lands exactly
+    on a float32 tie (the 29 mantissa bits float32 drops are 1000...0;
+    float32-normal results).  There the exact error (TwoSum) decides the
+    side."""
+    x = acc.double()
+    p = a.double() * b.double()
+    s = x - p
+    r = s.float()
+    tie = (s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000
+    if bool(tie.any()):
+        xt, pt, st_, rt = x[tie], p[tie], s[tie], r[tie]
+        bb = st_ - xt
+        e = (xt - (st_ - bb)) + (-pt - bb)         # x - p == s + e exactly
+        rd = rt.double()
+        up = torch.nextafter(rt, torch.full_like(rt, float("inf")))
+        dn = torch.nextafter(rt, torch.full_like(rt, float("-inf")))
+        r = r.clone()
+        r[tie] = torch.where((st_ > rd) & (e > 0), up,
+                             torch.where((st_ < rd) & (e < 0), dn, rt))
+    return r
+
+
+def _dist_topn_norm_block(feats: torch.Tensor, gs: GraphScorer):
     N, _, L = feats.shape
     d = gs.det[None].expand((N,) + tuple(gs.det.shape)).clone()
     for i in range(L):                                          # dim order
         diff = feats[:, None, :, None, i] - gs.means[None, :, :, :, i]
-        d = d - (diff * diff) * gs.var_t[None, :, :, :, i]
+        d = fma_sub_plain(d, diff * diff, gs.var_t[None, :, :, :, i])
     di = torch.clamp(d, min=float(INT_MIN)).to(torch.int32)     # trunc, clamp
     D = di.shape[-1]
     lane = torch.arange(D, dtype=torch.int32, device=di.device)
@@ -201,7 +311,15 @@ def logadd_plain(x: torch.Tensor, y: torch.Tensor,
 def senone_eval_plain(s: torch.Tensor, cw: torch.Tensor,
                       gs: GraphScorer) -> torch.Tensor:
     """Plain PyTorch version of K3: s/cw int32 [N, Cu, F, topn] ->
-    graph-state scores int32 [N, S]."""
+    scores int32 [N, S] in column order."""
+    per_frame = 16 * gs.S * (s.shape[2] * s.shape[3] + 4)
+    parts = [_senone_eval_block(s[b], cw[b], gs)
+             for b in _frame_blocks(s.shape[0], per_frame)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _senone_eval_block(s: torch.Tensor, cw: torch.Tensor,
+                       gs: GraphScorer) -> torch.Tensor:
     cbp = gs.cb_pos.long()
     s_g = s[:, cbp]                                             # [N, S, F, n]
     cw_g = cw[:, cbp].long()
@@ -263,3 +381,94 @@ def score_frames_graph(gs: GraphScorer, feats: torch.Tensor,
     """feats f32 [N, F, L] -> int32 graph-state scores [N, S] (K2, K3)."""
     s, cw = dist_topn_norm(feats, gs)
     return senone_eval(s, cw, gs, out)
+
+
+# -- K7 ----------------------------------------------------------------------
+
+def frame_best_sub_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7: int32 [N, S] -> int16 [N, S], the
+    int16 cast of each score minus that of its frame's minimum."""
+    best = x.amin(dim=1, keepdim=True)
+    return x.to(torch.int16) - best.to(torch.int16)
+
+
+def frame_best_sub(x: torch.Tensor) -> torch.Tensor:
+    """K7: int32 [N, S] mixture scores -> int16 [N, S], 0 = best."""
+    if x.device.type == "cpu":
+        return frame_best_sub_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"frame_best_sub: unsupported device {x.device}")
+    cuda_build.check_tensor(x, torch.int32, "x")
+    N, S = x.shape
+    out = torch.empty((N, S), dtype=torch.int16, device=x.device)
+    err = cuda_build.lib().sst_frame_best_sub(
+        x.data_ptr(), out.data_ptr(), N, S, cuda_build.stream(x))
+    cuda_build.check(err, "frame_best_sub")
+    frame_best_sub.launches += 1
+    return out
+
+
+frame_best_sub.launches = 0
+
+
+def score_frames(ds: GraphScorer, feats: torch.Tensor) -> torch.Tensor:
+    """Full-inventory scores: feats f32 [N, F, L] -> int16 [N, n_sen]
+    in senone order, 0 = best per frame (K2, K3, K7)."""
+    s, cw = dist_topn_norm(feats, ds)
+    return frame_best_sub(senone_eval(s, cw, ds))
+
+
+# -- K5 ----------------------------------------------------------------------
+
+def gather_cols_plain(src: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K5: src int32/int16 [B, T, Sx], cols
+    int32 [B, S] -> int32 [B, T, S]."""
+    B, T, Sx = src.shape
+    idx = cols.long()
+    idx = torch.where(idx < 0, idx + Sx, idx)
+    ok = ((idx >= 0) & (idx < Sx))[:, None, :]
+    g = torch.gather(src, 2, idx.clamp(0, Sx - 1)[:, None, :]
+                     .expand(B, T, -1)).to(torch.int32)
+    fill = torch.tensor(torch.iinfo(src.dtype).min, dtype=torch.int32,
+                        device=src.device)
+    return torch.where(ok, g, fill)
+
+
+def gather_cols(src: torch.Tensor, cols: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: src int32/int16 [B, T, Sx], cols int32 [B, S] -> int32
+    [B, T, S], written into ``out`` when given (a contiguous slice of
+    the batch buffer)."""
+    B, T, Sx = src.shape
+    S = cols.shape[1]
+    if cols.shape[0] != B:
+        raise ValueError(f"gather_cols: {cols.shape[0]} column rows for "
+                         f"{B} rows")
+    if src.device.type == "cpu":
+        r = gather_cols_plain(src, cols)
+        if out is None:
+            return r
+        out.copy_(r)
+        return out
+    if src.device.type != "cuda":
+        raise ValueError(f"gather_cols: unsupported device {src.device}")
+    if src.dtype not in (torch.int32, torch.int16):
+        raise TypeError(f"gather_cols: source dtype {src.dtype}")
+    dev = src.device
+    ck = cuda_build.check_tensor
+    ck(src, src.dtype, "src")
+    ck(cols, torch.int32, "cols", dev)
+    if out is None:
+        out = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+    ck(out, torch.int32, "out", dev)
+    if tuple(out.shape) != (B, T, S):
+        raise ValueError(f"gather_cols: out shape {tuple(out.shape)}")
+    err = cuda_build.lib().sst_gather_cols(
+        src.data_ptr(), src.element_size(), cols.data_ptr(), out.data_ptr(),
+        B, T, Sx, S, cuda_build.stream(src))
+    cuda_build.check(err, "gather_cols")
+    gather_cols.launches += 1
+    return out
+
+
+gather_cols.launches = 0

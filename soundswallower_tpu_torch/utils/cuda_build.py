@@ -1,7 +1,8 @@
 """Build-on-first-use loader for the CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` compiles with ``nvcc`` into one shared library with
-a plain C interface (``csrc/sst_kernels.h``), loaded with ``ctypes``.
+Every ``csrc/*.cu`` compiles with its own ``nvcc`` process, all started
+together, and the objects link into one shared library with a plain C
+interface (``csrc/sst_kernels.h``), loaded with ``ctypes``.
 The library is rebuilt whenever a source or header is newer than it,
 the same rule as ``soundswallower_tpu/utils/native_build.py``, so a
 stale binary never runs in place of the source it claims to be.
@@ -30,7 +31,8 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SONAME = "libsst_cuda.so"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-fmad=false",
-              "-Xcompiler", "-fPIC", "-shared"]
+              "-Xcompiler", "-fPIC"]
+LINK_FLAGS = ["-arch=sm_90a", "-shared"]
 
 _LIB: ctypes.CDLL | None = None
 _LOCK = threading.Lock()
@@ -52,6 +54,9 @@ _SIGS = {
     "sst_viterbi_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                           _I, _I, _I, _I, _P, _P, _P, _P],
     "sst_viterbi_smem_bytes": [_I],
+    "sst_gather_cols": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "sst_viterbi_rows": [_P] * 12 + [_I] * 5 + [_P] * 6,
+    "sst_frame_best_sub": [_P, _P, _I, _I, _P],
 }
 
 
@@ -75,22 +80,46 @@ def _stale(so: str) -> bool:
 
 
 def build() -> str:
-    """Compile csrc/*.cu into _build/libsst_cuda.so if stale; returns
-    its path.  The compiler's output stays in ``build_log``."""
+    """Compile csrc/*.cu into _build/libsst_cuda.so if stale, one nvcc
+    per source in parallel, then link; returns the library's path.  The
+    compilers' output stays in ``build_log``."""
     global build_seconds, build_log
     so = os.path.join(BUILD_DIR, SONAME)
     if not _stale(so):
         build_seconds = 0.0
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in sources()]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for obj, src in zip(objs, sources())]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        failed = [p.args[-1] for p in procs if p.returncode != 0]
+        if not failed:
+            tmp = f"{so}.{tag}"
+            r = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                               capture_output=True, text=True, timeout=300)
+            logs.append(r.stdout + r.stderr)
+            if r.returncode != 0:
+                failed = ["link"]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, so)
     return so
 

@@ -55,12 +55,13 @@ def test_align_batch_and_pipelined(small):
     assert _reps(port.align_batch_end(h2)) == want[::-1]
 
 
-def test_mixed_batch_equals_grouped_reference(small, monkeypatch):
+def test_mixed_batch_equals_reference(small):
+    """A batch of different transcripts against TpuAligner's default
+    single multi-graph dispatch (union scorer + per-row Viterbi)."""
     port, ref = small
     texts = [TEXT, "young man", TEXT, "he was not", "young man", "an ill man",
              "he was a xyzzy"]                      # unknown word: None
     audios = [austen_audio(i) for i in range(len(texts))]
-    monkeypatch.setenv("SST_MIXED", "grouped")
     want = _reps(ref.align_batch(audios, texts))
     assert want[-1] is None
     assert _reps(port.align_batch(audios, texts)) == want

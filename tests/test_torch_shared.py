@@ -25,15 +25,31 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "soundswallower_tpu_torch")
 
 
-def test_port_imports_without_jax():
-    code = ("import sys\n"
-            "import soundswallower_tpu_torch.aligner\n"
-            "import soundswallower_tpu_torch.serve\n"
-            "assert 'jax' not in sys.modules, 'jax was imported'\n"
-            "assert 'soundswallower_tpu' not in sys.modules\n")
+def test_port_imports_without_jax(tmp_path):
+    """Importing the port, and running its mixed and scored paths (where
+    stack_graphs is the port's own: the shared one imports align_jax at
+    call time), leaves jax and the JAX package unloaded."""
+    code = f"""
+import sys
+sys.path.insert(0, {os.path.join(REPO, "tools")!r})
+import soundswallower_tpu_torch.aligner
+import soundswallower_tpu_torch.serve
+from make_synth_model import make_synth_model
+from make_torch_synth_golden import SAMPRATE, TEXT, austen_audio
+d = make_synth_model({str(tmp_path)!r}, seed=0, width="small")
+al = soundswallower_tpu_torch.aligner.TorchAligner(
+    hmm=d, samprate=SAMPRATE, device="cpu")
+audios = [austen_audio(i) for i in range(3)]
+texts = [TEXT, "young man", "he was not"]
+assert all(s is not None for s in al.align_batch(audios, texts))
+assert al._uni["gs"] is not None
+assert all(s is not None for s in al.align_batch_scored(audios, texts))
+assert 'jax' not in sys.modules, 'jax was imported'
+assert 'soundswallower_tpu' not in sys.modules
+"""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
 
 

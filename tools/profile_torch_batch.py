@@ -1,8 +1,11 @@
-"""Where a same-transcript batch's time goes in the PyTorch/CUDA port.
+"""Where a batch's time goes in the PyTorch/CUDA port.
 
 On one CUDA device, with the synthetic en-us-width model
-(tools/make_synth_model.py, seed 0) and B copies of the 8 golden austen
-utterances (tools/make_torch_synth_golden.py):
+(tools/make_synth_model.py, seed 0) and B rows of one of two traffic
+mixes: ``same``, the 8 golden austen utterances of one transcript
+(tools/make_torch_synth_golden.py), or ``mixed``, the 32 different
+transcripts of tools/make_torch_mixed_golden.py (the union scorer's
+route), each tiled to B:
 
 * host stages, timed alone: the C++ front end for the batch
   (``process_list_i16p`` per upload chunk) and the native segment
@@ -15,7 +18,7 @@ utterances (tools/make_torch_synth_golden.py):
   and the device's busy share of the window.
 
 Prints one JSON object.
-Usage: ``python tools/profile_torch_batch.py [B] [N]``.
+Usage: ``python tools/profile_torch_batch.py [B] [N] [same|mixed]``.
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 import torch  # noqa: E402
 
 from make_synth_model import make_synth_model  # noqa: E402
+from make_torch_mixed_golden import (N_MIXED, mixed_audio,  # noqa: E402
+                                     mixed_texts)
 from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
                                      austen_audio)
 from soundswallower_tpu_torch.aligner import TorchAligner  # noqa: E402
 
 
-def main(B: int = 256, N: int = 8) -> dict:
+def main(B: int = 256, N: int = 8, traffic: str = "same") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_batch: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -49,8 +54,15 @@ def main(B: int = 256, N: int = 8) -> dict:
     with tempfile.TemporaryDirectory() as d:
         make_synth_model(d, seed=0, width="en-us")
         al = TorchAligner(hmm=d, samprate=SAMPRATE, device="cuda")
-    audios = [austen_audio(i % N_UTT) for i in range(B)]
-    texts = [TEXT] * B
+    if traffic == "same":
+        audios = [austen_audio(i % N_UTT) for i in range(B)]
+        texts = [TEXT] * B
+    elif traffic == "mixed":
+        audios = [mixed_audio(i % N_MIXED) for i in range(B)]
+        texts32 = mixed_texts()
+        texts = [texts32[i % N_MIXED] for i in range(B)]
+    else:
+        raise SystemExit(f"profile_torch_batch: traffic {traffic!r}")
     audio_s = sum(len(a) for a in audios) / SAMPRATE
     for _ in range(2):                                   # warm up
         al.align_batch(audios, texts)
@@ -72,7 +84,7 @@ def main(B: int = 256, N: int = 8) -> dict:
     ex_ms = []
     for _ in range(5):
         t0 = time.perf_counter()
-        al._extract_batch_native(h.g, paths, h.Ts, h.realB)
+        al._extract_batch_native(h.graphs, paths, h.Ts, h.realB)
         ex_ms.append((time.perf_counter() - t0) * 1e3)
 
     # pipelined cadence
@@ -110,7 +122,8 @@ def main(B: int = 256, N: int = 8) -> dict:
     busy = sum(by_kernel.values()) * 3
     med = statistics.median(walls)
     out = {
-        "gpu": smi, "B": B, "Tmax": Tmax, "audio_s_per_batch": audio_s,
+        "gpu": smi, "traffic": traffic, "B": B, "Tmax": Tmax,
+        "audio_s_per_batch": audio_s,
         "host_fe_ms": statistics.median(fe_ms),
         "extract_ms": statistics.median(ex_ms),
         "batch_wall_ms_median": med,
@@ -128,4 +141,4 @@ def main(B: int = 256, N: int = 8) -> dict:
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:3]))
+    main(*(int(a) for a in sys.argv[1:3]), *sys.argv[3:4])
