@@ -3,34 +3,47 @@
 
 Drives ``soundswallower_tpu_torch`` through the entry points a user
 calls (``TorchAligner.align_batch``, ``align_batch_scored``, the
-pipelined ``align_batch_begin``/``align_batch_end``, and the HTTP
-service), on a synthetic model at the published en-us width
+pipelined ``align_batch_begin``/``align_batch_end``, the HTTP service,
+and, on the device front end, ``align``, ``stream`` and
+``spectrogram``), on a synthetic model at the published en-us width
 (tools/make_synth_model.py, seed 0), against results the JAX package
 computed for the same audio (tests/golden/torch-synth/segs.json for one
-transcript, mixed_segs.json for 32 different ones).  Phases, in order;
-any failure raises, so the exit code is non-zero and the last line is
-not printed:
+transcript, mixed_segs.json for 32 different ones, device_fe.json and
+device_fe.npz for its device front end) and against the C reference's
+cepstra (tests/golden/austen-en/mfcc.f32).  Phases, in order; any
+failure raises, so the exit code is non-zero and the last line is not
+printed:
 
 1. device: a CUDA device of compute capability 9.0;
 2. build every kernel from ``soundswallower_tpu_torch/csrc``;
-3. model and batches;
-4. each kernel (K1-K7) against its plain PyTorch version on the card,
-   bit-equal, at the shapes the main and mixed paths give it (K2/K3 at
-   the full-inventory shape on a slice of the dense route's frames),
-   with median times;
-5. main path: align_batch on the 8 golden utterances, then 4 pipelined
-   batches of 256 (the 8 tiled); every row equals its golden;
-6. mixed path, on a fresh union: align_batch on the 32 mixed rows, 4
-   pipelined batches of 256 that tile them, align_batch with the union
-   forced dense, align_batch_scored (scores included); every row equals
-   its golden;
-7. serving: concurrent POST /v1/align of one transcript, then of the 32
-   mixed ones (the union no longer grows), and GET /v1/health.
+3. model and batches; two aligners, one on the host C++ front end and
+   one under ``SST_FE=device``;
+4. each kernel (K1-K10, K1's float32 form and K4's carry form) against
+   its plain PyTorch version on the card, bit-equal, at the shapes the paths give it (K2/K3
+   at the full-inventory shape on a slice of the dense route's frames;
+   K8-K10 on the whole B=256 batch and at 16 kHz, nfft 512), with median
+   times; the device front end's cepstra of austen.raw against the C
+   reference's; the device front end per B=256 batch beside the host
+   C++ one (informational);
+5. host-FE paths: align_batch on the 8 golden utterances, then 4
+   pipelined batches of 256 (the 8 tiled); on a fresh union, align_batch
+   on the 32 mixed rows, 4 pipelined batches of 256 that tile them,
+   align_batch with the union forced dense, align_batch_scored (scores
+   included); concurrent POST /v1/align of one transcript, then of the
+   32 mixed ones (the union no longer grows), and GET /v1/health;
+6. device-FE paths: the same-transcript and the mixed batches (B=8 and
+   B=32, then 4 pipelined batches of 256 each), ``align`` on the
+   single-utterance path, ``spectrogram`` raw and smooth, and ``stream``
+   with austen.raw pushed whole, in 1600- and in 777-sample pieces, its
+   ``state()`` at the golden's cut, the golden checkpoint restored and a
+   mid-stream checkpoint of its own restored.
 
-The launch counts are reset before phase 5 and read after phase 7; a
-kernel launched no time there fails the run.  The last lines are one
-JSON object of per-kernel results, the card's name and power limit
-(nvidia-smi), and ``{"ok": true, "device": {...}}``.
+Every row, segment list, spectrogram and checkpoint equals its golden.
+The launch counts are reset before phase 5 and read after it, then
+reset before phase 6 and read after it; a kernel of a path launched no
+time there fails the run.  The last lines are one JSON object of
+per-kernel results, the card's name and power limit (nvidia-smi), and
+``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
 """
@@ -57,14 +70,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from make_synth_model import make_synth_model  # noqa: E402
+from make_torch_device_fe_golden import (CKPT_SAMPLES,  # noqa: E402
+                                         STREAM_SPLIT, load_device_fe_golden,
+                                         pieces)
 from make_torch_mixed_golden import (N_MIXED, load_mixed_golden,  # noqa: E402
                                      mixed_audio, scored_rep)
 from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
                                      austen_audio, load_golden, segs_rep)
 from soundswallower_tpu_torch.aligner import TorchAligner, WordSeg  # noqa: E402
 from soundswallower_tpu_torch.fe import feat as feat_mod  # noqa: E402
+from soundswallower_tpu_torch.fe import frontend as fe_mod  # noqa: E402
 from soundswallower_tpu_torch.ops import align_torch, senscore_torch  # noqa: E402
 from soundswallower_tpu_torch.serve import make_server, segs_to_json  # noqa: E402
+from soundswallower_tpu_torch.streaming import AlignStream  # noqa: E402
 from soundswallower_tpu_torch.utils import cuda_build  # noqa: E402
 
 KERNELS = [
@@ -89,7 +107,24 @@ KERNELS = [
     ("frame_best_sub", senscore_torch.frame_best_sub,
      "soundswallower_tpu_torch/csrc/frame_best_sub.cu",
      "soundswallower_tpu/ops/senscore_jax.py:254"),
+    ("fe_spec", fe_mod.fe_spec, "soundswallower_tpu_torch/csrc/fe_spec.cu",
+     "soundswallower_tpu/fe/frontend.py:484"),
+    ("fe_noise", fe_mod.fe_noise, "soundswallower_tpu_torch/csrc/fe_noise.cu",
+     "soundswallower_tpu/fe/frontend.py:343"),
+    ("fe_cep", fe_mod.fe_cep, "soundswallower_tpu_torch/csrc/fe_cep.cu",
+     "soundswallower_tpu/fe/frontend.py:418"),
+    ("feat_f32", feat_mod.feat_f32, "soundswallower_tpu_torch/csrc/feat.cu",
+     "soundswallower_tpu/fe/feat.py:372"),
+    ("viterbi_chunk", align_torch.viterbi_chunk,
+     "soundswallower_tpu_torch/csrc/viterbi.cu",
+     "soundswallower_tpu/ops/align_jax.py:265"),
 ]
+# the kernels each counted path must launch
+HOST_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
+             "gather_cols", "viterbi_rows", "frame_best_sub"]
+DEVICE_FE_PATH = ["fe_spec", "fe_noise", "fe_cep", "feat_f32",
+                  "dist_topn_norm", "senone_eval", "viterbi_batch",
+                  "gather_cols", "viterbi_rows", "viterbi_chunk"]
 # further measured shapes of a kernel: (entry, kernel, TPU program)
 VARIANTS = [
     ("gather_cols[int16 full inventory]", "gather_cols",
@@ -100,6 +135,16 @@ VARIANTS = [
      "tools/exp_pallas2.py:54"),
     ("senone_eval[full inventory]", "senone_eval",
      "soundswallower_tpu/ops/senscore_jax.py:254"),
+    ("fe_noise[masked, carried]", "fe_noise",
+     "soundswallower_tpu/fe/frontend.py:403"),
+    ("fe_cep[logspec]", "fe_cep", "soundswallower_tpu/fe/frontend.py:535"),
+    ("fe_spec[16 kHz, nfft 512]", "fe_spec",
+     "soundswallower_tpu/fe/frontend.py:285"),
+    ("fe_noise[16 kHz]", "fe_noise", "soundswallower_tpu/fe/frontend.py:343"),
+    ("fe_cep[16 kHz, legacy]", "fe_cep",
+     "soundswallower_tpu/fe/frontend.py:418"),
+    ("viterbi_chunk[single, backtrace]", "viterbi_chunk",
+     "soundswallower_tpu/ops/align_jax.py:665"),
 ]
 BIG_B = 256
 N_BATCHES = 4
@@ -274,6 +319,154 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
                 results)
 
 
+def wall_ms(fn, runs: int = 5) -> float:
+    """Median host wall time of fn (which ends in a synchronize), after
+    one warm-up."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
+                     big: list, results: dict):
+    """K8, K9, K10 and K1's float32 form on the device-FE route's B=256
+    batch, one launch each over all rows (the route launches 128-row
+    chunks), K9 also in the stream's masked form from a carried state;
+    K8-K10 at 16 kHz with nfft 512; the device FE's cepstra of
+    austen.raw against the C reference's; the device FE per B=256 batch
+    beside the host C++ FE (informational)."""
+    fe, dev = al_dev.fe, al_dev.device
+    audios, Ts, Tmax = al_dev._batch_shape(big)
+    B = len(audios)
+    ns_h = np.array([len(a) for a in audios], np.int32)
+    buf = np.zeros((B, int(ns_h.max())), np.int16)
+    for i, a in enumerate(audios):
+        buf[i, :len(a)] = a
+    sig = torch.from_numpy(buf).to(dev)
+    ns = torch.from_numpy(ns_h).to(dev)
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(dev)
+    prior = torch.zeros(B, dtype=torch.float32, device=dev)
+    log(f"  device FE shapes: B={B} N={buf.shape[1]} Tmax={Tmax} "
+        f"nfft={fe.fft_size} nfilt={fe.num_filters} ncep={fe.num_cepstra}")
+    spec = compare("fe_spec", lambda: fe_mod.fe_spec(fe, sig, ns, prior, Tmax),
+                   lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, Tmax),
+                   results, plain_runs=2)
+    fresh = fe.noise_init(B, dev)
+    den, carry = compare(
+        "fe_noise", lambda: fe_mod.fe_noise(fe, spec, fresh),
+        lambda: fe_mod.fe_noise_plain(fe, spec, fresh, None), results,
+        plain_runs=2)
+    compare("fe_noise[masked, carried]",
+            lambda: fe_mod.fe_noise(fe, spec, carry, Ts_d),
+            lambda: fe_mod.fe_noise_plain(fe, spec, carry, Ts_d), results,
+            plain_runs=2)
+    cep = compare("fe_cep", lambda: fe_mod.fe_cep(fe, den),
+                  lambda: fe_mod.fe_cep_plain(fe, den), results, plain_runs=2)
+    compare("fe_cep[logspec]", lambda: fe_mod.fe_cep(fe, den, True),
+            lambda: fe_mod.fe_cep_plain(fe, den, True), results, plain_runs=2)
+    compare("feat_f32", lambda: feat_mod.feat_f32(cep, Ts_d, al_dev.do_cmn),
+            lambda: feat_mod.feats_plain(cep, Ts_d, al_dev.do_cmn), results)
+    dev_fe = sum(results[k]["ms"] for k in ("fe_spec", "fe_noise", "fe_cep",
+                                             "feat_f32"))
+    log(f"  device FE kernels on the B={B} batch, K8+K9+K10+K1: "
+        f"{dev_fe:.4f} ms")
+
+    # 16 kHz, nfft 512, 40 filters, legacy DCT, noise removal
+    fe16 = fe_mod.Frontend(sampling_rate=16000, fft_size=512, num_filters=40,
+                           transform="legacy", remove_noise=True)
+    rng = np.random.RandomState(16)
+    B16, N16 = 64, 3 * 16000
+    x16 = torch.from_numpy(np.clip(np.round(rng.randn(B16, N16) * 3000),
+                                   -32768, 32767).astype(np.int16)).to(dev)
+    ns16 = torch.from_numpy(rng.randint(N16 // 3, N16 + 1, B16)
+                            .astype(np.int32)).to(dev)
+    T16 = fe16.n_frames(N16)
+    p16 = torch.zeros(B16, dtype=torch.float32, device=dev)
+    log(f"  16 kHz shapes: B={B16} N={N16} T={T16} nfft={fe16.fft_size} "
+        f"nfilt={fe16.num_filters}")
+    spec16 = compare("fe_spec[16 kHz, nfft 512]",
+                     lambda: fe_mod.fe_spec(fe16, x16, ns16, p16, T16),
+                     lambda: fe_mod.fe_spec_plain(fe16, x16, ns16, p16, T16),
+                     results, plain_runs=2)
+    fresh16 = fe16.noise_init(B16, dev)
+    den16, _ = compare("fe_noise[16 kHz]",
+                       lambda: fe_mod.fe_noise(fe16, spec16, fresh16),
+                       lambda: fe_mod.fe_noise_plain(fe16, spec16, fresh16,
+                                                     None),
+                       results, plain_runs=2)
+    compare("fe_cep[16 kHz, legacy]", lambda: fe_mod.fe_cep(fe16, den16),
+            lambda: fe_mod.fe_cep_plain(fe16, den16), results, plain_runs=2)
+
+    # the C reference's cepstra for this front end
+    golden = os.path.join(REPO, "tests", "golden")
+    raw = np.fromfile(os.path.join(golden, "austen.raw"), np.int16)
+    want = np.fromfile(os.path.join(golden, "austen-en", "mfcc.f32"),
+                       np.float32).reshape(-1, fe.num_cepstra)
+    got = fe.process_int16(raw, device=dev)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("device FE cepstra of austen.raw differ from "
+                             "tests/golden/austen-en/mfcc.f32")
+    log(f"  device FE cepstra of austen.raw ({len(want)} frames): equal to "
+        f"the C reference's mfcc.f32")
+
+    # one B=256 batch's front end, host C++ against device (informational)
+    chunk = al_host._chunk_size(B)
+
+    def host_fe():
+        for i0 in range(0, B, chunk):
+            al_host.native_fe.process_list_i16p(audios[i0:i0 + chunk], Tmax,
+                                                al_host.wire_scale)
+
+    def device_fe():
+        for _ in al_dev._chunk_feats(audios, Ts_d, Tmax):
+            pass
+        torch.cuda.synchronize()
+
+    order = [("host", host_fe), ("device", device_fe), ("device", device_fe),
+             ("host", host_fe)]
+    fe_walls = [(k, wall_ms(fn)) for k, fn in order]
+    log(f"  front end per B={B} batch, median wall of 5 (host C++ "
+        "process_list_i16p per 128-row chunk; device: pinned int16 "
+        "upload, K8-K10, K1 per chunk): "
+        + ", ".join(f"{k} {ms:.3f} ms" for k, ms in fe_walls)
+        + " (informational)")
+
+
+def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
+    """K4's carry form at the stream's shape (the first 128-frame chunk
+    from vit_carry0) and at the single-utterance path's (austen_audio(0)
+    on the device FE, the frame axis bucketed to 128, with the final
+    select and backtrace)."""
+    dev = al_dev.device
+    a = austen_audio(0)
+    c = al_dev._graph_consts(al_dev.graph_for_text(TEXT))
+    n = len(a)
+    T = al_dev.fe.n_frames(n)
+    Tpad = max(128, -(-T // 128) * 128)
+    cep = al_dev.fe.mfcc(torch.from_numpy(a).to(dev)[None], n, Tpad)
+    Tn = torch.tensor([T], dtype=torch.int32, device=dev)
+    feats = feat_mod.feat_f32(cep, Tn, al_dev.do_cmn)[0]
+    sen = senscore_torch.score_frames_graph(c.gs, feats)
+    first = sen[:AlignStream.CHUNK]
+    carry0 = align_torch.vit_carry0(c.vit)
+    log(f"  carry-form shapes: chunk {AlignStream.CHUNK} frames, single "
+        f"T={T} Tpad={Tpad}, S={sen.shape[1]} P={c.vit.P} "
+        f"K={c.vit.pred_idx.shape[1]}")
+    compare("viterbi_chunk",
+            lambda: align_torch.viterbi_chunk(first, carry0, 0, T, c.vit),
+            lambda: align_torch.viterbi_chunk_plain(first, carry0, 0, T,
+                                                    c.vit),
+            results, plain_runs=2)
+    compare("viterbi_chunk[single, backtrace]",
+            lambda: align_torch.viterbi_single(sen, T, c.vit),
+            lambda: align_torch.viterbi_single_plain(sen, T, c.vit),
+            results, plain_runs=2)
+
+
 def check_rows(out, want, what, rep=segs_rep):
     got = [rep(s) for s in out]
     bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
@@ -395,6 +588,100 @@ def phase_serve(al: TorchAligner, requests: list, what: str,
         th.join(timeout=10)
 
 
+def check_state(got: dict, want: dict, what: str):
+    """A stream checkpoint against the golden one: every key, and every
+    array's dtype, shape and values."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(want)}")
+    for k, w in want.items():
+        xs, ws = (got[k], w) if isinstance(w, tuple) else ((got[k],), (w,))
+        if len(xs) != len(ws):
+            raise AssertionError(f"{what}: {k} has {len(xs)} parts")
+        for x, v in zip(xs, ws):
+            if isinstance(v, (np.ndarray, np.generic)):
+                x = np.asarray(x)
+                same = (x.dtype == v.dtype and x.shape == v.shape
+                        and np.array_equal(x, v))
+            else:
+                same = x == v
+            if not same:
+                raise AssertionError(f"{what}: {k} differs from the golden")
+
+
+def phase_device_fe(al: TorchAligner, audios8: list, dg: dict):
+    """The device-FE aligner's entry points against device_fe.json."""
+    t0 = time.perf_counter()
+    check_rows(al.align_batch(audios8, [TEXT] * N_UTT), dg["same"],
+               f"device-FE align_batch (B={N_UTT})")
+    log(f"  device-FE align_batch B={N_UTT}: equal to the golden "
+        f"({time.perf_counter() - t0:.3f} s, first call)")
+    big = [audios8[i % N_UTT] for i in range(BIG_B)]
+    pipelined(al, big, [TEXT] * BIG_B,
+              [dg["same"][i % N_UTT] for i in range(BIG_B)],
+              "device-FE same-transcript")
+    fresh_union(al)
+    texts = dg["texts"]
+    mixed = [mixed_audio(i) for i in range(N_MIXED)]
+    check_rows(al.align_batch(mixed, texts), dg["mixed"],
+               f"device-FE mixed align_batch (B={N_MIXED})")
+    log(f"  device-FE mixed align_batch B={N_MIXED}: equal to the golden")
+    pipelined(al, [mixed[i % N_MIXED] for i in range(BIG_B)],
+              [texts[i % N_MIXED] for i in range(BIG_B)],
+              [dg["mixed"][i % N_MIXED] for i in range(BIG_B)],
+              "device-FE mixed")
+    a0 = audios8[0]
+    t0 = time.perf_counter()
+    check_rows([al.align(a0, TEXT)], [dg["align"]], "device-FE align")
+    log(f"  align, single-utterance device path: equal to the golden "
+        f"({time.perf_counter() - t0:.3f} s)")
+    for smooth, key in ((False, "spec_raw"), (True, "spec_smooth")):
+        got = al.spectrogram(a0, smooth)
+        if got.dtype != np.float32 or not np.array_equal(got, dg[key]):
+            raise AssertionError(f"spectrogram(smooth={smooth}) differs "
+                                 f"from the golden")
+    log(f"  spectrogram raw and smooth {dg['spec_raw'].shape}: equal to the "
+        f"golden")
+    mid = None
+    for split in (len(a0), STREAM_SPLIT, 777):
+        t0 = time.perf_counter()
+        s = al.stream(TEXT)
+        pushed = 0
+        for p in pieces(a0, split):
+            s.push(p)
+            pushed += len(p)
+            if split == STREAM_SPLIT and pushed == CKPT_SAMPLES:
+                check_state(s.state(), dg["state"], "stream checkpoint")
+            if split == 777 and mid is None and pushed >= len(a0) // 2:
+                mid = (s.state(), pushed)
+        check_rows([s.end()], [dg["stream"]],
+                   f"stream in {split}-sample pieces")
+        log(f"  stream, {split}-sample pieces: equal to the golden "
+            f"({time.perf_counter() - t0:.3f} s)")
+    log(f"  stream state() after {CKPT_SAMPLES} samples: every key, dtype "
+        f"and value equal to the golden checkpoint")
+    r = AlignStream.restore(al, dg["state"])
+    for p in pieces(a0[CKPT_SAMPLES:], STREAM_SPLIT):
+        r.push(p)
+    check_rows([r.end()], [dg["stream"]], "stream from the golden checkpoint")
+    state, pushed = mid
+    r = AlignStream.restore(al, state)
+    for p in pieces(a0[pushed:], 777):
+        r.push(p)
+    check_rows([r.end()], [dg["stream"]], "stream from its own checkpoint")
+    log(f"  stream restored from the golden checkpoint and from its own "
+        f"after {pushed} samples: equal to the golden")
+
+
+def count_path(wrappers: dict, drive) -> dict:
+    """Launch counts of one path: every count set to 0 just before
+    drive(), read just after it."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    drive()
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -418,9 +705,22 @@ def main() -> int:
     golden = load_golden()
     want = golden["segs"]
     mg = load_mixed_golden()
+    dg = load_device_fe_golden()
     with tempfile.TemporaryDirectory() as model_dir:
         make_synth_model(model_dir, seed=0, width="en-us")
         al = TorchAligner(hmm=model_dir, samprate=SAMPRATE, device="cuda")
+        prev = os.environ.get("SST_FE")
+        os.environ["SST_FE"] = "device"
+        try:
+            al_dev = TorchAligner(hmm=model_dir, samprate=SAMPRATE,
+                                  device="cuda")
+        finally:
+            if prev is None:
+                del os.environ["SST_FE"]
+            else:
+                os.environ["SST_FE"] = prev
+    if al.native_fe is None or al_dev.native_fe is not None:
+        raise AssertionError("expected one host-FE and one device-FE aligner")
     audios8 = [austen_audio(i) for i in range(N_UTT)]
     big = [audios8[i % N_UTT] for i in range(BIG_B)]
     log(f"model: {al.am.n_sen} senones, {al.am.n_mgau} codebooks, "
@@ -430,27 +730,40 @@ def main() -> int:
     results: dict = {}
     phase_kernels(al, big, results)
     phase_kernels_mixed(al, mg["texts"], results)
-    # 5-7. main, mixed and serving paths, counted
+    phase_kernels_fe(al_dev, al, big, results)
+    phase_kernels_vit_chunk(al_dev, results)
     wrappers = {name: fn for name, fn, _, _ in KERNELS}
-    for fn in wrappers.values():
-        fn.launches = 0
-    phase_main(al, audios8, want)
-    phase_mixed(al, mg)
-    segs8 = golden_segs(want)
-    phase_serve(al, [(TEXT, audios8[i % N_UTT], segs8[i % N_UTT])
-                     for i in range(N_REQUESTS)], "same-transcript")
-    # batches of 32 that wait long enough to fill: a batch of one
-    # transcript would take the same-transcript path
-    union_segs = golden_segs(mg["union"])
-    phase_serve(al, [(mg["texts"][i % N_MIXED], mixed_audio(i % N_MIXED),
-                      union_segs[i % N_MIXED]) for i in range(2 * N_MIXED)],
-                "mixed", max_batch=N_MIXED, max_wait_ms=5000.0)
-    torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    missing = [n for n, k in launches.items() if k == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+
+    # 5. host-FE paths: main, mixed and serving, counted
+    def host_paths():
+        phase_main(al, audios8, want)
+        phase_mixed(al, mg)
+        segs8 = golden_segs(want)
+        phase_serve(al, [(TEXT, audios8[i % N_UTT], segs8[i % N_UTT])
+                         for i in range(N_REQUESTS)], "same-transcript")
+        # batches of 32 that wait long enough to fill: a batch of one
+        # transcript would take the same-transcript path
+        union_segs = golden_segs(mg["union"])
+        phase_serve(al, [(mg["texts"][i % N_MIXED], mixed_audio(i % N_MIXED),
+                          union_segs[i % N_MIXED])
+                         for i in range(2 * N_MIXED)],
+                    "mixed", max_batch=N_MIXED, max_wait_ms=5000.0)
+
+    log("host-FE paths:")
+    host = count_path(wrappers, host_paths)
+    # 6. device-FE paths, counted
+    log("device-FE paths:")
+    device = count_path(wrappers, lambda: phase_device_fe(al_dev, audios8, dg))
+    for path, counts, names in (("host-FE", host, HOST_PATH),
+                                ("device-FE", device, DEVICE_FE_PATH)):
+        log(f"  {path} launches: " + ", ".join(
+            f"{n} {counts[n]}" for n in names))
+        missing = [n for n in names if counts[n] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"paths: {missing}")
+    # each kernel's count from the path that brought it in
+    launches = {n: host[n] if n in HOST_PATH else device[n] for n in wrappers}
     entries = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])
                for name, _, src, rep in KERNELS]

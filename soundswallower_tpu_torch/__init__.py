@@ -1,6 +1,6 @@
-"""soundswallower_tpu_torch: the batch forced aligner of
-``soundswallower_tpu`` ported to PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (``csrc/``).
+"""soundswallower_tpu_torch: the forced aligner of ``soundswallower_tpu``
+(batches, single utterances, streams, the device front end) ported to
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (``csrc/``).
 
 Importing the package builds nothing and imports no JAX.  The public
 class is :class:`TorchAligner` (``aligner.py``); ``device="cpu"`` runs

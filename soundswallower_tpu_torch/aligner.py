@@ -1,7 +1,6 @@
-"""TorchAligner: batch forced alignment on PyTorch.
+"""TorchAligner: forced alignment on PyTorch.
 
-Port of the batch paths of ``soundswallower_tpu/aligner.py``
-(TpuAligner):
+Port of ``soundswallower_tpu/aligner.py`` (TpuAligner):
 
 * same transcript: host C++ MFCC -> int16 byte-plane wire -> upload ->
   K1 dynamic features -> K2/K3 graph-restricted senone scores -> K4
@@ -14,23 +13,32 @@ Port of the batch paths of ``soundswallower_tpu/aligner.py``
   and K6 over a stack of per-row graphs;
 * ``align_batch_scored``: always the full-inventory route, with token
   scores, and Python extraction of per-word, per-phone and (with
-  ``want_states``) per-state scores.
+  ``want_states``) per-state scores;
+* the device front end, where TpuAligner takes it (``SST_FE=device``, or
+  no host FE library): pinned int16 upload -> K8/K9/K10 MFCC -> K1's
+  float32 form, on both batch routes; ``align`` then runs the
+  single-utterance path (K8-K10, K1, K2/K3, K4's carry form with the
+  final select and backtrace);
+* ``stream`` (streaming.AlignStream) and ``spectrogram`` on the device
+  front end.
 
 Host modules (config, model, dictionary, phone graph, native FE,
-segment extraction library) are the JAX package's own, loaded through
-``_shared``.
+segment extraction library, live CMN) are the JAX package's own, loaded
+through ``_shared``.  Without ``native/libsst_seg.so``, segments are
+extracted in Python, as TpuAligner does.
 
 ``device="cuda"`` runs the hand-written kernels (``csrc/``) and raises
 if no CUDA device is present; ``device="cpu"`` runs their plain PyTorch
 versions.  Nothing falls back from one to the other.
 
 Still to be ported: ``want_scores`` on the same-transcript path, the ms
-and semi backends, 5-state models, ``decode*``, ``stream``,
-``align_longform_batch``, ``use_mesh`` and ``update_mllr``.
+and semi backends, 5-state models, ``decode*``, ``align_longform_batch``,
+``use_mesh`` and ``update_mllr``.
 """
 
 from __future__ import annotations
 
+import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -38,11 +46,12 @@ import numpy as np
 import torch
 
 from ._shared import load
-from .fe.feat import feat
+from .fe.feat import feat, feat_f32
 from .fe.frontend import Frontend
 from .ops.align_torch import (WORST_SCORE, RowVitConsts, VitConsts,
                               build_pred_table, row_consts_from_numpy,
-                              stack_graphs, viterbi_batch, viterbi_rows)
+                              stack_graphs, viterbi_batch, viterbi_rows,
+                              viterbi_single)
 from .ops.senscore_torch import (GraphScorer, dense_scorer, gather_cols,
                                  score_frames, score_frames_graph)
 from .utils import to_device
@@ -176,11 +185,13 @@ class TorchAligner:
                                config.get_bool("dictcase"))
         self.d2p = Dict2Pid(self.am.mdef, self.dict)
         self.fe = Frontend.from_config(config)
-        self.native_fe = NativeFrontend.load(self.fe)
+        # the host C++ MFCC unless SST_FE=device; without it (or where it
+        # refuses the configuration) the device front end, K8-K10
+        self.native_fe = None
+        if os.environ.get("SST_FE", "host") != "device":
+            self.native_fe = NativeFrontend.load(self.fe)
         if self.native_fe is None:
-            raise RuntimeError(
-                "the host C++ front end (native/libsst_fe.so) did not load; "
-                "the device front end is not ported (ROADMAP.md B10)")
+            self.fe.check_supported()
         # i16p wire scale (aligner.py: 256 for legacy, 128 for dct/htk)
         self.wire_scale = 256.0 if config["transform"] == "legacy" else 128.0
         self.do_cmn = config["cmn"] in ("batch", "current")
@@ -245,17 +256,43 @@ class TorchAligner:
 
     def align(self, audio: np.ndarray, text: str,
               dist_mode: str = "fold") -> list[WordSeg]:
-        """Align one int16 utterance (through the batch path, as
-        TpuAligner does with its native FE)."""
+        """Align one int16 utterance: through the batch path with the
+        host FE, else on the single-utterance device path (frame axis
+        bucketed to 128), as TpuAligner.align."""
         audio = np.asarray(audio)
         if audio.dtype != np.int16:
             raise TypeError("align expects int16 audio")
         self._fold_only(dist_mode)
-        out = self._batch_end(self._batch_begin(self.graph_for_text(text),
-                                                [audio]))[0]
-        if out is None:
-            raise RuntimeError("Alignment failed to reach final state")
-        return out
+        g = self.graph_for_text(text)
+        if self.native_fe is not None:
+            out = self._batch_end(self._batch_begin(g, [audio]))[0]
+            if out is None:
+                raise RuntimeError("Alignment failed to reach final state")
+            return out
+        n = len(audio)
+        T = self.fe.n_frames(n)
+        Tpad = max(128, -(-T // 128) * 128)
+        c = self._graph_consts(g)
+        sig = self._upload(torch.from_numpy(audio.astype(np.int16)))
+        cep = self.fe.mfcc(sig[None], n, Tpad)
+        Ts = self._upload(torch.tensor([T], dtype=torch.int32))
+        feats = feat_f32(cep, Ts, self.do_cmn)[0]
+        sen = score_frames_graph(c.gs, feats)
+        path, _ = viterbi_single(sen, T, c.vit)
+        return self._extract(g, path.cpu().numpy(), T)
+
+    def stream(self, text: str):
+        """Streaming alignment with an explicit, checkpointable state
+        (streaming.AlignStream): push int16 chunks, end() -> segments."""
+        from .streaming import AlignStream
+
+        return AlignStream(self, text)
+
+    def spectrogram(self, audio: np.ndarray,
+                    smooth: bool = False) -> np.ndarray:
+        """Mel log-spectra [n_frames, nfilt] float32 on the device front
+        end (the JS binding's spectrogram(), js/soundswallower.c:88-112)."""
+        return self.fe.spectrogram(audio, smooth, device=self.device)
 
     def align_batch(self, audios: list[np.ndarray], texts: list[str],
                     dist_mode: str = "fold") -> list[list[WordSeg]]:
@@ -334,8 +371,12 @@ class TorchAligner:
     def _chunk_feats(self, audios, Ts_d: torch.Tensor, Tmax: int):
         """Start the host FE of every upload chunk on the worker thread
         now; return an iterator of (first row, planes, K1 features
-        [n, Tmax, 3, 13]) per chunk, uploading each as it is reached."""
+        [n, Tmax, 3, 13]) per chunk, uploading each as it is reached.
+        Without the host FE: (first row, int16 audio [n, N], features)
+        from the device FE."""
         chunk = self._chunk_size(len(audios))
+        if self.native_fe is None:
+            return self._chunk_feats_device(audios, Ts_d, Tmax, chunk)
         futs = [(i0, self._fe_pool.submit(self.native_fe.process_list_i16p,
                                           audios[i0:i0 + chunk], Tmax,
                                           self.wire_scale))
@@ -346,6 +387,28 @@ class TorchAligner:
                 pl = self._upload(torch.from_numpy(fut.result()))
                 yield i0, pl, feat(pl, Ts_d[i0:i0 + pl.shape[1]],
                                    1.0 / self.wire_scale, self.do_cmn)
+        return chunks()
+
+    def _chunk_feats_device(self, audios, Ts_d: torch.Tensor, Tmax: int,
+                            chunk: int):
+        """The device-FE route (TpuAligner._feats_chunk_raw): the batch's
+        int16 audio zero-padded to its longest row in one (pinned)
+        buffer; per chunk an upload, K8/K9/K10 from a fresh state and
+        K1's float32 form."""
+        ns = np.array([len(a) for a in audios], np.int32)
+        buf = torch.zeros((len(audios), int(ns.max())), dtype=torch.int16,
+                          pin_memory=self.device.type == "cuda")
+        host = buf.numpy()
+        for i, a in enumerate(audios):
+            host[i, :len(a)] = a
+        ns_d = self._upload(torch.from_numpy(ns))
+
+        def chunks():
+            for i0 in range(0, len(audios), chunk):
+                sig = buf[i0:i0 + chunk].to(self.device, non_blocking=True)
+                cep = self.fe.mfcc(sig, ns_d[i0:i0 + chunk], Tmax)
+                yield i0, sig, feat_f32(cep, Ts_d[i0:i0 + sig.shape[0]],
+                                        self.do_cmn)
         return chunks()
 
     def _batch_begin(self, g: AlignGraph, audios) -> _Batch:
@@ -501,15 +564,18 @@ class TorchAligner:
 
     def _batch_end(self, handle: _Batch) -> list:
         """Wait for the downloads; native extraction on the unscored
-        path, Python extraction (scores, states) otherwise."""
+        path when the library loads, Python extraction (and scores,
+        states) otherwise."""
         if handle.done is not None:
             handle.done.synchronize()
         if handle.realB == 0:
             return []
         paths = handle.paths.numpy()
         if handle.pscore is None and not self.want_states:
-            return self._extract_batch_native(handle.graphs, paths,
-                                              handle.Ts, handle.realB)
+            out = self._extract_batch_native(handle.graphs, paths,
+                                             handle.Ts, handle.realB)
+            if out is not None:
+                return out
         pscores = None if handle.pscore is None else handle.pscore.numpy()
         return [self._extract_safe(g, paths[i], int(handle.Ts[i]),
                                    None if pscores is None else pscores[i])
@@ -518,21 +584,21 @@ class TorchAligner:
     # -- segment extraction ------------------------------------------------------
 
     def _seg_lib(self):
+        """native/libsst_seg.so, or None where it does not load."""
         if not hasattr(self, "_segl"):
             import ctypes as ct
 
             lib = load("utils.native_build").load_native("libsst_seg.so")
-            if lib is None:
-                raise RuntimeError("native/libsst_seg.so did not build")
-            i32p = np.ctypeslib.ndpointer(np.int32)
-            i64p = np.ctypeslib.ndpointer(np.int64)
-            lib.sst_extract_batch.restype = ct.c_int
-            lib.sst_extract_batch.argtypes = [
-                np.ctypeslib.ndpointer(np.int16), ct.c_int, ct.c_int,
-                i64p, ct.c_int, i32p, i32p, i32p, i64p,
-                i32p, i32p, i32p, i32p, i32p, i32p,
-                i32p, i32p, i32p, ct.c_int64, ct.c_int64,
-            ]
+            if lib is not None:
+                i32p = np.ctypeslib.ndpointer(np.int32)
+                i64p = np.ctypeslib.ndpointer(np.int64)
+                lib.sst_extract_batch.restype = ct.c_int
+                lib.sst_extract_batch.argtypes = [
+                    np.ctypeslib.ndpointer(np.int16), ct.c_int, ct.c_int,
+                    i64p, ct.c_int, i32p, i32p, i32p, i64p,
+                    i32p, i32p, i32p, i32p, i32p, i32p,
+                    i32p, i32p, i32p, ct.c_int64, ct.c_int64,
+                ]
             self._segl = lib
         return self._segl
 
@@ -567,8 +633,10 @@ class TorchAligner:
                               Ts: np.ndarray, realB: int) -> list:
         """Whole-batch segment extraction with native/sst_seg.cpp (the
         library TpuAligner._extract_batch_native calls, same tables),
-        one graph per row."""
+        one graph per row; None where the library does not load."""
         lib = self._seg_lib()
+        if lib is None:
+            return None
         wo, vo, cp, offs = self._seg_tables(graphs)
         paths = np.ascontiguousarray(paths[:realB], np.int16)
         Ts64 = np.ascontiguousarray(Ts[:realB], np.int64)
@@ -715,9 +783,6 @@ class TorchAligner:
         raise _unported("decode", "A8")
 
     decode_batch = decode_batch_scored = decode_search = decode
-
-    def stream(self, *a, **k):
-        raise _unported("stream", "A11")
 
     def align_longform_batch(self, *a, **k):
         raise _unported("align_longform_batch", "A12")

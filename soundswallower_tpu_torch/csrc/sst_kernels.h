@@ -90,6 +90,57 @@ int sst_viterbi_rows(const int32_t* sen, const int32_t* n_frames,
 int sst_frame_best_sub(const int32_t* in, int16_t* out, int N, int S,
                        cudaStream_t stream);
 
+// K1, float32 form: cep float32 [B, T, ncep], n_frames int32 [B]
+// -> out float32 [B, T, 3, ncep].
+int sst_feat_f32(const float* cep, const int32_t* n_frames, float* out,
+                 int B, int T, int ncep, int do_cmn, cudaStream_t stream);
+
+// K4, carry form (single utterance, frames t0 .. t0+C-1).
+// sen int32 [C, P*3]; n = the utterance's frame count; graph tables as
+// K4; carry score/hist int32 [P, 3], osc/ohi int32 [P], best_prev int32
+// [1], read and written back -> tok int16 [C, P*3].  With fin != NULL
+// (int32 [n_fin]), also the final-node select and backtrace: path int32
+// [C] (-1 at and after n - t0), fscore int32 [1].
+int sst_viterbi_chunk(const int32_t* sen, int t0, int n, const int32_t* tp,
+                      const int32_t* pred_idx, const int32_t* pred_pen,
+                      const uint8_t* pred_ok, const int32_t* astart,
+                      const int32_t* aend, int32_t* score, int32_t* hist,
+                      int32_t* osc, int32_t* ohi, int32_t* best_prev, int C,
+                      int P, int K, int16_t* tok, const int32_t* fin,
+                      int n_fin, int32_t* path, int32_t* fscore,
+                      cudaStream_t stream);
+
+// K8: pre-emphasis, framing, window, FFT, power spectrum, mel fold.
+// sig int16 (sig_i16 = 1) or float32 [B, N]; n_samps int32 [B]; prior
+// float32 [B]; window float64 [size]; perm int32 [nfft]; ccc/sss float64
+// [nfft/4]; spec_start/widths int32 [nfilt]; coeff float32 [nfilt, maxw]
+// -> out float64 [B, T, nfilt].
+int sst_fe_spec(const void* sig, int sig_i16, const int32_t* n_samps,
+                const float* prior, const double* window, const int32_t* perm,
+                const double* ccc, const double* sss,
+                const int32_t* spec_start, const int32_t* widths,
+                const float* coeff, double* out, int B, int N, int T,
+                int shift, int size, int nfft, int nfilt, int maxw,
+                double alpha, cudaStream_t stream);
+
+// K9: noise removal.  mfspec float64 [B, T, nf]; n_frames int32 [B];
+// carry power/noise/floor/peak float64 [B, nf] and undef uint8 [B], read
+// and written back -> out float64 [B, T, nf].  masked: the floor
+// update's operand order of the JAX program's masked scan.
+int sst_fe_noise(const double* mfspec, const int32_t* n_frames, double* power,
+                 double* noise, double* floor_, double* peak, uint8_t* undef,
+                 double* out, int B, int T, int nf, int masked,
+                 cudaStream_t stream);
+
+// K10: log, DCT (kind 0 dct, 1 htk, 2 legacy), lifter.  mfspec float64
+// [M, nfilt]; mel_cosine float32 [ncep, nfilt]; lifter float32 [ncep] or
+// NULL -> ls_out float64 [M, nfilt] (or NULL) and cep float32 [M, ncep]
+// (or NULL).
+int sst_fe_cep(const double* mfspec, const float* mel_cosine,
+               const float* lifter, double* ls_out, float* cep, int M,
+               int nfilt, int ncep, int kind, float scale0, float sqrt_inv_2n,
+               cudaStream_t stream);
+
 const char* sst_error_string(int err);
 
 }  // extern "C"

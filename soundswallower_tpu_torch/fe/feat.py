@@ -14,8 +14,12 @@ float32 features [B, T, 3, ncep] out.
 * rows >= n replaced by row n-1, WIN=3 rows replicated at each edge,
   Δ = c[t+2]-c[t-2], ΔΔ = (c[t+3]-c[t-1])-(c[t+1]-c[t-3]).
 
-``feat`` launches ``csrc/feat.cu`` for CUDA tensors and runs
-``feat_plain`` for CPU tensors.  The plain version keeps the float32
+``feat_f32`` is the same kernel's form for float32 cepstra [B, T, ncep]
+(the device front end's output, ``_feats_chunk_raw`` of the JAX
+aligner): no dequant, the same CMN and Δ/ΔΔ.
+
+``feat`` and ``feat_f32`` launch ``csrc/feat.cu`` for CUDA tensors and
+run ``feat_plain``/``feats_plain`` for CPU tensors.  The plain version keeps the float32
 order with an explicit frame loop: ``torch.sum`` would not (it
 accumulates float32 in another order and precision).
 """
@@ -98,3 +102,28 @@ def feat(planes: torch.Tensor, n_frames: torch.Tensor, inv_scale: float,
 
 feat.launches = 0
 
+
+def feat_f32(cep: torch.Tensor, n_frames: torch.Tensor,
+             do_cmn: bool) -> torch.Tensor:
+    """K1's float32 form: cepstra float32 [B, T, ncep], n_frames int32
+    [B] -> features float32 [B, T, 3, ncep]."""
+    if cep.device.type == "cpu":
+        return feats_plain(cep, n_frames, do_cmn)
+    if cep.device.type != "cuda":
+        raise ValueError(f"feat_f32: unsupported device {cep.device}")
+    B, T, ncep = cep.shape
+    cuda_build.check_tensor(cep, torch.float32, "cep")
+    cuda_build.check_tensor(n_frames, torch.int32, "n_frames", cep.device)
+    if n_frames.shape != (B,):
+        raise ValueError(f"feat_f32: n_frames shape {tuple(n_frames.shape)} "
+                         f"!= ({B},)")
+    out = torch.empty((B, T, 3, ncep), dtype=torch.float32, device=cep.device)
+    lib = cuda_build.lib()
+    err = lib.sst_feat_f32(cep.data_ptr(), n_frames.data_ptr(), out.data_ptr(),
+                           B, T, ncep, int(bool(do_cmn)), cuda_build.stream(cep))
+    cuda_build.check(err, "feat_f32")
+    feat_f32.launches += 1
+    return out
+
+
+feat_f32.launches = 0

@@ -1,4 +1,4 @@
-"""Batch Viterbi, final-node select and backtrace (kernels K4 and K6).
+"""Viterbi, final-node select and backtrace (kernels K4 and K6).
 
 Port of ``soundswallower_tpu/ops/align_jax.py`` align_viterbi_batch
 (make_vit_step_lanes, _eval_3st_lanes, vit_carry0_lanes) and
@@ -8,7 +8,17 @@ backtrace_batch, in its two graph forms:
   final-node select of ``soundswallower_tpu/aligner.py`` _vit_full.run;
 * K6 ``viterbi_rows``: a graph per row (``stack_graphs``), with the
   masked select of _vit_full_mg.run, the banded predecessor form and,
-  under ``with_scores``, the token-score stack and path scores.
+  under ``with_scores``, the token-score stack and path scores;
+
+and of the single-utterance programs (make_vit_step, vit_carry0,
+align_viterbi, backtrace), as K4's carry form:
+
+* ``viterbi_chunk``: frames t0 .. t0+C-1 of one utterance from a carry
+  (score, hist [P, 3], out_score, out_hist [P], best_prev []) to the
+  next, tokens [C, S] int16 (AlignStream's 128-frame chunks);
+* ``viterbi_single``: a whole utterance from ``vit_carry0``, then
+  _viterbi_graph's final-node select and backtrace: path int32 [T],
+  -1 at and after n.
 
 Graph-state scores [B, T, S=P*3] int32 in, the decoded state path
 [B, T] int16 and the final score [B] int32 out.
@@ -244,6 +254,29 @@ def _kslot_enter(pred_idx, pred_pen, pred_ok):
     return enter
 
 
+def _argmax_enter(pred_idx, pred_pen, pred_ok):
+    """make_vit_step's predecessor choice, jnp.argmax over the K slots
+    (tables [P, K], state [1, P]): the first maximum, starting at slot
+    0, so a slot at or below WORST_SCORE can win where the strict ``>``
+    of _kslot_enter takes none."""
+    def enter(osc, ohi, anext):
+        es = eh = eok = None
+        for k in range(pred_idx.shape[1]):
+            src = pred_idx[:, k].long()
+            ok = pred_ok[:, k].bool() & anext[0, src]
+            val = torch.where(ok, osc[0, src] + pred_pen[:, k],
+                              torch.full_like(osc[0], WORST_SCORE))
+            if k == 0:
+                es, eh, eok = val, ohi[0, src], ok
+                continue
+            upd = val > es
+            es = torch.where(upd, val, es)
+            eh = torch.where(upd, ohi[0, src], eh)
+            eok = torch.where(upd, ok, eok)
+        return es[None], eh[None], eok[None]
+    return enter
+
+
 def _shift_down(x: torch.Tensor, d: int, fill) -> torch.Tensor:
     """x [B, P] with column p reading column p-d; the first d take fill."""
     out = torch.full_like(x, fill)
@@ -276,11 +309,14 @@ def _band_enter(band_pen, band_ok):
 
 
 def _forward_plain(sen, n_frames, tp, astart, aend, entry, enter,
-                   with_scores: bool):
+                   with_scores: bool, carry=None, t0: int = 0):
     """The frame recurrence: sen int32 [B, T, S]; tp [P, 3, 4] (shared)
     or [B, P, 3, 4]; astart/aend/entry [P] or [B, P]; ``enter`` the
-    predecessor max.  Returns the int16 token stack [B, T, S], the token
-    scores (int32, or None), out_score and out_hist [B, P]."""
+    predecessor max; frames t0 .. t0+T-1 from ``carry`` (score, hist
+    [B, P, 3], out_score, out_hist [B, P], best_prev [B]) or, without
+    one, from the entry scores.  Returns the int16 token stack [B, T, S],
+    the token scores (int32, or None) and the carry after the last
+    frame."""
     B, T, S = sen.shape
     P = S // 3
     dev = sen.device
@@ -299,23 +335,27 @@ def _forward_plain(sen, n_frames, tp, astart, aend, entry, enter,
     int_min = torch.tensor(-2147483648, dtype=i32, device=dev)
     ast, aen = rowwise(astart), rowwise(aend)
     n = n_frames.to(i32)[:, None]                               # [B, 1]
-    score = full((B, P, 3), WORST_SCORE)
-    score[:, :, 0] = rowwise(entry)
-    hist = full((B, P, 3), -1)
-    osc = full((B, P), WORST_SCORE)
-    ohi = full((B, P), -1)
-    best_prev = full((B,), 0)
+    if carry is None:
+        score = full((B, P, 3), WORST_SCORE)
+        score[:, :, 0] = rowwise(entry)
+        hist = full((B, P, 3), -1)
+        osc = full((B, P), WORST_SCORE)
+        ohi = full((B, P), -1)
+        best_prev = full((B,), 0)
+    else:
+        score, hist, osc, ohi, best_prev = (x.to(i32).clone() for x in carry)
     sidx = torch.arange(S, dtype=i32, device=dev).view(1, P, 3)
     tok = torch.empty((B, T, S), dtype=torch.int16, device=dev)
     tsc = torch.empty((B, T, S), dtype=i32, device=dev) if with_scores \
         else None
-    for t in range(T):
+    for c in range(T):
+        t = t0 + c
         valid = t < n
         active = (t >= ast) & (t <= aen) & valid                # [B, P]
         renorm = ((best_prev - 0x300000) < WORST_SCORE)[:, None, None]
         score = torch.where(renorm & (score > WORST_SCORE),
                             score - best_prev[:, None, None], score)
-        sen_t = sen[:, t].view(B, P, 3)
+        sen_t = sen[:, c].view(B, P, 3)
         s0 = score[..., 0] - sen_t[..., 0]
         s1 = score[..., 1] - sen_t[..., 1]
         s2 = score[..., 2] - sen_t[..., 2]
@@ -357,12 +397,12 @@ def _forward_plain(sen, n_frames, tp, astart, aend, entry, enter,
         score[..., 0] = torch.where(enter_now, es, score[..., 0])
         hist[..., 0] = torch.where(enter_now, eh, hist[..., 0])
         rec = (active | enter_now)[..., None]
-        tok[:, t] = torch.where(rec, hist, -1).to(torch.int16).view(B, S)
+        tok[:, c] = torch.where(rec, hist, -1).to(torch.int16).view(B, S)
         if with_scores:
-            tsc[:, t] = torch.where(rec, score, -1).view(B, S)
+            tsc[:, c] = torch.where(rec, score, -1).view(B, S)
         hist = torch.where(rec, sidx, hist)
         best_prev = best
-    return tok, tsc, osc, ohi
+    return tok, tsc, (score, hist, osc, ohi, best_prev)
 
 
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:
@@ -400,7 +440,7 @@ def viterbi_batch_plain(sen: torch.Tensor, n_frames: torch.Tensor,
                         c: VitConsts):
     """Plain PyTorch version of K4: sen int32 [B, T, S], n_frames int32
     [B] -> (path int16 [B, T], fscore int32 [B])."""
-    tok, _, osc, ohi = _forward_plain(
+    tok, _, (_, _, osc, ohi, _) = _forward_plain(
         sen, n_frames, c.tp, c.astart, c.aend, c.entry,
         _kslot_enter(c.pred_idx[None], c.pred_pen[None], c.pred_ok[None]),
         False)
@@ -421,8 +461,8 @@ def viterbi_rows_plain(sen: torch.Tensor, n_frames: torch.Tensor,
         enter = _band_enter(c.band_pen, c.band_ok)
     else:
         enter = _kslot_enter(c.pred_idx, c.pred_pen, c.pred_ok)
-    tok, tsc, osc, ohi = _forward_plain(sen, n_frames, c.tp, c.astart,
-                                        c.aend, c.entry, enter, with_scores)
+    tok, tsc, (_, _, osc, ohi, _) = _forward_plain(
+        sen, n_frames, c.tp, c.astart, c.aend, c.entry, enter, with_scores)
     # masked select: first max over node index; a row that reached no
     # final node backtraces from -1
     rows = torch.arange(sen.shape[0], device=sen.device)
@@ -434,6 +474,56 @@ def viterbi_rows_plain(sen: torch.Tensor, n_frames: torch.Tensor,
                          torch.full_like(fscore, -1))
     path, pscore = _backtrace_plain(tok, tsc, fstate, fscore, n_frames)
     return path, pscore, fscore
+
+
+def vit_carry0(c: VitConsts):
+    """The Viterbi carry before frame 0 (vit_carry0 with the graph's
+    entry scores): score, hist int32 [P, 3], out_score, out_hist int32
+    [P], best_prev int32 []."""
+    P, dev = c.P, c.tp.device
+    score = torch.full((P, 3), WORST_SCORE, dtype=torch.int32, device=dev)
+    score[:, 0] = c.entry
+    return (score, torch.full((P, 3), -1, dtype=torch.int32, device=dev),
+            torch.full((P,), WORST_SCORE, dtype=torch.int32, device=dev),
+            torch.full((P,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def viterbi_chunk_plain(sen: torch.Tensor, carry: tuple, t0: int, n: int,
+                        c: VitConsts):
+    """Plain PyTorch version of K4's carry form: sen int32 [C, S],
+    frames t0 .. t0+C-1 of an utterance of n frames -> (new carry, tok
+    int16 [C, S])."""
+    tok, _, new = _forward_plain(
+        sen[None], torch.tensor([n], dtype=torch.int32, device=sen.device),
+        c.tp, c.astart, c.aend, None,
+        _argmax_enter(c.pred_idx, c.pred_pen, c.pred_ok), False,
+        carry=tuple(x[None] for x in carry), t0=t0)
+    return tuple(x[0] for x in new), tok[0]
+
+
+def _backtrace_single(tok: np.ndarray, cur: int, n: int) -> np.ndarray:
+    """align_jax.py backtrace over tok [T, S]: path int32 [T], -1 at and
+    after n; the lookup wraps a negative state and clamps, as jnp
+    indexing does."""
+    T, S = tok.shape
+    path = np.empty(T, np.int32)
+    for t in range(T - 1, -1, -1):
+        path[t] = cur if t < n else -1
+        if t < n - 1:
+            cur = int(tok[t, min(max(cur + S if cur < 0 else cur, 0), S - 1)])
+    return path
+
+
+def viterbi_single_plain(sen: torch.Tensor, n: int, c: VitConsts):
+    """Plain PyTorch version of viterbi_single: sen int32 [T, S] ->
+    (path int32 [T], final score int32 [])."""
+    (_, _, osc, ohi, _), tok = viterbi_chunk_plain(sen, vit_carry0(c), 0, n,
+                                                   c)
+    fin = c.fin.long()
+    fnode = fin[_first_argmax(osc[fin][None])[0]]
+    path = _backtrace_single(tok.cpu().numpy(), int(ohi[fnode]), n)
+    return torch.from_numpy(path).to(sen.device), osc[fnode].clone()
 
 
 # -- kernels -----------------------------------------------------------------
@@ -544,3 +634,68 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
 
 
 viterbi_rows.launches = 0
+
+
+def _launch_chunk(sen, carry, t0: int, n: int, c: VitConsts, fin):
+    """One launch of K4's carry form (see sst_viterbi_chunk); the carry
+    tensors are copies, written in place by the kernel."""
+    _check_viterbi_shape("viterbi_chunk", sen[None], c.P)
+    C, S = sen.shape
+    lib = _check_smem("viterbi_chunk", c.P)
+    dev = sen.device
+    ck = cuda_build.check_tensor
+    ck(sen, torch.int32, "sen")
+    for name in ("tp", "pred_idx", "pred_pen", "astart", "aend", "fin"):
+        ck(getattr(c, name), torch.int32, name, dev)
+    ck(c.pred_ok, torch.uint8, "pred_ok", dev)
+    new = tuple(x.to(device=dev, dtype=torch.int32).contiguous().clone()
+                for x in carry)
+    shapes = ((c.P, 3), (c.P, 3), (c.P,), (c.P,), ())
+    if tuple(tuple(x.shape) for x in new) != shapes:
+        raise ValueError(f"viterbi_chunk: carry shapes "
+                         f"{[tuple(x.shape) for x in new]}, expected {shapes}")
+    tok = torch.empty((C, S), dtype=torch.int16, device=dev)
+    path = fscore = None
+    if fin is not None:
+        path = torch.empty(C, dtype=torch.int32, device=dev)
+        fscore = torch.empty((), dtype=torch.int32, device=dev)
+    err = lib.sst_viterbi_chunk(
+        sen.data_ptr(), int(t0), int(n), c.tp.data_ptr(),
+        c.pred_idx.data_ptr(), c.pred_pen.data_ptr(), c.pred_ok.data_ptr(),
+        c.astart.data_ptr(), c.aend.data_ptr(), *(x.data_ptr() for x in new),
+        C, c.P, c.pred_idx.shape[1], tok.data_ptr(),
+        0 if fin is None else fin.data_ptr(),
+        0 if fin is None else fin.shape[0],
+        0 if path is None else path.data_ptr(),
+        0 if fscore is None else fscore.data_ptr(), cuda_build.stream(sen))
+    cuda_build.check(err, "viterbi_chunk")
+    viterbi_chunk.launches += 1
+    return new, tok, path, fscore
+
+
+def viterbi_chunk(sen: torch.Tensor, carry: tuple, t0: int, n: int,
+                  c: VitConsts):
+    """K4's carry form: sen int32 [C, S], the carry before frame t0, the
+    utterance's frame count n (frames >= n are padding) -> (carry after
+    frame t0+C-1, tok int16 [C, S])."""
+    if sen.device.type == "cpu":
+        return viterbi_chunk_plain(sen, carry, t0, n, c)
+    if sen.device.type != "cuda":
+        raise ValueError(f"viterbi_chunk: unsupported device {sen.device}")
+    new, tok, _, _ = _launch_chunk(sen, carry, t0, n, c, None)
+    return new, tok
+
+
+viterbi_chunk.launches = 0
+
+
+def viterbi_single(sen: torch.Tensor, n: int, c: VitConsts):
+    """One utterance through K4's carry form from vit_carry0, with the
+    final-node select and backtrace in the same launch: sen int32 [T, S]
+    -> (path int32 [T], final score int32 [])."""
+    if sen.device.type == "cpu":
+        return viterbi_single_plain(sen, n, c)
+    if sen.device.type != "cuda":
+        raise ValueError(f"viterbi_single: unsupported device {sen.device}")
+    _, _, path, fscore = _launch_chunk(sen, vit_carry0(c), 0, n, c, c.fin)
+    return path, fscore

@@ -43,6 +43,7 @@ build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures of the launchers (csrc/sst_kernels.h); every launcher
 # returns the cudaError_t of its launch
 _SIGS = {
@@ -57,6 +58,12 @@ _SIGS = {
     "sst_gather_cols": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     "sst_viterbi_rows": [_P] * 12 + [_I] * 5 + [_P] * 6,
     "sst_frame_best_sub": [_P, _P, _I, _I, _P],
+    "sst_feat_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 11 + [_I] * 3
+    + [_P, _P, _I, _P, _P, _P],
+    "sst_fe_spec": [_P, _I] + [_P] * 10 + [_I] * 8 + [_D, _P],
+    "sst_fe_noise": [_P] * 8 + [_I] * 4 + [_P],
+    "sst_fe_cep": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
 }
 
 

@@ -110,7 +110,7 @@ def test_unported_surfaces_raise(small):
             port.align_batch([a], [TEXT])
     finally:
         port.want_scores = False
-    for call in (lambda: port.decode(a), lambda: port.stream(TEXT),
+    for call in (lambda: port.decode(a),
                  lambda: port.align_longform_batch([a], [TEXT]),
                  lambda: port.use_mesh(None), lambda: port.update_mllr("x"),
                  lambda: port.align(a, TEXT, dist_mode="mxu")):

@@ -183,3 +183,131 @@ def test_gpu_mixed_aligner_matches_golden(tmp_path_factory):
     assert [scored_rep(s) for s in al.align_batch_scored(audios, g["texts"])] \
         == g["scored"]
     assert all(w.launches > b for w, b in zip(wrappers, before))
+
+
+# -- the device front end and the Viterbi carry form ---------------------------
+
+FE_SYNTH = dict(sampling_rate=8000, num_filters=20, lower_filt_freq=130,
+                upper_filt_freq=3700, transform="dct", lifter_val=22,
+                remove_noise=True)
+FE_16K = [dict(sampling_rate=16000, fft_size=512, num_filters=40,
+               transform="legacy", remove_noise=True),
+          dict(sampling_rate=16000, fft_size=512, num_filters=40,
+               transform="dct", lifter_val=22, remove_noise=False)]
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("cfg", [FE_SYNTH] + FE_16K)
+def test_fe_kernels_equal_plain_on_card(cfg):
+    """K8 (int16 and float32 input), K9 (masked and plain scans, from a
+    fresh and from a carried state), K10 (cepstra and log spectra) and
+    K1's float32 form against their plain versions on the card."""
+    _need_cuda()
+    from soundswallower_tpu_torch.fe import frontend as ff
+
+    fe = ff.Frontend(**cfg)
+    rng = np.random.RandomState(0)
+    B, N = 5, 2 * cfg["sampling_rate"]
+    sig = np.clip(np.round(rng.randn(B, N) * 3000), -32768, 32767)
+    ns = torch.tensor([N, N - 1, N - 777, 333, 1], dtype=torch.int32).cuda()
+    prior = torch.from_numpy(rng.randn(B).astype(np.float32) * 100).cuda()
+    T = fe.n_frames(N) + 3
+    for x in (torch.from_numpy(sig.astype(np.int16)).cuda(),
+              torch.from_numpy(sig.astype(np.float32)).cuda()):
+        spec = ff.fe_spec(fe, x, ns, prior, T)
+        assert torch.equal(spec, ff.fe_spec_plain(fe, x, ns, prior, T))
+    nf = torch.tensor([T, T - 7, 40, 2, 0], dtype=torch.int32).cuda()
+    carry = fe.noise_init(B, "cuda")
+    for n_frames in (None, nf, nf):
+        got = ff.fe_noise(fe, spec, carry, n_frames)
+        want = ff.fe_noise_plain(fe, spec, carry, n_frames)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+        carry = got[1]
+    for logspec in (False, True):
+        assert torch.equal(ff.fe_cep(fe, spec, logspec),
+                           ff.fe_cep_plain(fe, spec, logspec))
+    cep = ff.fe_cep(fe, spec)
+    n = torch.clamp(nf, min=1)
+    assert torch.equal(fm.feat_f32(cep, n, True), fm.feats_plain(cep, n, True))
+
+
+def test_fe_austen_equals_c_golden_on_card():
+    _need_cuda()
+    import os
+
+    from soundswallower_tpu_torch.fe.frontend import Frontend
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden")
+    audio = np.fromfile(os.path.join(golden, "austen.raw"), np.int16)
+    want = np.fromfile(os.path.join(golden, "austen-en", "mfcc.f32"),
+                       np.float32).reshape(-1, 13)
+    got = Frontend(**FE_SYNTH).process_int16(audio, device="cuda")
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("split", [1, 777, 1600])
+def test_fe_stream_split_on_card(split):
+    """The stream's chunked front end at odd split sizes on the card
+    against the plain version on the CPU (the JAX package's values):
+    cepstra and carried state after every call."""
+    _need_cuda()
+    from soundswallower_tpu_torch.fe.frontend import Frontend
+
+    fe = Frontend(**FE_SYNTH)
+    audio = austen_audio(1)[:3000 if split == 1 else 12000]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        raw, prior = np.zeros(0, np.int16), np.float32(0.0)
+        noise, got = fe.noise_init(device=dev), []
+        for i0 in range(0, len(audio), split):
+            raw = np.concatenate([raw, audio[i0:i0 + split]])
+            count = 1 + (len(raw) - fe.frame_size) // fe.frame_shift \
+                if len(raw) >= fe.frame_size else 0
+            if count <= 0:
+                continue
+            seg = raw[: (count - 1) * fe.frame_shift + fe.frame_size]
+            segp = np.zeros(max(2048, -(-len(seg) // 2048) * 2048),
+                            np.float32)
+            segp[:len(seg)] = seg
+            cep, noise = fe.mfcc_chunk(
+                torch.from_numpy(segp).to(dev), len(seg),
+                max(32, -(-count // 32) * 32), float(prior), noise, count)
+            got.append((cep[:count].cpu(), [x.cpu() for x in noise]))
+            prior = np.float32(raw[count * fe.frame_shift - 1])
+            raw = raw[count * fe.frame_shift:]
+        outs[dev] = got
+    assert len(outs["cpu"]) == len(outs["cuda"]) > 0
+    for (c1, s1), (c2, s2) in zip(outs["cpu"], outs["cuda"]):
+        assert torch.equal(c1, c2)
+        assert all(torch.equal(a, b) for a, b in zip(s1, s2))
+
+
+def test_viterbi_carry_form_equals_plain_on_card(cuda_aligner):
+    """K4's carry form over chunks of 128 frames (the last partial),
+    carry and tokens after each, and the single-utterance path with its
+    select and backtrace, including an utterance that reaches no final
+    state."""
+    al = cuda_aligner
+    c = al._graph_consts(al.graph_for_text(TEXT)).vit
+    rng = np.random.RandomState(4)
+    sen = torch.from_numpy(rng.randint(0, 3000, (384, 3 * c.P))
+                           .astype(np.int32)).cuda()
+    n = 300
+    carry_k = carry_p = at.vit_carry0(c)
+    for t0 in range(0, 384, 128):
+        carry_k, tok_k = at.viterbi_chunk(sen[t0:t0 + 128], carry_k, t0, n, c)
+        carry_p, tok_p = at.viterbi_chunk_plain(sen[t0:t0 + 128], carry_p,
+                                                t0, n, c)
+        assert torch.equal(tok_k, tok_p)
+        assert all(torch.equal(a, b) for a, b in zip(carry_k, carry_p))
+    for nn in (n, 2):
+        path, fs = at.viterbi_single(sen, nn, c)
+        path_p, fs_p = at.viterbi_single_plain(sen, nn, c)
+        assert torch.equal(path, path_p) and torch.equal(fs, fs_p)

@@ -236,7 +236,6 @@ def test_unported_surfaces_still_raise(small_dir):
     port.want_scores = False
     for call in (lambda: port.decode_batch_scored([a]),
                  lambda: port.decode_batch([a]),
-                 lambda: port.stream(TEXT),
                  lambda: port.align_longform_batch([a], [TEXT]),
                  lambda: port.use_mesh(None),
                  lambda: port.update_mllr("x"),

@@ -28,10 +28,15 @@ PKG = os.path.join(REPO, "soundswallower_tpu_torch")
 def test_port_imports_without_jax(tmp_path):
     """Importing the port, and running its mixed and scored paths (where
     stack_graphs is the port's own: the shared one imports align_jax at
-    call time), leaves jax and the JAX package unloaded."""
+    call time), a stream, a spectrogram, and the device front end's batch
+    and single-utterance paths, leaves jax and the JAX package
+    unloaded."""
     code = f"""
+import os
 import sys
 sys.path.insert(0, {os.path.join(REPO, "tools")!r})
+import torch
+torch.set_num_threads(1)
 import soundswallower_tpu_torch.aligner
 import soundswallower_tpu_torch.serve
 from make_synth_model import make_synth_model
@@ -44,6 +49,17 @@ texts = [TEXT, "young man", "he was not"]
 assert all(s is not None for s in al.align_batch(audios, texts))
 assert al._uni["gs"] is not None
 assert all(s is not None for s in al.align_batch_scored(audios, texts))
+st = al.stream(TEXT)
+for i in range(0, len(audios[0]), 1600):
+    st.push(audios[0][i:i + 1600])
+assert st.end() and st.state()["ended"]
+assert al.spectrogram(audios[0], smooth=True).shape[1] == al.fe.num_filters
+os.environ["SST_FE"] = "device"
+dal = soundswallower_tpu_torch.aligner.TorchAligner(
+    hmm=d, samprate=SAMPRATE, device="cpu")
+assert dal.native_fe is None
+assert all(s is not None for s in dal.align_batch(audios, texts))
+assert dal.align(audios[0], TEXT)
 assert 'jax' not in sys.modules, 'jax was imported'
 assert 'soundswallower_tpu' not in sys.modules
 """
@@ -69,7 +85,7 @@ def test_shared_modules_are_the_reference_files():
     """Loaded, not copied: each shared module's file is the JAX
     package's, under the port's own module name."""
     for name in ("config", "logmath", "s3file", "mdef", "dictionary",
-                 "dict2pid", "am", "fe.warp", "fe.native_fe",
+                 "dict2pid", "am", "fe.warp", "fe.native_fe", "fe.cmn_live",
                  "utils.native_build", "ops.align_graph", "serve"):
         mod = _shared.load(name)
         assert mod.__name__ == f"soundswallower_tpu_torch.ref.{name}"

@@ -8,8 +8,9 @@ transcripts of tools/make_torch_mixed_golden.py (the union scorer's
 route), each tiled to B:
 
 * host stages, timed alone: the C++ front end for the batch
-  (``process_list_i16p`` per upload chunk) and the native segment
-  extraction;
+  (``process_list_i16p`` per upload chunk; absent under
+  ``SST_FE=device``, where the device front end K8-K10 runs in the
+  batch's device time) and the native segment extraction;
 * steady-state cadence of ``align_batch_begin``/``align_batch_end``
   pipelined over N batches (median and mean wall time per batch;
   audio-seconds per second as all N batches' audio over their whole
@@ -18,7 +19,8 @@ route), each tiled to B:
   and the device's busy share of the window.
 
 Prints one JSON object.
-Usage: ``python tools/profile_torch_batch.py [B] [N] [same|mixed]``.
+Usage: ``[SST_FE=device] python tools/profile_torch_batch.py [B] [N]
+[same|mixed]``.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def main(B: int = 256, N: int = 8, traffic: str = "same") -> dict:
     _, _, Tmax = al._batch_shape(audios)
     chunk = al._chunk_size(B)
     fe_ms = []
-    for _ in range(5):
+    for _ in range(5 if al.native_fe is not None else 0):
         t0 = time.perf_counter()
         for i0 in range(0, B, chunk):
             al.native_fe.process_list_i16p(audios[i0:i0 + chunk], Tmax,
@@ -123,8 +125,9 @@ def main(B: int = 256, N: int = 8, traffic: str = "same") -> dict:
     med = statistics.median(walls)
     out = {
         "gpu": smi, "traffic": traffic, "B": B, "Tmax": Tmax,
+        "fe": "device" if al.native_fe is None else "host",
         "audio_s_per_batch": audio_s,
-        "host_fe_ms": statistics.median(fe_ms),
+        "host_fe_ms": statistics.median(fe_ms) if fe_ms else None,
         "extract_ms": statistics.median(ex_ms),
         "batch_wall_ms_median": med,
         "batch_wall_ms_mean": statistics.fmean(walls),
