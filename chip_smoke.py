@@ -5,26 +5,31 @@ Drives ``soundswallower_tpu_torch`` through the entry points a user
 calls (``TorchAligner.align_batch``, ``align_batch_scored``, the
 pipelined ``align_batch_begin``/``align_batch_end``, the HTTP service,
 and, on the device front end, ``align``, ``stream`` and
-``spectrogram``), on a synthetic model at the published en-us width
-(tools/make_synth_model.py, seed 0), against results the JAX package
-computed for the same audio (tests/golden/torch-synth/segs.json for one
+``spectrogram``), on synthetic models at the published en-us width
+(tools/make_synth_model.py, seed 0: 8-bit ptm, and the backends 4-bit
+ptm, semi, 4-bit semi and ms), against results the JAX package computed
+for the same audio (tests/golden/torch-synth/segs.json for one
 transcript, mixed_segs.json for 32 different ones, device_fe.json and
-device_fe.npz for its device front end) and against the C reference's
-cepstra (tests/golden/austen-en/mfcc.f32).  Phases, in order; any
-failure raises, so the exit code is non-zero and the last line is not
-printed:
+device_fe.npz for its device front end, backends.json and backends.npz
+for the other backends) and against the C reference's cepstra
+(tests/golden/austen-en/mfcc.f32).  Phases, in order; any failure
+raises, so the exit code is non-zero and the last line is not printed:
 
 1. device: a CUDA device of compute capability 9.0;
 2. build every kernel from ``soundswallower_tpu_torch/csrc``;
-3. model and batches; two aligners, one on the host C++ front end and
-   one under ``SST_FE=device``;
-4. each kernel (K1-K10, K1's float32 form and K4's carry form) against
-   its plain PyTorch version on the card, bit-equal, at the shapes the paths give it (K2/K3
-   at the full-inventory shape on a slice of the dense route's frames;
-   K8-K10 on the whole B=256 batch and at 16 kHz, nfft 512), with median
-   times; the device front end's cepstra of austen.raw against the C
-   reference's; the device front end per B=256 batch beside the host
-   C++ one (informational);
+3. models and batches; two 8-bit ptm aligners, one on the host C++
+   front end and one under ``SST_FE=device``, and one aligner per other
+   backend (host front end);
+4. each kernel (K1-K12, K1's float32 form and K4's carry form) against
+   its plain PyTorch version on the card, bit-equal, at the shapes the
+   paths give it (K2/K3 at the full-inventory shape and K11/K12 on a
+   slice of the dense routes' frames; K8-K10 on the whole B=256 batch
+   and at 16 kHz, nfft 512; K3's wrap_u8 on the 4-bit semi union route,
+   K7's semi form on the semi dense route), with median times, each
+   kernel's bound from this run's inputs and, where one PyTorch call
+   computes the same function, that call's time; the device front end's
+   cepstra of austen.raw against the C reference's; the device front end
+   per B=256 batch beside the host C++ one (informational);
 5. host-FE paths: align_batch on the 8 golden utterances, then 4
    pipelined batches of 256 (the 8 tiled); on a fresh union, align_batch
    on the 32 mixed rows, 4 pipelined batches of 256 that tile them,
@@ -36,13 +41,20 @@ printed:
    single-utterance path, ``spectrogram`` raw and smooth, and ``stream``
    with austen.raw pushed whole, in 1600- and in 777-sample pieces, its
    ``state()`` at the golden's cut, the golden checkpoint restored and a
-   mid-stream checkpoint of its own restored.
+   mid-stream checkpoint of its own restored;
+7. backend paths: each backend's full-inventory scores of 12 golden
+   frames; ms: 2 pipelined batches of 256 of one transcript and 2 of
+   the 32 mixed ones (the dense route: K11, K12, K5, K6), and
+   ``align_batch_scored`` on the 32; 4-bit semi: 2 pipelined batches
+   of 256 of one transcript, then on a fresh union 2 of the mixed ones,
+   then the 32 with the union forced dense; 4-bit ptm: 2 pipelined
+   batches of one transcript; semi: ``align_batch_scored`` on the 32.
 
-Every row, segment list, spectrogram and checkpoint equals its golden.
-The launch counts are reset before phase 5 and read after it, then
-reset before phase 6 and read after it; a kernel of a path launched no
-time there fails the run.  The last lines are one JSON object of
-per-kernel results, the card's name and power limit (nvidia-smi), and
+Every row, score, segment list, spectrogram and checkpoint equals its
+golden.  The launch counts are reset before each of phases 5, 6 and 7
+and read after it; a kernel of a path launched no time there fails the
+run.  The last lines are one JSON object of per-kernel results, the
+card's name and power limit (nvidia-smi), and
 ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
@@ -69,7 +81,10 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from make_synth_model import VARIANTS as MODEL_VARIANTS  # noqa: E402
 from make_synth_model import make_synth_model  # noqa: E402
+from make_torch_backends_golden import (dense_feats,  # noqa: E402
+                                        load_backends_golden)
 from make_torch_device_fe_golden import (CKPT_SAMPLES,  # noqa: E402
                                          STREAM_SPLIT, load_device_fe_golden,
                                          pieces)
@@ -118,6 +133,12 @@ KERNELS = [
     ("viterbi_chunk", align_torch.viterbi_chunk,
      "soundswallower_tpu_torch/csrc/viterbi.cu",
      "soundswallower_tpu/ops/align_jax.py:265"),
+    ("ms_dist_topn", senscore_torch.ms_dist_topn,
+     "soundswallower_tpu_torch/csrc/ms_senscore.cu",
+     "soundswallower_tpu/ops/senscore_jax.py:316"),
+    ("ms_senone_eval", senscore_torch.ms_senone_eval,
+     "soundswallower_tpu_torch/csrc/ms_senscore.cu",
+     "soundswallower_tpu/ops/senscore_jax.py:323"),
 ]
 # the kernels each counted path must launch
 HOST_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
@@ -125,7 +146,15 @@ HOST_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
 DEVICE_FE_PATH = ["fe_spec", "fe_noise", "fe_cep", "feat_f32",
                   "dist_topn_norm", "senone_eval", "viterbi_batch",
                   "gather_cols", "viterbi_rows", "viterbi_chunk"]
-# further measured shapes of a kernel: (entry, kernel, TPU program)
+BACKEND_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
+                "gather_cols", "viterbi_rows", "frame_best_sub",
+                "ms_dist_topn", "ms_senone_eval"]
+# the path each kernel's launch count is read from
+PATH_OF = {**{n: "device-FE" for n in DEVICE_FE_PATH},
+           **{n: "host-FE" for n in HOST_PATH},
+           "ms_dist_topn": "backends", "ms_senone_eval": "backends"}
+BACKENDS = ("ms", "semi4b", "ptm4b", "semi")
+# further measured shapes of a kernel: (entry, kernel, TPU program[, path])
 VARIANTS = [
     ("gather_cols[int16 full inventory]", "gather_cols",
      "soundswallower_tpu/aligner.py:49"),
@@ -145,9 +174,14 @@ VARIANTS = [
      "soundswallower_tpu/fe/frontend.py:418"),
     ("viterbi_chunk[single, backtrace]", "viterbi_chunk",
      "soundswallower_tpu/ops/align_jax.py:665"),
+    ("senone_eval[wrap_u8]", "senone_eval",
+     "soundswallower_tpu/ops/senscore_jax.py:557", "backends"),
+    ("frame_best_sub[semi]", "frame_best_sub",
+     "soundswallower_tpu/ops/senscore_jax.py:301", "backends"),
 ]
 BIG_B = 256
 N_BATCHES = 4
+N_BACKEND_BATCHES = 2
 N_REQUESTS = 16
 DENSE_SLICE = 2048      # frames of the dense route for K2/K3's comparison
 
@@ -189,8 +223,39 @@ def max_abs_err(a, b) -> float:
     return float(torch.nan_to_num(d, nan=0.0).max())
 
 
-def compare(name, fn, plain, results, plain_runs: int = 10):
-    """Kernel vs plain PyTorch on the same device inputs: bit-equal."""
+# NVIDIA H100 SXM peaks (data sheet, 700 W): HBM3 bytes/s; float32
+# outside the tensor cores; int32 (64 lanes per SM against float32's
+# 128: half the float32 rate); float64 outside the tensor cores
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+I32_OPS = 33.5e12
+F64_OPS = 34e12
+
+
+def nbytes(*xs) -> int:
+    """Bytes of tensors, of tuples of them, and of the tensor fields of
+    the scorer and graph tables (each counted once)."""
+    total = 0
+    for x in xs:
+        if x is None:
+            continue
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        else:
+            total += nbytes(*[v for v in vars(x).values()
+                              if isinstance(v, torch.Tensor)])
+    return total
+
+
+def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
+            ops: float = 0.0, rate: float = F32_OPS, library=None):
+    """Kernel vs plain PyTorch on the same device inputs: bit-equal.
+    ``bound_ms`` is the larger of the bytes (``ins``, read once, and the
+    kernel's outputs, written once) over HBM_BPS and ``ops`` over
+    ``rate``; ``library`` is one PyTorch call computing the same
+    function, timed beside the kernel (used nowhere in the port)."""
     out_k = fn()
     out_p = plain()
     torch.cuda.synchronize()
@@ -200,9 +265,36 @@ def compare(name, fn, plain, results, plain_runs: int = 10):
                              f"(max_abs_err {err})")
     ms = time_ms(fn)
     plain_ms = time_ms(plain, plain_runs)
-    log(f"  {name}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    b = bound(nbytes(*ins) + nbytes(out_k), ops, rate)
+    lib_ms = None if library is None else time_ms(library)
+    log(f"  {name}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+        + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms"))
+    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                         library_ms=lib_ms)
     return out_k
+
+
+def bound(n_bytes: int, ops: float, rate: float) -> dict:
+    """The least time for the work: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    b_ms = n_bytes / HBM_BPS * 1e3
+    o_ms = ops / rate * 1e3
+    return dict(bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations")
+
+
+def fold_ops(N: int, sc) -> float:
+    """K2's and K11's float work: 4 operations per density and dim (a
+    subtraction, a square, a fused multiply-add), N frames."""
+    C, F, D, L = sc.means.shape
+    return 4.0 * N * C * F * D * L
+
+
+def vit_ops(sen: torch.Tensor) -> float:
+    """K4's and K6's int32 work: about 10 operations per frame and state
+    (the HMM update's adds and maxes, the predecessor max, the token)."""
+    return 10.0 * sen.numel()
 
 
 def phase_kernels(al: TorchAligner, audios: list, results: dict):
@@ -221,18 +313,19 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
         if first:
             compare("feat", lambda: feat_mod.feat(pl, Tn, inv, al.do_cmn),
                     lambda: feat_mod.feat_plain(pl, Tn, inv, al.do_cmn),
-                    results)
+                    results, ins=(pl, Tn), ops=8.0 * n * Tmax * 13)
         flat = feats.view(n * Tmax, 3, -1)
         if first:
             s, cw = compare(
                 "dist_topn_norm",
                 lambda: senscore_torch.dist_topn_norm(flat, c.gs),
                 lambda: senscore_torch.dist_topn_norm_plain(flat, c.gs),
-                results)
+                results, ins=(flat, c.gs.means, c.gs.var_t, c.gs.det),
+                ops=fold_ops(flat.shape[0], c.gs))
             compare("senone_eval",
                     lambda: senscore_torch.senone_eval(s, cw, c.gs),
                     lambda: senscore_torch.senone_eval_plain(s, cw, c.gs),
-                    results)
+                    results, **eval_bound(s, cw, c.gs))
         senscore_torch.score_frames_graph(
             c.gs, flat, out=sen[i0:i0 + n].view(n * Tmax, -1))
     log(f"  shapes: B={len(audios)} Tmax={Tmax} S={c.gs.S} "
@@ -240,7 +333,23 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
     compare("viterbi_batch",
             lambda: align_torch.viterbi_batch(sen, Ts_d, c.vit),
             lambda: align_torch.viterbi_batch_plain(sen, Ts_d, c.vit),
-            results)
+            results, ins=(sen, Ts_d, c.vit), ops=vit_ops(sen), rate=I32_OPS)
+
+
+def eval_bound(s, cw, gs) -> dict:
+    """K3's bound arguments: the top-N scores and indices, the mixture
+    weights, the column map and the table in; about 6 int32 operations
+    per (frame, state, stream, top-N entry)."""
+    N, _, F, topn = s.shape
+    return dict(ins=(s, cw, gs.mixw, gs.cb_pos, gs.logadd),
+                ops=6.0 * N * gs.S * F * topn, rate=I32_OPS)
+
+
+def gather_library(src, cols):
+    """One PyTorch call for K5 on in-range columns: torch.gather."""
+    idx = cols.long().clamp(0, src.shape[2] - 1)[:, None, :].expand(
+        src.shape[0], src.shape[1], -1).contiguous()
+    return lambda: torch.gather(src, 2, idx)
 
 
 def fresh_union(al: TorchAligner) -> None:
@@ -273,7 +382,8 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
             compare("gather_cols",
                     lambda: senscore_torch.gather_cols(src, cols),
                     lambda: senscore_torch.gather_cols_plain(src, cols),
-                    results)
+                    results, ins=(src, cols),
+                    library=gather_library(src, cols))
         senscore_torch.gather_cols(src, cols, out=sen[i0:i0 + n])
     v = st.vit
     log(f"  union shapes: B={len(audios)} Tmax={Tmax} Spad={uni['Spad']} "
@@ -284,7 +394,8 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
     for name, ws in (("viterbi_rows", False), ("viterbi_rows[scores]", True)):
         compare(name, lambda: align_torch.viterbi_rows(sen, Ts_d, v, ws),
                 lambda: align_torch.viterbi_rows_plain(sen, Ts_d, v, ws),
-                results, plain_runs=2)
+                results, plain_runs=2, ins=(sen, Ts_d, v), ops=vit_ops(sen),
+                rate=I32_OPS)
     fresh_union(al)
     # the dense route: B=32, one chunk
     audios, Ts, Tmax = al._batch_shape([mixed_audio(i)
@@ -302,21 +413,23 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
             "dist_topn_norm[full inventory]",
             lambda: senscore_torch.dist_topn_norm(part, ds),
             lambda: senscore_torch.dist_topn_norm_plain(part, ds),
-            results, plain_runs=2)
+            results, plain_runs=2, ins=(part, ds.means, ds.var_t, ds.det),
+            ops=fold_ops(part.shape[0], ds))
         compare("senone_eval[full inventory]",
                 lambda: senscore_torch.senone_eval(s, cw, ds),
                 lambda: senscore_torch.senone_eval_plain(s, cw, ds),
-                results, plain_runs=2)
+                results, plain_runs=2, **eval_bound(s, cw, ds))
         s, cw = senscore_torch.dist_topn_norm(flat, ds)
         x = senscore_torch.senone_eval(s, cw, ds)
         compare("frame_best_sub",
                 lambda: senscore_torch.frame_best_sub(x),
-                lambda: senscore_torch.frame_best_sub_plain(x), results)
+                lambda: senscore_torch.frame_best_sub_plain(x), results,
+                ins=(x,), ops=2.0 * x.numel(), rate=I32_OPS)
         src = senscore_torch.frame_best_sub(x).view(len(audios), Tmax, -1)
         compare("gather_cols[int16 full inventory]",
                 lambda: senscore_torch.gather_cols(src, cols),
                 lambda: senscore_torch.gather_cols_plain(src, cols),
-                results)
+                results, ins=(src, cols), library=gather_library(src, cols))
 
 
 def wall_ms(fn, runs: int = 5) -> float:
@@ -354,22 +467,29 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
         f"nfft={fe.fft_size} nfilt={fe.num_filters} ncep={fe.num_cepstra}")
     spec = compare("fe_spec", lambda: fe_mod.fe_spec(fe, sig, ns, prior, Tmax),
                    lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, Tmax),
-                   results, plain_runs=2)
+                   results, plain_runs=2, **spec_bound(fe, sig, ns, prior,
+                                                       B * Tmax))
     fresh = fe.noise_init(B, dev)
     den, carry = compare(
         "fe_noise", lambda: fe_mod.fe_noise(fe, spec, fresh),
         lambda: fe_mod.fe_noise_plain(fe, spec, fresh, None), results,
-        plain_runs=2)
+        plain_runs=2, ins=(spec, fresh), ops=40.0 * spec.numel(),
+        rate=F64_OPS)
     compare("fe_noise[masked, carried]",
             lambda: fe_mod.fe_noise(fe, spec, carry, Ts_d),
             lambda: fe_mod.fe_noise_plain(fe, spec, carry, Ts_d), results,
-            plain_runs=2)
+            plain_runs=2, ins=(spec, carry, Ts_d), ops=40.0 * spec.numel(),
+            rate=F64_OPS)
     cep = compare("fe_cep", lambda: fe_mod.fe_cep(fe, den),
-                  lambda: fe_mod.fe_cep_plain(fe, den), results, plain_runs=2)
+                  lambda: fe_mod.fe_cep_plain(fe, den), results, plain_runs=2,
+                  **cep_bound(fe, den))
     compare("fe_cep[logspec]", lambda: fe_mod.fe_cep(fe, den, True),
-            lambda: fe_mod.fe_cep_plain(fe, den, True), results, plain_runs=2)
+            lambda: fe_mod.fe_cep_plain(fe, den, True), results, plain_runs=2,
+            ins=(den,), ops=2.0 * den.numel(), rate=F64_OPS,
+            library=lambda: torch.log(den))
     compare("feat_f32", lambda: feat_mod.feat_f32(cep, Ts_d, al_dev.do_cmn),
-            lambda: feat_mod.feats_plain(cep, Ts_d, al_dev.do_cmn), results)
+            lambda: feat_mod.feats_plain(cep, Ts_d, al_dev.do_cmn), results,
+            ins=(cep, Ts_d), ops=6.0 * cep.numel())
     dev_fe = sum(results[k]["ms"] for k in ("fe_spec", "fe_noise", "fe_cep",
                                              "feat_f32"))
     log(f"  device FE kernels on the B={B} batch, K8+K9+K10+K1: "
@@ -391,15 +511,18 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
     spec16 = compare("fe_spec[16 kHz, nfft 512]",
                      lambda: fe_mod.fe_spec(fe16, x16, ns16, p16, T16),
                      lambda: fe_mod.fe_spec_plain(fe16, x16, ns16, p16, T16),
-                     results, plain_runs=2)
+                     results, plain_runs=2,
+                     **spec_bound(fe16, x16, ns16, p16, B16 * T16))
     fresh16 = fe16.noise_init(B16, dev)
     den16, _ = compare("fe_noise[16 kHz]",
                        lambda: fe_mod.fe_noise(fe16, spec16, fresh16),
                        lambda: fe_mod.fe_noise_plain(fe16, spec16, fresh16,
                                                      None),
-                       results, plain_runs=2)
+                       results, plain_runs=2, ins=(spec16, fresh16),
+                       ops=40.0 * spec16.numel(), rate=F64_OPS)
     compare("fe_cep[16 kHz, legacy]", lambda: fe_mod.fe_cep(fe16, den16),
-            lambda: fe_mod.fe_cep_plain(fe16, den16), results, plain_runs=2)
+            lambda: fe_mod.fe_cep_plain(fe16, den16), results, plain_runs=2,
+            **cep_bound(fe16, den16))
 
     # the C reference's cepstra for this front end
     golden = os.path.join(REPO, "tests", "golden")
@@ -436,6 +559,29 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
         + " (informational)")
 
 
+def spec_bound(fe, sig, ns, prior, frames: int) -> dict:
+    """K8's bound arguments: the signal, counts, priors and tables in;
+    float64 work per frame: pre-emphasis and window (3 per sample), the
+    FFT (5 n log2 n), the power spectrum (3 per bin), the mel fold (2
+    per coefficient)."""
+    n = fe.fft_size
+    per = (3 * fe.frame_size + 5 * n * (n.bit_length() - 1)
+           + 3 * (n // 2 + 1) + 2 * int(fe._widths.sum()))
+    return dict(ins=(sig, ns, prior, list(fe.tables(sig.device).values())),
+                ops=float(per) * frames, rate=F64_OPS)
+
+
+def cep_bound(fe, den) -> dict:
+    """K10's bound arguments: the mel spectra and DCT tables in; per
+    frame a log per filter, the DCT (2 per coefficient and filter) and
+    the lifter, in float64."""
+    M = den.numel() // fe.num_filters
+    t = fe.tables(den.device)
+    per = fe.num_filters * (1 + 2 * fe.num_cepstra) + fe.num_cepstra
+    return dict(ins=(den, t["mel_cosine"], t["lifter"]), ops=float(per) * M,
+                rate=F64_OPS)
+
+
 def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
     """K4's carry form at the stream's shape (the first 128-frame chunk
     from vit_carry0) and at the single-utterance path's (austen_audio(0)
@@ -460,11 +606,13 @@ def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
             lambda: align_torch.viterbi_chunk(first, carry0, 0, T, c.vit),
             lambda: align_torch.viterbi_chunk_plain(first, carry0, 0, T,
                                                     c.vit),
-            results, plain_runs=2)
+            results, plain_runs=2, ins=(first, carry0, c.vit),
+            ops=vit_ops(first), rate=I32_OPS)
     compare("viterbi_chunk[single, backtrace]",
             lambda: align_torch.viterbi_single(sen, T, c.vit),
             lambda: align_torch.viterbi_single_plain(sen, T, c.vit),
-            results, plain_runs=2)
+            results, plain_runs=2, ins=(sen, c.vit), ops=vit_ops(sen),
+            rate=I32_OPS)
 
 
 def check_rows(out, want, what, rep=segs_rep):
@@ -475,14 +623,14 @@ def check_rows(out, want, what, rep=segs_rep):
 
 
 def pipelined(al: TorchAligner, big: list, texts: list, want: list,
-              what: str):
-    """N_BATCHES pipelined batches of the same rows, every row checked;
+              what: str, n_batches: int = N_BATCHES):
+    """n_batches pipelined batches of the same rows, every row checked;
     one wall time per batch, from end() to end()."""
     audio_s = sum(len(a) for a in big) / SAMPRATE
     handles, walls = [], []
     t_prev = time.perf_counter()
-    for k in range(N_BATCHES + 1):
-        if k < N_BATCHES:
+    for k in range(n_batches + 1):
+        if k < n_batches:
             handles.append(al.align_batch_begin(big, texts))
         if k:
             check_rows(al.align_batch_end(handles[k - 1]), want,
@@ -493,7 +641,7 @@ def pipelined(al: TorchAligner, big: list, texts: list, want: list,
     for k, w in enumerate(walls):
         log(f"  {what} pipelined batch {k}: B={len(big)} {w * 1e3:.1f} ms "
             f"wall, {audio_s / w:.1f} audio-s/s (informational)")
-    log(f"  {N_BATCHES} pipelined {what} batches of {len(big)}: every row "
+    log(f"  {n_batches} pipelined {what} batches of {len(big)}: every row "
         f"equal to its golden")
     return walls, audio_s
 
@@ -672,6 +820,141 @@ def phase_device_fe(al: TorchAligner, audios8: list, dg: dict):
         f"after {pushed} samples: equal to the golden")
 
 
+def phase_kernels_backends(als: dict, results: dict):
+    """K11 and K12 on the ms model's B=256 same-transcript batch (its
+    first 128-row chunk; compared on DENSE_SLICE frames, the kernels
+    also timed on the whole chunk), K3's wrap_u8 on the 4-bit semi
+    union route's B=256 batch, K7's semi form on the semi dense route's
+    B=32 batch; every backend's full-inventory scores of the golden's
+    frames."""
+    al = als["ms"]
+    ms = al.dense
+    big = [austen_audio(i % N_UTT) for i in range(BIG_B)]
+    audios, Ts, Tmax = al._batch_shape(big)
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    _, _, feats = next(iter(al._chunk_feats(audios, Ts_d, Tmax)))
+    flat = feats.view(-1, 3, feats.shape[-1])
+    part = flat[:DENSE_SLICE]
+    C, F, D, L = ms.means.shape
+    log(f"  ms shapes: chunk N={flat.shape[0]} frames, compared on "
+        f"N={part.shape[0]}; C={C} F={F} D={D} L={L} top-{ms.n_best} "
+        f"S={ms.S} aw={ms.aw}")
+    dval, cw = compare(
+        "ms_dist_topn", lambda: senscore_torch.ms_dist_topn(part, ms),
+        lambda: senscore_torch.ms_dist_topn_plain(part, ms), results,
+        plain_runs=2, ins=(part, ms.means, ms.var_t, ms.det),
+        ops=fold_ops(part.shape[0], ms))
+    compare("ms_senone_eval",
+            lambda: senscore_torch.ms_senone_eval(dval, cw, ms),
+            lambda: senscore_torch.ms_senone_eval_plain(dval, cw, ms),
+            results, plain_runs=2,
+            ins=(dval, cw, ms.mixw, ms.sen2cb, ms.logadd),
+            ops=8.0 * part.shape[0] * ms.S * F * ms.n_best, rate=I32_OPS)
+    k11 = time_ms(lambda: senscore_torch.ms_dist_topn(flat, ms))
+    dval, cw = senscore_torch.ms_dist_topn(flat, ms)
+    k12 = time_ms(lambda: senscore_torch.ms_senone_eval(dval, cw, ms))
+    N = flat.shape[0]
+    b11 = bound(nbytes(flat, ms.means, ms.var_t, ms.det, dval, cw),
+                fold_ops(N, ms), F32_OPS)
+    b12 = bound(nbytes(dval, cw, ms.mixw, ms.sen2cb, ms.logadd)
+                + 2 * N * ms.S, 8.0 * N * ms.S * F * ms.n_best, I32_OPS)
+    log(f"  ms kernels on the whole {N}-frame chunk (informational): "
+        f"K11 {k11:.4f} ms (bound {b11['bound_ms']:.4f} ms, "
+        f"{b11['bound_by']}), K12 {k12:.4f} ms (bound "
+        f"{b12['bound_ms']:.4f} ms, {b12['bound_by']})")
+
+    al = als["semi4b"]
+    fresh_union(al)
+    texts = load_backends_golden()["texts"]
+    graphs = [al.graph_for_text(texts[i % N_MIXED]) for i in range(BIG_B)]
+    uni = al._union_scorer(graphs)
+    audios, Ts, Tmax = al._batch_shape([mixed_audio(i % N_MIXED)
+                                        for i in range(BIG_B)])
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    _, _, feats = next(iter(al._chunk_feats(audios, Ts_d, Tmax)))
+    gs = uni["gs"]
+    if not gs.wrap_u8:
+        raise AssertionError("the 4-bit semi union scorer does not wrap")
+    s, cw = senscore_torch.dist_topn_norm(feats.view(-1, 3, L), gs)
+    compare("senone_eval[wrap_u8]",
+            lambda: senscore_torch.senone_eval(s, cw, gs),
+            lambda: senscore_torch.senone_eval_plain(s, cw, gs), results,
+            **eval_bound(s, cw, gs))
+    fresh_union(al)
+
+    al = als["semi"]
+    audios, Ts, Tmax = al._batch_shape([mixed_audio(i)
+                                        for i in range(N_MIXED)])
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    _, _, feats = next(iter(al._chunk_feats(audios, Ts_d, Tmax)))
+    s, cw = senscore_torch.dist_topn_norm(feats.view(-1, 3, L), al.dense)
+    x = senscore_torch.senone_eval(s, cw, al.dense)
+    compare("frame_best_sub[semi]",
+            lambda: senscore_torch.frame_best_sub(x, False),
+            lambda: senscore_torch.frame_best_sub_plain(x, False), results,
+            ins=(x,), ops=float(x.numel()), rate=I32_OPS,
+            library=lambda: x.to(torch.int16))
+
+    g = load_backends_golden()
+    frames = torch.from_numpy(dense_feats()).to(al.device)
+    for variant in BACKENDS:
+        got = senscore_torch.score_frames(als[variant].dense, frames)
+        if not np.array_equal(got.cpu().numpy(), g[f"{variant}_dense"]):
+            raise AssertionError(f"{variant}: full-inventory scores differ "
+                                 "from backends.npz")
+    log(f"  full-inventory scores of {len(frames)} golden frames, "
+        f"{', '.join(BACKENDS)}: equal to backends.npz")
+
+
+def phase_backends(als: dict):
+    """The other backends' paths against backends.json; the median
+    cadence of each variant's pipelined batches (informational)."""
+    g = load_backends_golden()
+    texts = g["texts"]
+    same = [austen_audio(i % N_UTT) for i in range(BIG_B)]
+    mixed = [mixed_audio(i % N_MIXED) for i in range(BIG_B)]
+    tiled = [texts[i % N_MIXED] for i in range(BIG_B)]
+    mixed32 = [mixed_audio(i) for i in range(N_MIXED)]
+    cadence = {}
+
+    def run(variant, name, audios, tx, want):
+        walls, audio_s = pipelined(
+            als[variant], audios, tx,
+            [want[i % len(want)] for i in range(BIG_B)],
+            f"{variant} {name}", N_BACKEND_BATCHES)
+        cadence[f"{variant} {name}"] = statistics.median(walls) * 1e3
+
+    def scored(variant):
+        check_rows(als[variant].align_batch_scored(mixed32, texts),
+                   g[variant]["scored"],
+                   f"{variant} align_batch_scored (B={N_MIXED})",
+                   rep=scored_rep)
+        log(f"  {variant} align_batch_scored B={N_MIXED}: equal to the "
+            f"golden, scores included")
+
+    run("ms", "same-transcript", same, [TEXT] * BIG_B, g["ms"]["same"])
+    run("ms", "mixed", mixed, tiled, g["ms"]["mixed"])
+    if not als["ms"]._uni["dense"] or als["ms"]._uni["gs"] is not None:
+        raise AssertionError("the ms model left the dense route")
+    scored("ms")
+    al = als["semi4b"]
+    run("semi4b", "same-transcript", same, [TEXT] * BIG_B,
+        g["semi4b"]["same"])
+    fresh_union(al)
+    run("semi4b", "mixed, union", mixed, tiled, g["semi4b"]["union"])
+    if al._uni["dense"] or al._uni["gs"] is None:
+        raise AssertionError("the 4-bit semi mixed batches left the union")
+    al._uni["dense"] = True
+    check_rows(al.align_batch(mixed32, texts), g["semi4b"]["dense"],
+               f"semi4b mixed align_batch (B={N_MIXED}, forced dense)")
+    log(f"  semi4b mixed align_batch B={N_MIXED}, forced dense: equal to "
+        f"the golden")
+    run("ptm4b", "same-transcript", same, [TEXT] * BIG_B, g["ptm4b"]["same"])
+    scored("semi")
+    log("  median cadence of the pipelined B=256 batches (informational): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in cadence.items()))
+
+
 def count_path(wrappers: dict, drive) -> dict:
     """Launch counts of one path: every count set to 0 just before
     drive(), read just after it."""
@@ -706,7 +989,13 @@ def main() -> int:
     want = golden["segs"]
     mg = load_mixed_golden()
     dg = load_device_fe_golden()
+    als = {}
     with tempfile.TemporaryDirectory() as model_dir:
+        for variant in BACKENDS:
+            d = os.path.join(model_dir, variant)
+            make_synth_model(d, 0, "en-us", *MODEL_VARIANTS[variant])
+            als[variant] = TorchAligner(hmm=d, samprate=SAMPRATE,
+                                        device="cuda")
         make_synth_model(model_dir, seed=0, width="en-us")
         al = TorchAligner(hmm=model_dir, samprate=SAMPRATE, device="cuda")
         prev = os.environ.get("SST_FE")
@@ -725,13 +1014,17 @@ def main() -> int:
     big = [audios8[i % N_UTT] for i in range(BIG_B)]
     log(f"model: {al.am.n_sen} senones, {al.am.n_mgau} codebooks, "
         f"{al.am.n_density} densities; batches of {BIG_B} utterances, "
-        f"{N_MIXED} mixed transcripts")
+        f"{N_MIXED} mixed transcripts; backends: " + ", ".join(
+            f"{v} ({a.am.backend}, {a.am.n_mgau} codebooks"
+            f"{', 4-bit' if a.am.mixw_cb is not None else ''})"
+            for v, a in als.items()))
     # 4. kernels vs plain versions
     results: dict = {}
     phase_kernels(al, big, results)
     phase_kernels_mixed(al, mg["texts"], results)
     phase_kernels_fe(al_dev, al, big, results)
     phase_kernels_vit_chunk(al_dev, results)
+    phase_kernels_backends(als, results)
     wrappers = {name: fn for name, fn, _, _ in KERNELS}
 
     # 5. host-FE paths: main, mixed and serving, counted
@@ -754,24 +1047,28 @@ def main() -> int:
     # 6. device-FE paths, counted
     log("device-FE paths:")
     device = count_path(wrappers, lambda: phase_device_fe(al_dev, audios8, dg))
-    for path, counts, names in (("host-FE", host, HOST_PATH),
-                                ("device-FE", device, DEVICE_FE_PATH)):
+    # 7. the other backends' paths, counted
+    log("backend paths (4-bit ptm, semi, 4-bit semi, ms):")
+    backends = count_path(wrappers, lambda: phase_backends(als))
+    counts = {"host-FE": host, "device-FE": device, "backends": backends}
+    for path, names in (("host-FE", HOST_PATH), ("device-FE", DEVICE_FE_PATH),
+                        ("backends", BACKEND_PATH)):
         log(f"  {path} launches: " + ", ".join(
-            f"{n} {counts[n]}" for n in names))
-        missing = [n for n in names if counts[n] == 0]
+            f"{n} {counts[path][n]}" for n in names))
+        missing = [n for n in names if counts[path][n] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"paths: {missing}")
     # each kernel's count from the path that brought it in
-    launches = {n: host[n] if n in HOST_PATH else device[n] for n in wrappers}
     entries = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **results[name])
+                    launches=counts[PATH_OF[name]][name], **results[name])
                for name, _, src, rep in KERNELS]
     sources = {name: src for name, _, src, _ in KERNELS}
-    entries += [dict(name=entry, route="cuda", source=sources[kernel],
-                     replaces=rep, launches=launches[kernel],
-                     **results[entry])
-                for entry, kernel, rep in VARIANTS]
+    for entry, kernel, rep, *path in VARIANTS:
+        path = path[0] if path else PATH_OF[kernel]
+        entries.append(dict(name=entry, route="cuda", source=sources[kernel],
+                            replaces=rep, launches=counts[path][kernel],
+                            **results[entry]))
     log(json.dumps({"kernels": entries}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ Port of ``soundswallower_tpu/aligner.py`` (TpuAligner):
 * ``align_batch_scored``: always the full-inventory route, with token
   scores, and Python extraction of per-word, per-phone and (with
   ``want_states``) per-state scores;
+* the acoustic-model backends TpuAligner loads: ptm and semi (8-bit or
+  4-bit clustered sendumps) on every route above (semi's full-inventory
+  scores are not 0-normalized: K7's semi form); ms (a senmgau map, or
+  the 1:1 fallback) has no graph-restricted scorer, so every batch of an
+  ms model takes the multi-graph route on its full-inventory scorer
+  (K11, K12), as TpuAligner routes it;
 * the device front end, where TpuAligner takes it (``SST_FE=device``, or
   no host FE library): pinned int16 upload -> K8/K9/K10 MFCC -> K1's
   float32 form, on both batch routes; ``align`` then runs the
@@ -22,18 +28,20 @@ Port of ``soundswallower_tpu/aligner.py`` (TpuAligner):
 * ``stream`` (streaming.AlignStream) and ``spectrogram`` on the device
   front end.
 
-Host modules (config, model, dictionary, phone graph, native FE,
-segment extraction library, live CMN) are the JAX package's own, loaded
-through ``_shared``.  Without ``native/libsst_seg.so``, segments are
-extracted in Python, as TpuAligner does.
+Host modules (config, model, dictionary, phone graph, native FE loader,
+live CMN) are the port's own copies of the JAX package's; the native
+C++ helpers (``native/``) are shared.  Without ``native/libsst_seg.so``,
+segments are extracted in Python, as TpuAligner does.
 
 ``device="cuda"`` runs the hand-written kernels (``csrc/``) and raises
 if no CUDA device is present; ``device="cpu"`` runs their plain PyTorch
 versions.  Nothing falls back from one to the other.
 
-Still to be ported: ``want_scores`` on the same-transcript path, the ms
-and semi backends, 5-state models, ``decode*``, ``align_longform_batch``,
-``use_mesh`` and ``update_mllr``.
+Still to be ported: ``want_scores`` on the same-transcript path, 5-state
+models, ``decode*``, ``align_longform_batch``, ``use_mesh`` and
+``update_mllr``.  As in the JAX package, ``align`` on the device front
+end and ``stream`` raise NotImplementedError for ms models (both need
+the graph-restricted scorer).
 """
 
 from __future__ import annotations
@@ -45,26 +53,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ._shared import load
+from .am import AcousticModel
+from .config import Config
+from .dict2pid import Dict2Pid
+from .dictionary import Dictionary
 from .fe.feat import feat, feat_f32
 from .fe.frontend import Frontend
+from .fe.native_fe import NativeFrontend
+from .logmath import LogMath
+from .ops.align_graph import AlignGraph, build_chain_graph
 from .ops.align_torch import (WORST_SCORE, RowVitConsts, VitConsts,
                               build_pred_table, row_consts_from_numpy,
                               stack_graphs, viterbi_batch, viterbi_rows,
                               viterbi_single)
 from .ops.senscore_torch import (GraphScorer, dense_scorer, gather_cols,
                                  score_frames, score_frames_graph)
-from .utils import to_device
-
-Config = load("config").Config
-LogMath = load("logmath").LogMath
-AcousticModel = load("am").AcousticModel
-Dictionary = load("dictionary").Dictionary
-Dict2Pid = load("dict2pid").Dict2Pid
-_align_graph = load("ops.align_graph")
-AlignGraph = _align_graph.AlignGraph
-build_chain_graph = _align_graph.build_chain_graph
-NativeFrontend = load("fe.native_fe").NativeFrontend
+from .utils import native_build, resolve_device, to_device
 
 
 @dataclass
@@ -161,13 +165,7 @@ class TorchAligner:
 
     def __init__(self, config=None, device: str | torch.device = "cuda",
                  **kwargs):
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("device='cuda' but no CUDA device is "
-                                   "available")
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = resolve_device(device)
         if config is None:
             config = Config(**kwargs)
         self.config = config
@@ -178,9 +176,6 @@ class TorchAligner:
         self.am = AcousticModel.load(config, self.lmath)
         if self.am.mdef.n_emit_state != 3:
             raise _unported("5-state HMMs", "B4")
-        if self.am.backend != "ptm" or self.am.mixw_cb is not None:
-            raise _unported(f"the {self.am.backend} backend and 4-bit "
-                            "sendumps on the card", "B7/B8")
         self.dict = Dictionary(self.am.mdef, config["dict"], config["fdict"],
                                config.get_bool("dictcase"))
         self.d2p = Dict2Pid(self.am.mdef, self.dict)
@@ -416,6 +411,11 @@ class TorchAligner:
         pinned upload -> K1, K2, K3 per chunk into one [B, Tmax, S]
         score buffer -> K4 over the whole batch -> download into pinned
         host buffers, with an event recorded after the copies."""
+        if self.am.backend == "ms":
+            # no graph-restricted ms scorer: the full-inventory scores
+            # and the per-row gather of the multi-graph route
+            # (TpuAligner._batch_begin)
+            return self._batch_begin_mixed([g] * len(audios), audios)
         if self.want_scores:
             raise _unported("want_scores=True on a same-transcript batch",
                             "A7")
@@ -440,7 +440,8 @@ class TorchAligner:
         (TpuAligner._batch_begin_mixed): the same bucketing and chunked
         front end as _batch_begin; per chunk, K2/K3 over the working-set
         union (_union_scorer), or K2/K3/K7 over the full inventory under
-        ``want_scores`` or once the union is dense, then K5 into one
+        ``want_scores`` or once the union is dense (K11/K12 for ms),
+        then K5 into one
         [B, Tmax, S] buffer in each row's graph-state order; then K6
         over the stacked per-row graphs, with token scores under
         ``want_scores``; pinned downloads with an event after them."""
@@ -486,11 +487,13 @@ class TorchAligner:
         union's codebook norm), and once the set passes UNION_MAX_FRAC of
         the inventory ``dense`` turns on for good (None: score the full
         inventory).  Scores therefore depend on the batches seen before.
+        An ms model starts dense (it has no graph-restricted scorer).
         """
         u = self._uni
         if u is None:
             u = self._uni = dict(ver=0, senset=np.zeros(0, np.int64),
-                                 gs=None, Spad=0, dense=False,
+                                 gs=None, Spad=0,
+                                 dense=self.am.backend == "ms",
                                  pos=np.full(self.am.n_sen, -1, np.int32))
         if u["dense"]:
             return None
@@ -588,7 +591,7 @@ class TorchAligner:
         if not hasattr(self, "_segl"):
             import ctypes as ct
 
-            lib = load("utils.native_build").load_native("libsst_seg.so")
+            lib = native_build.load_native("libsst_seg.so")
             if lib is not None:
                 i32p = np.ctypeslib.ndpointer(np.int32)
                 i64p = np.ctypeslib.ndpointer(np.int64)

@@ -85,10 +85,11 @@ int sst_viterbi_rows(const int32_t* sen, const int32_t* n_frames,
                      int16_t* path, int32_t* pscore, int32_t* fscore,
                      cudaStream_t stream);
 
-// K7: ptm's per-frame tail.  in int32 [N, S] -> out int16 [N, S] =
-// int16(in) - int16(min over the frame's S scores).
+// K7: the dense per-frame tail.  in int32 [N, S] -> out int16 [N, S] =
+// int16(in) - int16(min over the frame's S scores) (sub = 1, ptm), or
+// int16(in) (sub = 0, semi).
 int sst_frame_best_sub(const int32_t* in, int16_t* out, int N, int S,
-                       cudaStream_t stream);
+                       int sub, cudaStream_t stream);
 
 // K1, float32 form: cep float32 [B, T, ncep], n_frames int32 [B]
 // -> out float32 [B, T, 3, ncep].
@@ -140,6 +141,25 @@ int sst_fe_cep(const double* mfspec, const float* mel_cosine,
                const float* lifter, double* ls_out, float* cep, int M,
                int nfilt, int ncep, int kind, float scale0, float sqrt_inv_2n,
                cudaStream_t stream);
+
+// K11: ms fold + float top-N (ties to the later density, the
+// WORST_DIST floor) or, with ne == D, every density in index order.
+// feats f32 [N, F, L]; means/var_t f32 [C, F, D, L]; det f32 [C, F, D]
+// -> dval f32 [N, C, F, ne], cw int32 [N, C, F, ne].
+int sst_ms_dist_topn(const float* feats, const float* means,
+                     const float* var_t, const float* det, float* dval,
+                     int32_t* cw, int N, int C, int F, int D, int L, int ne,
+                     cudaStream_t stream);
+
+// K12: ms senone eval.  dval f32 / cw int32 [N, C, F, ne]; mixw int32
+// [S, F, D]; sen2cb int32 [S]; table int32 [table_len] (8-bit log-add
+// table); zero8 the 8-bit logmath zero; aw >= 1 -> out int16 [N, S],
+// 0 = best per frame.
+int sst_ms_senone_eval(const float* dval, const int32_t* cw,
+                       const int32_t* mixw, const int32_t* sen2cb,
+                       const int32_t* table, int table_len, int16_t* out,
+                       int N, int C, int F, int D, int S, int ne, int zero8,
+                       int aw, cudaStream_t stream);
 
 const char* sst_error_string(int err);
 

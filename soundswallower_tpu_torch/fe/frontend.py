@@ -4,8 +4,8 @@ Port of ``soundswallower_tpu/fe/frontend.py`` (Frontend), a module that
 imports jax.  The tables (Hamming window, FFT twiddles and bit-reversal
 permutation, mel filters, DCT basis, lifter) are built from numpy alone
 with the same float32/float64 arithmetic (tests/test_torch_shared.py
-compares them); the host C++ MFCC (``native/sst_fe.cpp``, through the
-shared ``fe/native_fe.py``) reads them.
+compares them); the host C++ MFCC (``native/sst_fe.cpp``, through
+``fe/native_fe.py``) reads them.
 
 The device MFCC works on a batch of signals [B, N] (float32 sample
 values or int16), with per-row sample counts, pre-emphasis priors and
@@ -42,8 +42,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._shared import load
-from ..utils import cuda_build
+from ..utils import cuda_build, resolve_device
+from .warp import Warp
 
 LOG_FLOOR = 1e-4                 # fe_sigproc.c:609
 # fe_noise.c's constants, as the JAX program holds them (Python doubles)
@@ -264,8 +264,7 @@ class Frontend:
         self._sss = np.sin(ang)
         self._perm = bitrev_perm(self.fft_size)
         self._stages = _fft_stages(self.fft_size)
-        warp = load("fe.warp").Warp(self.warp_type, self.warp_params,
-                                    self.sampling_rate)
+        warp = Warp(self.warp_type, self.warp_params, self.sampling_rate)
         spec_start, widths, coeffs = build_melfilters(
             self.sampling_rate, self.fft_size, self.num_filters,
             self.lower_filt_freq, self.upper_filt_freq, self.doublewide,
@@ -356,10 +355,12 @@ class Frontend:
 
     # -- the device MFCC -------------------------------------------------------
 
-    def noise_init(self, B: int | None = None, device="cpu"):
+    def noise_init(self, B: int | None = None, device="cuda"):
         """Fresh noise-removal state (fe_reset_noisestats): (power,
         noise, floor, peak) float64 [nfilt] and undef bool [], or [B,
-        nfilt] and [B] for a batch of B rows."""
+        nfilt] and [B] for a batch of B rows, on ``device`` (the card
+        unless the caller asks for the CPU)."""
+        device = resolve_device(device)
         shape = (self.num_filters,) if B is None else (B, self.num_filters)
         z = torch.zeros(shape, dtype=torch.float64, device=device)
         undef = torch.ones(() if B is None else (B,), dtype=torch.bool,
@@ -455,11 +456,13 @@ class Frontend:
         return out
 
     def spectrogram(self, audio: np.ndarray, smooth: bool = False,
-                    device="cpu") -> np.ndarray:
+                    device="cuda") -> np.ndarray:
         """int16 samples (or float32 sample values in int16 range) ->
         [n_frames, nfilt] float32 mel log-spectra, the JS binding's
         spectrogram() (js/soundswallower.c:88-112): RAW_LOG_SPEC, or
-        SMOOTH_LOG_SPEC when ``smooth``."""
+        SMOOTH_LOG_SPEC when ``smooth``.  Runs on ``device``, the card
+        unless the caller asks for the CPU."""
+        device = resolve_device(device)
         audio = np.asarray(audio)
         n = len(audio)
         nfr = self.n_frames(n)
@@ -471,8 +474,10 @@ class Frontend:
             return self._smooth_logspec(ls)
         return ls.astype(np.float32)
 
-    def process_int16(self, audio: np.ndarray, device="cpu") -> np.ndarray:
-        """int16 samples -> [n_frames, ncep] float32 numpy."""
+    def process_int16(self, audio: np.ndarray, device="cuda") -> np.ndarray:
+        """int16 samples -> [n_frames, ncep] float32 numpy, on ``device``
+        (the card unless the caller asks for the CPU)."""
+        device = resolve_device(device)
         n = len(audio)
         nfr = self.n_frames(n)
         if nfr == 0:

@@ -44,10 +44,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._shared import load
 from ..utils import cuda_build, to_device
-
-pad_graph_to = load("ops.align_graph").pad_graph_to
+from .align_graph import pad_graph_to
 
 WORST_SCORE = -0x20000000
 TMAT_WORST = -255
@@ -88,8 +86,8 @@ def stack_graphs(graphs: list, tmat: np.ndarray, sen_remap: np.ndarray,
                  w_mult: int = 8, w_floor: int = 0,
                  w_cap: int = 64) -> dict:
     """A batch of (generally different) graphs padded to one (P, K, W)
-    size class and stacked, as ``align_graph.stack_graphs`` does; a copy
-    because that function imports align_jax (and so jax) when called.
+    size class and stacked, as the JAX package's
+    ``ops/align_graph.stack_graphs`` does.
 
     Returns host arrays: tp [B,P,3,4] int32, pred_idx/pred_pen [B,P,K]
     int32, pred_ok [B,P,K] bool, astart/aend/entry [B,P] int32,

@@ -1,5 +1,5 @@
-"""Senone scoring: graph-restricted and full-inventory (kernels K2, K3,
-K5 and K7).
+"""Senone scoring: graph-restricted, full-inventory and fully continuous
+(kernels K2, K3, K5, K7, K11 and K12).
 
 Port of ``soundswallower_tpu/ops/senscore_jax.py``:
 
@@ -8,12 +8,15 @@ Port of ``soundswallower_tpu/ops/senscore_jax.py``:
   for the codebooks a graph (or a working-set union) uses, mixture
   evaluation only for its S states, scores in column order, not
   0-normalized;
-* the full-inventory ptm scorer (ScorerTables, _dist_stage,
+* the full-inventory ptm and semi scorer (ScorerTables, _dist_stage,
   _topn_stage, _sen_eval, score_frames): the same two kernels over every
-  codebook and senone, then the per-frame tail, int16 and 0 = best.  It
-  emits senone order: the JAX package's codebook-grouped layout (G =
-  n_grp * 128 columns) was a TPU device, and ``sencols`` index senones
-  directly (the remap is the identity);
+  codebook and senone, then the per-frame tail, int16 (ptm: 0 = best;
+  semi: no subtraction).  It emits senone order: the JAX package's
+  codebook-grouped layout (G = n_grp * 128 columns) was a TPU device,
+  and ``sencols`` index senones directly (the remap is the identity);
+* the fully continuous (ms) scorer (_dist_stage_ms, _ms_stage): float
+  top-N, ms_senone's senone eval, int16, 0 = best, senone order
+  (MsScorer, score_frames_ms);
 * ``aligner.py`` _gather_cols, the per-row column gather of the mixed
   batch.
 
@@ -33,9 +36,19 @@ Kernels:
   semi 4-bit quirk).  mixw is gathered directly from [F, D, S] uint8 and
   the log-add reads the 8-bit table, which equals the JAX package's
   staircase.
-* K7 ``frame_best_sub``: ptm's per-frame tail (_sen_eval): the int32
-  scores cast to int16 (wrapping), minus the int16 cast of the frame's
-  minimum int32 score.
+* K7 ``frame_best_sub``: the per-frame tail (_sen_eval): the int32
+  scores cast to int16 (wrapping), minus (ptm) the int16 cast of the
+  frame's minimum int32 score; semi's form is the cast alone.
+* K11 ``ms_dist_topn``: the ms fold (K2's, one FMA per dim), kept in
+  float, and its top N by float with ties to the later density (the
+  JAX package's packed order key), the WORST_DIST floor (a distance
+  below INT_MIN gives (INT_MIN, 0)), or, with ``topn >= D``, every
+  density in index order.
+* K12 ``ms_senone_eval``: per (frame, senone) the rounded-up shift of
+  each top distance, minus the senone's mixture weight, the full
+  logmath_add over the top N with both zero guards, the negated sum over
+  streams in int64, the acoustic weight's truncation, the int16 clamp,
+  then the frame's best subtracted, clamped -> int16 [N, S].
 * K5 ``gather_cols``: ``out[b, t, s] = src[b, t, cols[b, s]]`` from an
   int32 or int16 source, widened to int32, with jnp.take_along_axis's
   index rule (a negative index wraps once, one past the end reads the
@@ -47,9 +60,9 @@ matmul (a direct gather here) and the duplicate codebook row at
 change the cross-codebook max).
 
 The plain versions use no ``torch.topk`` (its tie order is unspecified),
-no matmul and no ``torch.sum``; K2's and K3's work through the frames
-in blocks, so that their intermediates stay near 256 MB at the
-full-inventory shapes.
+no matmul and no ``torch.sum``; K2's, K3's, K11's and K12's work through
+the frames in blocks, so that their intermediates stay near 256 MB at
+the full-inventory shapes.
 """
 
 from __future__ import annotations
@@ -59,12 +72,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .._shared import load
+from ..logmath import SENSCR_SHIFT
 from ..utils import cuda_build, to_device
 
-SENSCR_SHIFT = load("logmath").SENSCR_SHIFT
 MAX_NEG_ASCR = 96
 INT_MIN = -2147483648
+WORST_DIST = float(INT_MIN)  # ms_gauden.c's floor, as a float32
 PLAIN_BLOCK_BYTES = 1 << 28  # working set of one frame block, plain K2/K3
 
 
@@ -86,6 +99,8 @@ class GraphScorer:
     logadd: torch.Tensor     # int32 [n] 8-bit log-add table
     topn: int = 4
     wrap_u8: bool = False
+    # the dense tail (K7): ptm subtracts each frame's best, semi does not
+    subtract_best: bool = True
 
     @property
     def S(self) -> int:
@@ -97,8 +112,12 @@ class GraphScorer:
         used codebooks, each state's codebook row, and the states'
         mixture weights.  ``am`` is the shared AcousticModel."""
         if am.backend == "ms":
+            # as the JAX package: ms senone eval (rounded shifts, full
+            # logmath_add, aw) does not share this pipeline, and ms
+            # models take the dense route (MsScorer)
             raise NotImplementedError(
-                "the ms backend is not ported (ROADMAP.md B8)")
+                "graph-restricted scoring is ptm/semi only; ms models "
+                "use the dense scorer (the mixed path)")
         senid_flat = np.asarray(senid_flat, np.int64).reshape(-1)
         sen2cb = np.asarray(am.sen2cb, np.int64)
         used_cb = np.unique(sen2cb[senid_flat])
@@ -162,40 +181,112 @@ def _staircase_table(thresh) -> np.ndarray:
     return (d[:, None] < thresh[None, :]).sum(1)
 
 
-def dense_scorer(am, device) -> GraphScorer:
-    """The full-inventory ptm scorer (ScorerTables.from_am's tables):
-    every codebook, every senone, columns in senone order."""
-    if am.backend != "ptm" or am.mixw_wrap_u8:
-        raise NotImplementedError(
-            f"the full-inventory scorer of the {am.backend} backend is not "
-            "ported (ROADMAP.md B7/B8)")
-    return scorer_from_numpy(
+def dense_scorer(am, device) -> "GraphScorer | MsScorer":
+    """The full-inventory scorer (ScorerTables.from_am's tables): every
+    codebook, every senone, columns in senone order; for ms models the
+    MsScorer."""
+    if am.backend == "ms":
+        return ms_scorer(am, device)
+    gs = scorer_from_numpy(
         am.means, am.var_t, am.det, am.mixw_dense(), am.sen2cb,
         logadd_table(am), am.max_topn, am.mixw_wrap_u8, device)
+    gs.subtract_best = am.backend != "semi"
+    return gs
 
 
 def dense_scorer_from_jax_tables(tables, device="cpu") -> GraphScorer:
-    """The port's full-inventory scorer holding exactly the tables of a
-    JAX ``ScorerTables`` (its arrays read as numpy): the grouped mixture
-    weights ``mixw_g [F, G, D, M]`` back in senone order through
-    ``sen_remap``, each senone's codebook from ``cb_of``, and the log-add
-    table rebuilt from its staircase thresholds."""
-    if tables.backend != "ptm":
-        raise NotImplementedError(
-            f"the full-inventory scorer of the {tables.backend} backend is "
-            "not ported (ROADMAP.md B7/B8)")
+    """The port's full-inventory ptm or semi scorer holding exactly the
+    tables of a JAX ``ScorerTables`` (its arrays read as numpy): the
+    grouped mixture weights ``mixw_g [F, G, D, M]`` back in senone order
+    through ``sen_remap``, each senone's codebook from ``cb_of``, and the
+    log-add table rebuilt from its staircase thresholds."""
+    if tables.backend not in ("ptm", "semi"):
+        raise ValueError(f"{tables.backend} tables: use "
+                         "ms_scorer_from_jax_tables")
     remap = np.asarray(tables.sen_remap, np.int64)
     mixw_g = np.asarray(tables.mixw_g)
     M = mixw_g.shape[3]
     grp, slot = remap // M, remap % M
     mixw_s = mixw_g[:, grp, :, slot]                            # [S, F, D]
-    return scorer_from_numpy(
+    gs = scorer_from_numpy(
         np.asarray(tables.means, np.float32),
         np.asarray(tables.var_t, np.float32),
         np.asarray(tables.det, np.float32),
         np.transpose(mixw_s, (1, 2, 0)).astype(np.int64),
         np.asarray(tables.cb_of)[grp], _staircase_table(tables.table_thresh),
         tables.max_topn, tables.wrap_u8, device)
+    gs.subtract_best = tables.backend != "semi"
+    return gs
+
+
+@dataclass(eq=False)
+class MsScorer:
+    """Device tables of the fully continuous (ms) scorer."""
+
+    means: torch.Tensor      # f32 [C, F, D, L]
+    var_t: torch.Tensor      # f32 [C, F, D, L]
+    det: torch.Tensor        # f32 [C, F, D]
+    mixw: torch.Tensor       # int32 [S, F, D] quantized mixture weights
+    sen2cb: torch.Tensor     # int32 [S] senone -> codebook
+    logadd: torch.Tensor     # int32 [n] 8-bit log-add table
+    zero8: int               # the 8-bit logmath's zero
+    aw: int = 1              # acoustic weight (scores truncate by it)
+    topn: int = 4
+
+    @property
+    def S(self) -> int:
+        return self.sen2cb.shape[0]
+
+    @property
+    def n_best(self) -> int:
+        """Densities kept per (frame, codebook, stream): the top N, or
+        all of them when topn >= D (or topn <= 0)."""
+        D = self.det.shape[2]
+        return min(self.topn, D) if self.topn > 0 else D
+
+
+def ms_scorer_from_numpy(means, var_t, det, mixw_ms, sen2cb, logadd_table,
+                         zero8: int, aw: int, topn: int,
+                         device) -> MsScorer:
+    def dev(a, dtype):
+        return to_device(a, dtype, device)
+
+    if int(aw) < 1:
+        raise ValueError(f"aw={aw}: the acoustic weight must be >= 1")
+    return MsScorer(
+        means=dev(means, np.float32), var_t=dev(var_t, np.float32),
+        det=dev(det, np.float32), mixw=dev(mixw_ms, np.int32),
+        sen2cb=dev(sen2cb, np.int32), logadd=dev(logadd_table, np.int32),
+        zero8=int(zero8), aw=int(aw), topn=int(topn))
+
+
+def ms_scorer(am, device) -> MsScorer:
+    """The ms scorer of an AcousticModel (ScorerTables.from_am's ms
+    fields): untransposed [S, F, D] weights, the senmgau map."""
+    return ms_scorer_from_numpy(
+        am.means, am.var_t, am.det, np.asarray(am.mixw), am.sen2cb,
+        logadd_table(am), am.lmath_8b.zero, am.aw,
+        am.max_topn, device)
+
+
+def ms_scorer_from_jax_tables(tables, device="cpu") -> MsScorer:
+    """The port's ms scorer holding exactly the ms fields of a JAX
+    ``ScorerTables`` (its arrays read as numpy).  The JAX scorer emits
+    senone order permuted into its grouped columns (``sen_inv``) and
+    ``ungroup`` permutes back (``sen_remap``); the port emits senone
+    order, which is the same only if the two permutations cancel, as
+    checked here."""
+    if tables.backend != "ms":
+        raise ValueError(f"{tables.backend} tables: use "
+                         "dense_scorer_from_jax_tables")
+    inv = np.asarray(tables.sen_inv)[np.asarray(tables.sen_remap)]
+    if not np.array_equal(inv, np.arange(tables.n_sen)):
+        raise ValueError("sen_inv does not invert sen_remap")
+    return ms_scorer_from_numpy(
+        np.asarray(tables.means), np.asarray(tables.var_t),
+        np.asarray(tables.det), np.asarray(tables.mixw_ms),
+        np.asarray(tables.sen2cb), _staircase_table(tables.table_thresh),
+        tables.zero8, tables.aw, tables.max_topn, device)
 
 
 # -- K2 ----------------------------------------------------------------------
@@ -238,12 +329,20 @@ def fma_sub_plain(acc: torch.Tensor, a: torch.Tensor,
     return r
 
 
-def _dist_topn_norm_block(feats: torch.Tensor, gs: GraphScorer):
+def _fold_plain(feats: torch.Tensor, gs) -> torch.Tensor:
+    """The float32 distance fold: feats [N, F, L] -> d [N, C, F, D],
+    ``d = det``, then per dim in order ``d - (x - mu)^2 * var`` as one
+    fused multiply-add of the rounded square."""
     N, _, L = feats.shape
     d = gs.det[None].expand((N,) + tuple(gs.det.shape)).clone()
     for i in range(L):                                          # dim order
         diff = feats[:, None, :, None, i] - gs.means[None, :, :, :, i]
         d = fma_sub_plain(d, diff * diff, gs.var_t[None, :, :, :, i])
+    return d
+
+
+def _dist_topn_norm_block(feats: torch.Tensor, gs: GraphScorer):
+    d = _fold_plain(feats, gs)
     di = torch.clamp(d, min=float(INT_MIN)).to(torch.int32)     # trunc, clamp
     D = di.shape[-1]
     lane = torch.arange(D, dtype=torch.int32, device=di.device)
@@ -385,24 +484,28 @@ def score_frames_graph(gs: GraphScorer, feats: torch.Tensor,
 
 # -- K7 ----------------------------------------------------------------------
 
-def frame_best_sub_plain(x: torch.Tensor) -> torch.Tensor:
+def frame_best_sub_plain(x: torch.Tensor, sub: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K7: int32 [N, S] -> int16 [N, S], the
-    int16 cast of each score minus that of its frame's minimum."""
+    int16 cast of each score minus (``sub``, ptm) that of its frame's
+    minimum."""
+    if not sub:
+        return x.to(torch.int16)
     best = x.amin(dim=1, keepdim=True)
     return x.to(torch.int16) - best.to(torch.int16)
 
 
-def frame_best_sub(x: torch.Tensor) -> torch.Tensor:
-    """K7: int32 [N, S] mixture scores -> int16 [N, S], 0 = best."""
+def frame_best_sub(x: torch.Tensor, sub: bool = True) -> torch.Tensor:
+    """K7: int32 [N, S] mixture scores -> int16 [N, S], 0 = best (ptm);
+    with ``sub=False`` (semi) the int16 cast alone."""
     if x.device.type == "cpu":
-        return frame_best_sub_plain(x)
+        return frame_best_sub_plain(x, sub)
     if x.device.type != "cuda":
         raise ValueError(f"frame_best_sub: unsupported device {x.device}")
     cuda_build.check_tensor(x, torch.int32, "x")
     N, S = x.shape
     out = torch.empty((N, S), dtype=torch.int16, device=x.device)
     err = cuda_build.lib().sst_frame_best_sub(
-        x.data_ptr(), out.data_ptr(), N, S, cuda_build.stream(x))
+        x.data_ptr(), out.data_ptr(), N, S, int(sub), cuda_build.stream(x))
     cuda_build.check(err, "frame_best_sub")
     frame_best_sub.launches += 1
     return out
@@ -411,11 +514,186 @@ def frame_best_sub(x: torch.Tensor) -> torch.Tensor:
 frame_best_sub.launches = 0
 
 
-def score_frames(ds: GraphScorer, feats: torch.Tensor) -> torch.Tensor:
+def score_frames(ds, feats: torch.Tensor) -> torch.Tensor:
     """Full-inventory scores: feats f32 [N, F, L] -> int16 [N, n_sen]
-    in senone order, 0 = best per frame (K2, K3, K7)."""
+    in senone order: K2, K3, K7 (ptm 0 = best per frame; semi not
+    normalized), or, for an MsScorer, K11, K12."""
+    if isinstance(ds, MsScorer):
+        return score_frames_ms(ds, feats)
     s, cw = dist_topn_norm(feats, ds)
-    return frame_best_sub(senone_eval(s, cw, ds))
+    return frame_best_sub(senone_eval(s, cw, ds), ds.subtract_best)
+
+
+# -- K11 ---------------------------------------------------------------------
+
+def _order_key(d: torch.Tensor) -> torch.Tensor:
+    """int64 key that orders float32 values as the JAX program packs
+    them: the float's bits mapped to an unsigned order (so -0 < +0)."""
+    u = d.view(torch.int32).to(torch.int64)
+    ub = u & 0xFFFFFFFF
+    return torch.where(u < 0, (~ub) & 0xFFFFFFFF, ub | 0x80000000)
+
+
+def ms_dist_topn_plain(feats: torch.Tensor, ms: MsScorer):
+    """Plain PyTorch version of K11: feats f32 [N, F, L] -> (dval f32,
+    cw int32) [N, C, F, n_best]."""
+    parts = [_ms_dist_topn_block(feats[b], ms)
+             for b in _frame_blocks(feats.shape[0], 40 * ms.det.numel())]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _ms_dist_topn_block(feats: torch.Tensor, ms: MsScorer):
+    d = _fold_plain(feats, ms)
+    D = d.shape[-1]
+    dev = d.device
+    lane = torch.arange(D, dtype=torch.int64, device=dev)
+    if ms.n_best >= D:
+        # compute_dist_all: every density, in index order
+        return d, lane.to(torch.int32).expand(d.shape).contiguous()
+    # distinct keys, the later density first among equal floats; a
+    # distance below WORST_DIST ranks last (-1)
+    key = torch.where(d < WORST_DIST, torch.tensor(-1, device=dev),
+                      _order_key(d) * D + lane)
+    taken = torch.zeros(d.shape, dtype=torch.bool, device=dev)
+    below = torch.tensor(-2, dtype=torch.int64, device=dev)
+    tops, idxs = [], []
+    for _ in range(ms.n_best):
+        cand = torch.where(taken, below, key)
+        m = cand.amax(dim=-1, keepdim=True)
+        idx = torch.where((cand == m) & ~taken, lane, D).amin(dim=-1,
+                                                               keepdim=True)
+        tops.append(m)
+        idxs.append(idx)
+        taken = taken | (lane == idx)
+    top = torch.cat(tops, -1)
+    idx = torch.cat(idxs, -1)
+    bad = top < 0
+    dval = torch.where(bad, torch.tensor(WORST_DIST, device=dev),
+                       torch.gather(d, -1, idx))
+    cw = torch.where(bad, 0, idx).to(torch.int32)
+    return dval, cw
+
+
+def ms_dist_topn(feats: torch.Tensor, ms: MsScorer):
+    """K11: feats f32 [N, F, L] -> (dval f32, cw int32) [N, C, F,
+    n_best]."""
+    if feats.device.type == "cpu":
+        return ms_dist_topn_plain(feats, ms)
+    if feats.device.type != "cuda":
+        raise ValueError(f"ms_dist_topn: unsupported device {feats.device}")
+    dev = feats.device
+    N, F, L = feats.shape
+    C, _, D, _ = ms.means.shape
+    ck = cuda_build.check_tensor
+    ck(feats, torch.float32, "feats")
+    for name in ("means", "var_t", "det"):
+        ck(getattr(ms, name), torch.float32, name, dev)
+    ne = ms.n_best
+    dval = torch.empty((N, C, F, ne), dtype=torch.float32, device=dev)
+    cw = torch.empty((N, C, F, ne), dtype=torch.int32, device=dev)
+    err = cuda_build.lib().sst_ms_dist_topn(
+        feats.data_ptr(), ms.means.data_ptr(), ms.var_t.data_ptr(),
+        ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D, L,
+        ne, cuda_build.stream(feats))
+    cuda_build.check(err, "ms_dist_topn")
+    ms_dist_topn.launches += 1
+    return dval, cw
+
+
+ms_dist_topn.launches = 0
+
+
+# -- K12 ---------------------------------------------------------------------
+
+def ms_senone_eval_plain(dval: torch.Tensor, cw: torch.Tensor,
+                         ms: MsScorer) -> torch.Tensor:
+    """Plain PyTorch version of K12: (dval f32, cw int32) [N, C, F, n]
+    -> int16 [N, S] in senone order, 0 = best."""
+    per_frame = 48 * ms.S * dval.shape[2] * dval.shape[3]
+    parts = [_ms_senone_eval_block(dval[b], cw[b], ms)
+             for b in _frame_blocks(dval.shape[0], per_frame)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _ms_senone_eval_block(dval, cw, ms: MsScorer) -> torch.Tensor:
+    dev = dval.device
+    i64 = torch.int64
+    # senone_eval's fden: rounded-up shift of the truncated distance
+    fden = torch.where(dval < WORST_DIST,
+                       torch.tensor(INT_MIN >> SENSCR_SHIFT, device=dev),
+                       (dval.to(i64) + ((1 << SENSCR_SHIFT) - 1))
+                       >> SENSCR_SHIFT)
+    sc = ms.sen2cb.long()
+    S = sc.shape[0]
+    F, n = dval.shape[2], dval.shape[3]
+    fden_s = fden[:, sc]                                     # [N, S, F, n]
+    cw_s = cw[:, sc].long()
+    sidx = torch.arange(S, device=dev)[None, :, None, None]
+    fidx = torch.arange(F, device=dev)[None, None, :, None]
+    fwscr = fden_s - ms.mixw[sidx, fidx, cw_s].to(i64)
+    zero = ms.zero8
+    tab = ms.logadd.to(i64)
+    nt = tab.shape[0]
+    fscr = fwscr[..., 0]
+    for j in range(1, n):                                    # logmath_add
+        x, y = fscr, fwscr[..., j]
+        r = torch.maximum(x, y)
+        d = r - torch.minimum(x, y)
+        res = r + torch.where(d < nt, tab[d.clamp(max=nt - 1)],
+                              torch.zeros_like(d))
+        res = torch.where(x <= zero, y, res)
+        fscr = torch.where(y <= zero, torch.where(x <= zero, res, x), res)
+    scr = fscr[:, :, 0]
+    for f in range(1, F):                                    # stream order
+        scr = scr + fscr[:, :, f]
+    scr = -scr
+    if ms.aw != 1:
+        scr = torch.sign(scr) * (scr.abs() // ms.aw)
+    scr = scr.clamp(-32768, 32767)
+    best = scr.amin(dim=1, keepdim=True)
+    return (scr - best).clamp(-32768, 32767).to(torch.int16)
+
+
+def ms_senone_eval(dval: torch.Tensor, cw: torch.Tensor,
+                   ms: MsScorer) -> torch.Tensor:
+    """K12: (dval f32, cw int32) [N, C, F, n] -> int16 [N, S]."""
+    if dval.device.type == "cpu":
+        return ms_senone_eval_plain(dval, cw, ms)
+    if dval.device.type != "cuda":
+        raise ValueError(f"ms_senone_eval: unsupported device {dval.device}")
+    dev = dval.device
+    N, C, F, n = dval.shape
+    D = ms.mixw.shape[2]
+    ck = cuda_build.check_tensor
+    ck(dval, torch.float32, "dval")
+    ck(cw, torch.int32, "cw", dev)
+    ck(ms.mixw, torch.int32, "mixw", dev)
+    ck(ms.sen2cb, torch.int32, "sen2cb", dev)
+    ck(ms.logadd, torch.int32, "logadd", dev)
+    if tuple(cw.shape) != (N, C, F, n):
+        raise ValueError(f"ms_senone_eval: cw shape {tuple(cw.shape)}")
+    out = torch.empty((N, ms.S), dtype=torch.int16, device=dev)
+    err = cuda_build.lib().sst_ms_senone_eval(
+        dval.data_ptr(), cw.data_ptr(), ms.mixw.data_ptr(),
+        ms.sen2cb.data_ptr(), ms.logadd.data_ptr(), ms.logadd.shape[0],
+        out.data_ptr(), N, C, F, D, ms.S, n, ms.zero8, ms.aw,
+        cuda_build.stream(dval))
+    cuda_build.check(err, "ms_senone_eval")
+    ms_senone_eval.launches += 1
+    return out
+
+
+ms_senone_eval.launches = 0
+
+
+def score_frames_ms(ms: MsScorer, feats: torch.Tensor) -> torch.Tensor:
+    """ms scores: feats f32 [N, F, L] -> int16 [N, S] in senone order,
+    0 = best per frame (K11, K12)."""
+    dval, cw = ms_dist_topn(feats, ms)
+    return ms_senone_eval(dval, cw, ms)
 
 
 # -- K5 ----------------------------------------------------------------------

@@ -6,7 +6,7 @@ Port of ``soundswallower_tpu/streaming.py`` (AlignStream).  Every
 * the front end: the pre-emphasis prior, the unconsumed raw tail and the
   noise-removal carry (``Frontend.mfcc_chunk``: K8, K9, K10), in
   2048-sample and 32-frame buckets;
-* live CMN (``fe/cmn_live.py``, the JAX package's own numpy module);
+* live CMN (``fe/cmn_live.py``);
 * the dynamic-feature window (the last 2*FEAT_DCEP_WIN+2 cepstra, numpy);
 * the scores (K2/K3 ``score_frames_graph``, 32-frame buckets) and the
   Viterbi carry (K4's carry form ``viterbi_chunk``, 128-frame chunks,
@@ -25,11 +25,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._shared import load
+from .fe.cmn_live import CmnLive
 from .ops.align_torch import vit_carry0, viterbi_chunk
 from .ops.senscore_torch import score_frames_graph
 
-CmnLive = load("fe.cmn_live").CmnLive
 FEAT_DCEP_WIN = 2       # soundswallower_tpu/fe/feat.py (a module importing jax)
 _W = FEAT_DCEP_WIN + 1  # 1s_c_d_dd window (3)
 

@@ -144,8 +144,8 @@ def test_repair_no_native_libraries(small, monkeypatch):
     monkeypatch.delenv("SST_FE", raising=False)
     monkeypatch.setattr(port_aligner.NativeFrontend, "load",
                         classmethod(lambda cls, fe: None))
-    nb = port_aligner.load("utils.native_build")
-    monkeypatch.setattr(nb, "load_native", lambda soname: None)
+    monkeypatch.setattr(port_aligner.native_build, "load_native",
+                        lambda soname: None)
     al = TorchAligner(hmm=d, samprate=SAMPRATE, device="cpu")
     assert al.native_fe is None
     audios = _audios(2)

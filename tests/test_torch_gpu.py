@@ -6,14 +6,20 @@ machine with an H100:
 ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 """
 
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_synth import (SAMPRATE, TEXT, austen_audio, load_golden,
-                          model_dir, segs_rep)
+                          model_dir, segs_rep, variant_dir)
+from make_torch_backends_golden import (SETS, dense_feats,
+                                        load_backends_golden, run_set)
 from make_torch_mixed_golden import (load_mixed_golden, mixed_audio,
                                      scored_rep)
+from make_torch_synth_golden import REPO
 
 from soundswallower_tpu_torch.aligner import TorchAligner
 from soundswallower_tpu_torch.fe import feat as fm
@@ -311,3 +317,93 @@ def test_viterbi_carry_form_equals_plain_on_card(cuda_aligner):
         path, fs = at.viterbi_single(sen, nn, c)
         path_p, fs_p = at.viterbi_single_plain(sen, nn, c)
         assert torch.equal(path, path_p) and torch.equal(fs, fs_p)
+
+
+# -- the acoustic-model backends -------------------------------------------------
+
+BACKENDS = ["ptm4b", "semi", "semi4b", "ms", "ms1to1"]
+
+
+def _backend_feats(n: int = 256) -> torch.Tensor:
+    """austen features on the card, frame 0 blown up past every
+    distance's clamp and floor, frame 1 partly."""
+    f = np.fromfile(os.path.join(REPO, "tests", "golden", "austen-en",
+                                 "feat.f32"), np.float32)
+    f = f.reshape(-1, 3, 13)[:n].copy()
+    f[0] = 1e5
+    f[1, :, :4] = 3e3
+    return torch.from_numpy(f).cuda()
+
+
+def _forced_ms(ms):
+    """The ms scorer as it is and with ms_gauden.c's edge cases forced:
+    a tie (density 1 a copy of density 0), the WORST_DIST floor (all but
+    two densities), topn >= D, aw = 2."""
+    def rows(t, fn):
+        t = t.clone()
+        fn(t)
+        return t
+
+    def dup(t):
+        t[:, :, 1] = t[:, :, 0]
+
+    def huge(t):
+        t[:, :, 2:] = 1e9
+
+    return [ms,
+            dataclasses.replace(ms, means=rows(ms.means, dup),
+                                var_t=rows(ms.var_t, dup),
+                                det=rows(ms.det, dup)),
+            dataclasses.replace(ms, var_t=rows(ms.var_t, huge)),
+            dataclasses.replace(ms, topn=ms.det.shape[2]),
+            dataclasses.replace(ms, aw=2)]
+
+
+@pytest.mark.parametrize("variant", BACKENDS)
+def test_backend_kernels_equal_plain_on_card(tmp_path_factory, variant):
+    """Per variant (small width): K2/K3 over a graph and over the full
+    inventory (K3's wrap_u8 on semi4b), K7 in both forms; for ms, K11
+    and K12, also with the forced cases."""
+    _need_cuda()
+    al = TorchAligner(hmm=variant_dir(tmp_path_factory, variant),
+                      samprate=SAMPRATE, device="cuda")
+    feats = _backend_feats()
+    if variant.startswith("ms"):
+        for ms in _forced_ms(al.dense):
+            dval, cw = st.ms_dist_topn(feats, ms)
+            dp, cp = st.ms_dist_topn_plain(feats, ms)
+            assert torch.equal(dval, dp) and torch.equal(cw, cp)
+            assert torch.equal(st.ms_senone_eval(dval, cw, ms),
+                               st.ms_senone_eval_plain(dval, cw, ms))
+        return
+    gs = al._graph_consts(al.graph_for_text(TEXT)).gs
+    assert gs.wrap_u8 == al.dense.wrap_u8 == (variant == "semi4b")
+    assert al.dense.subtract_best == (variant == "ptm4b")
+    for sc in (gs, al.dense):
+        s, cw = st.dist_topn_norm(feats, sc)
+        s_p, cw_p = st.dist_topn_norm_plain(feats, sc)
+        assert torch.equal(s, s_p) and torch.equal(cw, cw_p)
+        x = st.senone_eval(s, cw, sc)
+        assert torch.equal(x, st.senone_eval_plain(s, cw, sc))
+    for sub in (True, False):
+        assert torch.equal(st.frame_best_sub(x, sub),
+                           st.frame_best_sub_plain(x, sub))
+
+
+def test_gpu_backends_match_golden(tmp_path_factory):
+    """tests/golden/torch-synth/backends.json on the card, en-us width:
+    every variant's dense scores and rows, each set in the golden's
+    order on one fresh aligner."""
+    _need_cuda()
+    g = load_backends_golden()
+    feats = torch.from_numpy(dense_feats()).cuda()
+    for variant in ("ptm4b", "semi", "semi4b", "ms"):
+        al = TorchAligner(hmm=variant_dir(tmp_path_factory, variant, "en-us"),
+                          samprate=g["samprate"], device="cuda")
+        got = st.score_frames(al.dense, feats).cpu().numpy()
+        assert np.array_equal(got, g[f"{variant}_dense"]), variant
+        for name in SETS.get(variant, ()):
+            rep = scored_rep if name == "scored" else segs_rep
+            rows = [rep(r) for r in run_set(al, variant, name, g["texts"])]
+            assert rows == g[variant][name], (variant, name)
+

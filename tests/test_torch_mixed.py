@@ -15,6 +15,7 @@ from _torch_synth import SAMPRATE, TEXT, austen_audio, model_dir, segs_rep
 from soundswallower_tpu.aligner import TpuAligner, _gather_cols
 from soundswallower_tpu.aligner import result_json_from_segs as ref_json
 from soundswallower_tpu.ops import align_graph, senscore_jax
+from soundswallower_tpu_torch import aligner as port_aligner
 from soundswallower_tpu_torch.aligner import (TorchAligner,
                                               result_json_from_segs)
 from soundswallower_tpu_torch.fe.feat import feat
@@ -227,7 +228,7 @@ def test_align_batch_scored_matches_reference(small_dir, want_states):
         port.align_batch_scored(audios[:1], ["he was a xyzzy"])
 
 
-def test_unported_surfaces_still_raise(small_dir):
+def test_unported_surfaces_still_raise(small_dir, monkeypatch):
     port = TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu")
     a = austen_audio(0)
     port.want_scores = True
@@ -248,6 +249,19 @@ def test_unported_surfaces_still_raise(small_dir):
         at.viterbi_rows(torch.zeros((1, 4, S), dtype=torch.int32),
                         torch.ones(1, dtype=torch.int32),
                         types.SimpleNamespace(P=S // 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.dense_scorer(types.SimpleNamespace(backend="semi",
-                                              mixw_wrap_u8=False), "cpu")
+    # every backend has its dense scorer now; MLLR and 5-state HMMs
+    # still refuse at construction
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+        TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu",
+                     mllr="mllr_matrix")
+    real_load = port_aligner.AcousticModel.load
+
+    def five_state(config, lmath=None):
+        am = real_load(config, lmath)
+        am.mdef.n_emit_state = 5
+        return am
+
+    monkeypatch.setattr(port_aligner.AcousticModel, "load",
+                        staticmethod(five_state))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B4"):
+        TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu")

@@ -13,7 +13,8 @@ from tests.conftest import golden
 
 from soundswallower_tpu.aligner import TpuAligner
 from soundswallower_tpu.ops import senscore_jax
-from soundswallower_tpu_torch._shared import load
+from soundswallower_tpu_torch.am import AcousticModel
+from soundswallower_tpu_torch.config import Config
 from soundswallower_tpu_torch.ops import senscore_torch as st
 
 torch.set_num_threads(1)
@@ -61,9 +62,9 @@ def test_port_build_equals_jax_tables(jax_aligner, which):
     gs_j = senscore_jax.GraphScorer.build(jal.am, jal.tables, senid)
     if which == "cu16":
         assert gs_j.means.shape[0] == 17       # the TPU pad row
-    cfg = load("config").Config(hmm=jal.config["hmm"], samprate=SAMPRATE)
+    cfg = Config(hmm=jal.config["hmm"], samprate=SAMPRATE)
     cfg.expand()
-    am = load("am").AcousticModel.load(cfg)
+    am = AcousticModel.load(cfg)
     port = st.GraphScorer.build(am, senid, "cpu")
     ref = st.scorer_from_jax_arrays(gs_j)
     for name in ("means", "var_t", "det", "mixw", "cb_pos"):

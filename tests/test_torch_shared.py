@@ -1,9 +1,10 @@
-"""The port's package boundary: no JAX, shared host modules, FE tables.
+"""The port's package boundary: no JAX, its own host modules, FE tables.
 
 The PyTorch port (soundswallower_tpu_torch) must import and run where
-jax is absent; its host modules come from the JAX package's own files
-through the shared loader; its numpy front-end tables equal the JAX
-package's.
+jax is absent and read nothing of the JAX package: its host modules are
+its own copies, which build the JAX package's phone graphs; its numpy
+front-end tables equal the JAX package's; its entry points run on the
+card unless the caller asks for the CPU.
 """
 
 import os
@@ -15,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_synth import SAMPRATE, model_dir
+
+from soundswallower_tpu.aligner import TpuAligner
 from soundswallower_tpu.fe.frontend import Frontend as JaxFrontend
-from soundswallower_tpu_torch import _shared
+from soundswallower_tpu_torch.aligner import TorchAligner
 from soundswallower_tpu_torch.fe.frontend import Frontend
 
 torch.set_num_threads(1)
@@ -26,11 +30,10 @@ PKG = os.path.join(REPO, "soundswallower_tpu_torch")
 
 
 def test_port_imports_without_jax(tmp_path):
-    """Importing the port, and running its mixed and scored paths (where
-    stack_graphs is the port's own: the shared one imports align_jax at
-    call time), a stream, a spectrogram, and the device front end's batch
-    and single-utterance paths, leaves jax and the JAX package
-    unloaded."""
+    """Importing the port, and running its mixed and scored paths, a
+    stream, a spectrogram, and the device front end's batch and
+    single-utterance paths, leaves jax unloaded and reads no module of
+    the JAX package: none is in sys.modules, by name or by file."""
     code = f"""
 import os
 import sys
@@ -39,11 +42,13 @@ import torch
 torch.set_num_threads(1)
 import soundswallower_tpu_torch.aligner
 import soundswallower_tpu_torch.serve
+import soundswallower_tpu_torch.streaming
 from make_synth_model import make_synth_model
 from make_torch_synth_golden import SAMPRATE, TEXT, austen_audio
 d = make_synth_model({str(tmp_path)!r}, seed=0, width="small")
 al = soundswallower_tpu_torch.aligner.TorchAligner(
     hmm=d, samprate=SAMPRATE, device="cpu")
+al.fe.process_int16(austen_audio(0), device="cpu")
 audios = [austen_audio(i) for i in range(3)]
 texts = [TEXT, "young man", "he was not"]
 assert all(s is not None for s in al.align_batch(audios, texts))
@@ -61,7 +66,12 @@ assert dal.native_fe is None
 assert all(s is not None for s in dal.align_batch(audios, texts))
 assert dal.align(audios[0], TEXT)
 assert 'jax' not in sys.modules, 'jax was imported'
-assert 'soundswallower_tpu' not in sys.modules
+ref_dir = os.path.join({REPO!r}, "soundswallower_tpu") + os.sep
+bad = [n for n, m in list(sys.modules.items())
+       if n == "soundswallower_tpu" or n.startswith("soundswallower_tpu.")
+       or n.startswith("soundswallower_tpu_torch.ref")
+       or os.path.abspath(getattr(m, "__file__", None) or "").startswith(ref_dir)]
+assert not bad, bad
 """
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -70,7 +80,7 @@ assert 'soundswallower_tpu' not in sys.modules
 
 
 def test_no_jax_import_in_port():
-    pat = re.compile(r"^\s*(import|from) jax")
+    pat = re.compile(r"^\s*(import|from) (jax|soundswallower_tpu)\b(?!_torch)")
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tools", "make_synth_model.py")]
     for root, _, names in os.walk(PKG):
@@ -81,17 +91,71 @@ def test_no_jax_import_in_port():
     assert not offenders, offenders
 
 
-def test_shared_modules_are_the_reference_files():
-    """Loaded, not copied: each shared module's file is the JAX
-    package's, under the port's own module name."""
-    for name in ("config", "logmath", "s3file", "mdef", "dictionary",
-                 "dict2pid", "am", "fe.warp", "fe.native_fe", "fe.cmn_live",
-                 "utils.native_build", "ops.align_graph", "serve"):
-        mod = _shared.load(name)
-        assert mod.__name__ == f"soundswallower_tpu_torch.ref.{name}"
-        want = os.path.join(REPO, "soundswallower_tpu",
-                            *name.split(".")) + ".py"
-        assert os.path.samefile(mod.__file__, want)
+HOST_MODULES = ("config", "logmath", "s3file", "mdef", "dictionary",
+                "dict2pid", "am", "fe.warp", "fe.native_fe", "fe.cmn_live",
+                "utils.native_build", "ops.align_graph", "serve")
+
+
+def test_port_modules_are_files_of_the_port():
+    """Every module of the port, the host modules it once loaded from
+    the JAX package included, is a file under soundswallower_tpu_torch/
+    of its own name, and no shared loader is left."""
+    import importlib
+
+    names = ["aligner", "streaming", "fe.feat", "fe.frontend",
+             "ops.align_torch", "ops.senscore_torch", "utils",
+             "utils.cuda_build", *HOST_MODULES]
+    for name in names:
+        mod = importlib.import_module(f"soundswallower_tpu_torch.{name}")
+        f = os.path.abspath(mod.__file__)
+        assert os.path.commonpath([f, PKG]) == PKG, (name, f)
+        assert os.path.splitext(os.path.relpath(f, PKG))[0].replace(
+            os.sep, ".").removesuffix(".__init__") == name, (name, f)
+    assert not os.path.exists(os.path.join(PKG, "_shared.py"))
+    assert not any(n.startswith("soundswallower_tpu_torch.ref")
+                   for n in sys.modules)
+
+
+TEXTS10 = ["he was not an ill disposed young man", "young man", "he was not",
+           "an ill man", "he", "was was", "disposed young man he was",
+           "man an ill", "not an ill disposed", "young young man"]
+
+
+def test_align_graphs_equal_across_packages(tmp_path_factory):
+    """The port's own config, model, dictionary, dict2pid and graph
+    builder give the JAX package's AlignGraph arrays for 10 transcripts."""
+    d = model_dir(tmp_path_factory, "small")
+    port = TorchAligner(hmm=d, samprate=SAMPRATE, device="cpu")
+    ref = TpuAligner(hmm=d, samprate=SAMPRATE)
+    fields = ("ssid", "tmatid", "senid", "edge_src", "edge_dst", "edge_pen",
+              "entry_pen", "is_entry", "astart", "aend", "word_of",
+              "variant_of", "pos_of", "cipid", "final_nodes")
+    for text in TEXTS10:
+        g, w = port.graph_for_text(text), ref.graph_for_text(text)
+        for f in fields:
+            a, b = getattr(g, f), getattr(w, f)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (text, f)
+        assert list(g.wids) == list(w.wids)
+
+
+@pytest.mark.parametrize("entry", ["spectrogram", "process_int16",
+                                   "noise_init"])
+def test_frontend_entry_points_default_to_the_card(entry):
+    """Frontend's entry points run on the card unless asked for the
+    CPU: without a card, the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    fe = Frontend(sampling_rate=SAMPRATE)
+    audio = np.zeros(1600, np.int16)
+    call = {"spectrogram": lambda: fe.spectrogram(audio),
+            "process_int16": lambda: fe.process_int16(audio),
+            "noise_init": lambda: fe.noise_init(2)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+    cpu = {"spectrogram": lambda: fe.spectrogram(audio, device="cpu"),
+           "process_int16": lambda: fe.process_int16(audio, device="cpu"),
+           "noise_init": lambda: fe.noise_init(2, device="cpu")[0]}[entry]
+    assert cpu() is not None
 
 
 FE_TABLES = ("_window", "_ccc", "_sss", "_perm", "_spec_start", "_widths",

@@ -1,4 +1,4 @@
-"""Write a synthetic PTM acoustic model from a seed.
+"""Write a synthetic acoustic model from a seed.
 
 No acoustic model ships with the repository, so the PyTorch port's
 tests and ``chip_smoke.py`` run on a model made here.  ``width="en-us"``
@@ -17,9 +17,27 @@ Means and variances are drawn around the per-dimension statistics of
 ``tests/golden/austen-en/feat.f32`` so that top-4 sets are not
 degenerate.  The mixture weights are an 8-bit sendump.
 
+The other acoustic-model backends the loader selects (``am.py``) come
+from the same draws, so that a variant differs from the ptm model only
+in what its writer adds:
+
+* ``backend="semi"``: one shared codebook (the first phone's), so
+  ``n_mgau == 1`` selects the semi-continuous scorer;
+* ``backend="ms"``: no sendump; float ``mixture_weights`` drawn after
+  everything else and a ``senmgau`` map (each senone to its base
+  phone's codebook), which selects the fully continuous backend;
+* ``backend="ms1to1"``: no sendump, no senmgau; one codebook per senone
+  (the first 8 of its base phone's Gaussians, moved by a further draw),
+  so ``n_mgau == n_sen`` selects the ms backend's 1:1 fallback;
+* ``sendump_bits=4`` (ptm and semi): the 8-bit weights clustered to a
+  16-entry codebook (``tools/make_4b_sendump.py`` quantize_16) and
+  written as a 4-bit clustered sendump.
+
 Only numpy's MT19937 (``RandomState``) bits, IEEE arithmetic and
 ``math.fsum``/``sqrt`` are used, so the files are the same bytes on any
-machine.  Usage: ``python tools/make_synth_model.py OUTDIR [en-us|small]``.
+machine.  Usage: ``python tools/make_synth_model.py OUTDIR [en-us|small]
+[ptm|semi|ms|ms1to1] [8|4]``; ``VARIANTS`` names the combinations the
+tests and ``chip_smoke.py`` use.
 """
 
 from __future__ import annotations
@@ -31,13 +49,14 @@ import sys
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if _REPO not in sys.path:
-    sys.path.insert(0, _REPO)
+_TOOLS = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(_TOOLS)
+for _p in (_REPO, _TOOLS):
+    if _p not in sys.path:
+        sys.path.insert(0, _p)
 
-from soundswallower_tpu_torch._shared import load  # noqa: E402
-
-s3 = load("s3file")
+from make_4b_sendump import quantize_16  # noqa: E402
+from soundswallower_tpu_torch import s3file as s3  # noqa: E402
 
 EN_US_PHONES = (
     "+NSN+ +SPN+ AA AE AH AO AW AY B CH D DH EH ER EY F G HH IH IY JH K L M "
@@ -61,6 +80,9 @@ WIDTHS = {
     "en-us": dict(n_cd=5000, n_density=128),
     "small": dict(n_cd=18 * 12, n_density=32),
 }
+# variant name -> (backend, sendump_bits)
+VARIANTS = {"ptm": ("ptm", 8), "ptm4b": ("ptm", 4), "semi": ("semi", 8),
+            "semi4b": ("semi", 4), "ms": ("ms", 8), "ms1to1": ("ms1to1", 8)}
 FEAT_GOLDEN = os.path.join(_REPO, "tests", "golden", "austen-en", "feat.f32")
 
 
@@ -125,10 +147,16 @@ def _triphones(phones, rng, pools):
     return [k for b in speech for k in sorted(keys[b])]
 
 
-def make_synth_model(outdir: str, seed: int = 0,
-                     width: str = "en-us") -> str:
-    """Write mdef, means, variances, sendump, transition_matrices,
+def make_synth_model(outdir: str, seed: int = 0, width: str = "en-us",
+                     backend: str = "ptm", sendump_bits: int = 8) -> str:
+    """Write mdef, means, variances, the mixture weights (sendump, or
+    mixture_weights [+ senmgau] for ms), transition_matrices,
     feat_params.json, dict.txt and noisedict.txt into outdir."""
+    if backend not in ("ptm", "semi", "ms", "ms1to1"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if sendump_bits not in (8, 4) or (sendump_bits == 4
+                                      and backend not in ("ptm", "semi")):
+        raise ValueError(f"sendump_bits={sendump_bits} for {backend}")
     w = WIDTHS[width]
     rng = np.random.RandomState(seed)
     if width == "en-us":
@@ -145,8 +173,11 @@ def make_synth_model(outdir: str, seed: int = 0,
 
     # CD senones: a contiguous block per base phone, split by HMM state
     pools, pos = {}, n_ci_sen
+    sen2ci = np.repeat(np.arange(n_ci), 3)
+    sen2ci = np.concatenate([sen2ci, np.zeros(n_cd, np.int64)])
     for i, b in enumerate(speech):
         cnt = n_cd // len(speech) + (1 if i < n_cd % len(speech) else 0)
+        sen2ci[pos:pos + cnt] = phones.index(b)
         block = np.arange(pos, pos + cnt)
         pos += cnt
         pools[b] = [block[j::3][rng.permutation(len(block[j::3]))]
@@ -179,16 +210,20 @@ def make_synth_model(outdir: str, seed: int = 0,
     means = mean[None, :, None, :] + 0.8 * sd[None, :, None, :] \
         * _normal(rng, shape)
     scale = sd[None, :, None, :] * (0.35 + 0.5 * rng.random_sample(shape))
-    s3.write_gauden_params(os.path.join(outdir, "means"),
-                           means.astype(np.float32), [13, 13, 13])
-    s3.write_gauden_params(os.path.join(outdir, "variances"),
-                           (scale * scale).astype(np.float32), [13, 13, 13])
+    var = scale * scale
+    if backend == "semi":
+        means, var = means[:1], var[:1]
 
     # 8-bit mixture weights: negated log weights, a few strong densities
     u = rng.random_sample((3, D, n_sen))
-    mixw = 159 - np.floor(150.0 * (u * u * u * u))
-    s3.write_sendump_8b(os.path.join(outdir, "sendump"),
-                        mixw.astype(np.uint8))
+    mixw = (159 - np.floor(150.0 * (u * u * u * u))).astype(np.uint8)
+    if backend in ("ptm", "semi"):
+        path = os.path.join(outdir, "sendump")
+        if sendump_bits == 8:
+            s3.write_sendump_8b(path, mixw)
+        else:
+            cw, cb = quantize_16(mixw)
+            s3.write_sendump_4b(path, cw, cb, n_sen)
 
     # left-to-right transition matrices; odd phones get a 0->2 skip
     tp = np.zeros((n_ci, 3, 4), np.float64)
@@ -201,6 +236,27 @@ def make_synth_model(outdir: str, seed: int = 0,
     s3.write_tmat_params(os.path.join(outdir, "transition_matrices"),
                          tp.astype(np.float32))
 
+    if backend == "ms1to1":
+        # a small codebook per senone, as 1:1 models have
+        D = min(D, 8)
+    if backend in ("ms", "ms1to1"):
+        # float mixture weights [sen, feat, density], a few strong ones
+        u = rng.random_sample((n_sen, 3, D))
+        s3.write_mixw_float(os.path.join(outdir, "mixture_weights"),
+                            (u * u * u * u + 1e-3).astype(np.float32))
+    if backend == "ms":
+        s3.write_senmgau(os.path.join(outdir, "senmgau"),
+                         sen2ci.astype(np.uint32))
+    elif backend == "ms1to1":
+        # a codebook per senone: its base phone's, moved
+        means = means[sen2ci, :, :D] + 0.25 * sd[None, :, None, :] \
+            * _normal(rng, (n_sen, 3, D, 13))
+        var = var[sen2ci, :, :D]
+    s3.write_gauden_params(os.path.join(outdir, "means"),
+                           means.astype(np.float32), [13, 13, 13])
+    s3.write_gauden_params(os.path.join(outdir, "variances"),
+                           var.astype(np.float32), [13, 13, 13])
+
     with open(os.path.join(outdir, "feat_params.json"), "w") as fh:
         json.dump(FEAT_PARAMS, fh, indent=1, sort_keys=True)
     with open(os.path.join(outdir, "dict.txt"), "w") as fh:
@@ -212,5 +268,7 @@ def make_synth_model(outdir: str, seed: int = 0,
 
 
 if __name__ == "__main__":
-    make_synth_model(sys.argv[1], 0, sys.argv[2] if len(sys.argv) > 2
-                     else "en-us")
+    a = sys.argv[1:]
+    make_synth_model(a[0], 0, a[1] if len(a) > 1 else "en-us",
+                     a[2] if len(a) > 2 else "ptm",
+                     int(a[3]) if len(a) > 3 else 8)

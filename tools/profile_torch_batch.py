@@ -1,7 +1,8 @@
 """Where a batch's time goes in the PyTorch/CUDA port.
 
 On one CUDA device, with the synthetic en-us-width model
-(tools/make_synth_model.py, seed 0) and B rows of one of two traffic
+(tools/make_synth_model.py, seed 0; 8-bit ptm, or one of its
+``VARIANTS``: ptm4b, semi, semi4b, ms) and B rows of one of two traffic
 mixes: ``same``, the 8 golden austen utterances of one transcript
 (tools/make_torch_synth_golden.py), or ``mixed``, the 32 different
 transcripts of tools/make_torch_mixed_golden.py (the union scorer's
@@ -20,7 +21,7 @@ route), each tiled to B:
 
 Prints one JSON object.
 Usage: ``[SST_FE=device] python tools/profile_torch_batch.py [B] [N]
-[same|mixed]``.
+[same|mixed] [ptm|ptm4b|semi|semi4b|ms]``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import torch  # noqa: E402
 
-from make_synth_model import make_synth_model  # noqa: E402
+from make_synth_model import VARIANTS, make_synth_model  # noqa: E402
 from make_torch_mixed_golden import (N_MIXED, mixed_audio,  # noqa: E402
                                      mixed_texts)
 from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
@@ -47,14 +48,15 @@ from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
 from soundswallower_tpu_torch.aligner import TorchAligner  # noqa: E402
 
 
-def main(B: int = 256, N: int = 8, traffic: str = "same") -> dict:
+def main(B: int = 256, N: int = 8, traffic: str = "same",
+         variant: str = "ptm") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_batch: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     with tempfile.TemporaryDirectory() as d:
-        make_synth_model(d, seed=0, width="en-us")
+        make_synth_model(d, 0, "en-us", *VARIANTS[variant])
         al = TorchAligner(hmm=d, samprate=SAMPRATE, device="cuda")
     if traffic == "same":
         audios = [austen_audio(i % N_UTT) for i in range(B)]
@@ -124,7 +126,8 @@ def main(B: int = 256, N: int = 8, traffic: str = "same") -> dict:
     busy = sum(by_kernel.values()) * 3
     med = statistics.median(walls)
     out = {
-        "gpu": smi, "traffic": traffic, "B": B, "Tmax": Tmax,
+        "gpu": smi, "traffic": traffic, "variant": variant, "B": B,
+        "Tmax": Tmax,
         "fe": "device" if al.native_fe is None else "host",
         "audio_s_per_batch": audio_s,
         "host_fe_ms": statistics.median(fe_ms) if fe_ms else None,
@@ -144,4 +147,4 @@ def main(B: int = 256, N: int = 8, traffic: str = "same") -> dict:
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:3]), *sys.argv[3:4])
+    main(*(int(a) for a in sys.argv[1:3]), *sys.argv[3:5])
