@@ -5,39 +5,47 @@ Drives ``soundswallower_tpu_torch`` through the entry points a user
 calls (``TorchAligner.align_batch``, ``align_batch_scored``, the
 pipelined ``align_batch_begin``/``align_batch_end``, the HTTP service,
 and, on the device front end, ``align``, ``stream`` and
-``spectrogram``), on synthetic models at the published en-us width
-(tools/make_synth_model.py, seed 0: 8-bit ptm, and the backends 4-bit
-ptm, semi, 4-bit semi and ms), against results the JAX package computed
-for the same audio (tests/golden/torch-synth/segs.json for one
-transcript, mixed_segs.json for 32 different ones, device_fe.json and
-device_fe.npz for its device front end, backends.json and backends.npz
-for the other backends) and against the C reference's cepstra
+``spectrogram``, and grammar decode: ``set_grammar``, ``decode``,
+``decode_batch``, ``decode_batch_scored``, ``decode_search``, ``lattice``
+and ``nbest``), on synthetic models at the published en-us width
+(tools/make_synth_model.py, seed 0: 8-bit ptm, the backends 4-bit ptm,
+semi, 4-bit semi and ms, and the 5-state ptm5st), against results the
+JAX package computed for the same audio (tests/golden/torch-synth/
+segs.json for one transcript, mixed_segs.json for 32 different ones,
+device_fe.json and device_fe.npz for its device front end, backends.json
+and backends.npz for the other backends, decode.json and decode.npz for
+grammar decode, the 5-state model and large graphs) and against the C
+reference's cepstra
 (tests/golden/austen-en/mfcc.f32).  Phases, in order; any failure
 raises, so the exit code is non-zero and the last line is not printed:
 
 1. device: a CUDA device of compute capability 9.0;
 2. build every kernel from ``soundswallower_tpu_torch/csrc``;
-3. models and batches; two 8-bit ptm aligners, one on the host C++
-   front end and one under ``SST_FE=device``, and one aligner per other
-   backend (host front end);
+3. models and batches; two 8-bit ptm aligners and two ptm5st ones, one
+   of each on the host C++ front end and one under ``SST_FE=device``,
+   and one aligner per other backend (host front end);
 4. each kernel (K1-K12, K1's float32 form and K4's carry form) against
    its plain PyTorch version on the card, bit-equal, at the shapes the
    paths give it (K2/K3 at the full-inventory shape and K11/K12 on a
    slice of the dense routes' frames; K8-K10 on the whole B=256 batch
    and at 16 kHz, nfft 512; K3's wrap_u8 on the 4-bit semi union route,
-   K7's semi form on the semi dense route), with median times, each
+   K7's semi form on the semi dense route; K4, K6 and the carry form in
+   their 5-state forms on the ptm5st paths, K4 with scores on the
+   same-transcript batch, the global-state layout with int16 tokens on
+   a transcript of REPEATS repeats at B=4, T=256, and with int32 tokens
+   on the large grammar's decode paths), with median times, each
    kernel's bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time; the device front end's
    cepstra of austen.raw against the C reference's; the device front end
    per B=256 batch beside the host C++ one (informational);
-5. host-FE paths: align_batch on the 8 golden utterances, then 4
+5. host-FE paths: align_batch on the 8 golden utterances, then 2
    pipelined batches of 256 (the 8 tiled); on a fresh union, align_batch
-   on the 32 mixed rows, 4 pipelined batches of 256 that tile them,
+   on the 32 mixed rows, 2 pipelined batches of 256 that tile them,
    align_batch with the union forced dense, align_batch_scored (scores
    included); concurrent POST /v1/align of one transcript, then of the
    32 mixed ones (the union no longer grows), and GET /v1/health;
 6. device-FE paths: the same-transcript and the mixed batches (B=8 and
-   B=32, then 4 pipelined batches of 256 each), ``align`` on the
+   B=32, then 2 pipelined batches of 256 each), ``align`` on the
    single-utterance path, ``spectrogram`` raw and smooth, and ``stream``
    with austen.raw pushed whole, in 1600- and in 777-sample pieces, its
    ``state()`` at the golden's cut, the golden checkpoint restored and a
@@ -48,13 +56,29 @@ raises, so the exit code is non-zero and the last line is not printed:
    ``align_batch_scored`` on the 32; 4-bit semi: 2 pipelined batches
    of 256 of one transcript, then on a fresh union 2 of the mixed ones,
    then the 32 with the union forced dense; 4-bit ptm: 2 pipelined
-   batches of one transcript; semi: ``align_batch_scored`` on the 32.
+   batches of one transcript; semi: ``align_batch_scored`` on the 32;
+8. decode paths (8-bit ptm): ``set_grammar`` on the decode grammar
+   (its graph against the golden's arrays), ``decode_batch`` on 256 rows
+   of which the last is too short to reach a final node,
+   ``decode_batch_scored`` on 32, ``decode`` on the host and on the
+   device front end, ``decode_search``'s hyp and segments, the
+   ``lattice``'s node and link counts and the first 5 of ``nbest``;
+9. 5-state paths (ptm5st): 2 pipelined same-transcript batches of 256,
+   on a fresh union 2 of the mixed ones, ``align_batch_scored`` on the
+   32, ``align`` on the device front end;
+10. large-graph paths (8-bit ptm): a same-transcript batch with
+   ``want_scores``; a transcript of REPEATS repeats (more phones than a
+   block's shared memory holds), alone and in a forced-dense mixed
+   batch; the large grammar (S >= 32,767: int32 tokens, global state)
+   through ``decode_batch``, ``decode_batch_scored`` and the device-FE
+   ``decode``.
 
 Every row, score, segment list, spectrogram and checkpoint equals its
-golden.  The launch counts are reset before each of phases 5, 6 and 7
-and read after it; a kernel of a path launched no time there fails the
-run.  The last lines are one JSON object of per-kernel results, the
-card's name and power limit (nvidia-smi), and
+golden.  The launch counts are reset before each of phases 5-10 and
+read after it; a kernel of a path, or a form of the Viterbi kernels
+(5-state, int32, global, scores) on the path that drives it, launched
+no time there fails the run.  The last lines are one JSON object of
+per-kernel results, the card's name and power limit (nvidia-smi), and
 ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
@@ -85,6 +109,10 @@ from make_synth_model import VARIANTS as MODEL_VARIANTS  # noqa: E402
 from make_synth_model import make_synth_model  # noqa: E402
 from make_torch_backends_golden import (dense_feats,  # noqa: E402
                                         load_backends_golden)
+from make_torch_decode_golden import (GRAMMAR, GRAPH_FIELDS,  # noqa: E402
+                                      N_BEST, N_DECODE, decode_audio,
+                                      decode_rep, large_grammar,
+                                      load_decode_golden, search_rep)
 from make_torch_device_fe_golden import (CKPT_SAMPLES,  # noqa: E402
                                          STREAM_SPLIT, load_device_fe_golden,
                                          pieces)
@@ -179,9 +207,44 @@ VARIANTS = [
     ("frame_best_sub[semi]", "frame_best_sub",
      "soundswallower_tpu/ops/senscore_jax.py:301", "backends"),
 ]
+# the Viterbi forms beyond 3 states, int16 tokens and shared memory:
+# (entry, kernel, form, the path whose count of that form is its
+# launches, TPU program)
+FORMS = [
+    ("viterbi_batch[5-state]", "viterbi_batch", "5-state", "5-state",
+     "soundswallower_tpu/ops/align_jax.py:121"),
+    ("viterbi_rows[5-state]", "viterbi_rows", "5-state", "5-state",
+     "soundswallower_tpu/ops/align_jax.py:121"),
+    ("viterbi_rows[5-state, scores]", "viterbi_rows", "5-state, scores",
+     "5-state", "soundswallower_tpu/ops/align_jax.py:700"),
+    ("viterbi_chunk[5-state]", "viterbi_chunk", "5-state", "5-state",
+     "soundswallower_tpu/ops/align_jax.py:265"),
+    ("viterbi_batch[3-state, scores]", "viterbi_batch", "3-state, scores",
+     "large", "soundswallower_tpu/aligner.py:1499"),
+    ("viterbi_batch[3-state, global]", "viterbi_batch", "3-state, global",
+     "large", "soundswallower_tpu/ops/align_jax.py:607"),
+    ("viterbi_rows[3-state, global]", "viterbi_rows", "3-state, global",
+     "large", "soundswallower_tpu/aligner.py:1032"),
+    ("viterbi_batch[3-state, int32, global]", "viterbi_batch",
+     "3-state, int32, global", "large",
+     "soundswallower_tpu/ops/align_jax.py:638"),
+    ("viterbi_rows[3-state, int32, global, scores]", "viterbi_rows",
+     "3-state, int32, global, scores", "large",
+     "soundswallower_tpu/ops/align_jax.py:638"),
+    ("viterbi_chunk[3-state, int32, global]", "viterbi_chunk",
+     "3-state, int32, global", "large",
+     "soundswallower_tpu/ops/align_jax.py:368"),
+]
+# the kernels each of the decode, 5-state and large-graph paths must
+# launch: both front ends, both batch routes, K7 and the carry form
+SLICE_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
+              "gather_cols", "viterbi_rows", "frame_best_sub", "fe_spec",
+              "fe_noise", "fe_cep", "feat_f32", "viterbi_chunk"]
+REPEATS = 130           # transcript repeats of the int16 global-state graph
 BIG_B = 256
-N_BATCHES = 4
+N_BATCHES = 2
 N_BACKEND_BATCHES = 2
+N_FIVE_BATCHES = 2
 N_REQUESTS = 16
 DENSE_SLICE = 2048      # frames of the dense route for K2/K3's comparison
 
@@ -250,21 +313,30 @@ def nbytes(*xs) -> int:
 
 
 def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
-            ops: float = 0.0, rate: float = F32_OPS, library=None):
-    """Kernel vs plain PyTorch on the same device inputs: bit-equal.
+            ops: float = 0.0, rate: float = F32_OPS, library=None,
+            runs: int = 10):
+    """Kernel vs plain PyTorch on the same device inputs: bit-equal (every
+    output, dtypes included).
     ``bound_ms`` is the larger of the bytes (``ins``, read once, and the
     kernel's outputs, written once) over HBM_BPS and ``ops`` over
     ``rate``; ``library`` is one PyTorch call computing the same
     function, timed beside the kernel (used nowhere in the port)."""
     out_k = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     out_p = plain()
+    end.record()
     torch.cuda.synchronize()
     err = max_abs_err(out_k, out_p)
     if err != 0.0:
         raise AssertionError(f"{name}: kernel differs from its plain version "
                              f"(max_abs_err {err})")
-    ms = time_ms(fn)
-    plain_ms = time_ms(plain, plain_runs)
+    ms = time_ms(fn, runs)
+    # plain_runs=0: the plain version's time is that of the comparison call
+    plain_ms = (time_ms(plain, plain_runs) if plain_runs
+                else start.elapsed_time(end))
     b = bound(nbytes(*ins) + nbytes(out_k), ops, rate)
     lib_ms = None if library is None else time_ms(library)
     log(f"  {name}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -394,7 +466,7 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
     for name, ws in (("viterbi_rows", False), ("viterbi_rows[scores]", True)):
         compare(name, lambda: align_torch.viterbi_rows(sen, Ts_d, v, ws),
                 lambda: align_torch.viterbi_rows_plain(sen, Ts_d, v, ws),
-                results, plain_runs=2, ins=(sen, Ts_d, v), ops=vit_ops(sen),
+                results, plain_runs=0, ins=(sen, Ts_d, v), ops=vit_ops(sen),
                 rate=I32_OPS)
     fresh_union(al)
     # the dense route: B=32, one chunk
@@ -413,12 +485,12 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
             "dist_topn_norm[full inventory]",
             lambda: senscore_torch.dist_topn_norm(part, ds),
             lambda: senscore_torch.dist_topn_norm_plain(part, ds),
-            results, plain_runs=2, ins=(part, ds.means, ds.var_t, ds.det),
+            results, plain_runs=0, ins=(part, ds.means, ds.var_t, ds.det),
             ops=fold_ops(part.shape[0], ds))
         compare("senone_eval[full inventory]",
                 lambda: senscore_torch.senone_eval(s, cw, ds),
                 lambda: senscore_torch.senone_eval_plain(s, cw, ds),
-                results, plain_runs=2, **eval_bound(s, cw, ds))
+                results, plain_runs=0, **eval_bound(s, cw, ds))
         s, cw = senscore_torch.dist_topn_norm(flat, ds)
         x = senscore_torch.senone_eval(s, cw, ds)
         compare("frame_best_sub",
@@ -467,24 +539,24 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
         f"nfft={fe.fft_size} nfilt={fe.num_filters} ncep={fe.num_cepstra}")
     spec = compare("fe_spec", lambda: fe_mod.fe_spec(fe, sig, ns, prior, Tmax),
                    lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, Tmax),
-                   results, plain_runs=2, **spec_bound(fe, sig, ns, prior,
+                   results, plain_runs=0, **spec_bound(fe, sig, ns, prior,
                                                        B * Tmax))
     fresh = fe.noise_init(B, dev)
     den, carry = compare(
         "fe_noise", lambda: fe_mod.fe_noise(fe, spec, fresh),
         lambda: fe_mod.fe_noise_plain(fe, spec, fresh, None), results,
-        plain_runs=2, ins=(spec, fresh), ops=40.0 * spec.numel(),
+        plain_runs=0, ins=(spec, fresh), ops=40.0 * spec.numel(),
         rate=F64_OPS)
     compare("fe_noise[masked, carried]",
             lambda: fe_mod.fe_noise(fe, spec, carry, Ts_d),
             lambda: fe_mod.fe_noise_plain(fe, spec, carry, Ts_d), results,
-            plain_runs=2, ins=(spec, carry, Ts_d), ops=40.0 * spec.numel(),
+            plain_runs=0, ins=(spec, carry, Ts_d), ops=40.0 * spec.numel(),
             rate=F64_OPS)
     cep = compare("fe_cep", lambda: fe_mod.fe_cep(fe, den),
-                  lambda: fe_mod.fe_cep_plain(fe, den), results, plain_runs=2,
+                  lambda: fe_mod.fe_cep_plain(fe, den), results, plain_runs=0,
                   **cep_bound(fe, den))
     compare("fe_cep[logspec]", lambda: fe_mod.fe_cep(fe, den, True),
-            lambda: fe_mod.fe_cep_plain(fe, den, True), results, plain_runs=2,
+            lambda: fe_mod.fe_cep_plain(fe, den, True), results, plain_runs=0,
             ins=(den,), ops=2.0 * den.numel(), rate=F64_OPS,
             library=lambda: torch.log(den))
     compare("feat_f32", lambda: feat_mod.feat_f32(cep, Ts_d, al_dev.do_cmn),
@@ -511,17 +583,17 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
     spec16 = compare("fe_spec[16 kHz, nfft 512]",
                      lambda: fe_mod.fe_spec(fe16, x16, ns16, p16, T16),
                      lambda: fe_mod.fe_spec_plain(fe16, x16, ns16, p16, T16),
-                     results, plain_runs=2,
+                     results, plain_runs=0,
                      **spec_bound(fe16, x16, ns16, p16, B16 * T16))
     fresh16 = fe16.noise_init(B16, dev)
     den16, _ = compare("fe_noise[16 kHz]",
                        lambda: fe_mod.fe_noise(fe16, spec16, fresh16),
                        lambda: fe_mod.fe_noise_plain(fe16, spec16, fresh16,
                                                      None),
-                       results, plain_runs=2, ins=(spec16, fresh16),
+                       results, plain_runs=0, ins=(spec16, fresh16),
                        ops=40.0 * spec16.numel(), rate=F64_OPS)
     compare("fe_cep[16 kHz, legacy]", lambda: fe_mod.fe_cep(fe16, den16),
-            lambda: fe_mod.fe_cep_plain(fe16, den16), results, plain_runs=2,
+            lambda: fe_mod.fe_cep_plain(fe16, den16), results, plain_runs=0,
             **cep_bound(fe16, den16))
 
     # the C reference's cepstra for this front end
@@ -606,12 +678,12 @@ def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
             lambda: align_torch.viterbi_chunk(first, carry0, 0, T, c.vit),
             lambda: align_torch.viterbi_chunk_plain(first, carry0, 0, T,
                                                     c.vit),
-            results, plain_runs=2, ins=(first, carry0, c.vit),
+            results, plain_runs=0, ins=(first, carry0, c.vit),
             ops=vit_ops(first), rate=I32_OPS)
     compare("viterbi_chunk[single, backtrace]",
             lambda: align_torch.viterbi_single(sen, T, c.vit),
             lambda: align_torch.viterbi_single_plain(sen, T, c.vit),
-            results, plain_runs=2, ins=(sen, c.vit), ops=vit_ops(sen),
+            results, plain_runs=0, ins=(sen, c.vit), ops=vit_ops(sen),
             rate=I32_OPS)
 
 
@@ -842,12 +914,12 @@ def phase_kernels_backends(als: dict, results: dict):
     dval, cw = compare(
         "ms_dist_topn", lambda: senscore_torch.ms_dist_topn(part, ms),
         lambda: senscore_torch.ms_dist_topn_plain(part, ms), results,
-        plain_runs=2, ins=(part, ms.means, ms.var_t, ms.det),
+        plain_runs=0, ins=(part, ms.means, ms.var_t, ms.det),
         ops=fold_ops(part.shape[0], ms))
     compare("ms_senone_eval",
             lambda: senscore_torch.ms_senone_eval(dval, cw, ms),
             lambda: senscore_torch.ms_senone_eval_plain(dval, cw, ms),
-            results, plain_runs=2,
+            results, plain_runs=0,
             ins=(dval, cw, ms.mixw, ms.sen2cb, ms.logadd),
             ops=8.0 * part.shape[0] * ms.S * F * ms.n_best, rate=I32_OPS)
     k11 = time_ms(lambda: senscore_torch.ms_dist_topn(flat, ms))
@@ -955,14 +1027,320 @@ def phase_backends(als: dict):
         + ", ".join(f"{k} {v:.1f} ms" for k, v in cadence.items()))
 
 
+# -- 5-state models, grammar decode, large graphs -----------------------------
+
+def graph_batch_sen(al: TorchAligner, g, audios: list):
+    """K4's inputs on the same-transcript route for a batch, bucketed,
+    chunked and scored by the path's own helpers: (sen, n_frames,
+    VitConsts)."""
+    c = al._graph_consts(g)
+    audios, Ts, Tmax = al._batch_shape(audios)
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    sen = torch.empty((len(audios), Tmax, c.gs.S), dtype=torch.int32,
+                      device=al.device)
+    for i0, _, feats in al._chunk_feats(audios, Ts_d, Tmax):
+        n = feats.shape[0]
+        senscore_torch.score_frames_graph(
+            c.gs, feats.view(n * Tmax, 3, -1),
+            out=sen[i0:i0 + n].view(n * Tmax, -1))
+    return sen, Ts_d, c.vit
+
+
+def rows_batch_sen(al: TorchAligner, graphs: list, audios: list):
+    """K6's inputs on the multi-graph route (the working-set union, or
+    the full inventory under want_scores or a dense union): (sen,
+    n_frames, RowVitConsts)."""
+    audios, Ts, Tmax = al._batch_shape(audios)
+    graphs = list(graphs) + [graphs[-1]] * (len(audios) - len(graphs))
+    uni = None if al.want_scores else al._union_scorer(graphs)
+    st = (al._stacked_graphs(graphs) if uni is None else
+          al._stacked_graphs(graphs, remap=uni["pos"], remap_ver=uni["ver"]))
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    sen = torch.empty((len(audios), Tmax, st.sencols.shape[1]),
+                      dtype=torch.int32, device=al.device)
+    for i0, _, feats in al._chunk_feats(audios, Ts_d, Tmax):
+        n = feats.shape[0]
+        flat = feats.view(n * Tmax, 3, -1)
+        src = (senscore_torch.score_frames(al.dense, flat) if uni is None
+               else senscore_torch.score_frames_graph(uni["gs"], flat))
+        senscore_torch.gather_cols(src.view(n, Tmax, -1),
+                                   st.sencols[i0:i0 + n], out=sen[i0:i0 + n])
+    return sen, Ts_d, st.vit
+
+
+def single_sen(al_dev: TorchAligner, g, audio):
+    """The single-utterance device path's inputs to K4's carry form:
+    (sen [Tpad, S], T, VitConsts)."""
+    c = al_dev._graph_consts(g)
+    n = len(audio)
+    T = al_dev.fe.n_frames(n)
+    Tpad = max(128, -(-T // 128) * 128)
+    cep = al_dev.fe.mfcc(torch.from_numpy(audio).to(al_dev.device)[None], n,
+                         Tpad)
+    Tn = torch.tensor([T], dtype=torch.int32, device=al_dev.device)
+    feats = feat_mod.feat_f32(cep, Tn, al_dev.do_cmn)[0]
+    return senscore_torch.score_frames_graph(c.gs, feats), T, c.vit
+
+
+def shape_log(what, sen, v) -> None:
+    K = v.pred_idx.shape[-1]
+    W = getattr(v, "band_pen", None)
+    log(f"  {what}: B={sen.shape[0] if sen.dim() == 3 else 1} "
+        f"T={sen.shape[-2]} S={sen.shape[-1]} P={v.P} E={v.E} K={K}"
+        + ("" if W is None else f" W={W.shape[1]}") + f" tokens "
+        f"{align_torch.tok_dtype(sen.shape[-1])}, state in "
+        + ("global memory" if cuda_build.lib().sst_viterbi_smem_bytes(
+            v.P, v.E) > align_torch.MAX_SMEM_BYTES else "shared memory"))
+
+
+def compare_vit(name, sen, n, v, results, ws=False, runs=10):
+    """K4 (VitConsts) or K6 (RowVitConsts) against its plain version; the
+    plain version's time is that of the comparison call."""
+    rows = isinstance(v, align_torch.RowVitConsts)
+    fn = align_torch.viterbi_rows if rows else align_torch.viterbi_batch
+    plain = (align_torch.viterbi_rows_plain if rows
+             else align_torch.viterbi_batch_plain)
+    shape_log(name, sen, v)
+    compare(name, lambda: fn(sen, n, v, ws), lambda: plain(sen, n, v, ws),
+            results, plain_runs=0, ins=(sen, n, v), ops=vit_ops(sen),
+            rate=I32_OPS, runs=runs)
+
+
+def compare_single(name, sen, T, v, results, runs=10):
+    shape_log(name, sen, v)
+    compare(name, lambda: align_torch.viterbi_single(sen, T, v),
+            lambda: align_torch.viterbi_single_plain(sen, T, v), results,
+            plain_runs=0, ins=(sen, v), ops=vit_ops(sen), rate=I32_OPS,
+            runs=runs)
+
+
+def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
+    """Each new Viterbi form against its plain version at the shape its
+    path gives it: E=5 (K4 on the 5-state same-transcript B=256 batch,
+    K6 on its union B=256 and scored B=32 batches, the carry form on
+    its single-utterance device path); K4 with scores (the 8-bit ptm
+    same-transcript B=256 batch); the global-state layout with int16
+    tokens (K4 and K6 on a transcript of REPEATS repeats, random scores,
+    B=4, T=256) and with int32 tokens (the large grammar: K4 on its
+    decode_batch B=8, K6 with scores on its decode_batch_scored B=8,
+    the carry form on its device-FE decode)."""
+    big = [austen_audio(i % N_UTT) for i in range(BIG_B)]
+    texts = mg["texts"]
+    mixed = [mixed_audio(i % N_MIXED) for i in range(BIG_B)]
+    sen, n, v = graph_batch_sen(al5, al5.graph_for_text(TEXT), big)
+    compare_vit("viterbi_batch[5-state]", sen, n, v, results)
+    fresh_union(al5)
+    sen, n, v = rows_batch_sen(
+        al5, [al5.graph_for_text(texts[i % N_MIXED]) for i in range(BIG_B)],
+        mixed)
+    compare_vit("viterbi_rows[5-state]", sen, n, v, results)
+    fresh_union(al5)
+    al5.want_scores = True
+    try:
+        sen, n, v = rows_batch_sen(
+            al5, [al5.graph_for_text(t) for t in texts],
+            [mixed_audio(i) for i in range(N_MIXED)])
+    finally:
+        al5.want_scores = False
+    compare_vit("viterbi_rows[5-state, scores]", sen, n, v, results, True)
+    sen, T, v = single_sen(al5_dev, al5_dev.graph_for_text(TEXT),
+                           austen_audio(0))
+    compare_single("viterbi_chunk[5-state]", sen, T, v, results)
+
+    sen, n, v = graph_batch_sen(al, al.graph_for_text(TEXT), big)
+    compare_vit("viterbi_batch[3-state, scores]", sen, n, v, results, True)
+
+    # int16 tokens, the state in global memory: REPEATS repeats
+    long_g = al.graph_for_text(" ".join([TEXT] * REPEATS))
+    rng = np.random.RandomState(REPEATS)
+    c = al._graph_consts(long_g)
+    sen = torch.from_numpy(rng.randint(0, 3000, (4, 256, c.gs.S))
+                           .astype(np.int32)).to(al.device)
+    n = torch.tensor([256, 200, 150, 2], dtype=torch.int32, device=al.device)
+    compare_vit("viterbi_batch[3-state, global]", sen, n, c.vit, results)
+    raw = align_torch.stack_graphs(
+        [long_g] + [al.graph_for_text(t) for t in texts[:3]],
+        al.am.tmat.astype(np.int32), np.arange(al.am.n_sen))
+    v = align_torch.row_consts_from_numpy(raw, al.device)
+    sen = torch.from_numpy(rng.randint(0, 3000, (4, 256,
+                                                 raw["sencols"].shape[1]))
+                           .astype(np.int32)).to(al.device)
+    compare_vit("viterbi_rows[3-state, global]", sen, n, v, results)
+
+    # int32 tokens, global state: the large grammar's paths
+    lg = al.set_grammar(jsgf_string=large_grammar())
+    eight = big[:N_UTT]
+    sen, n, v = graph_batch_sen(al, lg, eight)
+    compare_vit("viterbi_batch[3-state, int32, global]", sen, n, v, results,
+                runs=3)
+    al.want_scores = True
+    try:
+        sen, n, v = rows_batch_sen(al, [lg] * N_UTT, eight)
+    finally:
+        al.want_scores = False
+    compare_vit("viterbi_rows[3-state, int32, global, scores]", sen, n, v,
+                results, True, runs=3)
+    lgd = al_dev.set_grammar(jsgf_string=large_grammar())
+    sen, T, v = single_sen(al_dev, lgd, austen_audio(0))
+    compare_single("viterbi_chunk[3-state, int32, global]", sen, T, v,
+                   results, runs=3)
+
+
+def check_graph(g, want: dict, prefix: str, what: str) -> None:
+    for f in GRAPH_FIELDS:
+        a, b = np.asarray(getattr(g, f)), want[f"{prefix}/{f}"]
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{what}: graph field {f} differs from "
+                                 "decode.npz")
+
+
+def phase_decode(al: TorchAligner, al_dev: TorchAligner, dg: dict):
+    """Grammar decode on the 8-bit ptm model against decode.json."""
+    want = dg["decode"]
+    t0 = time.perf_counter()
+    g = al.set_grammar(jsgf_string=GRAMMAR)
+    check_graph(g, dg, "graph", "set_grammar")
+    al_dev.set_grammar(jsgf_string=GRAMMAR)
+    log(f"  set_grammar: P={len(g.senid)} K={want['K']}, graph equal to "
+        f"decode.npz ({time.perf_counter() - t0:.3f} s)")
+    rows = [decode_audio(i % N_UTT) for i in range(BIG_B - 1)] \
+        + [decode_audio(N_UTT)]
+    exp = [want["batch"][i % N_UTT] for i in range(BIG_B - 1)] \
+        + [want["batch"][N_UTT]]
+    t0 = time.perf_counter()
+    check_rows(al.decode_batch(rows), exp, f"decode_batch (B={BIG_B})",
+               rep=decode_rep)
+    if exp[-1] is not None:
+        raise AssertionError("the truncated row should fail")
+    log(f"  decode_batch B={BIG_B} (the last row truncated, failing): equal "
+        f"to the golden ({time.perf_counter() - t0:.3f} s)")
+    rows = [decode_audio(i % N_DECODE) for i in range(N_MIXED)]
+    check_rows(al.decode_batch_scored(rows),
+               [want["scored"][i % N_DECODE] for i in range(N_MIXED)],
+               f"decode_batch_scored (B={N_MIXED})", rep=decode_rep)
+    log(f"  decode_batch_scored B={N_MIXED}: equal to the golden, scores "
+        f"included")
+    a0 = austen_audio(0)
+    check_rows([al.decode(a0), al_dev.decode(a0)],
+               [want["decode"], want["decode_device"]],
+               "decode (host FE, device FE)", rep=decode_rep)
+    log("  decode on the host and on the device front end: equal to the "
+        "golden")
+    t0 = time.perf_counter()
+    search = al.decode_search(a0)
+    t1 = time.perf_counter()
+    got = search_rep(search, al.lattice(a0),
+                     [x for _, x in zip(range(N_BEST), al.nbest(a0))])
+    if got != want["search"]:
+        raise AssertionError("decode_search, lattice or nbest differs from "
+                             "the golden")
+    log(f"  decode_search hyp {got['hyp']!r} and {len(got['segs'])} "
+        f"segments, lattice {got['lattice_nodes']} nodes and "
+        f"{got['lattice_links']} links, {len(got['nbest'])}-best: equal to "
+        f"the golden (one search {t1 - t0:.3f} s)")
+
+
+def phase_5st(al5: TorchAligner, al5_dev: TorchAligner, dg: dict,
+              mg: dict):
+    """The 5-state model's batch routes and align against decode.json."""
+    want = dg["5st"]
+    same = [austen_audio(i % N_UTT) for i in range(BIG_B)]
+    pipelined(al5, same, [TEXT] * BIG_B,
+              [want["same"][i % N_UTT] for i in range(BIG_B)],
+              "5-state same-transcript", N_FIVE_BATCHES)
+    fresh_union(al5)
+    texts = mg["texts"]
+    pipelined(al5, [mixed_audio(i % N_MIXED) for i in range(BIG_B)],
+              [texts[i % N_MIXED] for i in range(BIG_B)],
+              [want["union"][i % N_MIXED] for i in range(BIG_B)],
+              "5-state mixed", N_FIVE_BATCHES)
+    mixed32 = [mixed_audio(i) for i in range(N_MIXED)]
+    check_rows(al5.align_batch_scored(mixed32, texts), want["scored"],
+               f"5-state align_batch_scored (B={N_MIXED})", rep=scored_rep)
+    log(f"  5-state align_batch_scored B={N_MIXED}: equal to the golden, "
+        "scores included")
+    check_rows([al5_dev.align(austen_audio(0), TEXT)],
+               [want["align_device"]], "5-state align (device FE)")
+    log("  5-state align on the device front end: equal to the golden")
+
+
+def phase_large(al: TorchAligner, al_dev: TorchAligner, dg: dict,
+                mg: dict):
+    """The repairs: same-transcript want_scores; a transcript of REPEATS
+    repeats (more phones than shared memory holds: K4 and K6 in the
+    global layout, int16 tokens); the large grammar (S >= 32767: int32
+    tokens, global layout) through decode_batch, decode_batch_scored and
+    the device-FE decode."""
+    audios8 = [austen_audio(i) for i in range(N_UTT)]
+    al.want_scores = True
+    try:
+        check_rows(al.align_batch(audios8, [TEXT] * N_UTT),
+                   dg["scores_same"], "same-transcript want_scores",
+                   rep=scored_rep)
+    finally:
+        al.want_scores = False
+    log(f"  same-transcript align_batch B={N_UTT} with want_scores: equal "
+        "to the golden, scores included")
+    long_text = " ".join([TEXT] * REPEATS)
+    g = al.graph_for_text(long_text)
+    T = max(al.fe.n_frames(len(a)) for a in audios8)
+    if int(g.astart[g.final_nodes].min()) <= T:
+        raise AssertionError("the long transcript's final nodes are "
+                             "reachable in the audio's frames")
+    out = al.align_batch(audios8[:4], [long_text] * 4)
+    if any(s is not None for s in out):
+        raise AssertionError("rows of the long transcript aligned")
+    log(f"  align_batch of {REPEATS} repeats (P={len(g.senid)}), 4 rows: "
+        f"each None, as its final nodes start after frame "
+        f"{int(g.astart[g.final_nodes].min())} > {T}")
+    texts = mg["texts"][:N_MIXED - 1] + [long_text]
+    audios = [mixed_audio(i) for i in range(N_MIXED)]
+    fresh_union(al)
+    al._union_scorer([al.graph_for_text(t) for t in mg["texts"]])
+    al._uni["dense"] = True
+    try:
+        out = al.align_batch(audios, texts)
+    finally:
+        fresh_union(al)
+    check_rows(out[:-1], mg["dense"][:N_MIXED - 1],
+               f"mixed align_batch with {REPEATS} repeats (forced dense)")
+    if out[-1] is not None:
+        raise AssertionError("the long transcript's row aligned")
+    log(f"  mixed align_batch B={N_MIXED} with one row of {REPEATS} repeats "
+        f"(forced dense): the others equal to the dense golden")
+    want = dg["large"]
+    t0 = time.perf_counter()
+    lg = al.set_grammar(jsgf_string=large_grammar())
+    check_graph(lg, dg, "large", "set_grammar (large)")
+    al_dev.set_grammar(jsgf_string=large_grammar())
+    log(f"  large grammar: P={want['P']} S={want['S']} K={want['K']}, graph "
+        f"equal to decode.npz ({time.perf_counter() - t0:.3f} s)")
+    t0 = time.perf_counter()
+    check_rows(al.decode_batch(audios8), want["batch"],
+               f"large decode_batch (B={N_UTT})", rep=decode_rep)
+    check_rows(al.decode_batch_scored(audios8), want["scored"],
+               f"large decode_batch_scored (B={N_UTT})", rep=decode_rep)
+    check_rows([al_dev.decode(audios8[0])], [want["decode_device"]],
+               "large decode (device FE)", rep=decode_rep)
+    log(f"  large grammar decode_batch, decode_batch_scored (B={N_UTT}) and "
+        f"the device-FE decode: equal to the golden "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+
 def count_path(wrappers: dict, drive) -> dict:
     """Launch counts of one path: every count set to 0 just before
     drive(), read just after it."""
     for fn in wrappers.values():
         fn.launches = 0
+        if hasattr(fn, "forms"):
+            fn.forms.clear()
     drive()
     torch.cuda.synchronize()
-    return {name: fn.launches for name, fn in wrappers.items()}
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name, fn in wrappers.items():
+        for form, k in getattr(fn, "forms", {}).items():
+            counts[f"{name}[{form}]"] = k
+    return counts
 
 
 def main() -> int:
@@ -989,6 +1367,7 @@ def main() -> int:
     want = golden["segs"]
     mg = load_mixed_golden()
     dg = load_device_fe_golden()
+    dcg = load_decode_golden()
     als = {}
     with tempfile.TemporaryDirectory() as model_dir:
         for variant in BACKENDS:
@@ -996,6 +1375,9 @@ def main() -> int:
             make_synth_model(d, 0, "en-us", *MODEL_VARIANTS[variant])
             als[variant] = TorchAligner(hmm=d, samprate=SAMPRATE,
                                         device="cuda")
+        d5 = os.path.join(model_dir, "ptm5st")
+        make_synth_model(d5, 0, "en-us", *MODEL_VARIANTS["ptm5st"])
+        al5 = TorchAligner(hmm=d5, samprate=SAMPRATE, device="cuda")
         make_synth_model(model_dir, seed=0, width="en-us")
         al = TorchAligner(hmm=model_dir, samprate=SAMPRATE, device="cuda")
         prev = os.environ.get("SST_FE")
@@ -1003,13 +1385,17 @@ def main() -> int:
         try:
             al_dev = TorchAligner(hmm=model_dir, samprate=SAMPRATE,
                                   device="cuda")
+            al5_dev = TorchAligner(hmm=d5, samprate=SAMPRATE, device="cuda")
         finally:
             if prev is None:
                 del os.environ["SST_FE"]
             else:
                 os.environ["SST_FE"] = prev
-    if al.native_fe is None or al_dev.native_fe is not None:
-        raise AssertionError("expected one host-FE and one device-FE aligner")
+    if (al.native_fe is None or al_dev.native_fe is not None
+            or al5.native_fe is None or al5_dev.native_fe is not None):
+        raise AssertionError("expected host-FE and device-FE aligners")
+    if al5.am.mdef.n_emit_state != 5:
+        raise AssertionError("the ptm5st model is not 5-state")
     audios8 = [austen_audio(i) for i in range(N_UTT)]
     big = [audios8[i % N_UTT] for i in range(BIG_B)]
     log(f"model: {al.am.n_sen} senones, {al.am.n_mgau} codebooks, "
@@ -1025,6 +1411,7 @@ def main() -> int:
     phase_kernels_fe(al_dev, al, big, results)
     phase_kernels_vit_chunk(al_dev, results)
     phase_kernels_backends(als, results)
+    phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results)
     wrappers = {name: fn for name, fn, _, _ in KERNELS}
 
     # 5. host-FE paths: main, mixed and serving, counted
@@ -1050,12 +1437,25 @@ def main() -> int:
     # 7. the other backends' paths, counted
     log("backend paths (4-bit ptm, semi, 4-bit semi, ms):")
     backends = count_path(wrappers, lambda: phase_backends(als))
-    counts = {"host-FE": host, "device-FE": device, "backends": backends}
+    # 8. grammar decode, counted
+    log("decode paths (8-bit ptm):")
+    decode = count_path(wrappers, lambda: phase_decode(al, al_dev, dcg))
+    # 9. the 5-state model, counted
+    log("5-state paths (ptm5st):")
+    five = count_path(wrappers, lambda: phase_5st(al5, al5_dev, dcg, mg))
+    # 10. large graphs and same-transcript scores, counted
+    log("large-graph paths (8-bit ptm):")
+    large = count_path(wrappers, lambda: phase_large(al, al_dev, dcg, mg))
+    counts = {"host-FE": host, "device-FE": device, "backends": backends,
+              "decode": decode, "5-state": five, "large": large}
     for path, names in (("host-FE", HOST_PATH), ("device-FE", DEVICE_FE_PATH),
-                        ("backends", BACKEND_PATH)):
+                        ("backends", BACKEND_PATH), ("decode", SLICE_PATH),
+                        ("5-state", SLICE_PATH), ("large", SLICE_PATH)):
+        names = names + [f"{k}[{f}]" for _, k, f, ph, _ in FORMS
+                         if ph == path]
         log(f"  {path} launches: " + ", ".join(
-            f"{n} {counts[path][n]}" for n in names))
-        missing = [n for n in names if counts[path][n] == 0]
+            f"{n} {counts[path].get(n, 0)}" for n in names))
+        missing = [n for n in names if counts[path].get(n, 0) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"paths: {missing}")
@@ -1068,6 +1468,11 @@ def main() -> int:
         path = path[0] if path else PATH_OF[kernel]
         entries.append(dict(name=entry, route="cuda", source=sources[kernel],
                             replaces=rep, launches=counts[path][kernel],
+                            **results[entry]))
+    for entry, kernel, form, path, rep in FORMS:
+        entries.append(dict(name=entry, route="cuda", source=sources[kernel],
+                            replaces=rep,
+                            launches=counts[path][f"{kernel}[{form}]"],
                             **results[entry]))
     log(json.dumps({"kernels": entries}))
     log(smi)

@@ -26,10 +26,23 @@ Port of ``soundswallower_tpu/aligner.py`` (TpuAligner):
   single-utterance path (K8-K10, K1, K2/K3, K4's carry form with the
   final select and backtrace);
 * ``stream`` (streaming.AlignStream) and ``spectrogram`` on the device
-  front end.
+  front end;
+* 3- and 5-state HMMs on every route (K4, K6 and K4's carry form in
+  their E=5 forms), int32 token stacks and paths where a graph has
+  32,767 states or more, and a global-memory Viterbi state for graphs
+  whose state does not fit a block's shared memory;
+* grammar decode (``set_grammar`` from an FsgModel or JSGF, with the
+  filler self-loops and alternate pronunciations of the config):
+  ``decode`` and ``decode_batch`` on the same-transcript route (the
+  decode graph is one graph for the batch), ``decode_batch_scored`` on
+  the scored multi-graph route, and ``decode_search``, ``lattice`` and
+  ``nbest``: the full-inventory scores (K2, K3, K7) of one utterance
+  fed to the host history search (``search_fsg.FsgSearch``, a copy of
+  the JAX package's) and its lattice.
 
-Host modules (config, model, dictionary, phone graph, native FE loader,
-live CMN) are the port's own copies of the JAX package's; the native
+Host modules (config, model, dictionary, phone and decode graphs,
+grammars, history search, lattice, native FE loader, live CMN) are the
+port's own copies of the JAX package's; the native
 C++ helpers (``native/``) are shared.  Without ``native/libsst_seg.so``,
 segments are extracted in Python, as TpuAligner does.
 
@@ -37,11 +50,11 @@ segments are extracted in Python, as TpuAligner does.
 if no CUDA device is present; ``device="cpu"`` runs their plain PyTorch
 versions.  Nothing falls back from one to the other.
 
-Still to be ported: ``want_scores`` on the same-transcript path, 5-state
-models, ``decode*``, ``align_longform_batch``, ``use_mesh`` and
-``update_mllr``.  As in the JAX package, ``align`` on the device front
-end and ``stream`` raise NotImplementedError for ms models (both need
-the graph-restricted scorer).
+Still to be ported: ``align_longform_batch``, ``use_mesh`` and
+``update_mllr``.  As in the JAX package, ``align`` and ``decode`` on the
+device front end and ``stream`` raise NotImplementedError for ms models
+(they need the graph-restricted scorer), and ``stream`` on a 5-state
+model fails as the JAX package's does (its carry has 3 states).
 """
 
 from __future__ import annotations
@@ -149,7 +162,7 @@ class _Batch:
 
     graphs: list             # [realB] AlignGraph of each row
     Ts: np.ndarray           # [realB] frame counts
-    paths: torch.Tensor      # int16 [B, Tmax], host (pinned on CUDA)
+    paths: torch.Tensor      # int16 (int32 at S >= 32767) [B, Tmax], host
     fscore: torch.Tensor     # int32 [B], host
     realB: int
     pscore: torch.Tensor | None = None   # int32 [B, Tmax] path scores
@@ -174,8 +187,6 @@ class TorchAligner:
             raise _unported("update_mllr / mllr", "A14")
         self.lmath = LogMath(config.get_float("logbase"), 0, True)
         self.am = AcousticModel.load(config, self.lmath)
-        if self.am.mdef.n_emit_state != 3:
-            raise _unported("5-state HMMs", "B4")
         self.dict = Dictionary(self.am.mdef, config["dict"], config["fdict"],
                                config.get_bool("dictcase"))
         self.d2p = Dict2Pid(self.am.mdef, self.dict)
@@ -409,16 +420,14 @@ class TorchAligner:
     def _batch_begin(self, g: AlignGraph, audios) -> _Batch:
         """Host FE (prefetched on a worker thread, chunk by chunk) ->
         pinned upload -> K1, K2, K3 per chunk into one [B, Tmax, S]
-        score buffer -> K4 over the whole batch -> download into pinned
-        host buffers, with an event recorded after the copies."""
+        score buffer -> K4 over the whole batch (with token and path
+        scores under ``want_scores``) -> download into pinned host
+        buffers, with an event recorded after the copies."""
         if self.am.backend == "ms":
             # no graph-restricted ms scorer: the full-inventory scores
             # and the per-row gather of the multi-graph route
             # (TpuAligner._batch_begin)
             return self._batch_begin_mixed([g] * len(audios), audios)
-        if self.want_scores:
-            raise _unported("want_scores=True on a same-transcript batch",
-                            "A7")
         realB = len(audios)
         if realB == 0:
             return self._empty()
@@ -432,8 +441,10 @@ class TorchAligner:
             n = feats.shape[0]
             score_frames_graph(c.gs, feats.view(n * Tmax, 3, -1),
                                out=sen[i0:i0 + n].view(n * Tmax, -1))
-        path, fscore = viterbi_batch(sen, Ts_d, c.vit)
-        return self._download([g] * realB, Ts[:realB], realB, path, fscore)
+        path, pscore, fscore = viterbi_batch(sen, Ts_d, c.vit,
+                                             self.want_scores)
+        return self._download([g] * realB, Ts[:realB], realB, path, fscore,
+                              pscore)
 
     def _batch_begin_mixed(self, graphs: list, audios) -> _Batch:
         """One dispatch for a batch of different transcripts
@@ -780,12 +791,249 @@ class TorchAligner:
         except RuntimeError:
             return None
 
-    # -- not ported yet ----------------------------------------------------------
+    # -- grammar decoding ----------------------------------------------------
 
-    def decode(self, *a, **k):
-        raise _unported("decode", "A8")
+    def set_grammar(self, fsg=None, jsgf_file: str | None = None,
+                    jsgf_string: str | None = None) -> AlignGraph:
+        """Compile a grammar (FsgModel or JSGF) into a static decode graph
+        (ops/decode_graph.py), with silence self-loops and alternate
+        pronunciations added per config like fsg_search_init
+        (fsg_search.c:84-170), as TpuAligner.set_grammar."""
+        from .jsgf import Jsgf
+        from .ops.decode_graph import build_fsg_graph
 
-    decode_batch = decode_batch_scored = decode_search = decode
+        if jsgf_file is not None or jsgf_string is not None:
+            j = Jsgf.parse_file(jsgf_file) if jsgf_file \
+                else Jsgf.parse_string(jsgf_string)
+            rule = j.get_rule(self.config["toprule"]) \
+                if self.config["toprule"] else j.default_rule()
+            fsg = j.build_fsg(rule, self.lmath, self.config.get_float("lw"))
+        if fsg is None:
+            raise ValueError("need fsg, jsgf_file, or jsgf_string")
+        if self.config.get_bool("fsgusefiller") and not fsg.has_sil:
+            fsg.add_silence("<sil>", -1, self.config.get_float("silprob"))
+            for wid in range(self.dict.filler_start,
+                             self.dict.filler_end + 1):
+                if wid in (self.dict.startwid, self.dict.finishwid,
+                           self.dict.silwid):
+                    continue
+                fsg.add_silence(self.dict.wordstr(wid), -1,
+                                self.config.get_float("fillprob"))
+        if self.config.get_bool("fsgusealtpron") and not fsg.has_alt:
+            for word in list(fsg.vocab):
+                wid = self.dict.wordid(word)
+                if wid < 0:
+                    continue
+                alt = self.dict.nextalt(wid)
+                while alt >= 0:
+                    fsg.add_alt(word, self.dict.wordstr(alt))
+                    alt = self.dict.nextalt(alt)
+        self._decode_graph = build_fsg_graph(
+            fsg, self.dict, self.d2p, self.am, self.lmath, self.config)
+        self._decode_fsg = fsg
+        return self._decode_graph
+
+    def _grammar(self) -> AlignGraph:
+        g = getattr(self, "_decode_graph", None)
+        if g is None:
+            raise RuntimeError("call set_grammar() first")
+        return g
+
+    def _hyp(self, segs: list) -> str:
+        return " ".join(self.dict.wordstr(self.dict.basewid_of(s.wid))
+                        for s in segs if not self.dict.filler_word(s.wid))
+
+    def decode(self, audio: np.ndarray,
+               dist_mode: str = "fold") -> tuple[str, list[WordSeg]]:
+        """Grammar decode of one int16 utterance against the set_grammar()
+        graph: dense global Viterbi, no beams.  With the host FE through
+        decode_batch, else on the single-utterance device path (K8-K10,
+        K1, K2/K3, K4's carry form).  Returns (hyp text, segs)."""
+        g = self._grammar()
+        audio = np.asarray(audio)
+        if audio.dtype != np.int16:
+            raise TypeError("decode expects int16 audio")
+        self._fold_only(dist_mode)
+        if self.native_fe is not None:
+            res = self.decode_batch([audio], dist_mode)[0]
+            if res is None:
+                raise RuntimeError("Decode failed to reach final state")
+            return res
+        n = len(audio)
+        T = self.fe.n_frames(n)
+        Tpad = max(128, -(-T // 128) * 128)
+        c = self._graph_consts(g)
+        sig = self._upload(torch.from_numpy(audio.astype(np.int16)))
+        cep = self.fe.mfcc(sig[None], n, Tpad)
+        Ts = self._upload(torch.tensor([T], dtype=torch.int32))
+        feats = feat_f32(cep, Ts, self.do_cmn)[0]
+        path, _ = viterbi_single(score_frames_graph(c.gs, feats), T, c.vit)
+        segs = self._extract_decode(g, path.cpu().numpy(), T)
+        return self._hyp(segs), segs
+
+    def decode_batch(self, audios: list[np.ndarray],
+                     dist_mode: str = "fold") -> list:
+        """Grammar decode of a batch against the set_grammar() graph on
+        the same-transcript route (K1, K2/K3, K4).  Returns (hyp, segs)
+        per utterance, None where the final state is not reached."""
+        g = self._grammar()
+        self._fold_only(dist_mode)
+        return self._decode_end(g, self._batch_begin(g, audios))
+
+    def decode_batch_scored(self, audios: list[np.ndarray],
+                            dist_mode: str = "fold") -> list:
+        """decode_batch with per-segment scores: the multi-graph route
+        on the full-inventory scorer (K2, K3, K7, K5, K6 with token
+        scores), as align_batch_scored.  Returns (hyp, segs) or None per
+        utterance."""
+        g = self._grammar()
+        self._fold_only(dist_mode)
+        prev = self.want_scores
+        self.want_scores = True
+        try:
+            handle = self._batch_begin_mixed([g] * len(audios), audios)
+        finally:
+            self.want_scores = prev
+        return self._decode_end(g, handle)
+
+    def _decode_end(self, g: AlignGraph, handle: _Batch) -> list:
+        if handle.done is not None:
+            handle.done.synchronize()
+        paths = handle.paths.numpy()
+        pscores = None if handle.pscore is None else handle.pscore.numpy()
+        out: list = []
+        for i in range(handle.realB):
+            try:
+                segs = self._extract_decode(
+                    g, paths[i], int(handle.Ts[i]),
+                    None if pscores is None else pscores[i])
+            except RuntimeError:
+                out.append(None)
+                continue
+            out.append((self._hyp(segs), segs))
+        return out
+
+    def _extract_decode(self, g: AlignGraph, path, T: int,
+                        pscore=None) -> list[WordSeg]:
+        """Decode-path extraction (TpuAligner._extract_decode): a graph
+        traversal can re-enter the same node (self-loop grammars), so a
+        within-node HMM-state decrease marks a re-entry boundary; words
+        group by runs of the same graph transition (word_of), a new
+        traversal starting wherever the phone position does not
+        advance."""
+        if path[T - 1] < 0:
+            raise RuntimeError("Decode failed to reach final state")
+        p = np.asarray(path[:T])
+        E = g.senid.shape[1]
+        node = p // E
+        state = p % E
+        change = (node[1:] != node[:-1]) | (state[1:] < state[:-1])
+        ch = np.nonzero(change)[0]
+        bounds = [0] + (ch + 2).tolist() + [T]
+        nodes_seq = node[ch].tolist() + [int(node[T - 1])]
+
+        def seg_score(s, e):  # frames [s, e)
+            if pscore is None:
+                return 0
+            hi = int(pscore[min(e, T) - 1])
+            lo = int(pscore[s - 1]) if s > 0 else 0
+            return hi - lo
+
+        ci_strs = self._ci_strs()
+        segs: list[WordSeg] = []
+        cur_ti = None
+        last_pos = -1
+        for i, nd in enumerate(nodes_seq):
+            start = bounds[i]
+            dur = bounds[i + 1] - bounds[i]
+            if dur <= 0:
+                continue
+            ti = int(g.word_of[nd])
+            pos = int(g.pos_of[nd])
+            wid = int(g.variant_of[nd])
+            ci = ci_strs[int(g.cipid[nd])]
+            if ti != cur_ti or pos <= last_pos:
+                seg = WordSeg(self.dict.wordstr(wid), start, 0, phones=[])
+                seg.wid = wid
+                segs.append(seg)
+                cur_ti = ti
+            seg = segs[-1]
+            sc = seg_score(start, start + dur)
+            seg.phones.append((ci, start, dur, sc))
+            seg.duration = start + dur - seg.start
+            seg.score += sc
+            last_pos = pos
+        return segs
+
+    # -- lattice / nbest (scores on the card, history search on the host) ----
+
+    def _dense_scores_utt(self, audio: np.ndarray) -> np.ndarray:
+        """Full-inventory int16 senone scores [T, n_sen] of one utterance
+        in senone order (the acmod_score contract the host search reads),
+        the frame axis bucketed to 64: the host FE's float32 cepstra or
+        the device FE, K1's float32 form, K2, K3 and K7."""
+        audio = np.asarray(audio)
+        n = len(audio)
+        T = self.fe.n_frames(n)
+        Tpad = max(64, -(-T // 64) * 64)
+        if self.native_fe is not None:
+            cep = self.native_fe.process_batch(audio[None], np.array([n]),
+                                               Tpad)
+            cep = self._upload(torch.from_numpy(
+                np.ascontiguousarray(cep, np.float32)))
+        else:
+            sig = self._upload(torch.from_numpy(audio.astype(np.int16)))
+            cep = self.fe.mfcc(sig[None], n, Tpad)
+        Ts = self._upload(torch.tensor([T], dtype=torch.int32))
+        feats = feat_f32(cep, Ts, self.do_cmn)[0]
+        return score_frames(self.dense, feats).cpu().numpy()[:T]
+
+    def decode_search(self, audio: np.ndarray, dist_mode: str = "fold"):
+        """Grammar decode with the full history table: the card's dense
+        scores fed to the reference's beam search and history dedup on
+        the host (search_fsg.FsgSearch), as TpuAligner.decode_search.
+        Returns the finished FsgSearch (hyp(), seg_iter(); the input of
+        Lattice.from_fsg_search)."""
+        from .search_fsg import FsgSearch
+
+        fsg = getattr(self, "_decode_fsg", None)
+        if fsg is None:
+            raise RuntimeError("call set_grammar() first")
+        self._fold_only(dist_mode)
+        sen = self._dense_scores_utt(audio)
+        search = FsgSearch(fsg, self.config, self.am, self.dict, self.d2p,
+                           self.lmath)
+        search.start()
+        for t in range(len(sen)):
+            search.step(sen[t], t)
+        search.finish()
+        return search
+
+    def lattice(self, audio: np.ndarray, dist_mode: str = "fold"):
+        """Word DAG of one utterance against the set_grammar() grammar
+        (decoder_lattice / fsg_search_lattice, fsg_search.c:1344-1524),
+        built from decode_search's history."""
+        from .lattice import Lattice
+
+        return Lattice.from_fsg_search(self.decode_search(audio, dist_mode),
+                                       self.config)
+
+    def nbest(self, audio: np.ndarray, sf: int = 0, ef: int = -1,
+              dist_mode: str = "fold"):
+        """A* N-best iterator yielding (hyp, score) best-first
+        (decoder_nbest semantics) over the lattice."""
+        from .lattice import AstarSearch
+
+        dag = self.lattice(audio, dist_mode)
+        dag.bestpath(self.config.get_float("ascale"))
+        astar = AstarSearch(dag, sf, ef)
+        while True:
+            p = astar.next()
+            if p is None:
+                return
+            yield astar.hyp(p), p.score
+
+    # -- not ported yet ----------------------------------------------------
 
     def align_longform_batch(self, *a, **k):
         raise _unported("align_longform_batch", "A12")

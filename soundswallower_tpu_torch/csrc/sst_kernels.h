@@ -45,21 +45,29 @@ int sst_senone_eval(const int32_t* s, const int32_t* cw, const uint8_t* mixw,
                     int S, int topn, int wrap_u8, cudaStream_t stream);
 
 // K4: whole-utterance lane Viterbi + final-node select + backtrace.
-// sen int32 [B, T, P*3]; n_frames int32 [B]; tp int32 [P, 3, 4];
-// pred_idx/pred_pen int32 [P, K]; pred_ok uint8 [P, K];
-// astart/aend/entry int32 [P]; fin int32 [n_fin]
-// -> tok int16 [B, T, P*3] (scratch), path int16 [B, T], fscore int32 [B].
+// sen int32 [B, T, P*E] (E = 3 or 5 emitting states); n_frames int32 [B];
+// tp int32 [P, E, E+1]; pred_idx/pred_pen int32 [P, K]; pred_ok uint8
+// [P, K]; astart/aend/entry int32 [P]; fin int32 [n_fin]
+// -> tok [B, T, P*E] (scratch), tsc int32 [B, T, P*E] (scratch, NULL
+// without scores), path [B, T] (tok and path int16 with tok_bytes 2,
+// int32 with 4), pscore int32 [B, T] (NULL without scores), fscore int32
+// [B].  gstate: NULL for the Viterbi state in shared memory, else a
+// scratch of B * sst_viterbi_state_bytes(P, E) bytes (16-byte aligned).
 int sst_viterbi_batch(const int32_t* sen, const int32_t* n_frames,
                       const int32_t* tp, const int32_t* pred_idx,
                       const int32_t* pred_pen, const uint8_t* pred_ok,
                       const int32_t* astart, const int32_t* aend,
                       const int32_t* entry, const int32_t* fin, int B, int T,
-                      int P, int K, int n_fin, int16_t* tok, int16_t* path,
-                      int32_t* fscore, cudaStream_t stream);
+                      int P, int E, int K, int n_fin, void* tok, int tok_bytes,
+                      int32_t* tsc, void* path, int32_t* pscore,
+                      int32_t* fscore, uint8_t* gstate, cudaStream_t stream);
 
-// Dynamic shared memory sst_viterbi_batch and sst_viterbi_rows need for
-// P phones.
-int sst_viterbi_smem_bytes(int P);
+// Dynamic shared memory the Viterbi kernels need for P phones of E
+// states with the state in shared memory.
+int sst_viterbi_smem_bytes(int P, int E);
+
+// Bytes of one row's Viterbi state in the global layout.
+int64_t sst_viterbi_state_bytes(int P, int E);
 
 // K5: per-row column gather.  src int16 or int32 (elem_bytes 2 or 4)
 // [B, T, Sx]; cols int32 [B, S] -> out int32 [B, T, S].
@@ -68,22 +76,23 @@ int sst_gather_cols(const void* src, int elem_bytes, const int32_t* cols,
                     cudaStream_t stream);
 
 // K6: per-row-graph lane Viterbi + masked final select + backtrace.
-// sen int32 [B, T, P*3]; n_frames int32 [B]; tp int32 [B, P, 3, 4];
+// sen int32 [B, T, P*E]; n_frames int32 [B]; tp int32 [B, P, E, E+1];
 // pred_idx/pred_pen int32 [B, P, K]; pred_ok uint8 [B, P, K];
 // band_pen int32 / band_ok uint8 [B, W, P] (W > 0: the band form, else
 // NULL and the K-slot form); astart/aend/entry int32 [B, P];
-// final_mask uint8 [B, P] -> tok int16 [B, T, P*3] (scratch), tsc int32
-// [B, T, P*3] (scratch, NULL without scores), path int16 [B, T], pscore
-// int32 [B, T] (NULL without scores), fscore int32 [B].
+// final_mask uint8 [B, P] -> tok [B, T, P*E] (scratch), tsc int32
+// [B, T, P*E] (scratch, NULL without scores), path [B, T] (tok and path
+// int16 or int32 by tok_bytes), pscore int32 [B, T] (NULL without
+// scores), fscore int32 [B]; gstate as K4's.
 int sst_viterbi_rows(const int32_t* sen, const int32_t* n_frames,
                      const int32_t* tp, const int32_t* pred_idx,
                      const int32_t* pred_pen, const uint8_t* pred_ok,
                      const int32_t* band_pen, const uint8_t* band_ok,
                      const int32_t* astart, const int32_t* aend,
                      const int32_t* entry, const uint8_t* final_mask, int B,
-                     int T, int P, int K, int W, int16_t* tok, int32_t* tsc,
-                     int16_t* path, int32_t* pscore, int32_t* fscore,
-                     cudaStream_t stream);
+                     int T, int P, int E, int K, int W, void* tok,
+                     int tok_bytes, int32_t* tsc, void* path, int32_t* pscore,
+                     int32_t* fscore, uint8_t* gstate, cudaStream_t stream);
 
 // K7: the dense per-frame tail.  in int32 [N, S] -> out int16 [N, S] =
 // int16(in) - int16(min over the frame's S scores) (sub = 1, ptm), or
@@ -97,19 +106,21 @@ int sst_feat_f32(const float* cep, const int32_t* n_frames, float* out,
                  int B, int T, int ncep, int do_cmn, cudaStream_t stream);
 
 // K4, carry form (single utterance, frames t0 .. t0+C-1).
-// sen int32 [C, P*3]; n = the utterance's frame count; graph tables as
-// K4; carry score/hist int32 [P, 3], osc/ohi int32 [P], best_prev int32
-// [1], read and written back -> tok int16 [C, P*3].  With fin != NULL
-// (int32 [n_fin]), also the final-node select and backtrace: path int32
-// [C] (-1 at and after n - t0), fscore int32 [1].
+// sen int32 [C, P*E]; n = the utterance's frame count; graph tables as
+// K4; carry score/hist int32 [P, E], osc/ohi int32 [P], best_prev int32
+// [1], read and written back -> tok [C, P*E] (int16 or int32 by
+// tok_bytes).  With fin != NULL (int32 [n_fin]), also the final-node
+// select and backtrace: path int32 [C] (-1 at and after n - t0), fscore
+// int32 [1].  anext: NULL for the state in shared memory, else a uint8
+// [P] scratch, and the kernel works on the carry in place.
 int sst_viterbi_chunk(const int32_t* sen, int t0, int n, const int32_t* tp,
                       const int32_t* pred_idx, const int32_t* pred_pen,
                       const uint8_t* pred_ok, const int32_t* astart,
                       const int32_t* aend, int32_t* score, int32_t* hist,
                       int32_t* osc, int32_t* ohi, int32_t* best_prev, int C,
-                      int P, int K, int16_t* tok, const int32_t* fin,
-                      int n_fin, int32_t* path, int32_t* fscore,
-                      cudaStream_t stream);
+                      int P, int E, int K, void* tok, int tok_bytes,
+                      const int32_t* fin, int n_fin, int32_t* path,
+                      int32_t* fscore, uint8_t* anext, cudaStream_t stream);
 
 // K8: pre-emphasis, framing, window, FFT, power spectrum, mel fold.
 // sig int16 (sig_i16 = 1) or float32 [B, N]; n_samps int32 [B]; prior

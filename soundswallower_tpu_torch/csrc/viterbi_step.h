@@ -1,7 +1,8 @@
 // The per-phone frame step shared by the Viterbi kernels K4
 // (viterbi.cu) and K6 (viterbi_rows.cu): XLA's wrapping int32 adds, the
-// shared-memory layout of a block's Viterbi state, and hmm.c's 3-state
-// update (align_jax.py _eval_3st_lanes) with the renormalization rule.
+// two layouts of a block's Viterbi state, and hmm.c's 3- and 5-state
+// updates (align_jax.py _eval_3st_lanes, _eval_5st) with the
+// renormalization rule.
 #pragma once
 
 #include <climits>
@@ -20,19 +21,56 @@ __device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a - (uint32_t)b);
 }
 
-// score, hist [3P] + out_score, out_hist [P] + 32 warp maxima, then
-// active_next [P] bytes
-__host__ __device__ inline size_t smem_bytes(int P) {
-  return (size_t)(8 * P + 32) * sizeof(int32_t) + (size_t)P;
+// A row's Viterbi state: score, hist [P, E], out_score, out_hist [P]
+// (int32), then active_next [P] (bytes), rounded up to 16 bytes.
+__host__ __device__ inline size_t state_bytes(int P, int E) {
+  const size_t b = (size_t)(2 * E * P + 2 * P) * sizeof(int32_t) + (size_t)P;
+  return (b + 15) / 16 * 16;
+}
+
+// Dynamic shared memory of a block: 32 warp maxima, then, in the
+// shared layout, the row's state.
+__host__ __device__ inline size_t smem_bytes(int P, int E, bool global) {
+  return 32 * sizeof(int32_t) + (global ? 0 : state_bytes(P, E));
+}
+
+struct VitState {
+  int32_t* score;  // [P, E]
+  int32_t* hist;   // [P, E]
+  int32_t* osc;    // [P] out_score
+  int32_t* ohi;    // [P] out_hist
+  uint8_t* anext;  // [P] active in the next frame
+};
+
+// The state at `base` (shared memory, or the row's slice of the global
+// scratch; one block owns it either way, and __syncthreads orders its
+// reads and writes in both).
+__device__ __forceinline__ VitState carve(void* base, int P, int E) {
+  VitState v;
+  v.score = reinterpret_cast<int32_t*>(base);
+  v.hist = v.score + E * P;
+  v.osc = v.hist + E * P;
+  v.ohi = v.osc + P;
+  v.anext = reinterpret_cast<uint8_t*>(v.ohi + P);
+  return v;
 }
 
 // Frame update of phone p: renormalizes its scores when the previous
-// frame's best crossed the threshold, and, when the phone is active,
-// runs the 3-state update (reading the row's senone scores sen3 [3] and
-// the negated tmat tq [3, 4]), writing out_score/out_hist when the exit
+// frame's best crossed the threshold and, when the phone is active, runs
+// the E-state update (reading the row's senone scores sen [E] and the
+// negated tmat tq [E, E+1]), writing out_score/out_hist when the exit
 // state is reached.  Returns the phone's best new score (kWorst when
 // inactive).
-__device__ __forceinline__ int32_t hmm_update(
+template <int E>
+__device__ int32_t hmm_update(int32_t* score, int32_t* hist, int32_t* osc,
+                              int32_t* ohi, const int32_t* __restrict__ tq,
+                              const int32_t* __restrict__ sen, bool act,
+                              bool renorm, int32_t best_prev);
+
+// 3 states (_eval_3st_lanes), with hmm.c's reuse of t2 when the 0->2
+// skip is absent
+template <>
+__device__ __forceinline__ int32_t hmm_update<3>(
     int32_t* score, int32_t* hist, int32_t* osc, int32_t* ohi,
     const int32_t* __restrict__ tq, const int32_t* __restrict__ sen3,
     bool act, bool renorm, int32_t best_prev) {
@@ -88,6 +126,83 @@ __device__ __forceinline__ int32_t hmm_update(
   return bst;
 }
 
+// sel3 of _eval_5st: C's nested `if t0 > t1 (t2 > t0 ? t2 : t0) else
+// (t2 > t1 ? t2 : t1)`, strict, with the history of the branch taken,
+// then the WORST clamp.
+__device__ __forceinline__ void sel3(int32_t t0, int32_t t1, int32_t t2,
+                                     int32_t h0, int32_t h1, int32_t h2,
+                                     int32_t* ns, int32_t* nh) {
+  const bool br = t0 > t1;
+  const bool use2 = br ? t2 > t0 : t2 > t1;
+  *ns = max(use2 ? t2 : (br ? t0 : t1), kWorst);
+  *nh = use2 ? h2 : (br ? h0 : h1);
+}
+
+// 5 states (_eval_5st): every 3-way select reads its own transition row
+// (no t2 reuse); the exit (state 5) is written when s3 > WORST, state 4
+// is updated when s2 > WORST and state 3 when s1 > WORST, else they keep
+// their (renormalized) score and history.
+template <>
+__device__ __forceinline__ int32_t hmm_update<5>(
+    int32_t* score, int32_t* hist, int32_t* osc, int32_t* ohi,
+    const int32_t* __restrict__ tq, const int32_t* __restrict__ sen5,
+    bool act, bool renorm, int32_t best_prev) {
+  int32_t sc[5], h[5], s[5];
+#pragma unroll
+  for (int e = 0; e < 5; ++e) {
+    sc[e] = score[e];
+    if (renorm && sc[e] > kWorst) sc[e] = wsub(sc[e], best_prev);
+    h[e] = hist[e];
+    s[e] = wsub(sc[e], sen5[e]);
+  }
+  // s[i] + tprob(i, j) = s[i] - tq[6 * i + j]
+#define SST_T5(i, j) wsub(s[i], tq[6 * (i) + (j)])
+  int32_t bst = kWorst;
+  // state 5 (non-emitting exit) from 4 and 3
+  const int32_t x1 = SST_T5(4, 5), x2 = SST_T5(3, 5);
+  if (act && s[3] > kWorst) {
+    const int32_t s5 = max(x1 > x2 ? x1 : x2, kWorst);
+    *osc = s5;
+    *ohi = x1 > x2 ? h[4] : h[3];
+    bst = s5;
+  }
+  int32_t ns4, nh4, ns3, nh3, ns2, nh2;
+  const bool g4 = act && s[2] > kWorst;
+  sel3(SST_T5(4, 4), SST_T5(3, 4), SST_T5(2, 4), h[4], h[3], h[2], &ns4,
+       &nh4);
+  const bool g3 = act && s[1] > kWorst;
+  sel3(SST_T5(3, 3), SST_T5(2, 3), SST_T5(1, 3), h[3], h[2], h[1], &ns3,
+       &nh3);
+  sel3(SST_T5(2, 2), SST_T5(1, 2), SST_T5(0, 2), h[2], h[1], h[0], &ns2,
+       &nh2);
+  const int32_t b0 = SST_T5(1, 1), b1 = SST_T5(0, 1);
+  const int32_t ns1 = max(b0 > b1 ? b0 : b1, kWorst);
+  const int32_t nh1 = b0 > b1 ? h[1] : h[0];
+  const int32_t ns0 = max(SST_T5(0, 0), kWorst);
+#undef SST_T5
+  if (g4) {
+    bst = max(bst, ns4);
+    sc[4] = ns4;
+    hist[4] = nh4;
+  }
+  if (g3) {
+    bst = max(bst, ns3);
+    sc[3] = ns3;
+    hist[3] = nh3;
+  }
+  if (act) {
+    bst = max(bst, max(ns2, max(ns1, ns0)));
+    sc[2] = ns2;
+    sc[1] = ns1;
+    sc[0] = ns0;
+    hist[2] = nh2;
+    hist[1] = nh1;
+  }
+#pragma unroll
+  for (int e = 0; e < 5; ++e) score[e] = sc[e];
+  return bst;
+}
+
 // Block-wide max of v, returned to every thread; wmax is 32 ints of
 // shared memory that no thread may write again before the next barrier.
 __device__ __forceinline__ int32_t block_max(int32_t v, int32_t* wmax) {
@@ -100,5 +215,16 @@ __device__ __forceinline__ int32_t block_max(int32_t v, int32_t* wmax) {
   for (int w = 0; w < nwarps; ++w) best = max(best, wmax[w]);
   return best;
 }
+
+// Opt a kernel into more than 48 KB of dynamic shared memory when it
+// needs it.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+inline int vit_threads(int P) { return P < 1024 ? (P + 31) / 32 * 32 : 1024; }
 
 }  // namespace sst

@@ -59,7 +59,11 @@ class AlignStream:
             self._pend = np.zeros((0, 0), np.int16)
             self._head_done = False
             self._nfeat = 0          # feature frames fully computed
-            self._carry = vit_carry0(self._c.vit)
+            # the JAX package's stream starts from vit_carry0's default
+            # 3-state carry (soundswallower_tpu/streaming.py:67-70): on a
+            # 5-state model its first Viterbi chunk raises TypeError, and
+            # so does this one (viterbi_chunk's carry check)
+            self._carry = vit_carry0(self._c.vit, n_emit=3)
             self._toks: list[np.ndarray] = []
             self._t = 0              # frames consumed by Viterbi
             self._ended = False

@@ -52,21 +52,23 @@ _SIGS = {
                            _P],
     "sst_senone_eval": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P],
-    "sst_viterbi_batch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _P, _P, _P, _P],
-    "sst_viterbi_smem_bytes": [_I],
+    "sst_viterbi_batch": [_P] * 10 + [_I] * 6 + [_P, _I] + [_P] * 6,
+    "sst_viterbi_smem_bytes": [_I, _I],
+    "sst_viterbi_state_bytes": [_I, _I],
     "sst_gather_cols": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "sst_viterbi_rows": [_P] * 12 + [_I] * 5 + [_P] * 6,
+    "sst_viterbi_rows": [_P] * 12 + [_I] * 6 + [_P, _I] + [_P] * 6,
     "sst_frame_best_sub": [_P, _P, _I, _I, _I, _P],
     "sst_feat_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 11 + [_I] * 3
-    + [_P, _P, _I, _P, _P, _P],
+    "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 11 + [_I] * 4
+    + [_P, _I, _P, _I, _P, _P, _P, _P],
     "sst_fe_spec": [_P, _I] + [_P] * 10 + [_I] * 8 + [_D, _P],
     "sst_fe_noise": [_P] * 8 + [_I] * 4 + [_P],
     "sst_fe_cep": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "sst_ms_dist_topn": [_P] * 6 + [_I] * 6 + [_P],
     "sst_ms_senone_eval": [_P] * 5 + [_I, _P] + [_I] * 8 + [_P],
 }
+# launchers return the cudaError_t of their launch; these return sizes
+_RESTYPES = {"sst_viterbi_state_bytes": ctypes.c_int64}
 
 
 def nvcc_path() -> str:
@@ -142,7 +144,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGS.items():
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             dll.sst_error_string.argtypes = [_I]
             dll.sst_error_string.restype = ctypes.c_char_p
             _LIB = dll

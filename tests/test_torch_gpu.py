@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from _torch_synth import (SAMPRATE, TEXT, austen_audio, load_golden,
-                          model_dir, segs_rep, variant_dir)
+                          model_dir, random_graph, segs_rep, stack_random,
+                          variant_dir)
 from make_torch_backends_golden import (SETS, dense_feats,
                                         load_backends_golden, run_set)
 from make_torch_mixed_golden import (load_mixed_golden, mixed_audio,
@@ -60,9 +61,17 @@ def test_kernels_equal_plain_on_card(cuda_aligner):
     short = Ts_d.clone()
     short[-1] = 3                                   # a row that fails
     for n in (Ts_d, short):
-        path, fs = at.viterbi_batch(sen, n, c.vit)
-        path_p, fs_p = at.viterbi_batch_plain(sen, n, c.vit)
-        assert torch.equal(path, path_p) and torch.equal(fs, fs_p)
+        for ws in (False, True):
+            _equal(at.viterbi_batch(sen, n, c.vit, ws),
+                   at.viterbi_batch_plain(sen, n, c.vit, ws))
+
+
+def _equal(got, want):
+    """Tuples of tensors (or None) equal element for element."""
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or (
+            a.dtype == b.dtype and torch.equal(a, b))
 
 
 def test_gpu_aligner_matches_golden(tmp_path_factory):
@@ -87,29 +96,39 @@ def test_viterbi_large_graphs_on_card(cuda_aligner, repeat, over_48k):
     memory a block gets without opting in."""
     al = cuda_aligner
     c = al._graph_consts(al.graph_for_text(" ".join([TEXT] * repeat)))
-    smem = cuda_build.lib().sst_viterbi_smem_bytes(c.vit.P)
+    smem = cuda_build.lib().sst_viterbi_smem_bytes(c.vit.P, 3)
     assert (smem > 48 * 1024) == over_48k, (c.vit.P, smem)
     B, T = 4, 256
     rng = np.random.RandomState(repeat)
     sen = torch.from_numpy(rng.randint(0, 3000, (B, T, c.gs.S))
                            .astype(np.int32)).cuda()
     n = torch.tensor([T, 200, 150, 2], dtype=torch.int32).cuda()
-    path, fs = at.viterbi_batch(sen, n, c.vit)
-    path_p, fs_p = at.viterbi_batch_plain(sen, n, c.vit)
-    assert torch.equal(path, path_p) and torch.equal(fs, fs_p)
+    _equal(at.viterbi_batch(sen, n, c.vit),
+           at.viterbi_batch_plain(sen, n, c.vit))
 
 
 def test_viterbi_too_large_graph_raises_on_card(cuda_aligner):
     """A graph whose state needs more shared memory than a block can
-    have raises ValueError with the sizes, and launches nothing."""
+    have (130 repeats, P > 7,040) once raised ValueError; it now runs
+    with the state in global memory, one launch, bit-equal to the plain
+    version, with and without scores, and so do K6 and the carry form."""
     al = cuda_aligner
     c = al._graph_consts(al.graph_for_text(" ".join([TEXT] * 130)))
-    sen = torch.zeros((1, 64, c.gs.S), dtype=torch.int32, device="cuda")
-    n = torch.tensor([64], dtype=torch.int32, device="cuda")
-    before = at.viterbi_batch.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        at.viterbi_batch(sen, n, c.vit)
-    assert at.viterbi_batch.launches == before
+    lib = cuda_build.lib()
+    assert lib.sst_viterbi_smem_bytes(c.vit.P, 3) > at.MAX_SMEM_BYTES
+    rng = np.random.RandomState(130)
+    sen = torch.from_numpy(rng.randint(0, 3000, (2, 128, c.gs.S))
+                           .astype(np.int32)).cuda()
+    n = torch.tensor([128, 90], dtype=torch.int32, device="cuda")
+    forms = ("3-state, global", "3-state, global, scores")
+    before = [at.viterbi_batch.forms.get(f, 0) for f in forms]
+    for ws in (False, True):
+        _equal(at.viterbi_batch(sen, n, c.vit, ws),
+               at.viterbi_batch_plain(sen, n, c.vit, ws))
+    assert [at.viterbi_batch.forms.get(f, 0) for f in forms] \
+        == [b + 1 for b in before]
+    path, fs = at.viterbi_single(sen[0], 128, c.vit)
+    _equal((path, fs), at.viterbi_single_plain(sen[0], 128, c.vit))
 
 
 def _mixed_inputs(al, texts, T=256, seed=0):
@@ -159,7 +178,7 @@ def test_viterbi_rows_over_48k_on_card(cuda_aligner):
     al = cuda_aligner
     texts = [" ".join([TEXT] * 26), "young man", " ".join([TEXT] * 3)]
     raw, sen = _mixed_inputs(al, texts, T=128, seed=1)
-    assert cuda_build.lib().sst_viterbi_smem_bytes(raw["P"]) > 48 * 1024
+    assert cuda_build.lib().sst_viterbi_smem_bytes(raw["P"], 3) > 48 * 1024
     n = torch.tensor([128, 100, 2], dtype=torch.int32).cuda()
     c = at.row_consts_from_numpy(raw, "cuda")
     for ws in (False, True):
@@ -407,3 +426,89 @@ def test_gpu_backends_match_golden(tmp_path_factory):
             rows = [rep(r) for r in run_set(al, variant, name, g["texts"])]
             assert rows == g[variant][name], (variant, name)
 
+
+
+# -- the Viterbi's 5-state, int32 and global-state forms ----------------------
+
+# (E, P): just under and just over the shared-memory limit (7,040 phones
+# of 3 states, 4,741 of 5), and S >= 32767 (int32 tokens)
+VIT_FORMS = [(3, 7040), (3, 7041), (5, 4741), (5, 4742), (3, 11000),
+             (5, 6554), (5, 200)]
+
+
+@pytest.mark.parametrize("E,P", VIT_FORMS)
+def test_viterbi_forms_equal_plain_on_card(E, P):
+    """K4 (with and without scores), K6 (K-slot and band forms, scores)
+    and the carry form (chunks of 16 frames, then the single-utterance
+    path) on random graphs against their plain versions: every output
+    and dtype, and the forms counted on each wrapper."""
+    _need_cuda()
+    lib = cuda_build.lib()
+    glob = lib.sst_viterbi_smem_bytes(P, E) > at.MAX_SMEM_BYTES
+    assert glob == ((E, P) in ((3, 7041), (5, 4742), (3, 11000), (5, 6554)))
+    rng = np.random.RandomState(P + E)
+    T, S = 48, E * P
+    g = random_graph(P, E, rng, T=T)
+    c = at.graph_consts_from_numpy(g, "cuda")
+    sen = torch.from_numpy(rng.randint(0, 4, (3, T, S)).astype(np.int32)) \
+        .cuda()
+    n = torch.tensor([T, T - 5, 2], dtype=torch.int32).cuda()
+    forms = {k: dict(f.forms) for k, f in (("b", at.viterbi_batch),
+                                           ("r", at.viterbi_rows),
+                                           ("c", at.viterbi_chunk))}
+    for ws in (False, True):
+        got = at.viterbi_batch(sen, n, c, ws)
+        _equal(got, at.viterbi_batch_plain(sen, n, c, ws))
+        assert got[0].dtype == at.tok_dtype(S)
+    stacks = [stack_random([g, random_graph(P, E, rng, T=T), g]),
+              stack_random([random_graph(P, E, rng, T=T, cyclic=False)
+                            for _ in range(3)], band_w=8)]
+    for st_ in stacks:
+        rc = at.row_consts_from_numpy(st_, "cuda")
+        for ws in (False, True):
+            _equal(at.viterbi_rows(sen, n, rc, ws),
+                   at.viterbi_rows_plain(sen, n, rc, ws))
+    ck = cp = at.vit_carry0(c)
+    for t0 in range(0, T, 16):
+        ck, tk = at.viterbi_chunk(sen[0, t0:t0 + 16], ck, t0, T - 5, c)
+        cp, tp_ = at.viterbi_chunk_plain(sen[0, t0:t0 + 16], cp, t0, T - 5, c)
+        _equal((tk,) + tuple(ck), (tp_,) + tuple(cp))
+    for nn in (T - 5, 2):
+        _equal(at.viterbi_single(sen[0], nn, c),
+               at.viterbi_single_plain(sen[0], nn, c))
+    for k, f, launches in (("b", at.viterbi_batch, 2),
+                           ("r", at.viterbi_rows, 4),
+                           ("c", at.viterbi_chunk, 5)):
+        got = {name: sum(v - forms[k].get(form, 0)
+                         for form, v in f.forms.items() if name in form)
+               for name in ("5-state", "int32", "global")}
+        assert got == {"5-state": launches * (E == 5),
+                       "int32": launches * (S >= 32767),
+                       "global": launches * glob}, (k, got)
+
+
+def test_gpu_decode_and_5st_match_cpu(tmp_path_factory):
+    """Small width: grammar decode (decode_batch with a failing row,
+    decode_batch_scored, decode) and the 5-state model's same, mixed and
+    scored batches on the card equal the plain path on the CPU."""
+    _need_cuda()
+    from make_torch_decode_golden import GRAMMAR, decode_rep
+    from make_torch_mixed_golden import scored_rep as srep
+
+    audios = [austen_audio(i) for i in range(3)] + [austen_audio(3)[:1200]]
+    for variant in ("ptm", "ptm5st"):
+        d = variant_dir(tmp_path_factory, variant)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            al = TorchAligner(hmm=d, samprate=SAMPRATE, device=dev)
+            al.set_grammar(jsgf_string=GRAMMAR)
+            texts = [TEXT, "young man", "he was not", "an ill man"]
+            out[dev] = (
+                [decode_rep(r) for r in al.decode_batch(audios)],
+                [decode_rep(r) for r in al.decode_batch_scored(audios)],
+                decode_rep(al.decode(audios[0])),
+                [segs_rep(s) for s in al.align_batch(audios, [TEXT] * 4)],
+                [segs_rep(s) for s in al.align_batch(audios, texts)],
+                [srep(s) for s in al.align_batch_scored(audios, texts)])
+        assert out["cpu"] == out["cuda"], variant
+        assert out["cpu"][0][-1] is None

@@ -31,9 +31,11 @@ PKG = os.path.join(REPO, "soundswallower_tpu_torch")
 
 def test_port_imports_without_jax(tmp_path):
     """Importing the port, and running its mixed and scored paths, a
-    stream, a spectrogram, and the device front end's batch and
-    single-utterance paths, leaves jax unloaded and reads no module of
-    the JAX package: none is in sys.modules, by name or by file."""
+    stream, a spectrogram, the device front end's batch and
+    single-utterance paths, and grammar decode (set_grammar, decode on
+    both front ends, decode_batch, nbest over the history search and
+    lattice), leaves jax unloaded and reads no module of the JAX
+    package: none is in sys.modules, by name or by file."""
     code = f"""
 import os
 import sys
@@ -43,7 +45,11 @@ torch.set_num_threads(1)
 import soundswallower_tpu_torch.aligner
 import soundswallower_tpu_torch.serve
 import soundswallower_tpu_torch.streaming
+for m in ("fsg", "jsgf", "ops.decode_graph", "hmm", "lextree", "search_fsg",
+          "lattice"):
+    __import__("soundswallower_tpu_torch." + m)
 from make_synth_model import make_synth_model
+from make_torch_decode_golden import GRAMMAR
 from make_torch_synth_golden import SAMPRATE, TEXT, austen_audio
 d = make_synth_model({str(tmp_path)!r}, seed=0, width="small")
 al = soundswallower_tpu_torch.aligner.TorchAligner(
@@ -59,12 +65,18 @@ for i in range(0, len(audios[0]), 1600):
     st.push(audios[0][i:i + 1600])
 assert st.end() and st.state()["ended"]
 assert al.spectrogram(audios[0], smooth=True).shape[1] == al.fe.num_filters
+al.set_grammar(jsgf_string=GRAMMAR)
+assert all(r is not None for r in al.decode_batch(audios))
+assert al.decode(audios[0])[1]
+assert next(al.nbest(audios[0]))[0]
 os.environ["SST_FE"] = "device"
 dal = soundswallower_tpu_torch.aligner.TorchAligner(
     hmm=d, samprate=SAMPRATE, device="cpu")
 assert dal.native_fe is None
 assert all(s is not None for s in dal.align_batch(audios, texts))
 assert dal.align(audios[0], TEXT)
+dal.set_grammar(jsgf_string=GRAMMAR)
+assert dal.decode(audios[0])[1]
 assert 'jax' not in sys.modules, 'jax was imported'
 ref_dir = os.path.join({REPO!r}, "soundswallower_tpu") + os.sep
 bad = [n for n, m in list(sys.modules.items())
@@ -94,6 +106,9 @@ def test_no_jax_import_in_port():
 HOST_MODULES = ("config", "logmath", "s3file", "mdef", "dictionary",
                 "dict2pid", "am", "fe.warp", "fe.native_fe", "fe.cmn_live",
                 "utils.native_build", "ops.align_graph", "serve")
+# the grammar and history-search copies (grammar decode, lattice, nbest)
+GRAMMAR_MODULES = ("fsg", "jsgf", "ops.decode_graph", "hmm", "lextree",
+                   "search_fsg", "lattice")
 
 
 def test_port_modules_are_files_of_the_port():
@@ -104,7 +119,7 @@ def test_port_modules_are_files_of_the_port():
 
     names = ["aligner", "streaming", "fe.feat", "fe.frontend",
              "ops.align_torch", "ops.senscore_torch", "utils",
-             "utils.cuda_build", *HOST_MODULES]
+             "utils.cuda_build", *HOST_MODULES, *GRAMMAR_MODULES]
     for name in names:
         mod = importlib.import_module(f"soundswallower_tpu_torch.{name}")
         f = os.path.abspath(mod.__file__)

@@ -51,8 +51,9 @@ def test_viterbi_matches_jax(jax_aligner, text, base):
     want_path, want_fs = _jax_vit(c, sen, Ts)
     vc = at.graph_consts_from_numpy(
         {k: np.asarray(v) for k, v in c.items() if k != "gs"})
-    path, fs = at.viterbi_batch(torch.from_numpy(sen), torch.from_numpy(Ts),
-                                vc)
+    path, pscore, fs = at.viterbi_batch(torch.from_numpy(sen),
+                                        torch.from_numpy(Ts), vc)
+    assert pscore is None
     assert path.dtype == torch.int16 and fs.dtype == torch.int32
     assert want_path[5, Ts[5] - 1] < 0          # the failed row
     assert (path.numpy() == want_path).all()
@@ -76,8 +77,18 @@ def test_build_pred_table_matches_jax(jax_aligner):
 
 
 def test_int32_token_stacks_not_ported():
-    S = 3 * 11000                                # S >= 32767
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        at.viterbi_batch(torch.zeros((1, 4, S), dtype=torch.int32),
-                         torch.ones(1, dtype=torch.int32),
-                         types.SimpleNamespace(P=S // 3))
+    """S >= 32767 once raised NotImplementedError; it now takes int32
+    token stacks and paths, where align_jax.py switches (its value
+    tests: tests/test_torch_large_graph.py)."""
+    P = 11000                                    # S = 33,000 >= 32767
+    c = at.graph_consts_from_numpy(dict(
+        tp=np.zeros((P, 3, 4), np.int32), pi=np.zeros((P, 1), np.int32),
+        pp=np.zeros((P, 1), np.int32), pk=np.zeros((P, 1), bool),
+        ast=np.zeros(P, np.int32), aen=np.full(P, 1 << 30, np.int32),
+        entry=np.zeros(P, np.int32), fin=np.array([P - 1], np.int32)))
+    path, _, fs = at.viterbi_batch(torch.zeros((1, 4, 3 * P),
+                                               dtype=torch.int32),
+                                   torch.full((1,), 4, dtype=torch.int32), c)
+    assert at.tok_dtype(3 * P) == path.dtype == torch.int32
+    assert at.tok_dtype(32766) == torch.int16
+    assert fs.dtype == torch.int32 and path.shape == (1, 4)

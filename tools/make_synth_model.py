@@ -31,12 +31,19 @@ in what its writer adds:
   so ``n_mgau == n_sen`` selects the ms backend's 1:1 fallback;
 * ``sendump_bits=4`` (ptm and semi): the 8-bit weights clustered to a
   16-entry codebook (``tools/make_4b_sendump.py`` quantize_16) and
-  written as a 4-bit clustered sendump.
+  written as a 4-bit clustered sendump;
+* ``backend="ptm5st"``: the ptm model rewritten to 5-state HMMs the way
+  ``tools/make_5st_model.py`` expands en-us: a text mdef with 5
+  emitting states, each CI phone's states mapped to fresh CI senone ids
+  that stand for its 3 senones as [s0, s0, s1, s1, s2], CD phones
+  reusing their (shifted) senones the same way, a sendump with the
+  columns duplicated to match, and a left-to-right [n_tmat, 5, 6]
+  transition matrix with self, next and +2 skip transitions.
 
 Only numpy's MT19937 (``RandomState``) bits, IEEE arithmetic and
 ``math.fsum``/``sqrt`` are used, so the files are the same bytes on any
 machine.  Usage: ``python tools/make_synth_model.py OUTDIR [en-us|small]
-[ptm|semi|ms|ms1to1] [8|4]``; ``VARIANTS`` names the combinations the
+[ptm|semi|ms|ms1to1|ptm5st] [8|4]``; ``VARIANTS`` names the combinations the
 tests and ``chip_smoke.py`` use.
 """
 
@@ -82,7 +89,8 @@ WIDTHS = {
 }
 # variant name -> (backend, sendump_bits)
 VARIANTS = {"ptm": ("ptm", 8), "ptm4b": ("ptm", 4), "semi": ("semi", 8),
-            "semi4b": ("semi", 4), "ms": ("ms", 8), "ms1to1": ("ms1to1", 8)}
+            "semi4b": ("semi", 4), "ms": ("ms", 8), "ms1to1": ("ms1to1", 8),
+            "ptm5st": ("ptm5st", 8)}
 FEAT_GOLDEN = os.path.join(_REPO, "tests", "golden", "austen-en", "feat.f32")
 
 
@@ -147,12 +155,55 @@ def _triphones(phones, rng, pools):
     return [k for b in speech for k in sorted(keys[b])]
 
 
+def _five_state_mdef(lines: list, n_ci: int, n_tri: int, n_sen: int):
+    """The 3-state text mdef ``lines`` rewritten to 5 emitting states
+    (tools/make_5st_model.py): CI phone c gets the fresh senones 5c ..
+    5c+4, the CD senones move up past them, and every phone's states
+    read its 3 senones as [s0, s0, s1, s1, s2].  Returns the new lines
+    and the map from each new senone to the 3-state senone whose
+    mixture weights it takes."""
+    n_ci_sen = 3 * n_ci
+    shift = 5 * n_ci - n_ci_sen
+    sen_map = np.concatenate([
+        np.array([[3 * c, 3 * c, 3 * c + 1, 3 * c + 1, 3 * c + 2]
+                  for c in range(n_ci)]).reshape(-1),
+        np.arange(n_ci_sen, n_sen)])
+    head = ["0.3", f"{n_ci} n_base", f"{n_tri} n_tri",
+            f"{6 * (n_ci + n_tri)} n_state_map",
+            f"{n_sen + shift} n_tied_state", f"{5 * n_ci} n_tied_ci_state",
+            f"{n_ci} n_tied_tmat"]
+    body = [ln for ln in lines[7:] if ln.startswith("#")]
+    phones = [ln.split() for ln in lines[7:] if not ln.startswith("#")]
+    for i, tok in enumerate(phones):
+        if i < n_ci:
+            sen = [5 * i + k for k in range(5)]
+        else:
+            s0, s1, s2 = (int(x) + shift for x in tok[6:9])
+            sen = [s0, s0, s1, s1, s2]
+        body.append(" ".join(tok[:6] + [str(x) for x in sen] + ["N"]))
+    return head + body, sen_map
+
+
+def _five_state_tmat(n_tmat: int) -> np.ndarray:
+    """tools/make_5st_model.py's left-to-right 5-state topology: self
+    0.55, next 0.35, +2 skip 0.10 (the last state: self 0.6, exit 0.4)."""
+    tp = np.zeros((n_tmat, 5, 6), np.float64)
+    for t in range(n_tmat):
+        for i in range(4):
+            tp[t, i, i] = 0.55
+            tp[t, i, i + 1] = 0.35
+            tp[t, i, i + 2] = 0.10
+        tp[t, 4, 4] = 0.6
+        tp[t, 4, 5] = 0.4
+    return tp
+
+
 def make_synth_model(outdir: str, seed: int = 0, width: str = "en-us",
                      backend: str = "ptm", sendump_bits: int = 8) -> str:
     """Write mdef, means, variances, the mixture weights (sendump, or
     mixture_weights [+ senmgau] for ms), transition_matrices,
     feat_params.json, dict.txt and noisedict.txt into outdir."""
-    if backend not in ("ptm", "semi", "ms", "ms1to1"):
+    if backend not in ("ptm", "semi", "ms", "ms1to1", "ptm5st"):
         raise ValueError(f"unknown backend {backend!r}")
     if sendump_bits not in (8, 4) or (sendump_bits == 4
                                       and backend not in ("ptm", "semi")):
@@ -200,6 +251,8 @@ def make_synth_model(outdir: str, seed: int = 0, width: str = "en-us",
         sen = [int(pl[k % len(pl)]) for pl in pools[b]]
         lines.append(f"{b} {l} {r} {wpos} n/a {pid[b]} "
                      f"{sen[0]} {sen[1]} {sen[2]} N")
+    if backend == "ptm5st":
+        lines, sen_map = _five_state_mdef(lines, n_ci, len(tri), n_sen)
     os.makedirs(outdir, exist_ok=True)
     with open(os.path.join(outdir, "mdef"), "w") as fh:
         fh.write("\n".join(lines) + "\n")
@@ -217,6 +270,9 @@ def make_synth_model(outdir: str, seed: int = 0, width: str = "en-us",
     # 8-bit mixture weights: negated log weights, a few strong densities
     u = rng.random_sample((3, D, n_sen))
     mixw = (159 - np.floor(150.0 * (u * u * u * u))).astype(np.uint8)
+    if backend == "ptm5st":
+        s3.write_sendump_8b(os.path.join(outdir, "sendump"),
+                            mixw[:, :, sen_map])
     if backend in ("ptm", "semi"):
         path = os.path.join(outdir, "sendump")
         if sendump_bits == 8:
@@ -233,6 +289,8 @@ def make_synth_model(outdir: str, seed: int = 0, width: str = "en-us",
         tp[i, 0, 0], tp[i, 0, 1], tp[i, 0, 2] = stay[0], 1 - stay[0] - skip, skip
         tp[i, 1, 1], tp[i, 1, 2] = stay[1], 1 - stay[1]
         tp[i, 2, 2], tp[i, 2, 3] = stay[2], 1 - stay[2]
+    if backend == "ptm5st":
+        tp = _five_state_tmat(n_ci)
     s3.write_tmat_params(os.path.join(outdir, "transition_matrices"),
                          tp.astype(np.float32))
 

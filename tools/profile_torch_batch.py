@@ -2,17 +2,21 @@
 
 On one CUDA device, with the synthetic en-us-width model
 (tools/make_synth_model.py, seed 0; 8-bit ptm, or one of its
-``VARIANTS``: ptm4b, semi, semi4b, ms) and B rows of one of two traffic
-mixes: ``same``, the 8 golden austen utterances of one transcript
-(tools/make_torch_synth_golden.py), or ``mixed``, the 32 different
-transcripts of tools/make_torch_mixed_golden.py (the union scorer's
-route), each tiled to B:
+``VARIANTS``: ptm4b, semi, semi4b, ms, ptm5st) and B rows of one of
+three traffic mixes: ``same``, the 8 golden austen utterances of one
+transcript (tools/make_torch_synth_golden.py), ``mixed``, the 32
+different transcripts of tools/make_torch_mixed_golden.py (the union
+scorer's route), or ``decode``, the 8 austen utterances decoded against
+the grammar of tools/make_torch_decode_golden.py (``decode_batch``'s
+route: its begin half ``_batch_begin`` on the decode graph, its end
+half ``_decode_end``), each tiled to B:
 
 * host stages, timed alone: the C++ front end for the batch
   (``process_list_i16p`` per upload chunk; absent under
   ``SST_FE=device``, where the device front end K8-K10 runs in the
-  batch's device time) and the native segment extraction;
-* steady-state cadence of ``align_batch_begin``/``align_batch_end``
+  batch's device time) and the segment extraction (native; Python
+  ``_extract_decode`` for ``decode``);
+* steady-state cadence of the begin and end halves
   pipelined over N batches (median and mean wall time per batch;
   audio-seconds per second as all N batches' audio over their whole
   window, and at the median cadence);
@@ -21,7 +25,7 @@ route), each tiled to B:
 
 Prints one JSON object.
 Usage: ``[SST_FE=device] python tools/profile_torch_batch.py [B] [N]
-[same|mixed] [ptm|ptm4b|semi|semi4b|ms]``.
+[same|mixed|decode] [ptm|ptm4b|semi|semi4b|ms|ptm5st]``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 import torch  # noqa: E402
 
 from make_synth_model import VARIANTS, make_synth_model  # noqa: E402
+from make_torch_decode_golden import GRAMMAR  # noqa: E402
 from make_torch_mixed_golden import (N_MIXED, mixed_audio,  # noqa: E402
                                      mixed_texts)
 from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
@@ -58,7 +63,7 @@ def main(B: int = 256, N: int = 8, traffic: str = "same",
     with tempfile.TemporaryDirectory() as d:
         make_synth_model(d, 0, "en-us", *VARIANTS[variant])
         al = TorchAligner(hmm=d, samprate=SAMPRATE, device="cuda")
-    if traffic == "same":
+    if traffic in ("same", "decode"):
         audios = [austen_audio(i % N_UTT) for i in range(B)]
         texts = [TEXT] * B
     elif traffic == "mixed":
@@ -67,9 +72,29 @@ def main(B: int = 256, N: int = 8, traffic: str = "same",
         texts = [texts32[i % N_MIXED] for i in range(B)]
     else:
         raise SystemExit(f"profile_torch_batch: traffic {traffic!r}")
+    if traffic == "decode":
+        g = al.set_grammar(jsgf_string=GRAMMAR)
+
+        def begin():
+            return al._batch_begin(g, audios)
+
+        def end(h):
+            return al._decode_end(g, h)
+
+        def extract(h, paths):
+            return [al._extract_decode(g, paths[i], int(h.Ts[i]))
+                    for i in range(h.realB)]
+    else:
+        def begin():
+            return al.align_batch_begin(audios, texts)
+
+        end = al.align_batch_end
+
+        def extract(h, paths):
+            return al._extract_batch_native(h.graphs, paths, h.Ts, h.realB)
     audio_s = sum(len(a) for a in audios) / SAMPRATE
     for _ in range(2):                                   # warm up
-        al.align_batch(audios, texts)
+        end(begin())
     torch.cuda.synchronize()
 
     # host stages alone
@@ -82,38 +107,38 @@ def main(B: int = 256, N: int = 8, traffic: str = "same",
             al.native_fe.process_list_i16p(audios[i0:i0 + chunk], Tmax,
                                            al.wire_scale)
         fe_ms.append((time.perf_counter() - t0) * 1e3)
-    h = al.align_batch_begin(audios, texts)
+    h = begin()
     h.done.synchronize()
     paths = h.paths.numpy()
     ex_ms = []
     for _ in range(5):
         t0 = time.perf_counter()
-        al._extract_batch_native(h.graphs, paths, h.Ts, h.realB)
+        extract(h, paths)
         ex_ms.append((time.perf_counter() - t0) * 1e3)
 
     # pipelined cadence
     walls = []
-    prev = al.align_batch_begin(audios, texts)
+    prev = begin()
     t_prev = time.perf_counter()
     for _ in range(N):
-        nxt = al.align_batch_begin(audios, texts)
-        al.align_batch_end(prev)
+        nxt = begin()
+        end(prev)
         now = time.perf_counter()
         walls.append((now - t_prev) * 1e3)
         t_prev, prev = now, nxt
-    al.align_batch_end(prev)
+    end(prev)
 
     # device view of 3 pipelined batches
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prev = al.align_batch_begin(audios, texts)
+        prev = begin()
         for _ in range(2):
-            nxt = al.align_batch_begin(audios, texts)
-            al.align_batch_end(prev)
+            nxt = begin()
+            end(prev)
             prev = nxt
-        al.align_batch_end(prev)
+        end(prev)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     by_kernel: dict[str, float] = {}
