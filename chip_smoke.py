@@ -7,14 +7,18 @@ pipelined ``align_batch_begin``/``align_batch_end``, the HTTP service,
 and, on the device front end, ``align``, ``stream`` and
 ``spectrogram``, and grammar decode: ``set_grammar``, ``decode``,
 ``decode_batch``, ``decode_batch_scored``, ``decode_search``, ``lattice``
-and ``nbest``), on synthetic models at the published en-us width
+and ``nbest``, and the sequence-parallel ``align_longform_batch`` on a
+local ring (parallel.seq_ring)), with ``dist_mode="mxu"``, under
+``SST_WIRE=f32`` and with ``remove_dc``, on synthetic models at the
+published en-us width
 (tools/make_synth_model.py, seed 0: 8-bit ptm, the backends 4-bit ptm,
 semi, 4-bit semi and ms, and the 5-state ptm5st), against results the
 JAX package computed for the same audio (tests/golden/torch-synth/
 segs.json for one transcript, mixed_segs.json for 32 different ones,
 device_fe.json and device_fe.npz for its device front end, backends.json
 and backends.npz for the other backends, decode.json and decode.npz for
-grammar decode, the 5-state model and large graphs) and against the C
+grammar decode, the 5-state model and large graphs, longform.json for
+the long form and the repaired configurations) and against the C
 reference's cepstra
 (tests/golden/austen-en/mfcc.f32).  Phases, in order; any failure
 raises, so the exit code is non-zero and the last line is not printed:
@@ -23,7 +27,9 @@ raises, so the exit code is non-zero and the last line is not printed:
 2. build every kernel from ``soundswallower_tpu_torch/csrc``;
 3. models and batches; two 8-bit ptm aligners and two ptm5st ones, one
    of each on the host C++ front end and one under ``SST_FE=device``,
-   and one aligner per other backend (host front end);
+   one aligner per other backend (host front end), and two more 8-bit
+   ptm ones: ``remove_dc=True`` (the device front end) and
+   ``SST_WIRE=f32``;
 4. each kernel (K1-K12, K1's float32 form and K4's carry form) against
    its plain PyTorch version on the card, bit-equal, at the shapes the
    paths give it (K2/K3 at the full-inventory shape and K11/K12 on a
@@ -37,7 +43,11 @@ raises, so the exit code is non-zero and the last line is not printed:
    kernel's bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time; the device front end's
    cepstra of austen.raw against the C reference's; the device front end
-   per B=256 batch beside the host C++ one (informational);
+   per B=256 batch beside the host C++ one (informational); then K13 on
+   rank 0's token chunk of the long-form batch (int16) and of the large
+   grammar's batch (int32), K4's carry form on a long-form chunk, K2's
+   mxu form (graph scorer, full inventory), K8 with remove_dc and K1's
+   float32 form on the f32 wire's cepstra;
 5. host-FE paths: align_batch on the 8 golden utterances, then 2
    pipelined batches of 256 (the 8 tiled); on a fresh union, align_batch
    on the 32 mixed rows, 2 pipelined batches of 256 that tile them,
@@ -71,10 +81,19 @@ raises, so the exit code is non-zero and the last line is not printed:
    block's shared memory holds), alone and in a forced-dense mixed
    batch; the large grammar (S >= 32,767: int32 tokens, global state)
    through ``decode_batch``, ``decode_batch_scored`` and the device-FE
-   ``decode``.
+   ``decode``;
+11. the long form (8-bit ptm): ``align_longform_batch`` on 4 rows of
+   AUSTEN tiled past 60 s on local rings of 8 and 1 ranks, against
+   longform.json and ``align_batch``; ``align_longform`` on the large
+   grammar (int32 tokens) against ``viterbi_single``; one row of about 5
+   minutes through both routes (its token-stack bytes, informational);
+12. the repaired configurations, each counted on its own: ``mxu``
+   (``align_batch``, ``align_batch_scored``), ``wire_f32`` (same
+   transcript, mixed, scored) and ``remove_dc`` (``align_batch``,
+   ``align``, ``spectrogram``).
 
 Every row, score, segment list, spectrogram and checkpoint equals its
-golden.  The launch counts are reset before each of phases 5-10 and
+golden.  The launch counts are reset before each of phases 5-12 and
 read after it; a kernel of a path, or a form of the Viterbi kernels
 (5-state, int32, global, scores) on the path that drives it, launched
 no time there fails the run.  The last lines are one JSON object of
@@ -116,6 +135,10 @@ from make_torch_decode_golden import (GRAMMAR, GRAPH_FIELDS,  # noqa: E402
 from make_torch_device_fe_golden import (CKPT_SAMPLES,  # noqa: E402
                                          STREAM_SPLIT, load_device_fe_golden,
                                          pieces)
+from make_torch_longform_golden import (LONG_B, MIXED,  # noqa: E402
+                                        dc_audio, load_longform_golden,
+                                        longform_audio, longform_text,
+                                        spec_sha)
 from make_torch_mixed_golden import (N_MIXED, load_mixed_golden,  # noqa: E402
                                      mixed_audio, scored_rep)
 from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
@@ -124,6 +147,7 @@ from soundswallower_tpu_torch.aligner import TorchAligner, WordSeg  # noqa: E402
 from soundswallower_tpu_torch.fe import feat as feat_mod  # noqa: E402
 from soundswallower_tpu_torch.fe import frontend as fe_mod  # noqa: E402
 from soundswallower_tpu_torch.ops import align_torch, senscore_torch  # noqa: E402
+from soundswallower_tpu_torch.parallel import seq_ring  # noqa: E402
 from soundswallower_tpu_torch.serve import make_server, segs_to_json  # noqa: E402
 from soundswallower_tpu_torch.streaming import AlignStream  # noqa: E402
 from soundswallower_tpu_torch.utils import cuda_build  # noqa: E402
@@ -167,6 +191,9 @@ KERNELS = [
     ("ms_senone_eval", senscore_torch.ms_senone_eval,
      "soundswallower_tpu_torch/csrc/ms_senscore.cu",
      "soundswallower_tpu/ops/senscore_jax.py:323"),
+    ("backtrace_chunk", align_torch.backtrace_chunk,
+     "soundswallower_tpu_torch/csrc/backtrace_chunk.cu",
+     "soundswallower_tpu/parallel/seqpipe.py:188"),
 ]
 # the kernels each counted path must launch
 HOST_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
@@ -180,7 +207,8 @@ BACKEND_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
 # the path each kernel's launch count is read from
 PATH_OF = {**{n: "device-FE" for n in DEVICE_FE_PATH},
            **{n: "host-FE" for n in HOST_PATH},
-           "ms_dist_topn": "backends", "ms_senone_eval": "backends"}
+           "ms_dist_topn": "backends", "ms_senone_eval": "backends",
+           "backtrace_chunk": "longform"}
 BACKENDS = ("ms", "semi4b", "ptm4b", "semi")
 # further measured shapes of a kernel: (entry, kernel, TPU program[, path])
 VARIANTS = [
@@ -206,6 +234,10 @@ VARIANTS = [
      "soundswallower_tpu/ops/senscore_jax.py:557", "backends"),
     ("frame_best_sub[semi]", "frame_best_sub",
      "soundswallower_tpu/ops/senscore_jax.py:301", "backends"),
+    ("feat_f32[wire f32]", "feat_f32", "soundswallower_tpu/fe/feat.py:372",
+     "wire_f32"),
+    ("viterbi_chunk[long form, 8 ranks]", "viterbi_chunk",
+     "soundswallower_tpu/parallel/seqpipe.py:118", "longform"),
 ]
 # the Viterbi forms beyond 3 states, int16 tokens and shared memory:
 # (entry, kernel, form, the path whose count of that form is its
@@ -234,12 +266,37 @@ FORMS = [
     ("viterbi_chunk[3-state, int32, global]", "viterbi_chunk",
      "3-state, int32, global", "large",
      "soundswallower_tpu/ops/align_jax.py:368"),
+    # the forms of PR 6: K13's token widths, K2's mxu form, K8's remove_dc
+    ("backtrace_chunk[int16]", "backtrace_chunk", "int16", "longform",
+     "soundswallower_tpu/parallel/seqpipe.py:188"),
+    ("backtrace_chunk[int32]", "backtrace_chunk", "int32", "longform",
+     "soundswallower_tpu/parallel/seqpipe.py:188"),
+    ("dist_topn_norm[mxu]", "dist_topn_norm", "mxu", "mxu",
+     "soundswallower_tpu/ops/senscore_jax.py:538"),
+    ("dist_topn_norm[mxu, full inventory]", "dist_topn_norm", "mxu", "mxu",
+     "soundswallower_tpu/ops/senscore_jax.py:242"),
+    ("fe_spec[remove_dc]", "fe_spec", "remove_dc", "remove_dc",
+     "soundswallower_tpu/fe/frontend.py:513"),
 ]
 # the kernels each of the decode, 5-state and large-graph paths must
 # launch: both front ends, both batch routes, K7 and the carry form
 SLICE_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
               "gather_cols", "viterbi_rows", "frame_best_sub", "fe_spec",
               "fe_noise", "fe_cep", "feat_f32", "viterbi_chunk"]
+# the long form (K4's carry form per chunk, K13 back), and the paths
+# of the repaired configurations
+LONGFORM_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_chunk",
+                 "backtrace_chunk", "viterbi_batch"]
+MXU_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
+            "gather_cols", "viterbi_rows", "frame_best_sub"]
+WIRE_F32_PATH = ["feat_f32", "dist_topn_norm", "senone_eval",
+                 "viterbi_batch", "gather_cols", "viterbi_rows",
+                 "frame_best_sub"]
+REMOVE_DC_PATH = ["fe_spec", "fe_noise", "fe_cep", "feat_f32",
+                  "dist_topn_norm", "senone_eval", "viterbi_batch",
+                  "viterbi_chunk"]
+N_SEQ = 8               # ranks of the long form's local ring
+LONG_K5 = 100           # AUSTEN repeats of the informational long row
 REPEATS = 130           # transcript repeats of the int16 global-state graph
 BIG_B = 256
 N_BATCHES = 2
@@ -1036,14 +1093,7 @@ def graph_batch_sen(al: TorchAligner, g, audios: list):
     c = al._graph_consts(g)
     audios, Ts, Tmax = al._batch_shape(audios)
     Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
-    sen = torch.empty((len(audios), Tmax, c.gs.S), dtype=torch.int32,
-                      device=al.device)
-    for i0, _, feats in al._chunk_feats(audios, Ts_d, Tmax):
-        n = feats.shape[0]
-        senscore_torch.score_frames_graph(
-            c.gs, feats.view(n * Tmax, 3, -1),
-            out=sen[i0:i0 + n].view(n * Tmax, -1))
-    return sen, Ts_d, c.vit
+    return al._graph_scores(c.gs, audios, Ts_d, Tmax, "fold"), Ts_d, c.vit
 
 
 def rows_batch_sen(al: TorchAligner, graphs: list, audios: list):
@@ -1327,6 +1377,263 @@ def phase_large(al: TorchAligner, al_dev: TorchAligner, dg: dict,
         f"({time.perf_counter() - t0:.3f} s)")
 
 
+# -- the long form and the repaired configurations ----------------------------
+
+def long_batch_sen(al: TorchAligner, audios: list, text: str, nseq: int):
+    """The long form's scores as align_longform_batch makes them (the
+    same-transcript route's K1, K2, K3, the frame axis rounded up to 64
+    per rank): (sen [B, Tmax, S], n_frames [B], VitConsts)."""
+    c = al._graph_consts(al.graph_for_text(text))
+    Ts = np.array([al.fe.n_frames(len(a)) for a in audios])
+    gran = 64 * nseq
+    Tmax = -(-int(Ts.max()) // gran) * gran
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    return al._graph_scores(c.gs, audios, Ts_d, Tmax, "fold"), Ts_d, c.vit
+
+
+def first_chunk_tokens(sen, n, v, C: int) -> torch.Tensor:
+    """Rank 0's token chunk [B, C, S] of a long-form batch: K4's carry
+    form over each row's first C frames from vit_carry0."""
+    carry0 = align_torch.vit_carry0(v, n_emit=3)
+    return torch.stack([align_torch.viterbi_chunk(
+        sen[b, :C].contiguous(), carry0, 0, int(n[b]), v)[1]
+        for b in range(sen.shape[0])])
+
+
+def gather_loop(tok, start, t0: int, n):
+    """K13's function as a loop of torch.gather calls over the chunk's
+    frames (the library yardstick; used nowhere in the port)."""
+    R, C, S = tok.shape
+
+    def run():
+        cid = start.clone()
+        path = torch.empty((R, C), dtype=torch.int32, device=tok.device)
+        for c in range(C - 1, -1, -1):
+            t = t0 + c
+            path[:, c] = torch.where(t < n, cid, -1)
+            at = torch.where(cid < 0, cid + S, cid).clamp(0, S - 1)
+            nxt = torch.gather(tok[:, c], 1, at.long()[:, None])[:, 0]
+            cid = torch.where(t < n - 1, nxt.to(torch.int32), cid)
+        return path, cid
+    return run
+
+
+def compare_backtrace(name, tok, start, t0: int, n, results, runs=10):
+    """K13 against its plain version; bound: the path written, the
+    tokens read (one per row and frame), the starts and counts."""
+    R, C, S = tok.shape
+    log(f"  {name}: R={R} C={C} S={S} tokens {tok.dtype}")
+    res = {}
+    compare(name, lambda: align_torch.backtrace_chunk(tok, start, t0, n),
+            lambda: align_torch.backtrace_chunk_plain(tok, start, t0, n),
+            res, plain_runs=0, ins=(start, n), runs=runs,
+            library=gather_loop(tok, start, t0, n))
+    r = res[name]
+    b = bound(R * C * tok.element_size() + nbytes(start, n) + 4 * R * C
+              + 4 * R, 0.0, I32_OPS)
+    r.update(b)
+    results[name] = r
+
+
+def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
+                         al_f32: TorchAligner, big: list, results: dict):
+    """The kernels and forms of the long form and the repairs against
+    their plain versions at their paths' shapes: K13 on rank 0's token
+    chunk of the long-form batch (int16) and of the large grammar's
+    decode batch (int32, S >= 32,767), K4's carry form on a long-form
+    chunk, K2's mxu form on the same-transcript B=256 batch's first
+    chunk and on DENSE_SLICE frames of the full inventory, K8 with
+    remove_dc on the remove_dc aligner's B=256 batch, K1's float32 form
+    on the f32 wire's host cepstra."""
+    dev = al.device
+    rows = [longform_audio(i) for i in range(LONG_B)]
+    sen, n, v = long_batch_sen(al, rows, longform_text(), N_SEQ)
+    C = sen.shape[1] // N_SEQ
+    shape_log("long form", sen, v)
+    carry0 = align_torch.vit_carry0(v, n_emit=3)
+    chunk = sen[0, :C].contiguous()
+    compare("viterbi_chunk[long form, 8 ranks]",
+            lambda: align_torch.viterbi_chunk(chunk, carry0, 0, int(n[0]), v),
+            lambda: align_torch.viterbi_chunk_plain(chunk, carry0, 0,
+                                                    int(n[0]), v),
+            results, plain_runs=0, ins=(chunk, carry0, v),
+            ops=vit_ops(chunk), rate=I32_OPS)
+    tok = first_chunk_tokens(sen, n, v, C)
+    rng = np.random.RandomState(13)
+    start = torch.from_numpy(rng.randint(-2, tok.shape[2], LONG_B)
+                             .astype(np.int32)).to(dev)
+    compare_backtrace("backtrace_chunk", tok, start, 0, n, results)
+    results["backtrace_chunk[int16]"] = results["backtrace_chunk"]
+    lg = al.set_grammar(jsgf_string=large_grammar())
+    sen32, n32, v32 = graph_batch_sen(al, lg, big[:N_UTT])
+    C32 = sen32.shape[1] // N_SEQ
+    tok32 = first_chunk_tokens(sen32, n32, v32, C32)
+    start32 = torch.from_numpy(rng.randint(-2, tok32.shape[2], N_UTT)
+                               .astype(np.int32)).to(dev)
+    compare_backtrace("backtrace_chunk[int32]", tok32, start32, 0, n32,
+                      results, runs=3)
+
+    # K2's mxu form: the graph scorer and the full inventory
+    c = al._graph_consts(al.graph_for_text(TEXT))
+    audios, Ts, Tmax = al._batch_shape(big)
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(dev)
+    _, _, feats = next(iter(al._chunk_feats(audios, Ts_d, Tmax)))
+    flat = feats.view(-1, 3, feats.shape[-1])
+    for name, x, sc in (("dist_topn_norm[mxu]", flat, c.gs),
+                        ("dist_topn_norm[mxu, full inventory]",
+                         flat[:DENSE_SLICE].contiguous(), al.dense)):
+        log(f"  {name}: N={x.shape[0]} Cu={sc.means.shape[0]}")
+        compare(name,
+                lambda: senscore_torch.dist_topn_norm(x, sc, "mxu"),
+                lambda: senscore_torch.dist_topn_norm_plain(x, sc, "mxu"),
+                results, plain_runs=0,
+                ins=(x, sc.var_t, sc.det, sc.muv, sc.c),
+                ops=fold_ops(x.shape[0], sc))
+
+    # K8 with remove_dc
+    fe = al_dc.fe
+    dca, _, Tdc = al_dc._batch_shape([dc_audio(i % N_UTT)
+                                      for i in range(BIG_B)])
+    ns_h = np.array([len(a) for a in dca], np.int32)
+    buf = np.zeros((len(dca), int(ns_h.max())), np.int16)
+    for i, a in enumerate(dca):
+        buf[i, :len(a)] = a
+    sig = torch.from_numpy(buf).to(dev)
+    ns = torch.from_numpy(ns_h).to(dev)
+    prior = torch.zeros(len(dca), dtype=torch.float32, device=dev)
+    sb = spec_bound(fe, sig, ns, prior, len(dca) * Tdc)
+    sb["ops"] += 2.0 * fe.frame_size * len(dca) * Tdc   # the mean
+    log(f"  fe_spec[remove_dc]: B={len(dca)} Tmax={Tdc} "
+        f"frame={fe.frame_size}")
+    compare("fe_spec[remove_dc]",
+            lambda: fe_mod.fe_spec(fe, sig, ns, prior, Tdc),
+            lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, Tdc), results,
+            plain_runs=0, **sb)
+
+    # K1's float32 form on the f32 wire's host cepstra
+    audios8, T8, Tm8 = al_f32._batch_shape([austen_audio(i)
+                                            for i in range(N_UTT)])
+    T8_d = torch.from_numpy(T8.astype(np.int32)).to(dev)
+    _, cep, _ = next(iter(al_f32._chunk_feats(audios8, T8_d, Tm8)))
+    if cep.dtype != torch.float32:
+        raise AssertionError("the f32 wire did not ship float32 cepstra")
+    compare("feat_f32[wire f32]",
+            lambda: feat_mod.feat_f32(cep, T8_d, al_f32.do_cmn),
+            lambda: feat_mod.feats_plain(cep, T8_d, al_f32.do_cmn), results,
+            ins=(cep, T8_d), ops=6.0 * cep.numel())
+
+
+def phase_longform(al: TorchAligner, lg: dict, smi: str):
+    """align_longform_batch on LONG_B rows of AUSTEN tiled past 60 s, on
+    local rings of N_SEQ and of 1 rank, against each other, align_batch
+    on the card and longform.json; align_longform on the large grammar's
+    decode batch (int32 tokens) against each row's viterbi_single; one
+    row of LONG_K5 repeats (about 5 minutes) through the long form and
+    align_batch (informational: its token-stack bytes, beside ``smi``,
+    the card's name and power limit)."""
+    text = longform_text()
+    rows = [longform_audio(i) for i in range(LONG_B)]
+    secs = [len(a) / SAMPRATE for a in rows]
+    outs = {}
+    for nseq in (N_SEQ, 1):
+        t0 = time.perf_counter()
+        outs[nseq] = al.align_longform_batch(rows, [text] * LONG_B,
+                                             ring=seq_ring(nseq, "cuda"))
+        torch.cuda.synchronize()
+        check_rows(outs[nseq], lg["longform"],
+                   f"align_longform_batch (ring of {nseq})")
+        log(f"  align_longform_batch B={LONG_B} ({min(secs):.1f}-"
+            f"{max(secs):.1f} s of audio each), local ring of {nseq}: equal "
+            f"to longform.json ({time.perf_counter() - t0:.3f} s)")
+    check_rows(al.align_batch(rows, [text] * LONG_B),
+               [segs_rep(s) for s in outs[N_SEQ]], "align_batch (long rows)")
+    log("  align_batch on the same rows: equal to the long form")
+
+    # int32 tokens: the large grammar's graph through align_longform
+    g = al.set_grammar(jsgf_string=large_grammar())
+    eight = [austen_audio(i) for i in range(N_UTT)]
+    sen, n, v = graph_batch_sen(al, g, eight)
+    T = sen.shape[1] - sen.shape[1] % N_SEQ
+    P, E = g.senid.shape
+    pi, pp, pk = align_torch.build_pred_table(g.edge_src, g.edge_dst,
+                                              g.edge_pen, P)
+    from soundswallower_tpu_torch.parallel import align_longform
+    path, score = align_longform(
+        seq_ring(N_SEQ, "cuda"), sen[:, :T], np.arange(P * E).reshape(P, E),
+        al.am.tmat.astype(np.int32)[g.tmatid], pi, pp, pk, g.astart, g.aend,
+        n.cpu().numpy(), np.where(g.is_entry, g.entry_pen,
+                                  align_torch.WORST_SCORE), g.final_nodes)
+    for b in range(N_UTT):
+        p1, s1 = align_torch.viterbi_single(sen[b, :T].contiguous(),
+                                            int(n[b]), v)
+        if not (torch.equal(p1, path[b]) and int(s1) == int(score[b])):
+            raise AssertionError(f"align_longform (large grammar) row {b} "
+                                 "differs from viterbi_single")
+    log(f"  align_longform on the large grammar (S={P * E}, int32 tokens), "
+        f"B={N_UTT}, ring of {N_SEQ}: equal to viterbi_single per row")
+
+    # one row of about 5 minutes (informational)
+    text5 = longform_text(LONG_K5)
+    row5 = longform_audio(0, LONG_K5)
+    t0 = time.perf_counter()
+    lf = al.align_longform_batch([row5], [text5],
+                                 ring=seq_ring(N_SEQ, "cuda"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    base = al.align_batch([row5], [text5])
+    t2 = time.perf_counter()
+    check_rows(lf, [segs_rep(s) for s in base], "5-minute row")
+    if lf[0] is None:
+        raise AssertionError("the 5-minute row did not align")
+    g5 = al.graph_for_text(text5)
+    S5 = g5.senid.size
+    T5 = al.fe.n_frames(len(row5))
+    tok_bytes = T5 * S5 * align_torch.tok_dtype(S5).itemsize
+    # tokens grow with frames times states, both with the audio's length
+    per_s2 = tok_bytes / (len(row5) / SAMPRATE) ** 2
+    longest = (80e9 / per_s2) ** 0.5
+    log(f"  5-minute row ({len(row5) / SAMPRATE:.1f} s, T={T5}, S={S5}): "
+        f"long form (ring of {N_SEQ}) {t1 - t0:.3f} s, align_batch "
+        f"{t2 - t1:.3f} s, equal segments; token stack {tok_bytes} bytes; "
+        f"by that count one 80 GB card holds the tokens of a row of about "
+        f"{longest / 60:.0f} minutes of such speech, {N_SEQ} cards "
+        f"{longest * N_SEQ ** 0.5 / 60:.0f} minutes ({smi}; informational)")
+
+
+def phase_repairs(al: TorchAligner, al_f32: TorchAligner,
+                  al_dc: TorchAligner, lg: dict, what: str):
+    """One repaired configuration's paths against longform.json: mxu
+    (align_batch, align_batch_scored with dist_mode="mxu"), wire_f32
+    (SST_WIRE=f32: same-transcript, mixed on a fresh union, scored) or
+    remove_dc (the device front end: align_batch, align,
+    spectrogram)."""
+    audios8 = [austen_audio(i) for i in range(N_UTT)]
+    want = lg[what]
+    if what == "mxu":
+        check_rows(al.align_batch(audios8, [TEXT] * N_UTT, "mxu"),
+                   want["same"], "mxu align_batch")
+        check_rows(al.align_batch_scored(audios8, [TEXT] * N_UTT, "mxu"),
+                   want["scored"], "mxu align_batch_scored", rep=scored_rep)
+    elif what == "wire_f32":
+        check_rows(al_f32.align_batch(audios8, [TEXT] * N_UTT), want["same"],
+                   "f32-wire align_batch")
+        fresh_union(al_f32)
+        check_rows(al_f32.align_batch(audios8, MIXED), want["mixed"],
+                   "f32-wire mixed align_batch")
+        check_rows(al_f32.align_batch_scored(audios8, [TEXT] * N_UTT),
+                   want["scored"], "f32-wire align_batch_scored",
+                   rep=scored_rep)
+    else:
+        dc = [dc_audio(i) for i in range(N_UTT)]
+        check_rows(al_dc.align_batch(dc, [TEXT] * N_UTT), want["same"],
+                   "remove_dc align_batch")
+        check_rows([al_dc.align(dc[0], TEXT)], [want["align"]],
+                   "remove_dc align")
+        if spec_sha(al_dc.spectrogram(dc[0])) != want["spectrogram_sha256"]:
+            raise AssertionError("remove_dc spectrogram differs")
+    log(f"  {what}: equal to longform.json")
+
+
 def count_path(wrappers: dict, drive) -> dict:
     """Launch counts of one path: every count set to 0 just before
     drive(), read just after it."""
@@ -1368,6 +1675,7 @@ def main() -> int:
     mg = load_mixed_golden()
     dg = load_device_fe_golden()
     dcg = load_decode_golden()
+    lg = load_longform_golden()
     als = {}
     with tempfile.TemporaryDirectory() as model_dir:
         for variant in BACKENDS:
@@ -1380,20 +1688,31 @@ def main() -> int:
         al5 = TorchAligner(hmm=d5, samprate=SAMPRATE, device="cuda")
         make_synth_model(model_dir, seed=0, width="en-us")
         al = TorchAligner(hmm=model_dir, samprate=SAMPRATE, device="cuda")
-        prev = os.environ.get("SST_FE")
-        os.environ["SST_FE"] = "device"
+        # remove_dc: the host C++ MFCC refuses it, so the device FE
+        al_dc = TorchAligner(hmm=model_dir, samprate=SAMPRATE, device="cuda",
+                             remove_dc=True)
+        prev = {k: os.environ.get(k) for k in ("SST_FE", "SST_WIRE")}
         try:
+            os.environ["SST_FE"] = "device"
             al_dev = TorchAligner(hmm=model_dir, samprate=SAMPRATE,
                                   device="cuda")
             al5_dev = TorchAligner(hmm=d5, samprate=SAMPRATE, device="cuda")
+            del os.environ["SST_FE"]
+            os.environ["SST_WIRE"] = "f32"
+            al_f32 = TorchAligner(hmm=model_dir, samprate=SAMPRATE,
+                                  device="cuda")
         finally:
-            if prev is None:
-                del os.environ["SST_FE"]
-            else:
-                os.environ["SST_FE"] = prev
+            for k, v in prev.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
     if (al.native_fe is None or al_dev.native_fe is not None
-            or al5.native_fe is None or al5_dev.native_fe is not None):
-        raise AssertionError("expected host-FE and device-FE aligners")
+            or al5.native_fe is None or al5_dev.native_fe is not None
+            or al_dc.native_fe is not None or al_f32.native_fe is None
+            or al_f32.wire != "f32"):
+        raise AssertionError("expected host-FE, device-FE, remove_dc and "
+                             "f32-wire aligners")
     if al5.am.mdef.n_emit_state != 5:
         raise AssertionError("the ptm5st model is not 5-state")
     audios8 = [austen_audio(i) for i in range(N_UTT)]
@@ -1412,6 +1731,7 @@ def main() -> int:
     phase_kernels_vit_chunk(al_dev, results)
     phase_kernels_backends(als, results)
     phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results)
+    phase_kernels_slice6(al, al_dc, al_f32, big, results)
     wrappers = {name: fn for name, fn, _, _ in KERNELS}
 
     # 5. host-FE paths: main, mixed and serving, counted
@@ -1446,13 +1766,26 @@ def main() -> int:
     # 10. large graphs and same-transcript scores, counted
     log("large-graph paths (8-bit ptm):")
     large = count_path(wrappers, lambda: phase_large(al, al_dev, dcg, mg))
+    # 11. the long form, counted
+    log("long-form paths (8-bit ptm):")
+    longform = count_path(wrappers, lambda: phase_longform(al, lg, smi))
+    # 12. the repaired configurations, each counted
+    log("repaired configurations (8-bit ptm):")
+    repairs = {what: count_path(wrappers, lambda what=what: phase_repairs(
+        al, al_f32, al_dc, lg, what))
+        for what in ("mxu", "wire_f32", "remove_dc")}
     counts = {"host-FE": host, "device-FE": device, "backends": backends,
-              "decode": decode, "5-state": five, "large": large}
+              "decode": decode, "5-state": five, "large": large,
+              "longform": longform, **repairs}
     for path, names in (("host-FE", HOST_PATH), ("device-FE", DEVICE_FE_PATH),
                         ("backends", BACKEND_PATH), ("decode", SLICE_PATH),
-                        ("5-state", SLICE_PATH), ("large", SLICE_PATH)):
-        names = names + [f"{k}[{f}]" for _, k, f, ph, _ in FORMS
-                         if ph == path]
+                        ("5-state", SLICE_PATH), ("large", SLICE_PATH),
+                        ("longform", LONGFORM_PATH), ("mxu", MXU_PATH),
+                        ("wire_f32", WIRE_F32_PATH),
+                        ("remove_dc", REMOVE_DC_PATH)):
+        names = list(dict.fromkeys(names + [f"{k}[{f}]"
+                                            for _, k, f, ph, _ in FORMS
+                                            if ph == path]))
         log(f"  {path} launches: " + ", ".join(
             f"{n} {counts[path].get(n, 0)}" for n in names))
         missing = [n for n in names if counts[path].get(n, 0) == 0]

@@ -38,7 +38,16 @@ Port of ``soundswallower_tpu/aligner.py`` (TpuAligner):
   the scored multi-graph route, and ``decode_search``, ``lattice`` and
   ``nbest``: the full-inventory scores (K2, K3, K7) of one utterance
   fed to the host history search (``search_fsg.FsgSearch``, a copy of
-  the JAX package's) and its lattice.
+  the JAX package's) and its lattice;
+* the host front end's wire as TpuAligner reads it (``SST_WIRE``: the
+  int16 byte planes, or exact float32 cepstra and K1's float32 form;
+  ``SST_WIRE_SCALE``), ``SST_MIXED=grouped`` (a same-transcript
+  dispatch per text), ``remove_dc`` (K8's frame-mean branch) and
+  ``dist_mode="mxu"`` (K2's expanded-distance form) on every entry
+  point that takes it;
+* ``align_longform_batch``: the same-transcript route's scores, then
+  the sequence-parallel Viterbi on a ``parallel.SeqRing`` (K4's carry
+  form per chunk, K13 ``backtrace_chunk`` on the way back).
 
 Host modules (config, model, dictionary, phone and decode graphs,
 grammars, history search, lattice, native FE loader, live CMN) are the
@@ -50,11 +59,12 @@ segments are extracted in Python, as TpuAligner does.
 if no CUDA device is present; ``device="cpu"`` runs their plain PyTorch
 versions.  Nothing falls back from one to the other.
 
-Still to be ported: ``align_longform_batch``, ``use_mesh`` and
-``update_mllr``.  As in the JAX package, ``align`` and ``decode`` on the
-device front end and ``stream`` raise NotImplementedError for ms models
-(they need the graph-restricted scorer), and ``stream`` on a 5-state
-model fails as the JAX package's does (its carry has 3 states).
+Still to be ported: ``use_mesh`` (ROADMAP.md A13) and ``update_mllr``
+(A14).  As in the JAX package, ``align`` and ``decode`` on the device
+front end and ``stream`` raise NotImplementedError for ms models (they
+need the graph-restricted scorer), and ``stream`` and
+``align_longform_batch`` on a 5-state model fail as the JAX package's
+do (their carry starts with 3 states).
 """
 
 from __future__ import annotations
@@ -198,8 +208,13 @@ class TorchAligner:
             self.native_fe = NativeFrontend.load(self.fe)
         if self.native_fe is None:
             self.fe.check_supported()
-        # i16p wire scale (aligner.py: 256 for legacy, 128 for dct/htk)
-        self.wire_scale = 256.0 if config["transform"] == "legacy" else 128.0
+        # host-FE wire (TpuAligner's SST_WIRE, SST_WIRE_SCALE): "i16p"
+        # ships round(cep * scale) int16 byte planes (scale 256 for
+        # legacy, 128 for dct/htk), anything else exact float32 cepstra
+        self.wire = os.environ.get("SST_WIRE", "i16p")
+        self.wire_scale = float(os.environ.get(
+            "SST_WIRE_SCALE",
+            "256" if config["transform"] == "legacy" else "128"))
         self.do_cmn = config["cmn"] in ("batch", "current")
         # serving size-class floors (AlignService.prewarm sets them)
         self.tmax_floor = 0
@@ -255,11 +270,6 @@ class TorchAligner:
 
     # -- single utterance and batch ------------------------------------------
 
-    @staticmethod
-    def _fold_only(dist_mode: str) -> None:
-        if dist_mode != "fold":
-            raise _unported(f"dist_mode={dist_mode!r}", "B2")
-
     def align(self, audio: np.ndarray, text: str,
               dist_mode: str = "fold") -> list[WordSeg]:
         """Align one int16 utterance: through the batch path with the
@@ -268,10 +278,9 @@ class TorchAligner:
         audio = np.asarray(audio)
         if audio.dtype != np.int16:
             raise TypeError("align expects int16 audio")
-        self._fold_only(dist_mode)
         g = self.graph_for_text(text)
         if self.native_fe is not None:
-            out = self._batch_end(self._batch_begin(g, [audio]))[0]
+            out = self._batch_end(self._batch_begin(g, [audio], dist_mode))[0]
             if out is None:
                 raise RuntimeError("Alignment failed to reach final state")
             return out
@@ -283,7 +292,7 @@ class TorchAligner:
         cep = self.fe.mfcc(sig[None], n, Tpad)
         Ts = self._upload(torch.tensor([T], dtype=torch.int32))
         feats = feat_f32(cep, Ts, self.do_cmn)[0]
-        sen = score_frames_graph(c.gs, feats)
+        sen = score_frames_graph(c.gs, feats, dist_mode=dist_mode)
         path, _ = viterbi_single(sen, T, c.vit)
         return self._extract(g, path.cpu().numpy(), T)
 
@@ -305,11 +314,14 @@ class TorchAligner:
         """Batch alignment.  A batch of one transcript is one dispatch of
         the same-transcript path; different transcripts are one
         multi-graph dispatch, and an utterance whose transcript has an
-        unknown word stays None."""
-        self._fold_only(dist_mode)
+        unknown word stays None.  ``SST_MIXED=grouped`` dispatches
+        different transcripts a group per text instead
+        (_align_batch_grouped), as TpuAligner does."""
         if len(set(texts)) == 1:
             return self._batch_end(self._batch_begin(
-                self.graph_for_text(texts[0]), audios))
+                self.graph_for_text(texts[0]), audios, dist_mode))
+        if os.environ.get("SST_MIXED", "") == "grouped":
+            return self._align_batch_grouped(audios, texts, dist_mode)
         out: list = [None] * len(audios)
         graphs, idxs = [], []
         for i, t in enumerate(texts):
@@ -320,9 +332,31 @@ class TorchAligner:
             idxs.append(i)
         if not idxs:
             return out
-        h = self._batch_begin_mixed(graphs, [audios[i] for i in idxs])
+        h = self._batch_begin_mixed(graphs, [audios[i] for i in idxs],
+                                    dist_mode)
         for i, segs in zip(idxs, self._batch_end(h)):
             out[i] = segs
+        return out
+
+    def _align_batch_grouped(self, audios, texts, dist_mode: str):
+        """TpuAligner._align_batch_grouped: group the rows by text,
+        dispatch every group's same-transcript batch, then collect; a
+        group whose text has an unknown word stays None."""
+        groups: dict[str, list[int]] = {}
+        for i, t in enumerate(texts):
+            groups.setdefault(t, []).append(i)
+        out: list = [None] * len(audios)
+        handles = []
+        for t, idxs in groups.items():
+            try:
+                g = self.graph_for_text(t)
+            except KeyError:
+                continue
+            handles.append((idxs, self._batch_begin(
+                g, [audios[i] for i in idxs], dist_mode)))
+        for idxs, h in handles:
+            for i, segs in zip(idxs, self._batch_end(h)):
+                out[i] = segs
         return out
 
     def align_batch_scored(self, audios: list[np.ndarray], texts: list[str],
@@ -333,12 +367,12 @@ class TorchAligner:
         best per frame gives scores in the units of the reference's
         result JSON (TpuAligner.align_batch_scored).  Unknown words
         raise KeyError."""
-        self._fold_only(dist_mode)
         graphs = [self.graph_for_text(t) for t in texts]
         prev = self.want_scores
         self.want_scores = True
         try:
-            return self._batch_end(self._batch_begin_mixed(graphs, audios))
+            return self._batch_end(self._batch_begin_mixed(graphs, audios,
+                                                           dist_mode))
         finally:
             self.want_scores = prev
 
@@ -346,11 +380,11 @@ class TorchAligner:
                           dist_mode: str = "fold"):
         """Dispatch one batch; returns a handle for align_batch_end.
         Unknown words raise KeyError."""
-        self._fold_only(dist_mode)
         if len(set(texts)) == 1:
-            return self._batch_begin(self.graph_for_text(texts[0]), audios)
+            return self._batch_begin(self.graph_for_text(texts[0]), audios,
+                                     dist_mode)
         return self._batch_begin_mixed(
-            [self.graph_for_text(t) for t in texts], audios)
+            [self.graph_for_text(t) for t in texts], audios, dist_mode)
 
     def align_batch_end(self, handle) -> list[list[WordSeg]]:
         """Fetch and extract the results of an align_batch_begin batch."""
@@ -376,17 +410,35 @@ class TorchAligner:
 
     def _chunk_feats(self, audios, Ts_d: torch.Tensor, Tmax: int):
         """Start the host FE of every upload chunk on the worker thread
-        now; return an iterator of (first row, planes, K1 features
-        [n, Tmax, 3, 13]) per chunk, uploading each as it is reached.
-        Without the host FE: (first row, int16 audio [n, N], features)
-        from the device FE."""
+        now; return an iterator of (first row, wire, K1 features
+        [n, Tmax, 3, 13]) per chunk, uploading each as it is reached:
+        on the i16p wire the byte planes and K1, on the float32 wire
+        (``SST_WIRE=f32``) the cepstra [n, Tmax, ncep] and K1's float32
+        form.  Without the host FE: (first row, int16 audio [n, N],
+        features) from the device FE."""
         chunk = self._chunk_size(len(audios))
         if self.native_fe is None:
             return self._chunk_feats_device(audios, Ts_d, Tmax, chunk)
+        starts = range(0, len(audios), chunk)
+        if self.wire != "i16p":
+            ns = np.array([len(a) for a in audios], np.int32)
+            buf = np.zeros((len(audios), int(ns.max())), np.int16)
+            for i, a in enumerate(audios):
+                buf[i, :len(a)] = a
+            futs = [(i0, self._fe_pool.submit(
+                self.native_fe.process_batch, buf[i0:i0 + chunk],
+                ns[i0:i0 + chunk], Tmax)) for i0 in starts]
+
+            def chunks_f32():
+                for i0, fut in futs:
+                    cep = self._upload(torch.from_numpy(fut.result()))
+                    yield i0, cep, feat_f32(cep, Ts_d[i0:i0 + cep.shape[0]],
+                                            self.do_cmn)
+            return chunks_f32()
         futs = [(i0, self._fe_pool.submit(self.native_fe.process_list_i16p,
                                           audios[i0:i0 + chunk], Tmax,
                                           self.wire_scale))
-                for i0 in range(0, len(audios), chunk)]
+                for i0 in starts]
 
         def chunks():
             for i0, fut in futs:
@@ -417,7 +469,8 @@ class TorchAligner:
                                         self.do_cmn)
         return chunks()
 
-    def _batch_begin(self, g: AlignGraph, audios) -> _Batch:
+    def _batch_begin(self, g: AlignGraph, audios,
+                     dist_mode: str = "fold") -> _Batch:
         """Host FE (prefetched on a worker thread, chunk by chunk) ->
         pinned upload -> K1, K2, K3 per chunk into one [B, Tmax, S]
         score buffer -> K4 over the whole batch (with token and path
@@ -427,26 +480,36 @@ class TorchAligner:
             # no graph-restricted ms scorer: the full-inventory scores
             # and the per-row gather of the multi-graph route
             # (TpuAligner._batch_begin)
-            return self._batch_begin_mixed([g] * len(audios), audios)
+            return self._batch_begin_mixed([g] * len(audios), audios,
+                                           dist_mode)
         realB = len(audios)
         if realB == 0:
             return self._empty()
         audios, Ts, Tmax = self._batch_shape(audios)
         Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
-        chunks = self._chunk_feats(audios, Ts_d, Tmax)
         c = self._graph_consts(g)
-        sen = torch.empty((len(audios), Tmax, c.gs.S), dtype=torch.int32,
-                          device=self.device)
-        for i0, _, feats in chunks:
-            n = feats.shape[0]
-            score_frames_graph(c.gs, feats.view(n * Tmax, 3, -1),
-                               out=sen[i0:i0 + n].view(n * Tmax, -1))
+        sen = self._graph_scores(c.gs, audios, Ts_d, Tmax, dist_mode)
         path, pscore, fscore = viterbi_batch(sen, Ts_d, c.vit,
                                              self.want_scores)
         return self._download([g] * realB, Ts[:realB], realB, path, fscore,
                               pscore)
 
-    def _batch_begin_mixed(self, graphs: list, audios) -> _Batch:
+    def _graph_scores(self, gs: GraphScorer, audios, Ts_d: torch.Tensor,
+                      Tmax: int, dist_mode: str) -> torch.Tensor:
+        """The same-transcript route's scores: per upload chunk the front
+        end and K1, then K2/K3 on the graph's scorer into one [B, Tmax,
+        S] int32 buffer."""
+        sen = torch.empty((len(audios), Tmax, gs.S), dtype=torch.int32,
+                          device=self.device)
+        for i0, _, feats in self._chunk_feats(audios, Ts_d, Tmax):
+            n = feats.shape[0]
+            score_frames_graph(gs, feats.view(n * Tmax, 3, -1),
+                               out=sen[i0:i0 + n].view(n * Tmax, -1),
+                               dist_mode=dist_mode)
+        return sen
+
+    def _batch_begin_mixed(self, graphs: list, audios,
+                           dist_mode: str = "fold") -> _Batch:
         """One dispatch for a batch of different transcripts
         (TpuAligner._batch_begin_mixed): the same bucketing and chunked
         front end as _batch_begin; per chunk, K2/K3 over the working-set
@@ -475,9 +538,10 @@ class TorchAligner:
             n = feats.shape[0]
             flat = feats.view(n * Tmax, 3, -1)
             if uni is None:
-                src = score_frames(self.dense, flat)            # int16
+                src = score_frames(self.dense, flat, dist_mode)     # int16
             else:
-                src = score_frames_graph(uni["gs"], flat)       # int32
+                src = score_frames_graph(uni["gs"], flat,
+                                         dist_mode=dist_mode)       # int32
             gather_cols(src.view(n, Tmax, -1), st.sencols[i0:i0 + n],
                         out=sen[i0:i0 + n])
         path, pscore, fscore = viterbi_rows(sen, Ts_d, st.vit,
@@ -853,7 +917,6 @@ class TorchAligner:
         audio = np.asarray(audio)
         if audio.dtype != np.int16:
             raise TypeError("decode expects int16 audio")
-        self._fold_only(dist_mode)
         if self.native_fe is not None:
             res = self.decode_batch([audio], dist_mode)[0]
             if res is None:
@@ -867,7 +930,8 @@ class TorchAligner:
         cep = self.fe.mfcc(sig[None], n, Tpad)
         Ts = self._upload(torch.tensor([T], dtype=torch.int32))
         feats = feat_f32(cep, Ts, self.do_cmn)[0]
-        path, _ = viterbi_single(score_frames_graph(c.gs, feats), T, c.vit)
+        path, _ = viterbi_single(
+            score_frames_graph(c.gs, feats, dist_mode=dist_mode), T, c.vit)
         segs = self._extract_decode(g, path.cpu().numpy(), T)
         return self._hyp(segs), segs
 
@@ -877,8 +941,7 @@ class TorchAligner:
         the same-transcript route (K1, K2/K3, K4).  Returns (hyp, segs)
         per utterance, None where the final state is not reached."""
         g = self._grammar()
-        self._fold_only(dist_mode)
-        return self._decode_end(g, self._batch_begin(g, audios))
+        return self._decode_end(g, self._batch_begin(g, audios, dist_mode))
 
     def decode_batch_scored(self, audios: list[np.ndarray],
                             dist_mode: str = "fold") -> list:
@@ -887,11 +950,11 @@ class TorchAligner:
         scores), as align_batch_scored.  Returns (hyp, segs) or None per
         utterance."""
         g = self._grammar()
-        self._fold_only(dist_mode)
         prev = self.want_scores
         self.want_scores = True
         try:
-            handle = self._batch_begin_mixed([g] * len(audios), audios)
+            handle = self._batch_begin_mixed([g] * len(audios), audios,
+                                             dist_mode)
         finally:
             self.want_scores = prev
         return self._decode_end(g, handle)
@@ -967,7 +1030,8 @@ class TorchAligner:
 
     # -- lattice / nbest (scores on the card, history search on the host) ----
 
-    def _dense_scores_utt(self, audio: np.ndarray) -> np.ndarray:
+    def _dense_scores_utt(self, audio: np.ndarray,
+                          dist_mode: str = "fold") -> np.ndarray:
         """Full-inventory int16 senone scores [T, n_sen] of one utterance
         in senone order (the acmod_score contract the host search reads),
         the frame axis bucketed to 64: the host FE's float32 cepstra or
@@ -986,7 +1050,7 @@ class TorchAligner:
             cep = self.fe.mfcc(sig[None], n, Tpad)
         Ts = self._upload(torch.tensor([T], dtype=torch.int32))
         feats = feat_f32(cep, Ts, self.do_cmn)[0]
-        return score_frames(self.dense, feats).cpu().numpy()[:T]
+        return score_frames(self.dense, feats, dist_mode).cpu().numpy()[:T]
 
     def decode_search(self, audio: np.ndarray, dist_mode: str = "fold"):
         """Grammar decode with the full history table: the card's dense
@@ -999,8 +1063,7 @@ class TorchAligner:
         fsg = getattr(self, "_decode_fsg", None)
         if fsg is None:
             raise RuntimeError("call set_grammar() first")
-        self._fold_only(dist_mode)
-        sen = self._dense_scores_utt(audio)
+        sen = self._dense_scores_utt(audio, dist_mode)
         search = FsgSearch(fsg, self.config, self.am, self.dict, self.d2p,
                            self.lmath)
         search.start()
@@ -1033,10 +1096,45 @@ class TorchAligner:
                 return
             yield astar.hyp(p), p.score
 
-    # -- not ported yet ----------------------------------------------------
+    # -- long form (sequence parallel) ----------------------------------------
 
-    def align_longform_batch(self, *a, **k):
-        raise _unported("align_longform_batch", "A12")
+    def align_longform_batch(self, audios: list[np.ndarray], texts: list[str],
+                             ring=None,
+                             dist_mode: str = "fold") -> list[list[WordSeg]]:
+        """Sequence-parallel alignment of long audio (TpuAligner's
+        align_longform_batch): the rows scored as the same-transcript
+        route scores them (the same wire, the same graph scorer and
+        ``dist_mode``), the frame axis rounded up to 64 per rank of
+        ``ring`` (a parallel.SeqRing; one local rank on the aligner's
+        device when None), then the ring-carried Viterbi and chunk
+        backtrace (parallel/seqpipe.py) and segment extraction per row.
+        Segments equal align_batch's on the same audio."""
+        from .parallel.seqpipe import align_longform, seq_ring
+
+        if len(set(texts)) != 1:
+            raise ValueError("align_longform_batch needs one shared "
+                             "transcript (one graph) per call")
+        if ring is None:
+            ring = seq_ring(1, self.device)
+        g = self.graph_for_text(texts[0])
+        Ts = np.array([self.fe.n_frames(len(a)) for a in audios])
+        gran = 64 * ring.nseq
+        Tmax = max(gran, -(-int(Ts.max()) // gran) * gran)
+        Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
+        sen = self._graph_scores(self._graph_consts(g).gs, audios, Ts_d,
+                                 Tmax, dist_mode)
+        P, E = g.senid.shape
+        pi, pp, pk = build_pred_table(g.edge_src, g.edge_dst, g.edge_pen, P)
+        paths, _ = align_longform(
+            ring, sen, np.arange(P * E).reshape(P, E),
+            self.am.tmat.astype(np.int32)[g.tmatid], pi, pp, pk, g.astart,
+            g.aend, Ts.astype(np.int32),
+            np.where(g.is_entry, g.entry_pen, WORST_SCORE), g.final_nodes)
+        paths = paths.cpu().numpy()
+        return [self._extract_safe(g, paths[i], int(Ts[i]))
+                for i in range(len(audios))]
+
+    # -- not ported yet ----------------------------------------------------
 
     def use_mesh(self, *a, **k):
         raise _unported("use_mesh", "A13")

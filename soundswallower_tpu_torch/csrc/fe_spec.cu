@@ -1,5 +1,6 @@
-// K8 `fe_spec`: pre-emphasis, framing, Hamming window, the reference's
-// radix-2 real FFT, power spectrum and mel fold, in float64.
+// K8 `fe_spec`: pre-emphasis, framing, the frame mean (remove_dc),
+// Hamming window, the reference's radix-2 real FFT, power spectrum and
+// mel fold, in float64.
 //
 // Replaces the front half of the jitted XLA program B10 of the JAX
 // package: soundswallower_tpu/fe/frontend.py Frontend._logspec_body up to
@@ -18,9 +19,49 @@
 // contracts a float64 multiply feeding an add into one FMA: the butterfly
 // products, the power spectrum and the mel fold are __fma_rn in the same
 // operand order; every other op rounds on its own (-fmad=false).
+//
+// remove_dc (frontend.py:513-515) subtracts the frame mean before the
+// window.  XLA's CPU backend rewrites that frame sum as a tree: windows
+// of 32 values (the frame zero-padded to whole windows, half the padding
+// in front), each added in order from 0, then the window sums reduced the
+// same way; the mean is the sum times 1/size, fused into the subtraction.
+// The block adds its windows a thread each, level by level, in that order
+// (fe/frontend.py frame_sum_plain is the plain version).
 #include "sst_kernels.h"
 
 namespace {
+
+constexpr int kSumWindow = 32;
+
+// XLA's tree order for the float64 sum of x[0..n) (see above); two
+// scratch areas of at least (n + 31) / 32 doubles, distinct from x.
+// Called by the whole block; the result is valid in every thread.
+__device__ double frame_sum(const double* x, int n, double* scratch_a,
+                            double* scratch_b) {
+  const int tid = threadIdx.x;
+  const double* src = x;
+  double* dst = scratch_a;
+  while (n > kSumWindow) {
+    const int nwin = (n + kSumWindow - 1) / kSumWindow;
+    const int lo = (nwin * kSumWindow - n) / 2;
+    for (int w = tid; w < nwin; w += blockDim.x) {
+      double acc = 0.0;
+      for (int k = 0; k < kSumWindow; ++k) {
+        const int i = w * kSumWindow + k - lo;
+        acc = __dadd_rn(acc, i >= 0 && i < n ? src[i] : 0.0);
+      }
+      dst[w] = acc;
+    }
+    __syncthreads();
+    src = dst;
+    dst = dst == scratch_a ? scratch_b : scratch_a;
+    n = nwin;
+  }
+  double acc = 0.0;
+  for (int i = 0; i < n; ++i) acc = __dadd_rn(acc, src[i]);
+  __syncthreads();  // the scratch may be reused once every thread has read
+  return acc;
+}
 
 template <typename In>
 __global__ void fe_spec_kernel(const In* __restrict__ sig,
@@ -35,7 +76,8 @@ __global__ void fe_spec_kernel(const In* __restrict__ sig,
                                const float* __restrict__ coeff,
                                double* __restrict__ out, int N, int T,
                                int shift, int size, int nfft, int log2n,
-                               int nfilt, int maxw, double alpha) {
+                               int nfilt, int maxw, double alpha,
+                               int remove_dc) {
   extern __shared__ double sm[];
   double* fr = sm;          // [nfft] windowed frame, zero padded
   double* x = fr + nfft;    // [nfft] FFT work array
@@ -55,11 +97,19 @@ __global__ void fe_spec_kernel(const In* __restrict__ sig,
     if (j < size && i < N && i < ns) {
       const double cur = (double)(float)s[i];
       const double prev = i == 0 ? (double)prior[b] : (double)(float)s[i - 1];
-      v = __dmul_rn(__fma_rn(-prev, alpha, cur), window[j]);
+      v = __fma_rn(-prev, alpha, cur);
+      if (!remove_dc) v = __dmul_rn(v, window[j]);
     }
     fr[j] = v;
   }
   __syncthreads();
+  if (remove_dc) {
+    const double sum = frame_sum(fr, size, spec, spec + nfft / 4);
+    const double inv = __drcp_rn((double)size);
+    for (int j = tid; j < size; j += nthr)
+      fr[j] = __dmul_rn(__fma_rn(-sum, inv, fr[j]), window[j]);
+    __syncthreads();
+  }
   // bit reversal, then the 2-point stage (fe_sigproc.c:472-495)
   for (int i = tid; i < nfft / 2; i += nthr) {
     const double e = fr[perm[2 * i]];
@@ -124,7 +174,7 @@ extern "C" int sst_fe_spec(const void* sig, int sig_i16, const int32_t* n_samps,
                            const int32_t* widths, const float* coeff,
                            double* out, int B, int N, int T, int shift,
                            int size, int nfft, int nfilt, int maxw,
-                           double alpha, cudaStream_t stream) {
+                           double alpha, int remove_dc, cudaStream_t stream) {
   if (nfft < 4 || (nfft & (nfft - 1)) || size > nfft || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
@@ -137,12 +187,12 @@ extern "C" int sst_fe_spec(const void* sig, int sig_i16, const int32_t* n_samps,
     fe_spec_kernel<int16_t><<<grid, 128, smem, stream>>>(
         (const int16_t*)sig, n_samps, prior, window, perm, ccc, sss,
         spec_start, widths, coeff, out, N, T, shift, size, nfft, log2n, nfilt,
-        maxw, alpha);
+        maxw, alpha, remove_dc);
   } else {
     fe_spec_kernel<float><<<grid, 128, smem, stream>>>(
         (const float*)sig, n_samps, prior, window, perm, ccc, sss, spec_start,
         widths, coeff, out, N, T, shift, size, nfft, log2n, nfilt, maxw,
-        alpha);
+        alpha, remove_dc);
   }
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,16 @@
 // Bound: operations.  4*L float ops per density and frame; the model
 // rows (Cu*F*D*L*8 bytes, about 1.6 MB at en-us width) stay in L2.
 //
+// K2's mxu form (template flag kMxu) replaces the mxu branches of B2 and
+// B7 (_dist_stage_graph :538-545, _distances_mxu :179-188): the TPU ran
+// the expanded distance as two einsums on its matrix unit.  Here it stays
+// fused with the top-N like the fold: per density, xv = sum_l x_l^2 v_l
+// and xmv = sum_l x_l (mu v)_l, each a chain of FMAs from 0 in dim order
+// (how XLA's CPU dot reduces them), then d = ((det - c) - xv) + 2 xmv
+// with the per-table constants mu v and c made on the host
+// (senscore_torch.mxu_constants).  No GEMM: a library product would sum
+// in another order.  4*L float ops per density and frame, as the fold.
+//
 // K3 replaces the senone-evaluation half of B3 (_topn_sen_stage_graph
 // + _fast_logadd).  The TPU program looked the mixture weights up with
 // a one-hot bf16 matmul on the MXU; here each thread gathers them
@@ -46,26 +56,34 @@ __device__ __forceinline__ int32_t int_dist(float d) {
   return d < -2147483648.0f ? INT_MIN : (int32_t)d;
 }
 
+template <bool kMxu>
 __global__ void dist_topn_norm_kernel(
     const float* __restrict__ feats, const float* __restrict__ means,
     const float* __restrict__ var_t, const float* __restrict__ det,
+    const float* __restrict__ muv, const float* __restrict__ cst,
     int32_t* __restrict__ s_out, int32_t* __restrict__ cw_out, int Cu, int F,
     int D, int L, int topn) {
   extern __shared__ int32_t sm[];
   float* x = reinterpret_cast<float*>(sm);  // [F, L] this frame
-  int32_t* raw = sm + F * L;                // [Cu, F, topn] raw top scores
+  float* xx = x + F * L;                    // [F, L] its squares (mxu form)
+  int32_t* raw = sm + (kMxu ? 2 : 1) * F * L;  // [Cu, F, topn] raw top scores
   int32_t* norm = raw + Cu * F * topn;      // [F]
   const int n = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int i = tid; i < F * L; i += blockDim.x) x[i] = feats[(size_t)n * F * L + i];
+  for (int i = tid; i < F * L; i += blockDim.x) {
+    const float v = feats[(size_t)n * F * L + i];
+    x[i] = v;
+    if (kMxu) xx[i] = __fmul_rn(v, v);
+  }
   __syncthreads();
 
   for (int pair = warp; pair < Cu * F; pair += kWarps) {
     const int f = pair % F;
     const size_t cf = (size_t)pair;  // == c * F + f
     const float* xf = x + f * L;
+    const float* xxf = xx + f * L;
     int32_t v[kPerLane];
     unsigned taken = 0;
 #pragma unroll
@@ -76,11 +94,22 @@ __global__ void dist_topn_norm_kernel(
         const float* mu = means + (cf * D + d) * L;
         const float* vr = var_t + (cf * D + d) * L;
         float acc = det[cf * D + d];
-        for (int l = 0; l < L; ++l) {
-          const float diff = __fsub_rn(xf[l], mu[l]);
-          // acc - (diff * diff) * var, the product unrounded: the FMA
-          // XLA's CPU backend makes of the JAX fold
-          acc = __fmaf_rn(-__fmul_rn(diff, diff), vr[l], acc);
+        if (kMxu) {
+          const float* mv = muv + (cf * D + d) * L;
+          float xv = 0.0f, xmv = 0.0f;
+          for (int l = 0; l < L; ++l) {
+            xv = __fmaf_rn(xxf[l], vr[l], xv);
+            xmv = __fmaf_rn(xf[l], mv[l], xmv);
+          }
+          acc = __fadd_rn(__fsub_rn(__fsub_rn(acc, cst[cf * D + d]), xv),
+                          __fmul_rn(2.0f, xmv));
+        } else {
+          for (int l = 0; l < L; ++l) {
+            const float diff = __fsub_rn(xf[l], mu[l]);
+            // acc - (diff * diff) * var, the product unrounded: the FMA
+            // XLA's CPU backend makes of the JAX fold
+            acc = __fmaf_rn(-__fmul_rn(diff, diff), vr[l], acc);
+          }
         }
         v[k] = int_dist(acc);
       } else {
@@ -168,15 +197,23 @@ __global__ void senone_eval_kernel(
 
 extern "C" int sst_dist_topn_norm(const float* feats, const float* means,
                                   const float* var_t, const float* det,
+                                  const float* muv, const float* c,
                                   int32_t* s, int32_t* cw, int N, int Cu,
-                                  int F, int D, int L, int topn,
+                                  int F, int D, int L, int topn, int mxu,
                                   cudaStream_t stream) {
   if (D > SST_MAX_DENSITIES || topn > SST_MAX_TOPN || topn > D || topn < 1)
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)(F * L + Cu * F * topn + F) * sizeof(int32_t);
-  dist_topn_norm_kernel<<<N, 32 * kWarps, smem, stream>>>(
-      feats, means, var_t, det, s, cw, Cu, F, D, L, topn);
+  const size_t smem =
+      (size_t)((mxu ? 2 : 1) * F * L + Cu * F * topn + F) * sizeof(int32_t);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (mxu) {
+    dist_topn_norm_kernel<true><<<N, 32 * kWarps, smem, stream>>>(
+        feats, means, var_t, det, muv, c, s, cw, Cu, F, D, L, topn);
+  } else {
+    dist_topn_norm_kernel<false><<<N, 32 * kWarps, smem, stream>>>(
+        feats, means, var_t, det, muv, c, s, cw, Cu, F, D, L, topn);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -27,14 +27,17 @@ int sst_feat(const uint8_t* planes, const int32_t* n_frames, float* out,
              int B, int T, int ncep, float inv_scale, int do_cmn,
              cudaStream_t stream);
 
-// K2: Mahalanobis fold + top-N + cross-codebook norm.
+// K2: Mahalanobis fold (or, mxu != 0, the expanded distance with the
+// per-table muv f32 [Cu, F, D, L] and c f32 [Cu, F, D]) + top-N +
+// cross-codebook norm.
 // feats f32 [N, F, L]; means/var_t f32 [Cu, F, D, L]; det f32 [Cu, F, D]
 // -> s int32 [N, Cu, F, topn] (normalized, clamped to 96),
 //    cw int32 [N, Cu, F, topn] (density indices).
 int sst_dist_topn_norm(const float* feats, const float* means,
-                       const float* var_t, const float* det, int32_t* s,
-                       int32_t* cw, int N, int Cu, int F, int D, int L,
-                       int topn, cudaStream_t stream);
+                       const float* var_t, const float* det, const float* muv,
+                       const float* c, int32_t* s, int32_t* cw, int N, int Cu,
+                       int F, int D, int L, int topn, int mxu,
+                       cudaStream_t stream);
 
 // K3: senone evaluation in graph-state order.
 // s/cw int32 [N, Cu, F, topn]; mixw uint8 [F, D, S]; cb_pos int32 [S];
@@ -122,7 +125,8 @@ int sst_viterbi_chunk(const int32_t* sen, int t0, int n, const int32_t* tp,
                       const int32_t* fin, int n_fin, int32_t* path,
                       int32_t* fscore, uint8_t* anext, cudaStream_t stream);
 
-// K8: pre-emphasis, framing, window, FFT, power spectrum, mel fold.
+// K8: pre-emphasis, framing, the frame mean (remove_dc != 0), window,
+// FFT, power spectrum, mel fold.
 // sig int16 (sig_i16 = 1) or float32 [B, N]; n_samps int32 [B]; prior
 // float32 [B]; window float64 [size]; perm int32 [nfft]; ccc/sss float64
 // [nfft/4]; spec_start/widths int32 [nfilt]; coeff float32 [nfilt, maxw]
@@ -133,7 +137,7 @@ int sst_fe_spec(const void* sig, int sig_i16, const int32_t* n_samps,
                 const int32_t* spec_start, const int32_t* widths,
                 const float* coeff, double* out, int B, int N, int T,
                 int shift, int size, int nfft, int nfilt, int maxw,
-                double alpha, cudaStream_t stream);
+                double alpha, int remove_dc, cudaStream_t stream);
 
 // K9: noise removal.  mfspec float64 [B, T, nf]; n_frames int32 [B];
 // carry power/noise/floor/peak float64 [B, nf] and undef uint8 [B], read
@@ -171,6 +175,15 @@ int sst_ms_senone_eval(const float* dval, const int32_t* cw,
                        const int32_t* table, int table_len, int16_t* out,
                        int N, int C, int F, int D, int S, int ne, int zero8,
                        int aw, cudaStream_t stream);
+
+// K13: backtrace over one rank's token chunk.  tok int16 (tok_bytes 2)
+// or int32 (4) [R, C, S]; start int32 [R] (the state entering from the
+// next chunk); n_frames int32 [R]; chunk frames t0 .. t0+C-1 -> path
+// int32 [R, C], out_state int32 [R] (the state leaving the chunk).
+int sst_backtrace_chunk(const void* tok, int tok_bytes, const int32_t* start,
+                        const int32_t* n_frames, int32_t* path,
+                        int32_t* out_state, int R, int C, int S, int t0,
+                        cudaStream_t stream);
 
 const char* sst_error_string(int err);
 

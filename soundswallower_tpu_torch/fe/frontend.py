@@ -12,10 +12,12 @@ values or int16), with per-row sample counts, pre-emphasis priors and
 noise-removal carries, so one launch serves a batch and a stream:
 
 * K8 ``fe_spec``: float64 pre-emphasis with the cross-chunk prior,
-  framing (samples at and after ``n_samps`` are zero), the Hamming
-  window, the reference's in-place radix-2 real FFT in C butterfly order
-  (``fe_fft_real``), the power spectrum and the mel fold, a sequential
-  float64 fold in coefficient order -> mfspec [B, T, nfilt] float64;
+  framing (samples at and after ``n_samps`` are zero), with
+  ``remove_dc`` the frame mean subtracted (``frame_sum_plain``'s order),
+  the Hamming window, the reference's in-place radix-2 real FFT in C
+  butterfly order (``fe_fft_real``), the power spectrum and the mel
+  fold, a sequential float64 fold in coefficient order -> mfspec [B, T,
+  nfilt] float64;
 * K9 ``fe_noise``: the noise-removal recurrence (``fe_remove_noise``)
   over frames with its carry, frozen on frames >= ``n_frames``;
 * K10 ``fe_cep``: ``log(x + 1e-4)``, then the DCT with float32
@@ -345,11 +347,6 @@ class Frontend:
         return t
 
     def check_supported(self) -> None:
-        if self.remove_dc:
-            raise NotImplementedError(
-                "remove_dc on the device front end is not ported "
-                "(ROADMAP.md B10: the JAX program's frame sum order is "
-                "XLA's)")
         if self.transform not in ("dct", "htk", "legacy"):
             raise ValueError(f"unknown transform {self.transform!r}")
 
@@ -518,6 +515,32 @@ def fft_real_plain(fe: Frontend, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+SUM_WINDOW = 32   # XLA's CPU tree reduction: windows of this many values
+
+
+def frame_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """float64 sum over the last axis in the order XLA's CPU backend
+    reduces it (its tree-reduction rewrite, read from the compiled
+    remove_dc program): an axis of at most SUM_WINDOW values is added in
+    order from 0; a longer one is zero-padded to whole windows, half the
+    padding (rounded down) in front, each window added in order from 0,
+    and the window sums reduced the same way."""
+    n = x.shape[-1]
+    if n <= SUM_WINDOW:
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for k in range(n):
+            acc = acc + x[..., k]
+        return acc
+    nwin = -(-n // SUM_WINDOW)
+    pad = nwin * SUM_WINDOW - n
+    xp = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+    win = xp.reshape(x.shape[:-1] + (nwin, SUM_WINDOW))
+    acc = torch.zeros(win.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(SUM_WINDOW):
+        acc = acc + win[..., k]
+    return frame_sum_plain(acc)
+
+
 def fe_spec_plain(fe: Frontend, sig: torch.Tensor, n_samps: torch.Tensor,
                   prior: torch.Tensor, T: int) -> torch.Tensor:
     """Plain PyTorch version of K8: sig [B, N] float32 or int16,
@@ -538,6 +561,11 @@ def fe_spec_plain(fe: Frontend, sig: torch.Tensor, n_samps: torch.Tensor,
            + torch.arange(size, device=sig.device)[None])
     ok = (idx[None] < N) & (idx[None] < n_samps[:, None, None])
     frames = torch.where(ok, pre[:, idx.clamp(max=N - 1)], 0.0)
+    if fe.remove_dc:
+        # frames - sum / size: the division a product with 1 / size, the
+        # product fused into the subtraction, as XLA's CPU backend has it
+        frames = fma_plain(-frame_sum_plain(frames)[..., None], 1.0 / size,
+                           frames)
     frames = frames * tb["window"]
     x = torch.zeros((B, T, nfft), dtype=f64, device=sig.device)
     x[..., :size] = frames
@@ -587,13 +615,17 @@ def fe_spec(fe: Frontend, sig: torch.Tensor, n_samps: torch.Tensor,
         tb["spec_start"].data_ptr(), tb["widths"].data_ptr(),
         tb["coeff"].data_ptr(), out.data_ptr(), B, N, T, fe.frame_shift,
         fe.frame_size, fe.fft_size, fe.num_filters, fe._maxw,
-        float(np.float32(fe.pre_emphasis_alpha)), cuda_build.stream(sig))
+        float(np.float32(fe.pre_emphasis_alpha)), int(fe.remove_dc),
+        cuda_build.stream(sig))
     cuda_build.check(err, "fe_spec")
+    form = "remove_dc" if fe.remove_dc else "window"
     fe_spec.launches += 1
+    fe_spec.forms[form] = fe_spec.forms.get(form, 0) + 1
     return out
 
 
 fe_spec.launches = 0
+fe_spec.forms = {}
 
 
 # -- K9 ----------------------------------------------------------------------------

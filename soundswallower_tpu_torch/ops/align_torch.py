@@ -12,14 +12,18 @@ backtrace_batch, in its two graph forms:
   under ``with_scores``, the token-score stack and path scores;
 
 and of the single-utterance programs (make_vit_step, vit_carry0,
-align_viterbi, backtrace), as K4's carry form:
+align_viterbi, backtrace), as K4's carry form (which also runs each
+chunk of the long form's ring, parallel/seqpipe.py):
 
 * ``viterbi_chunk``: frames t0 .. t0+C-1 of one utterance from a carry
   (score, hist [P, E], out_score, out_hist [P], best_prev []) to the
   next, tokens [C, S] (AlignStream's 128-frame chunks);
 * ``viterbi_single``: a whole utterance from ``vit_carry0``, then
   _viterbi_graph's final-node select and backtrace: path int32 [T],
-  -1 at and after n.
+  -1 at and after n;
+
+and K13 ``backtrace_chunk``, the long form's backtrace over one rank's
+token chunk (seqpipe.py _backward's chunk_back).
 
 Graph-state scores [B, T, S=P*E] int32 in (E = 3 or 5 emitting states),
 the decoded state path [B, T] and the final score [B] int32 out.  Token
@@ -622,6 +626,63 @@ def _backtrace_single(tok: np.ndarray, cur: int, n: int) -> np.ndarray:
         if t < n - 1:
             cur = int(tok[t, min(max(cur + S if cur < 0 else cur, 0), S - 1)])
     return path
+
+
+def backtrace_chunk_plain(tok: torch.Tensor, start: torch.Tensor, t0: int,
+                          n_frames: torch.Tensor):
+    """Plain PyTorch version of K13: tok int16/int32 [R, C, S] (frames
+    t0 .. t0+C-1 of R rows), start int32 [R] the state entering from the
+    next chunk, n_frames int32 [R] -> (path int32 [R, C], the state
+    leaving the chunk int32 [R]), _backtrace_single's rule per row."""
+    R, C, S = tok.shape
+    rows = torch.arange(R, device=tok.device)
+    n = n_frames.to(torch.int32)
+    cid = start.to(torch.int32).clone()
+    path = torch.empty((R, C), dtype=torch.int32, device=tok.device)
+    for c in range(C - 1, -1, -1):
+        t = t0 + c
+        path[:, c] = torch.where(t < n, cid, -1)
+        at = torch.where(cid < 0, cid + S, cid).clamp(0, S - 1).long()
+        cid = torch.where(t < n - 1, tok[rows, c, at].to(torch.int32), cid)
+    return path, cid
+
+
+def backtrace_chunk(tok: torch.Tensor, start: torch.Tensor, t0: int,
+                    n_frames: torch.Tensor):
+    """K13: the backtrace over one chunk of token stacks (the long form's
+    reverse pass, parallel/seqpipe.py): tok int16/int32 [R, C, S], start
+    int32 [R], the chunk's first frame t0, n_frames int32 [R] -> (path
+    int32 [R, C], the state leaving the chunk int32 [R])."""
+    if tok.device.type == "cpu":
+        return backtrace_chunk_plain(tok, start, t0, n_frames)
+    if tok.device.type != "cuda":
+        raise ValueError(f"backtrace_chunk: unsupported device {tok.device}")
+    if tok.dtype not in (torch.int16, torch.int32):
+        raise TypeError(f"backtrace_chunk: token dtype {tok.dtype}")
+    R, C, S = tok.shape
+    dev = tok.device
+    ck = cuda_build.check_tensor
+    ck(tok, tok.dtype, "tok")
+    ck(start, torch.int32, "start", dev)
+    ck(n_frames, torch.int32, "n_frames", dev)
+    if start.shape != (R,) or n_frames.shape != (R,):
+        raise ValueError(f"backtrace_chunk: start {tuple(start.shape)} and "
+                         f"n_frames {tuple(n_frames.shape)} for {R} rows")
+    path = torch.empty((R, C), dtype=torch.int32, device=dev)
+    out = torch.empty(R, dtype=torch.int32, device=dev)
+    err = cuda_build.lib().sst_backtrace_chunk(
+        tok.data_ptr(), tok.element_size(), start.data_ptr(),
+        n_frames.data_ptr(), path.data_ptr(), out.data_ptr(), R, C, S,
+        int(t0), cuda_build.stream(tok))
+    cuda_build.check(err, "backtrace_chunk")
+    form = "int32" if tok.dtype == torch.int32 else "int16"
+    backtrace_chunk.launches += 1
+    backtrace_chunk.forms[form] = backtrace_chunk.forms.get(form, 0) + 1
+    return path, out
+
+
+backtrace_chunk.launches = 0
+backtrace_chunk.forms = {}
 
 
 def viterbi_single_plain(sen: torch.Tensor, n: int, c: VitConsts):

@@ -25,8 +25,14 @@ Kernels:
 * K2 ``dist_topn_norm``: the float32 Mahalanobis fold
   ``d = det - sum_l (x_l - mu_l)^2 * var_l`` in dim order, each step
   ``d - sq * var`` a fused multiply-add (one rounding) as XLA's CPU
-  backend contracts the JAX fold, truncation to int32 with an INT_MIN
-  clamp, the top N of D densities (lowest index on
+  backend contracts the JAX fold, or, with ``dist_mode="mxu"``, the
+  expanded distance of _distances_mxu / _dist_stage_graph's mxu branch,
+  ``d = ((det - c) - xv) + 2 xmv`` with ``xv = sum_l x_l^2 var_l`` and
+  ``xmv = sum_l x_l (mu var)_l`` each a chain of fused multiply-adds
+  from 0 in dim order (XLA's CPU dot) and the per-table constants
+  ``mu var`` and ``c = sum_l mu_l (mu var)_l`` (XLA's reduce, the same
+  chain) made once on the host; then truncation to int32 with an
+  INT_MIN clamp, the top N of D densities (lowest index on
   ties, distinct indices even at the clamp), then codebook_norm: ``>>
   SENSCR_SHIFT``, the max over codebooks of each stream's top score,
   negated and clamped to 96.  Over all codebooks it is the function of
@@ -97,6 +103,8 @@ class GraphScorer:
     mixw: torch.Tensor       # uint8 [F, D, S] mixture weights per state
     cb_pos: torch.Tensor     # int32 [S] graph state -> used-codebook row
     logadd: torch.Tensor     # int32 [n] 8-bit log-add table
+    muv: torch.Tensor        # f32 [Cu, F, D, L] means * var_t (mxu form)
+    c: torch.Tensor          # f32 [Cu, F, D] sum_l means * muv (mxu form)
     topn: int = 4
     wrap_u8: bool = False
     # the dense tail (K7): ptm subtracts each frame's best, semi does not
@@ -145,11 +153,29 @@ def scorer_from_numpy(means, var_t, det, mixw_s, cb_pos, logadd_table,
     mixw_s = np.asarray(mixw_s)
     if mixw_s.min() < 0 or mixw_s.max() > 255:
         raise ValueError("mixture weights must fit uint8")
+    muv, c = mxu_constants(means, var_t)
     return GraphScorer(
         means=dev(means, np.float32), var_t=dev(var_t, np.float32),
         det=dev(det, np.float32), mixw=dev(mixw_s, np.uint8),
         cb_pos=dev(cb_pos, np.int32), logadd=dev(logadd_table, np.int32),
+        muv=dev(muv, np.float32), c=dev(c, np.float32),
         topn=int(topn), wrap_u8=bool(wrap_u8))
+
+
+def mxu_constants(means, var_t) -> tuple[np.ndarray, np.ndarray]:
+    """The mxu form's per-table constants, on the host, as the JAX
+    program computes them: ``muv = means * var_t`` (float32) and ``c =
+    sum_l means_l * muv_l``, a chain of float32 fused multiply-adds from
+    0 in dim order: XLA's CPU reduce over the L = 13 dims of the
+    repository's models (it rewrites an axis of more than 32 values as a
+    tree, fe/frontend.py frame_sum_plain)."""
+    m = torch.from_numpy(np.array(means, np.float32, order="C"))
+    v = torch.from_numpy(np.array(var_t, np.float32, order="C"))
+    muv = m * v
+    c = torch.zeros(m.shape[:-1], dtype=torch.float32)
+    for i in range(m.shape[-1]):
+        c = fma_sub_plain(c, -m[..., i], muv[..., i])
+    return muv.numpy(), c.numpy()
 
 
 def scorer_from_jax_arrays(gs, device="cpu") -> GraphScorer:
@@ -291,10 +317,11 @@ def ms_scorer_from_jax_tables(tables, device="cpu") -> MsScorer:
 
 # -- K2 ----------------------------------------------------------------------
 
-def dist_topn_norm_plain(feats: torch.Tensor, gs: GraphScorer):
+def dist_topn_norm_plain(feats: torch.Tensor, gs: GraphScorer,
+                         dist_mode: str = "fold"):
     """Plain PyTorch version of K2: feats f32 [N, F, L] -> (s, cw) int32
     [N, Cu, F, topn]."""
-    parts = [_dist_topn_norm_block(feats[b], gs)
+    parts = [_dist_topn_norm_block(feats[b], gs, dist_mode)
              for b in _frame_blocks(feats.shape[0], 64 * gs.det.numel())]
     if len(parts) == 1:
         return parts[0]
@@ -341,9 +368,36 @@ def _fold_plain(feats: torch.Tensor, gs) -> torch.Tensor:
     return d
 
 
-def _dist_topn_norm_block(feats: torch.Tensor, gs: GraphScorer):
-    d = _fold_plain(feats, gs)
-    di = torch.clamp(d, min=float(INT_MIN)).to(torch.int32)     # trunc, clamp
+def _mxu_plain(feats: torch.Tensor, gs: GraphScorer) -> torch.Tensor:
+    """The expanded float32 distance: feats [N, F, L] -> d [N, C, F, D]
+    = ((det - c) - xv) + 2 xmv, xv and xmv chains of fused multiply-adds
+    from 0 in dim order."""
+    N, _, L = feats.shape
+    shape = (N,) + tuple(gs.det.shape)
+    xx = feats * feats
+    xv = torch.zeros(shape, dtype=torch.float32, device=feats.device)
+    xmv = torch.zeros_like(xv)
+    for i in range(L):                                          # dim order
+        xv = fma_sub_plain(xv, -xx[:, None, :, None, i],
+                           gs.var_t[None, :, :, :, i])
+        xmv = fma_sub_plain(xmv, -feats[:, None, :, None, i],
+                            gs.muv[None, :, :, :, i])
+    return ((gs.det - gs.c)[None] - xv) + 2.0 * xmv
+
+
+def int_distances_plain(feats: torch.Tensor, gs: GraphScorer,
+                        dist_mode: str = "fold") -> torch.Tensor:
+    """K2's distances before the top-N (_dist_stage_graph, _dist_stage):
+    feats f32 [N, F, L] -> int32 [N, C, F, D], truncated, clamped at
+    INT_MIN."""
+    d = _mxu_plain(feats, gs) if dist_mode == "mxu" else _fold_plain(feats,
+                                                                     gs)
+    return torch.clamp(d, min=float(INT_MIN)).to(torch.int32)
+
+
+def _dist_topn_norm_block(feats: torch.Tensor, gs: GraphScorer,
+                          dist_mode: str):
+    di = int_distances_plain(feats, gs, dist_mode)
     D = di.shape[-1]
     lane = torch.arange(D, dtype=torch.int32, device=di.device)
     taken = torch.zeros(di.shape, dtype=torch.bool, device=di.device)
@@ -366,10 +420,13 @@ def _dist_topn_norm_block(feats: torch.Tensor, gs: GraphScorer):
     return s.to(torch.int32), torch.cat(cws, -1).to(torch.int32)
 
 
-def dist_topn_norm(feats: torch.Tensor, gs: GraphScorer):
-    """K2: feats f32 [N, F, L] -> (s, cw) int32 [N, Cu, F, topn]."""
+def dist_topn_norm(feats: torch.Tensor, gs: GraphScorer,
+                   dist_mode: str = "fold"):
+    """K2: feats f32 [N, F, L] -> (s, cw) int32 [N, Cu, F, topn]; the
+    distance is the fold, or the expanded form under ``dist_mode="mxu"``
+    (any other mode is the fold, as in the JAX package)."""
     if feats.device.type == "cpu":
-        return dist_topn_norm_plain(feats, gs)
+        return dist_topn_norm_plain(feats, gs, dist_mode)
     if feats.device.type != "cuda":
         raise ValueError(f"dist_topn_norm: unsupported device {feats.device}")
     dev = feats.device
@@ -377,21 +434,26 @@ def dist_topn_norm(feats: torch.Tensor, gs: GraphScorer):
     Cu, _, D, _ = gs.means.shape
     ck = cuda_build.check_tensor
     ck(feats, torch.float32, "feats")
-    for name in ("means", "var_t", "det"):
+    for name in ("means", "var_t", "det", "muv", "c"):
         ck(getattr(gs, name), torch.float32, name, dev)
+    mxu = dist_mode == "mxu"
     s = torch.empty((N, Cu, F, gs.topn), dtype=torch.int32, device=dev)
     cw = torch.empty_like(s)
     lib = cuda_build.lib()
     err = lib.sst_dist_topn_norm(
         feats.data_ptr(), gs.means.data_ptr(), gs.var_t.data_ptr(),
-        gs.det.data_ptr(), s.data_ptr(), cw.data_ptr(), N, Cu, F, D, L,
-        gs.topn, cuda_build.stream(feats))
+        gs.det.data_ptr(), gs.muv.data_ptr(), gs.c.data_ptr(), s.data_ptr(),
+        cw.data_ptr(), N, Cu, F, D, L, gs.topn, int(mxu),
+        cuda_build.stream(feats))
     cuda_build.check(err, "dist_topn_norm")
+    form = "mxu" if mxu else "fold"
     dist_topn_norm.launches += 1
+    dist_topn_norm.forms[form] = dist_topn_norm.forms.get(form, 0) + 1
     return s, cw
 
 
 dist_topn_norm.launches = 0
+dist_topn_norm.forms = {}
 
 
 # -- K3 ----------------------------------------------------------------------
@@ -476,9 +538,10 @@ senone_eval.launches = 0
 
 
 def score_frames_graph(gs: GraphScorer, feats: torch.Tensor,
-                       out: torch.Tensor | None = None) -> torch.Tensor:
+                       out: torch.Tensor | None = None,
+                       dist_mode: str = "fold") -> torch.Tensor:
     """feats f32 [N, F, L] -> int32 graph-state scores [N, S] (K2, K3)."""
-    s, cw = dist_topn_norm(feats, gs)
+    s, cw = dist_topn_norm(feats, gs, dist_mode)
     return senone_eval(s, cw, gs, out)
 
 
@@ -514,13 +577,16 @@ def frame_best_sub(x: torch.Tensor, sub: bool = True) -> torch.Tensor:
 frame_best_sub.launches = 0
 
 
-def score_frames(ds, feats: torch.Tensor) -> torch.Tensor:
+def score_frames(ds, feats: torch.Tensor,
+                 dist_mode: str = "fold") -> torch.Tensor:
     """Full-inventory scores: feats f32 [N, F, L] -> int16 [N, n_sen]
     in senone order: K2, K3, K7 (ptm 0 = best per frame; semi not
-    normalized), or, for an MsScorer, K11, K12."""
+    normalized), or, for an MsScorer, K11, K12, which ignore
+    ``dist_mode`` (the JAX package's score_frames routes ms before it
+    reads the mode)."""
     if isinstance(ds, MsScorer):
         return score_frames_ms(ds, feats)
-    s, cw = dist_topn_norm(feats, ds)
+    s, cw = dist_topn_norm(feats, ds, dist_mode)
     return frame_best_sub(senone_eval(s, cw, ds), ds.subtract_best)
 
 

@@ -48,8 +48,7 @@ _D = ctypes.c_double
 # returns the cudaError_t of its launch
 _SIGS = {
     "sst_feat": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "sst_dist_topn_norm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P],
+    "sst_dist_topn_norm": [_P] * 8 + [_I] * 7 + [_P],
     "sst_senone_eval": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P],
     "sst_viterbi_batch": [_P] * 10 + [_I] * 6 + [_P, _I] + [_P] * 6,
@@ -61,11 +60,12 @@ _SIGS = {
     "sst_feat_f32": [_P] * 3 + [_I] * 4 + [_P],
     "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 11 + [_I] * 4
     + [_P, _I, _P, _I, _P, _P, _P, _P],
-    "sst_fe_spec": [_P, _I] + [_P] * 10 + [_I] * 8 + [_D, _P],
+    "sst_fe_spec": [_P, _I] + [_P] * 10 + [_I] * 8 + [_D, _I, _P],
     "sst_fe_noise": [_P] * 8 + [_I] * 4 + [_P],
     "sst_fe_cep": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "sst_ms_dist_topn": [_P] * 6 + [_I] * 6 + [_P],
     "sst_ms_senone_eval": [_P] * 5 + [_I, _P] + [_I] * 8 + [_P],
+    "sst_backtrace_chunk": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
 }
 # launchers return the cudaError_t of their launch; these return sizes
 _RESTYPES = {"sst_viterbi_state_bytes": ctypes.c_int64}

@@ -103,18 +103,19 @@ def test_synth_model_bytes_pinned(tmp_path, width):
 
 def test_unported_surfaces_raise(small):
     """What is still to be ported raises NotImplementedError naming its
-    ROADMAP item; want_scores on a same-transcript batch and decode,
-    which once did, are ported (tests/test_torch_large_graph.py,
-    tests/test_torch_decode.py)."""
+    ROADMAP item; want_scores on a same-transcript batch, decode,
+    align_longform_batch and dist_mode="mxu", which once did, are ported
+    (tests/test_torch_large_graph.py, tests/test_torch_decode.py,
+    tests/test_torch_longform.py, tests/test_torch_mxu.py)."""
     port, _ = small
     a = austen_audio(0)
     with pytest.raises(RuntimeError, match="set_grammar"):
         port.decode(a)
-    for call in (lambda: port.align_longform_batch([a], [TEXT]),
-                 lambda: port.use_mesh(None), lambda: port.update_mllr("x"),
-                 lambda: port.align(a, TEXT, dist_mode="mxu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call, item in ((lambda: port.use_mesh(None), "A13"),
+                       (lambda: port.update_mllr("x"), "A14")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             call()
+    assert port.align(a, TEXT, dist_mode="mxu")
 
 
 def test_cuda_device_is_never_a_silent_fallback(tmp_path_factory):

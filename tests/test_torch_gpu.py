@@ -512,3 +512,93 @@ def test_gpu_decode_and_5st_match_cpu(tmp_path_factory):
                 [srep(s) for s in al.align_batch_scored(audios, texts)])
         assert out["cpu"] == out["cuda"], variant
         assert out["cpu"][0][-1] is None
+
+
+@pytest.mark.parametrize("dtype,S", [(torch.int16, 1700),
+                                     (torch.int32, 40000)])
+def test_backtrace_chunk_equals_plain_on_card(dtype, S):
+    """K13 against its plain version on random token chunks (states and
+    -1), start states that include negative ones, ragged frame counts
+    and a chunk that does not start at frame 0."""
+    _need_cuda()
+    rng = np.random.RandomState(S)
+    R, C, t0 = 6, 96, 192
+    tok = rng.randint(-1, S, (R, C, S)).astype(
+        np.int16 if dtype == torch.int16 else np.int32)
+    tok = torch.from_numpy(tok).cuda()
+    start = torch.tensor([0, 5, S - 1, -1, -7, -S - 3],
+                         dtype=torch.int32).cuda()
+    n = torch.tensor([t0 + C, t0 + C - 13, t0 + 1, t0, 0, 10 ** 6],
+                     dtype=torch.int32).cuda()
+    before = at.backtrace_chunk.launches
+    got = at.backtrace_chunk(tok, start, t0, n)
+    assert at.backtrace_chunk.launches == before + 1
+    want = at.backtrace_chunk_plain(tok, start, t0, n)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_longform_on_card_equals_cpu(tmp_path_factory):
+    """Small width: align_longform_batch on local rings of 1, 2 and 8 on
+    the card equals the plain path on the CPU and align_batch."""
+    _need_cuda()
+    from soundswallower_tpu_torch.parallel import seq_ring
+
+    d = model_dir(tmp_path_factory, "small")
+    k = 2
+    text = " ".join([TEXT] * k)
+    audio = np.tile(austen_audio(0), k)
+    audios = [audio, audio[:-5000]]
+    cpu = TorchAligner(hmm=d, samprate=SAMPRATE, device="cpu")
+    want = [segs_rep(s) for s in cpu.align_longform_batch(audios, [text] * 2)]
+    al = TorchAligner(hmm=d, samprate=SAMPRATE, device="cuda")
+    for nseq in (1, 2, 8):
+        got = al.align_longform_batch(audios, [text] * 2,
+                                      ring=seq_ring(nseq, "cuda"))
+        assert [segs_rep(s) for s in got] == want
+    assert [segs_rep(s) for s in al.align_batch(audios, [text] * 2)] == want
+
+
+def test_mxu_kernel_equals_plain_on_card(cuda_aligner):
+    """K2's mxu form against its plain version on the graph scorer and on
+    the full inventory, and the mxu entry points on the card against the
+    CPU."""
+    al = cuda_aligner
+    rng = np.random.RandomState(2)
+    feats = torch.from_numpy(rng.randn(300, 3, 13).astype(np.float32)
+                             * 4).cuda()
+    feats[0] = 1e5
+    c = al._graph_consts(al.graph_for_text(TEXT))
+    for sc in (c.gs, al.dense):
+        before = st.dist_topn_norm.forms.get("mxu", 0)
+        s, cw = st.dist_topn_norm(feats, sc, "mxu")
+        assert st.dist_topn_norm.forms["mxu"] == before + 1
+        s_p, cw_p = st.dist_topn_norm_plain(feats, sc, "mxu")
+        assert torch.equal(s, s_p) and torch.equal(cw, cw_p)
+    audios = [austen_audio(i) for i in range(3)]
+    cpu = TorchAligner(hmm=al.config["hmm"], samprate=SAMPRATE, device="cpu")
+    for texts in ([TEXT] * 3, [TEXT, "young man", "he was not"]):
+        assert [segs_rep(s) for s in al.align_batch(audios, texts, "mxu")] \
+            == [segs_rep(s) for s in cpu.align_batch(audios, texts, "mxu")]
+
+
+@pytest.mark.parametrize("rate", [8000, 16000, 48000])
+def test_remove_dc_kernel_equals_plain_on_card(rate):
+    """K8's remove_dc branch (one and two levels of the frame sum's tree)
+    against its plain version, int16 and float32 input, with a DC
+    offset."""
+    _need_cuda()
+    from soundswallower_tpu_torch.fe import frontend as ff
+
+    fe = ff.Frontend(sampling_rate=rate, remove_dc=True)
+    rng = np.random.RandomState(rate)
+    B, N = 4, rate
+    sig = np.clip(np.round(rng.randn(B, N) * 3000 + 2500), -32768, 32767)
+    ns = torch.tensor([N, N - 1, N - 777, 333], dtype=torch.int32).cuda()
+    prior = torch.from_numpy(rng.randn(B).astype(np.float32) * 100).cuda()
+    T = fe.n_frames(N) + 2
+    for x in (torch.from_numpy(sig.astype(np.int16)).cuda(),
+              torch.from_numpy(sig.astype(np.float32)).cuda()):
+        before = ff.fe_spec.forms.get("remove_dc", 0)
+        got = ff.fe_spec(fe, x, ns, prior, T)
+        assert ff.fe_spec.forms["remove_dc"] == before + 1
+        assert torch.equal(got, ff.fe_spec_plain(fe, x, ns, prior, T))

@@ -2,7 +2,8 @@
 CPU: stacked graphs, K6's plain version (band and K-slot forms, with and
 without scores), K5's and K7's plain versions, the union scorer's state,
 the full-inventory scores the Viterbi sees, and TorchAligner's
-align_batch / align_batch_scored against TpuAligner's."""
+align_batch (union, dense, and grouped under SST_MIXED=grouped) /
+align_batch_scored against TpuAligner's."""
 
 import types
 
@@ -207,6 +208,25 @@ def test_mixed_align_batch_matches_reference(small_dir, route):
         port.align_batch_begin(audios, texts)
 
 
+def test_grouped_mixed_matches_reference(small_dir, monkeypatch):
+    """SST_MIXED=grouped: a same-transcript dispatch per text, collected
+    after all are dispatched (TpuAligner._align_batch_grouped), the
+    union scorer untouched; a text with an unknown word leaves its rows
+    None.  Row 1's "young" lasts 251 frames there, 270 on the union."""
+    monkeypatch.setenv("SST_MIXED", "grouped")
+    port, ref = _fresh(small_dir)
+    texts = TEXTS + ["he was a xyzzy", TEXTS[1]]
+    audios = [austen_audio(i) for i in range(len(texts))]
+    want = [segs_rep(s) for s in ref.align_batch(audios, texts)]
+    assert want[6] is None and all(w is not None for w in want[:6])
+    assert [segs_rep(s) for s in port.align_batch(audios, texts)] == want
+    assert port._uni is None
+    assert [w[2] for w in want[1] if w[0] == "young"] == [251]
+    monkeypatch.delenv("SST_MIXED")
+    union = port.align_batch(audios, texts)[1]
+    assert [s.duration for s in union if s.word == "young"] == [270]
+
+
 @pytest.mark.parametrize("want_states", [False, True])
 def test_align_batch_scored_matches_reference(small_dir, want_states):
     port, ref = _fresh(small_dir)
@@ -233,9 +253,9 @@ def test_unported_surfaces_still_raise(small_dir):
     """What is still to be ported raises NotImplementedError naming its
     ROADMAP item.  Ported since: want_scores on a same-transcript batch,
     decode_batch(_scored) (they need set_grammar first, as in the JAX
-    package), S >= 32767 (int32 token stacks) and 5-state models; an HMM
-    topology the JAX package refuses (neither 3 nor 5 states) is refused
-    here too."""
+    package), S >= 32767 (int32 token stacks), 5-state models,
+    align_longform_batch and dist_mode="mxu"; an HMM topology the JAX
+    package refuses (neither 3 nor 5 states) is refused here too."""
     port = TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu")
     a = austen_audio(0)
     port.want_scores = True
@@ -245,13 +265,11 @@ def test_unported_surfaces_still_raise(small_dir):
                  lambda: port.decode_batch([a])):
         with pytest.raises(RuntimeError, match="set_grammar"):
             call()
-    for call in (lambda: port.align_longform_batch([a], [TEXT]),
-                 lambda: port.use_mesh(None),
-                 lambda: port.update_mllr("x"),
-                 lambda: port.align_batch_scored([a], [TEXT],
-                                                 dist_mode="mxu")):
+    for call in (lambda: port.use_mesh(None),
+                 lambda: port.update_mllr("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    assert port.align_batch_scored([a], [TEXT], dist_mode="mxu")[0]
     S = 3 * 11000                                    # int32 token stacks
     with pytest.raises(ValueError, match="graphs for"):
         at.viterbi_rows(torch.zeros((1, 4, S), dtype=torch.int32),
