@@ -9,8 +9,9 @@ and, on the device front end, ``align``, ``stream`` and
 ``decode_batch``, ``decode_batch_scored``, ``decode_search``, ``lattice``
 and ``nbest``, and the sequence-parallel ``align_longform_batch`` on a
 local ring (parallel.seq_ring)), with ``dist_mode="mxu"``, under
-``SST_WIRE=f32`` and with ``remove_dc``, on synthetic models at the
-published en-us width
+``SST_WIRE=f32`` and with ``remove_dc``, and the public API
+(``pitch_batch``, the exact ``Decoder``, the command line, ``update_mllr``),
+on synthetic models at the published en-us width
 (tools/make_synth_model.py, seed 0: 8-bit ptm, the backends 4-bit ptm,
 semi, 4-bit semi and ms, and the 5-state ptm5st), against results the
 JAX package computed for the same audio (tests/golden/torch-synth/
@@ -18,8 +19,8 @@ segs.json for one transcript, mixed_segs.json for 32 different ones,
 device_fe.json and device_fe.npz for its device front end, backends.json
 and backends.npz for the other backends, decode.json and decode.npz for
 grammar decode, the 5-state model and large graphs, longform.json for
-the long form and the repaired configurations) and against the C
-reference's cepstra
+the long form and the repaired configurations, api.json for the public
+API) and against the C reference's cepstra
 (tests/golden/austen-en/mfcc.f32).  Phases, in order; any failure
 raises, so the exit code is non-zero and the last line is not printed:
 
@@ -47,7 +48,8 @@ raises, so the exit code is non-zero and the last line is not printed:
    rank 0's token chunk of the long-form batch (int16) and of the large
    grammar's batch (int32), K4's carry form on a long-form chunk, K2's
    mxu form (graph scorer, full inventory), K8 with remove_dc and K1's
-   float32 form on the f32 wire's cepstra;
+   float32 form on the f32 wire's cepstra; K14 on austen.raw's frames at
+   frame sizes 400, 200, 1024 and 4096, bit for bit;
 5. host-FE paths: align_batch on the 8 golden utterances, then 2
    pipelined batches of 256 (the 8 tiled); on a fresh union, align_batch
    on the 32 mixed rows, 2 pipelined batches of 256 that tile them,
@@ -90,10 +92,18 @@ raises, so the exit code is non-zero and the last line is not printed:
 12. the repaired configurations, each counted on its own: ``mxu``
    (``align_batch``, ``align_batch_scored``), ``wire_f32`` (same
    transcript, mixed, scored) and ``remove_dc`` (``align_batch``,
-   ``align``, ``spectrogram``).
+   ``align``, ``spectrogram``);
+13. the public API on the en-us-width model against api.json:
+   ``pitch_batch`` and ``cmnd_batch`` (K14) at frame sizes 400 and 200,
+   the exact ``Decoder`` with its front end on the card (K8-K10):
+   alignment JSON at align levels 0-2, a grammar's hypothesis, segments
+   and n-best, a live decode in 1,600-sample pieces; the command line
+   (``cli.main``) on two raw files, its fast path and ``--exact``;
+   ``update_mllr`` with tools/make_mllr.py's transform, then a
+   same-transcript ``align_batch`` and ``align_batch_scored``.
 
 Every row, score, segment list, spectrogram and checkpoint equals its
-golden.  The launch counts are reset before each of phases 5-12 and
+golden.  The launch counts are reset before each of phases 5-13 and
 read after it; a kernel of a path, or a form of the Viterbi kernels
 (5-state, int32, global, scores) on the path that drives it, launched
 no time there fails the run.  The last lines are one JSON object of
@@ -126,6 +136,10 @@ import torch  # noqa: E402
 
 from make_synth_model import VARIANTS as MODEL_VARIANTS  # noqa: E402
 from make_synth_model import make_synth_model  # noqa: E402
+from make_torch_api_golden import (API_FRAMES, austen_frames,  # noqa: E402
+                                   cli_results, decoder_results,
+                                   load_api_golden, mllr_file, mllr_results,
+                                   pitch_rep)
 from make_torch_backends_golden import (dense_feats,  # noqa: E402
                                         load_backends_golden)
 from make_torch_decode_golden import (GRAMMAR, GRAPH_FIELDS,  # noqa: E402
@@ -143,7 +157,10 @@ from make_torch_mixed_golden import (N_MIXED, load_mixed_golden,  # noqa: E402
                                      mixed_audio, scored_rep)
 from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
                                      austen_audio, load_golden, segs_rep)
+from soundswallower_tpu_torch import cli  # noqa: E402
+from soundswallower_tpu_torch import yin as yin_mod  # noqa: E402
 from soundswallower_tpu_torch.aligner import TorchAligner, WordSeg  # noqa: E402
+from soundswallower_tpu_torch.decoder import Decoder  # noqa: E402
 from soundswallower_tpu_torch.fe import feat as feat_mod  # noqa: E402
 from soundswallower_tpu_torch.fe import frontend as fe_mod  # noqa: E402
 from soundswallower_tpu_torch.ops import align_torch, senscore_torch  # noqa: E402
@@ -194,6 +211,8 @@ KERNELS = [
     ("backtrace_chunk", align_torch.backtrace_chunk,
      "soundswallower_tpu_torch/csrc/backtrace_chunk.cu",
      "soundswallower_tpu/parallel/seqpipe.py:188"),
+    ("yin_cmnd", yin_mod.yin_cmnd, "soundswallower_tpu_torch/csrc/yin.cu",
+     "soundswallower_tpu/yin.py:280"),
 ]
 # the kernels each counted path must launch
 HOST_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
@@ -208,7 +227,7 @@ BACKEND_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
 PATH_OF = {**{n: "device-FE" for n in DEVICE_FE_PATH},
            **{n: "host-FE" for n in HOST_PATH},
            "ms_dist_topn": "backends", "ms_senone_eval": "backends",
-           "backtrace_chunk": "longform"}
+           "backtrace_chunk": "longform", "yin_cmnd": "api"}
 BACKENDS = ("ms", "semi4b", "ptm4b", "semi")
 # further measured shapes of a kernel: (entry, kernel, TPU program[, path])
 VARIANTS = [
@@ -238,6 +257,11 @@ VARIANTS = [
      "wire_f32"),
     ("viterbi_chunk[long form, 8 ranks]", "viterbi_chunk",
      "soundswallower_tpu/parallel/seqpipe.py:118", "longform"),
+    # K14 at the frame sizes beside 400: 8 kHz (200), 1024 and 4096
+    # (XLA's two tree levels and the scan's recursion)
+    ("yin_cmnd[200]", "yin_cmnd", "soundswallower_tpu/yin.py:280", "api"),
+    ("yin_cmnd[1024]", "yin_cmnd", "soundswallower_tpu/yin.py:255", "api"),
+    ("yin_cmnd[4096]", "yin_cmnd", "soundswallower_tpu/yin.py:255", "api"),
 ]
 # the Viterbi forms beyond 3 states, int16 tokens and shared memory:
 # (entry, kernel, form, the path whose count of that form is its
@@ -295,6 +319,13 @@ WIRE_F32_PATH = ["feat_f32", "dist_topn_norm", "senone_eval",
 REMOVE_DC_PATH = ["fe_spec", "fe_noise", "fe_cep", "feat_f32",
                   "dist_topn_norm", "senone_eval", "viterbi_batch",
                   "viterbi_chunk"]
+# the public API's path: pitch_batch (K14), the exact Decoder's front end
+# (K8-K10), the same-transcript batch after update_mllr (K1-K4) and the
+# scored full-inventory route of the CLI's fast path and of the batch
+# after update_mllr (K2, K3, K7, K5, K6)
+API_PATH = ["yin_cmnd", "fe_spec", "fe_noise", "fe_cep", "feat",
+            "dist_topn_norm", "senone_eval", "viterbi_batch", "gather_cols",
+            "viterbi_rows", "frame_best_sub"]
 N_SEQ = 8               # ranks of the long form's local ring
 LONG_K5 = 100           # AUSTEN repeats of the informational long row
 REPEATS = 130           # transcript repeats of the int16 global-state graph
@@ -1634,6 +1665,80 @@ def phase_repairs(al: TorchAligner, al_f32: TorchAligner,
     log(f"  {what}: equal to longform.json")
 
 
+def phase_kernels_yin(results: dict):
+    """K14 against yin_cmnd_plain on the int16 frames of austen.raw
+    (FRAME_SHIFT apart) at frame sizes 400, 200, 1024 and 4096 with
+    pitch_batch's ndiff and threshold: the CMND and best bit for bit,
+    the period equal.  Bound: 3 float32 operations (a subtraction, a
+    square, an add) per lag and sample of each frame."""
+    thr = float(np.float32(0.1 * 32768.0))
+    for F in (400, 200, 1024, 4096):
+        fr = torch.from_numpy(austen_frames(F)).cuda()
+        nd = F // 2
+        name = "yin_cmnd" if F == 400 else f"yin_cmnd[{F}]"
+        got = compare(name, lambda: yin_mod.yin_cmnd(fr, nd, thr),
+                      lambda: yin_mod.yin_cmnd_plain(fr, nd, thr), results,
+                      ins=(fr,), ops=3.0 * fr.shape[0] * nd * nd)
+        want = yin_mod.yin_cmnd_plain(fr, nd, thr)
+        for a, b in zip(got, want):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: not bit-equal to its plain "
+                                     "version")
+        log(f"  {name} shapes: N={fr.shape[0]} F={F} ndiff={nd}")
+
+
+def _json(x):
+    """x as the golden's JSON reads it (tuples as lists)."""
+    return json.loads(json.dumps(x))
+
+
+def phase_api(ag: dict):
+    """The public API on the en-us-width model against api.json:
+    pitch_batch and cmnd_batch on austen.raw's frames; the exact
+    Decoder's scenario (alignment JSON at align levels 0-2, a grammar's
+    hyp, segments and n-best, a live decode in 1,600-sample pieces); the
+    CLI's fast path and --exact on two raw files; update_mllr with
+    tools/make_mllr.py's transform, then a same-transcript batch and its
+    scored form."""
+    for F in API_FRAMES:
+        fr = austen_frames(F)
+        period, best = yin_mod.pitch_batch(fr)
+        cmnd = yin_mod.cmnd_batch(fr)
+        if not (period.is_cuda and cmnd.is_cuda):
+            raise AssertionError("pitch_batch left the card")
+        got = pitch_rep(cmnd.cpu().numpy(), period.cpu().numpy(),
+                        best.cpu().numpy())
+        if got != ag["pitch"][str(F)]:
+            raise AssertionError(f"pitch_batch at frame size {F} differs "
+                                 "from api.json")
+    log(f"  pitch_batch/cmnd_batch at frame sizes {API_FRAMES}: equal")
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "en-us-synth")
+        make_synth_model(d, seed=0, width="en-us")
+        t0 = time.perf_counter()
+        got = _json(decoder_results(Decoder, d))
+        for part in ("align", "grammar", "live"):
+            if got[part] != ag["decoder"][part]:
+                raise AssertionError(f"Decoder {part} differs from api.json")
+        log(f"  Decoder (align levels 0-2, grammar with n-best, live in "
+            f"1,600-sample pieces): equal, {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        got = cli_results(cli.main, d, tmp)
+        for mode in ("fast", "exact"):
+            if got[mode] != ag["cli"][mode]:
+                raise AssertionError(f"CLI {mode} differs from api.json")
+        log(f"  CLI fast and --exact on 2 files: equal, "
+            f"{time.perf_counter() - t0:.1f} s")
+        got = _json(mllr_results(TorchAligner, d, mllr_file(tmp)))
+        for part in ("same", "scored"):
+            if got[part] != ag["mllr"][part]:
+                raise AssertionError(f"update_mllr {part} batch differs from "
+                                     "api.json")
+        log("  update_mllr, then align_batch and align_batch_scored: equal")
+
+
 def count_path(wrappers: dict, drive) -> dict:
     """Launch counts of one path: every count set to 0 just before
     drive(), read just after it."""
@@ -1676,6 +1781,7 @@ def main() -> int:
     dg = load_device_fe_golden()
     dcg = load_decode_golden()
     lg = load_longform_golden()
+    ag = load_api_golden()
     als = {}
     with tempfile.TemporaryDirectory() as model_dir:
         for variant in BACKENDS:
@@ -1732,6 +1838,7 @@ def main() -> int:
     phase_kernels_backends(als, results)
     phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results)
     phase_kernels_slice6(al, al_dc, al_f32, big, results)
+    phase_kernels_yin(results)
     wrappers = {name: fn for name, fn, _, _ in KERNELS}
 
     # 5. host-FE paths: main, mixed and serving, counted
@@ -1774,15 +1881,18 @@ def main() -> int:
     repairs = {what: count_path(wrappers, lambda what=what: phase_repairs(
         al, al_f32, al_dc, lg, what))
         for what in ("mxu", "wire_f32", "remove_dc")}
+    # 13. the public API (YIN, the exact Decoder, the CLI, MLLR), counted
+    log("public API paths (en-us width, 8-bit ptm):")
+    api = count_path(wrappers, lambda: phase_api(ag))
     counts = {"host-FE": host, "device-FE": device, "backends": backends,
               "decode": decode, "5-state": five, "large": large,
-              "longform": longform, **repairs}
+              "longform": longform, **repairs, "api": api}
     for path, names in (("host-FE", HOST_PATH), ("device-FE", DEVICE_FE_PATH),
                         ("backends", BACKEND_PATH), ("decode", SLICE_PATH),
                         ("5-state", SLICE_PATH), ("large", SLICE_PATH),
                         ("longform", LONGFORM_PATH), ("mxu", MXU_PATH),
                         ("wire_f32", WIRE_F32_PATH),
-                        ("remove_dc", REMOVE_DC_PATH)):
+                        ("remove_dc", REMOVE_DC_PATH), ("api", API_PATH)):
         names = list(dict.fromkeys(names + [f"{k}[{f}]"
                                             for _, k, f, ph, _ in FORMS
                                             if ph == path]))

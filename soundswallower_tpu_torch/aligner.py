@@ -59,8 +59,9 @@ segments are extracted in Python, as TpuAligner does.
 if no CUDA device is present; ``device="cpu"`` runs their plain PyTorch
 versions.  Nothing falls back from one to the other.
 
-Still to be ported: ``use_mesh`` (ROADMAP.md A13) and ``update_mllr``
-(A14).  As in the JAX package, ``align`` and ``decode`` on the device
+Still to be ported: ``use_mesh`` (ROADMAP.md A13).  ``update_mllr``
+(and ``config["mllr"]`` at init) applies an MLLR transform as
+TpuAligner's does.  As in the JAX package, ``align`` and ``decode`` on the device
 front end and ``stream`` raise NotImplementedError for ms models (they
 need the graph-restricted scorer), and ``stream`` and
 ``align_longform_batch`` on a 5-state model fail as the JAX package's
@@ -193,8 +194,6 @@ class TorchAligner:
             config = Config(**kwargs)
         self.config = config
         config.expand()
-        if config["mllr"]:
-            raise _unported("update_mllr / mllr", "A14")
         self.lmath = LogMath(config.get_float("logbase"), 0, True)
         self.am = AcousticModel.load(config, self.lmath)
         self.dict = Dictionary(self.am.mdef, config["dict"], config["fdict"],
@@ -230,6 +229,23 @@ class TorchAligner:
         self._stack_cache: dict[tuple, _Stack] = {}
         self._seg_tab_cache: dict[tuple, tuple] = {}
         self._fe_pool = ThreadPoolExecutor(max_workers=1)
+        if config["mllr"]:
+            self.update_mllr(config["mllr"])
+
+    def update_mllr(self, path: str):
+        """Apply an MLLR transform to the acoustic model and rebuild the
+        device scoring tables (acmod_update_mllr, acmod.c:316-325; the
+        reference also applies config['mllr'] at init, acmod.c:122-126),
+        as TpuAligner.update_mllr: the dense scorer is rebuilt, and every
+        cache that baked the old Gaussians or per-graph device constants
+        (graph scorers, stacked graphs, the union scorer) is dropped."""
+        from .mllr import Mllr, apply_mllr
+
+        apply_mllr(self.am, Mllr(path), self.config)
+        self.dense = dense_scorer(self.am, self.device)
+        self._graph_const_cache.clear()
+        self._stack_cache.clear()
+        self._uni = None
 
     # -- graph -------------------------------------------------------------
 
@@ -1138,6 +1154,3 @@ class TorchAligner:
 
     def use_mesh(self, *a, **k):
         raise _unported("use_mesh", "A13")
-
-    def update_mllr(self, *a, **k):
-        raise _unported("update_mllr", "A14")

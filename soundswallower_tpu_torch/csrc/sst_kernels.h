@@ -185,6 +185,14 @@ int sst_backtrace_chunk(const void* tok, int tok_bytes, const int32_t* start,
                         int32_t* out_state, int R, int C, int S, int t0,
                         cudaStream_t stream);
 
+// K14: YIN's float32 CMND and period pick, one block per frame.
+// frames int16 (is_i16 = 1) or float32 [N, F]; lags t < ndiff (samples
+// past F - 1 read sample F - 1); thr the float32 threshold on the x32768
+// scale -> cmnd float32 [N, ndiff], period int64 [N], best float32 [N].
+int sst_yin_cmnd(const void* frames, int is_i16, float* cmnd,
+                 int64_t* period, float* best, int N, int F, int ndiff,
+                 float thr, cudaStream_t stream);
+
 const char* sst_error_string(int err);
 
 }  // extern "C"

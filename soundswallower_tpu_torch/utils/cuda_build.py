@@ -66,6 +66,7 @@ _SIGS = {
     "sst_ms_dist_topn": [_P] * 6 + [_I] * 6 + [_P],
     "sst_ms_senone_eval": [_P] * 5 + [_I, _P] + [_I] * 8 + [_P],
     "sst_backtrace_chunk": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    "sst_yin_cmnd": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 # launchers return the cudaError_t of their launch; these return sizes
 _RESTYPES = {"sst_viterbi_state_bytes": ctypes.c_int64}

@@ -102,19 +102,22 @@ def test_synth_model_bytes_pinned(tmp_path, width):
 
 
 def test_unported_surfaces_raise(small):
-    """What is still to be ported raises NotImplementedError naming its
-    ROADMAP item; want_scores on a same-transcript batch, decode,
-    align_longform_batch and dist_mode="mxu", which once did, are ported
-    (tests/test_torch_large_graph.py, tests/test_torch_decode.py,
-    tests/test_torch_longform.py, tests/test_torch_mxu.py)."""
-    port, _ = small
+    """What is still to be ported (use_mesh) raises NotImplementedError
+    naming its ROADMAP item; want_scores on a same-transcript batch,
+    decode, align_longform_batch, dist_mode="mxu" and update_mllr, which
+    once did, are ported (tests/test_torch_large_graph.py,
+    tests/test_torch_decode.py, tests/test_torch_longform.py,
+    tests/test_torch_mxu.py, tests/test_torch_mllr.py): a transform
+    file that does not exist fails as in the JAX aligner."""
+    port, ref = small
     a = austen_audio(0)
     with pytest.raises(RuntimeError, match="set_grammar"):
         port.decode(a)
-    for call, item in ((lambda: port.use_mesh(None), "A13"),
-                       (lambda: port.update_mllr("x"), "A14")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+        port.use_mesh(None)
+    for al in (port, ref):
+        with pytest.raises(FileNotFoundError):
+            al.update_mllr("no-such-mllr-file")
     assert port.align(a, TEXT, dist_mode="mxu")
 
 

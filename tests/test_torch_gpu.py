@@ -602,3 +602,71 @@ def test_remove_dc_kernel_equals_plain_on_card(rate):
         got = ff.fe_spec(fe, x, ns, prior, T)
         assert ff.fe_spec.forms["remove_dc"] == before + 1
         assert torch.equal(got, ff.fe_spec_plain(fe, x, ns, prior, T))
+
+
+@pytest.mark.parametrize("F", [32, 64, 200, 400, 1024, 4096])
+def test_yin_kernel_equals_plain_on_card(F):
+    """K14 against yin_cmnd_plain on frames of austen.raw: the CMND bit
+    for bit, period and best equal, int16 and float32 input, and lags
+    past the frame's end (ndiff > F // 2)."""
+    _need_cuda()
+    from soundswallower_tpu_torch import yin
+
+    a = np.fromfile(os.path.join(REPO, "tests", "golden", "austen.raw"),
+                    np.int16)
+    fr = np.stack([a[p:p + F] for p in range(0, len(a) - F, 160)])
+    thr = float(np.float32(0.1 * 32768))
+    for x in (torch.from_numpy(fr).cuda(),
+              torch.from_numpy(fr.astype(np.float32) * 0.5).cuda()):
+        for nd in (F // 2, F // 2 + F // 4):
+            before = yin.yin_cmnd.launches
+            got = yin.yin_cmnd(x, nd, thr)
+            assert yin.yin_cmnd.launches == before + 1
+            want = yin.yin_cmnd_plain(x, nd, thr)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32))
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[2].view(torch.int32),
+                               want[2].view(torch.int32))
+
+
+def test_decoder_on_card_equals_cpu(tmp_path_factory):
+    """The exact Decoder with its front end on the card (K8-K10) against
+    device="cpu": the API golden's scenario (alignment JSON at levels
+    0-2, a grammar's hyp, segments and n-best, a live decode in
+    1,600-sample pieces with its CMN state), spectrogram raw and smooth,
+    and pitch_batch (K14) against its CPU route."""
+    _need_cuda()
+    from make_torch_api_golden import austen_frames, decoder_results
+
+    from soundswallower_tpu_torch import yin
+    from soundswallower_tpu_torch.decoder import Decoder
+
+    d = model_dir(tmp_path_factory, "small")
+    beams = dict(beam=1e-200, pbeam=1e-200, wbeam=1e-200)
+
+    def short(i):
+        return austen_audio(i)[:12000]
+
+    before = fe_launches()
+    got = decoder_results(Decoder, d, audio=short, text="he was not an ill",
+                          device="cuda", **beams)
+    assert all(v > b for v, b in zip(fe_launches(), before))
+    assert got == decoder_results(Decoder, d, audio=short,
+                                  text="he was not an ill", device="cpu",
+                                  **beams)
+    a = short(0)
+    gpu = Decoder(hmm=d, samprate=SAMPRATE, device="cuda", **beams)
+    cpu = Decoder(hmm=d, samprate=SAMPRATE, device="cpu", **beams)
+    for smooth in (False, True):
+        assert np.array_equal(gpu.spectrogram(a, smooth),
+                              cpu.spectrogram(a, smooth))
+    fr = austen_frames(400)
+    for g, c in zip(yin.pitch_batch(fr), yin.pitch_batch(fr, device="cpu")):
+        assert g.is_cuda and torch.equal(g.cpu(), c)
+
+
+def fe_launches():
+    from soundswallower_tpu_torch.fe import frontend as ff
+
+    return ff.fe_spec.launches, ff.fe_noise.launches, ff.fe_cep.launches

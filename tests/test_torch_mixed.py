@@ -249,13 +249,17 @@ def test_align_batch_scored_matches_reference(small_dir, want_states):
         port.align_batch_scored(audios[:1], ["he was a xyzzy"])
 
 
-def test_unported_surfaces_still_raise(small_dir):
-    """What is still to be ported raises NotImplementedError naming its
-    ROADMAP item.  Ported since: want_scores on a same-transcript batch,
-    decode_batch(_scored) (they need set_grammar first, as in the JAX
-    package), S >= 32767 (int32 token stacks), 5-state models,
-    align_longform_batch and dist_mode="mxu"; an HMM topology the JAX
-    package refuses (neither 3 nor 5 states) is refused here too."""
+def test_unported_surfaces_still_raise(small_dir, tmp_path):
+    """What is still to be ported (use_mesh) raises NotImplementedError
+    naming its ROADMAP item.  Ported since: want_scores on a
+    same-transcript batch, decode_batch(_scored) (they need set_grammar
+    first, as in the JAX package), S >= 32767 (int32 token stacks),
+    5-state models, align_longform_batch, dist_mode="mxu" and MLLR
+    (update_mllr, and config["mllr"] at init: the transform changes the
+    dense scores); an HMM topology the JAX package refuses (neither 3
+    nor 5 states) is refused here too."""
+    from make_mllr import make_mllr
+
     port = TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu")
     a = austen_audio(0)
     port.want_scores = True
@@ -265,10 +269,8 @@ def test_unported_surfaces_still_raise(small_dir):
                  lambda: port.decode_batch([a])):
         with pytest.raises(RuntimeError, match="set_grammar"):
             call()
-    for call in (lambda: port.use_mesh(None),
-                 lambda: port.update_mllr("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
+        port.use_mesh(None)
     assert port.align_batch_scored([a], [TEXT], dist_mode="mxu")[0]
     S = 3 * 11000                                    # int32 token stacks
     with pytest.raises(ValueError, match="graphs for"):
@@ -276,9 +278,17 @@ def test_unported_surfaces_still_raise(small_dir):
                         torch.ones(1, dtype=torch.int32),
                         types.SimpleNamespace(P=S // 3, E=3,
                                               tp=torch.zeros((2, 1))))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-        TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu",
-                     mllr="mllr_matrix")
+    mllr = make_mllr(str(tmp_path / "mllr"), 3, 13)
+    feats = torch.from_numpy(np.random.RandomState(0).randn(
+        4, 3, 13).astype(np.float32))
+    before = st.score_frames(port.dense, feats)
+    port.update_mllr(mllr)
+    after = st.score_frames(port.dense, feats)
+    assert not torch.equal(before, after)
+    init = TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu",
+                        mllr=mllr)
+    assert torch.equal(st.score_frames(init.dense, feats), after)
+    assert port.align_batch([a], [TEXT])[0] is not None
     # a 4-state topology: align_jax.py _eval_emit refuses it, so does the
     # port, when the tables are made
     tp = np.zeros((3, 4, 5), np.int32)

@@ -34,8 +34,11 @@ def test_port_imports_without_jax(tmp_path):
     stream, a spectrogram, the device front end's batch and
     single-utterance paths, and grammar decode (set_grammar, decode on
     both front ends, decode_batch, nbest over the history search and
-    lattice), leaves jax unloaded and reads no module of the JAX
-    package: none is in sys.modules, by name or by file."""
+    lattice), YIN (pitch_batch, the exact Yin), the exact Decoder (an
+    alignment, a live decode), MLLR on the aligner and the Decoder, the
+    CLI on both paths, Vad and Endpointer, leaves jax unloaded and reads
+    no module of the JAX package: none is in sys.modules, by name or by
+    file."""
     code = f"""
 import os
 import sys
@@ -77,6 +80,50 @@ assert all(s is not None for s in dal.align_batch(audios, texts))
 assert dal.align(audios[0], TEXT)
 dal.set_grammar(jsgf_string=GRAMMAR)
 assert dal.decode(audios[0])[1]
+import contextlib
+import io
+import numpy as np
+import soundswallower_tpu_torch as pkg
+from soundswallower_tpu_torch import cli, endpointer, mllr, vad, yin
+from make_mllr import make_mllr
+fr = np.stack([audios[0][p:p + 400] for p in range(0, 4000, 160)])
+period, best = yin.pitch_batch(fr, device="cpu")
+assert period.dtype == torch.int64 and period.shape == (len(fr),)
+pe = yin.Yin(400)
+pe.start()
+got = []
+for f in fr:
+    pe.write(f)
+    got.append(pe.read())
+pe.end()
+assert got[-1] is not None
+wide = dict(beam=1e-200, pbeam=1e-200, wbeam=1e-200)
+dec = pkg.Decoder(hmm=d, samprate=SAMPRATE, device="cpu", **wide)
+dec.set_align_text("he was not")
+dec.start_utt()
+for i in range(0, 9600, 1600):
+    dec.process_raw(audios[0][i:i + 1600], full_utt=False)
+dec.end_utt()
+assert dec.hyp.text == "he was not" and dec.result_json(align_level=2)
+tr = make_mllr(os.path.join({str(tmp_path)!r}, "mllr"), 3, 13)
+assert mllr.Mllr(tr)
+al.update_mllr(tr)
+assert all(s is not None for s in al.align_batch(audios, texts))
+dec.update_mllr(tr)
+raw = os.path.join({str(tmp_path)!r}, "a.raw")
+audios[0][:9600].tofile(raw)
+os.environ["SOUNDSWALLOWER_MODEL_DIR"] = os.path.dirname(d)
+for exact in ([], ["--exact"]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([*exact, "-t", "he was not", "--model", d, "-s",
+                  "beam=1e-200", "-s", "pbeam=1e-200", "-s", "wbeam=1e-200",
+                  raw], device="cpu")
+    assert '"t":"he was not"' in buf.getvalue(), buf.getvalue()
+v = vad.Vad(0, SAMPRATE)
+assert v.classify(audios[0][:v.frame_size]) in (True, False)
+ep = endpointer.Endpointer(sample_rate=SAMPRATE)
+ep.process(audios[0][:ep.frame_size])
 assert 'jax' not in sys.modules, 'jax was imported'
 ref_dir = os.path.join({REPO!r}, "soundswallower_tpu") + os.sep
 bad = [n for n, m in list(sys.modules.items())
@@ -106,6 +153,10 @@ def test_no_jax_import_in_port():
 HOST_MODULES = ("config", "logmath", "s3file", "mdef", "dictionary",
                 "dict2pid", "am", "fe.warp", "fe.native_fe", "fe.cmn_live",
                 "utils.native_build", "ops.align_graph", "serve")
+# the exact Decoder's stack, MLLR, YIN, VAD, endpointer, CLI, audio I/O
+API_MODULES = ("genrand", "ops.senscore", "align", "search_align", "decoder",
+               "mllr", "yin", "webrtc_vad", "vad", "endpointer", "cli",
+               "utils.native_io")
 # the grammar and history-search copies (grammar decode, lattice, nbest)
 GRAMMAR_MODULES = ("fsg", "jsgf", "ops.decode_graph", "hmm", "lextree",
                    "search_fsg", "lattice")
@@ -119,7 +170,8 @@ def test_port_modules_are_files_of_the_port():
 
     names = ["aligner", "streaming", "fe.feat", "fe.frontend",
              "ops.align_torch", "ops.senscore_torch", "utils",
-             "utils.cuda_build", *HOST_MODULES, *GRAMMAR_MODULES]
+             "utils.cuda_build", *HOST_MODULES, *GRAMMAR_MODULES,
+             *API_MODULES]
     for name in names:
         mod = importlib.import_module(f"soundswallower_tpu_torch.{name}")
         f = os.path.abspath(mod.__file__)
