@@ -40,9 +40,13 @@ raises, so the exit code is non-zero and the last line is not printed:
    their 5-state forms on the ptm5st paths, K4 with scores on the
    same-transcript batch, the global-state layout with int16 tokens on
    a transcript of REPEATS repeats at B=4, T=256, and with int32 tokens
-   on the large grammar's decode paths), with median times, each
-   kernel's bound from this run's inputs and, where one PyTorch call
-   computes the same function, that call's time; the device front end's
+   on the large grammar's decode paths), each timed on the launch alone
+   (``ms``: the median device time per launch of 10, each after an L2
+   flush, enqueued behind a head start so no host time falls between
+   the events) and as one call from an idle device (``call_ms``), with
+   its bound from this run's inputs and, where one PyTorch call
+   computes the same function, that call's time on the same clock; a
+   torch.profiler pass over K10's and K7's forms; the device front end's
    cepstra of austen.raw against the C reference's; the device front end
    per B=256 batch beside the host C++ one (informational); then K13 on
    rank 0's token chunk of the long-form batch (int16) and of the large
@@ -104,11 +108,13 @@ raises, so the exit code is non-zero and the last line is not printed:
 
 Every row, score, segment list, spectrogram and checkpoint equals its
 golden.  The launch counts are reset before each of phases 5-13 and
-read after it; a kernel of a path, or a form of the Viterbi kernels
-(5-state, int32, global, scores) on the path that drives it, launched
-no time there fails the run.  The last lines are one JSON object of
-per-kernel results, the card's name and power limit (nvidia-smi), and
-``{"ok": true, "device": {...}}``.
+read after it; a kernel of a path, or a form of a kernel (the Viterbi
+kernels' 5-state, int32, global and scores forms, K10's log spectra,
+K7's semi form, ...) on the path that drives it, launched no time there
+fails the run.  The last lines are rule 2's order of the kernels, one
+JSON object of per-kernel results, the card's name and power limit
+(nvidia-smi), and ``{"ok": true, "device": {...}}``; an entry that
+reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
 """
@@ -241,7 +247,6 @@ VARIANTS = [
      "soundswallower_tpu/ops/senscore_jax.py:254"),
     ("fe_noise[masked, carried]", "fe_noise",
      "soundswallower_tpu/fe/frontend.py:403"),
-    ("fe_cep[logspec]", "fe_cep", "soundswallower_tpu/fe/frontend.py:535"),
     ("fe_spec[16 kHz, nfft 512]", "fe_spec",
      "soundswallower_tpu/fe/frontend.py:285"),
     ("fe_noise[16 kHz]", "fe_noise", "soundswallower_tpu/fe/frontend.py:343"),
@@ -251,8 +256,6 @@ VARIANTS = [
      "soundswallower_tpu/ops/align_jax.py:665"),
     ("senone_eval[wrap_u8]", "senone_eval",
      "soundswallower_tpu/ops/senscore_jax.py:557", "backends"),
-    ("frame_best_sub[semi]", "frame_best_sub",
-     "soundswallower_tpu/ops/senscore_jax.py:301", "backends"),
     ("feat_f32[wire f32]", "feat_f32", "soundswallower_tpu/fe/feat.py:372",
      "wire_f32"),
     ("viterbi_chunk[long form, 8 ranks]", "viterbi_chunk",
@@ -301,7 +304,15 @@ FORMS = [
      "soundswallower_tpu/ops/senscore_jax.py:242"),
     ("fe_spec[remove_dc]", "fe_spec", "remove_dc", "remove_dc",
      "soundswallower_tpu/fe/frontend.py:513"),
+    # PR 8: K10's log spectra (spectrogram) and K7's semi form
+    ("fe_cep[logspec]", "fe_cep", "logspec", "device-FE",
+     "soundswallower_tpu/fe/frontend.py:535"),
+    ("frame_best_sub[semi]", "frame_best_sub", "semi", "backends",
+     "soundswallower_tpu/ops/senscore_jax.py:301"),
 ]
+# the form whose count is a kernel's own entry's launches, where its
+# other forms have entries of their own
+ENTRY_FORM = {"fe_cep": "cepstra"}
 # the kernels each of the decode, 5-state and large-graph paths must
 # launch: both front ends, both batch routes, K7 and the carry form
 SLICE_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
@@ -341,9 +352,88 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, runs: int = 10) -> float:
-    """Median device time of fn over runs (after one warm-up), with
-    CUDA events."""
+# -- the kernel clock ---------------------------------------------------------
+
+L2_BYTES = 50 * 2 ** 20         # the H100's L2 cache
+FLUSH_BYTES = 2 * L2_BYTES      # written before each timed launch
+BOUND_LIMIT = 1.05              # bound_ms / ms above this: a miscounted bound
+_clock: dict = {}
+# what time_ms timed with host time in its window: the host could not get
+# ahead of the device (a call that waits on it, or more launches than the
+# stream's queue holds)
+HOST_IN_WINDOW: set = set()
+
+
+def flush_l2() -> None:
+    """Write a scratch buffer twice the L2's size, so the next launch
+    reads its inputs from HBM, as the main path's kernels do (their
+    inputs come from the previous kernel and exceed the L2)."""
+    if "buf" not in _clock:
+        _clock["buf"] = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                    device="cuda")
+    _clock["buf"].zero_()
+
+
+def sleep_ms(ms: float) -> None:
+    """Hold the stream for about ms milliseconds (torch.cuda._sleep,
+    calibrated once against CUDA events)."""
+    if "cycles_per_ms" not in _clock:
+        cycles = 10 ** 7
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _clock["cycles_per_ms"] = cycles / start.elapsed_time(end)
+    torch.cuda._sleep(int(ms * _clock["cycles_per_ms"]))
+
+
+def time_ms(fn, runs: int = 10, name: str = "") -> float:
+    """Device time per launch of fn: one warm-up; then the stream held
+    for longer than the host takes to enqueue ``runs`` iterations (L2
+    flush, start event, fn, end event) with no synchronisation between
+    them; the median of the ``runs`` event pairs.  A head start shorter
+    than the host's enqueue is lengthened, and said; where that does not
+    help, ``name`` goes into HOST_IN_WINDOW."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flush_l2()
+    fn()
+    ahead = max(2.0, 3e3 * runs * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    for tries in range(3):
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
+        sleep_ms(ahead)
+        t0 = time.perf_counter()
+        for start, end in ev:
+            flush_l2()
+            start.record()
+            fn()
+            end.record()
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if enqueue < ahead:
+            break
+        if tries == 2:
+            HOST_IN_WINDOW.add(name)
+            log(f"  clock {name}: the host took {enqueue:.3f} ms to enqueue "
+                f"{runs} launches behind a {ahead:.3f} ms head start; it "
+                "waits on the device, so this time holds host time")
+            break
+        log(f"  clock {name}: the host took {enqueue:.3f} ms to enqueue "
+            f"{runs} launches, past the {ahead:.3f} ms head start; "
+            f"lengthened to {3 * enqueue:.3f} ms")
+        ahead = 3 * enqueue
+    return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def call_ms(fn, runs: int = 10) -> float:
+    """Median time of one call of fn from an idle device (after one
+    warm-up), between two events around the Python call: what a lone
+    caller pays, the wrapper's host time included."""
     fn()
     times = []
     for _ in range(runs):
@@ -355,6 +445,59 @@ def time_ms(fn, runs: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def rank_kernels(entries: list) -> list:
+    """Rule 2's order of kernel entries (dicts with name, ms, bound_ms,
+    library_ms, launches): first those slower than their one PyTorch
+    call, the largest factor ms / library_ms first; then the others by
+    launches x (ms - bound_ms), leaving out those within twice their
+    bound.  Returns (name, "factor" or "gap", value) triples."""
+    slower = sorted(((e["name"], "factor", e["ms"] / e["library_ms"])
+                     for e in entries if e.get("library_ms") is not None
+                     and e["ms"] > e["library_ms"]), key=lambda r: -r[2])
+    done = {r[0] for r in slower}
+    gaps = sorted(((e["name"], "gap", e["launches"] * (e["ms"] - e["bound_ms"]))
+                   for e in entries if e["name"] not in done
+                   and e["ms"] > 2 * e["bound_ms"]), key=lambda r: -r[2])
+    return slower + gaps
+
+
+# wrappers cross-checked with torch.profiler: entry -> (call, a substring
+# of the kernels' names)
+PROBES: dict = {}
+
+
+def profile_check(results: dict, launches: int = 5) -> None:
+    """One torch.profiler pass over ``launches`` launches of each probe
+    (each after an L2 flush): the device time of its kernels per launch,
+    kept as ``profiler_ms`` beside the events' ``ms``."""
+    from torch.profiler import ProfilerActivity, profile
+    # a first session may record no device time while the tracer starts
+    with profile(activities=[ProfilerActivity.CUDA]):
+        flush_l2()
+        torch.cuda.synchronize()
+    for name, (fn, tag) in PROBES.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", 0.0)
+                 for e in prof.key_averages() if tag in e.key)
+        r = results[name]
+        r["profiler_ms"] = us / 1e3 / launches if us > 0 else None
+        log(f"  profiler {name}: " + (
+            f"{r['profiler_ms']:.4f} ms of device time a launch, the events "
+            f"{r['ms']:.4f} ms" if us > 0 else
+            "no device time recorded; the events' time stands"))
+
+
+def over_bound(entries: list, limit: float = BOUND_LIMIT) -> list:
+    """Names of the entries that read faster than ``limit`` times their
+    bound allows: a bound whose bytes or operations are miscounted."""
+    return [e["name"] for e in entries if e["bound_ms"] > limit * e["ms"]]
 
 
 def max_abs_err(a, b) -> float:
@@ -402,13 +545,15 @@ def nbytes(*xs) -> int:
 
 def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
             ops: float = 0.0, rate: float = F32_OPS, library=None,
-            runs: int = 10):
+            runs: int = 10, n_bytes: int | None = None):
     """Kernel vs plain PyTorch on the same device inputs: bit-equal (every
-    output, dtypes included).
-    ``bound_ms`` is the larger of the bytes (``ins``, read once, and the
-    kernel's outputs, written once) over HBM_BPS and ``ops`` over
-    ``rate``; ``library`` is one PyTorch call computing the same
-    function, timed beside the kernel (used nowhere in the port)."""
+    output, dtypes included).  ``ms`` is the device time per launch
+    (time_ms), ``call_ms`` one call from an idle device (call_ms).
+    ``bound_ms`` is the larger of the bytes (``ins``, read once, or
+    ``n_bytes`` where the data decide what is read, and the kernel's
+    outputs, written once) over HBM_BPS and ``ops`` over ``rate``;
+    ``library`` is one PyTorch call computing the same function, timed
+    as the kernel is (used nowhere in the port)."""
     out_k = fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -421,17 +566,25 @@ def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
     if err != 0.0:
         raise AssertionError(f"{name}: kernel differs from its plain version "
                              f"(max_abs_err {err})")
-    ms = time_ms(fn, runs)
+    ms = time_ms(fn, runs, name)
+    c_ms = call_ms(fn, runs)
     # plain_runs=0: the plain version's time is that of the comparison call
-    plain_ms = (time_ms(plain, plain_runs) if plain_runs
+    plain_ms = (call_ms(plain, plain_runs) if plain_runs
                 else start.elapsed_time(end))
-    b = bound(nbytes(*ins) + nbytes(out_k), ops, rate)
-    lib_ms = None if library is None else time_ms(library)
-    log(f"  {name}: bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})"
+    b = (bound(nbytes(*ins) + nbytes(out_k), ops, rate) if n_bytes is None
+         else bound(n_bytes + nbytes(out_k), ops, rate))
+    lib_ms = (None if library is None
+              else time_ms(library, runs, f"{name} library"))
+    log(f"  {name}: bit-equal, kernel {ms:.4f} ms a launch (one call "
+        f"{c_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})"
         + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms"))
-    results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
-                         library_ms=lib_ms)
+    results[name] = dict(max_abs_err=err, ms=ms, call_ms=c_ms,
+                         plain_ms=plain_ms, **b, library_ms=lib_ms)
+    for what in (name, f"{name} library"):
+        if what in HOST_IN_WINDOW:
+            results[name].setdefault("host_in_window", []).append(
+                "library" if what != name else "kernel")
     return out_k
 
 
@@ -505,8 +658,20 @@ def eval_bound(s, cw, gs) -> dict:
                 ops=6.0 * N * gs.S * F * topn, rate=I32_OPS)
 
 
+def gather_bytes(src, cols) -> int:
+    """K5's bytes in: the columns, and the source values this run's
+    columns select (each row's distinct in-range columns, wrapped as the
+    kernel wraps them, at every frame)."""
+    B, T, Sx = src.shape
+    idx = cols.long()
+    idx = torch.where(idx < 0, idx + Sx, idx)
+    used = sum(int(torch.unique(r[(r >= 0) & (r < Sx)]).numel()) for r in idx)
+    return used * T * src.element_size() + nbytes(cols)
+
+
 def gather_library(src, cols):
-    """One PyTorch call for K5 on in-range columns: torch.gather."""
+    """One PyTorch call for K5 on in-range columns: torch.gather (int64
+    indices, expanded over the frames; the source's dtype out)."""
     idx = cols.long().clamp(0, src.shape[2] - 1)[:, None, :].expand(
         src.shape[0], src.shape[1], -1).contiguous()
     return lambda: torch.gather(src, 2, idx)
@@ -542,7 +707,7 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
             compare("gather_cols",
                     lambda: senscore_torch.gather_cols(src, cols),
                     lambda: senscore_torch.gather_cols_plain(src, cols),
-                    results, ins=(src, cols),
+                    results, n_bytes=gather_bytes(src, cols),
                     library=gather_library(src, cols))
         senscore_torch.gather_cols(src, cols, out=sen[i0:i0 + n])
     v = st.vit
@@ -585,11 +750,14 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
                 lambda: senscore_torch.frame_best_sub(x),
                 lambda: senscore_torch.frame_best_sub_plain(x), results,
                 ins=(x,), ops=2.0 * x.numel(), rate=I32_OPS)
+        PROBES["frame_best_sub"] = (lambda: senscore_torch.frame_best_sub(x),
+                                    "frame_best_sub")
         src = senscore_torch.frame_best_sub(x).view(len(audios), Tmax, -1)
         compare("gather_cols[int16 full inventory]",
                 lambda: senscore_torch.gather_cols(src, cols),
                 lambda: senscore_torch.gather_cols_plain(src, cols),
-                results, ins=(src, cols), library=gather_library(src, cols))
+                results, n_bytes=gather_bytes(src, cols),
+                library=gather_library(src, cols))
 
 
 def wall_ms(fn, runs: int = 5) -> float:
@@ -647,6 +815,9 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
             lambda: fe_mod.fe_cep_plain(fe, den, True), results, plain_runs=0,
             ins=(den,), ops=2.0 * den.numel(), rate=F64_OPS,
             library=lambda: torch.log(den))
+    PROBES["fe_cep"] = (lambda: fe_mod.fe_cep(fe, den), "fe_cep")
+    PROBES["fe_cep[logspec]"] = (lambda: fe_mod.fe_cep(fe, den, True),
+                                 "fe_cep")
     compare("feat_f32", lambda: feat_mod.feat_f32(cep, Ts_d, al_dev.do_cmn),
             lambda: feat_mod.feats_plain(cep, Ts_d, al_dev.do_cmn), results,
             ins=(cep, Ts_d), ops=6.0 * cep.numel())
@@ -1010,9 +1181,11 @@ def phase_kernels_backends(als: dict, results: dict):
             results, plain_runs=0,
             ins=(dval, cw, ms.mixw, ms.sen2cb, ms.logadd),
             ops=8.0 * part.shape[0] * ms.S * F * ms.n_best, rate=I32_OPS)
-    k11 = time_ms(lambda: senscore_torch.ms_dist_topn(flat, ms))
+    k11 = time_ms(lambda: senscore_torch.ms_dist_topn(flat, ms), 10,
+                  "ms_dist_topn[chunk]")
     dval, cw = senscore_torch.ms_dist_topn(flat, ms)
-    k12 = time_ms(lambda: senscore_torch.ms_senone_eval(dval, cw, ms))
+    k12 = time_ms(lambda: senscore_torch.ms_senone_eval(dval, cw, ms), 10,
+                  "ms_senone_eval[chunk]")
     N = flat.shape[0]
     b11 = bound(nbytes(flat, ms.means, ms.var_t, ms.det, dval, cw),
                 fold_ops(N, ms), F32_OPS)
@@ -1054,6 +1227,8 @@ def phase_kernels_backends(als: dict, results: dict):
             lambda: senscore_torch.frame_best_sub_plain(x, False), results,
             ins=(x,), ops=float(x.numel()), rate=I32_OPS,
             library=lambda: x.to(torch.int16))
+    PROBES["frame_best_sub[semi]"] = (
+        lambda: senscore_torch.frame_best_sub(x, False), "frame_best_sub")
 
     g = load_backends_golden()
     frames = torch.from_numpy(dense_feats()).to(al.device)
@@ -1483,10 +1658,10 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     shape_log("long form", sen, v)
     carry0 = align_torch.vit_carry0(v, n_emit=3)
     chunk = sen[0, :C].contiguous()
+    n0 = int(n[0])
     compare("viterbi_chunk[long form, 8 ranks]",
-            lambda: align_torch.viterbi_chunk(chunk, carry0, 0, int(n[0]), v),
-            lambda: align_torch.viterbi_chunk_plain(chunk, carry0, 0,
-                                                    int(n[0]), v),
+            lambda: align_torch.viterbi_chunk(chunk, carry0, 0, n0, v),
+            lambda: align_torch.viterbi_chunk_plain(chunk, carry0, 0, n0, v),
             results, plain_runs=0, ins=(chunk, carry0, v),
             ops=vit_ops(chunk), rate=I32_OPS)
     tok = first_chunk_tokens(sen, n, v, C)
@@ -1839,6 +2014,7 @@ def main() -> int:
     phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results)
     phase_kernels_slice6(al, al_dc, al_f32, big, results)
     phase_kernels_yin(results)
+    profile_check(results)
     wrappers = {name: fn for name, fn, _, _ in KERNELS}
 
     # 5. host-FE paths: main, mixed and serving, counted
@@ -1904,7 +2080,9 @@ def main() -> int:
                                  f"paths: {missing}")
     # each kernel's count from the path that brought it in
     entries = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=counts[PATH_OF[name]][name], **results[name])
+                    launches=counts[PATH_OF[name]][
+                        f"{name}[{ENTRY_FORM[name]}]" if name in ENTRY_FORM
+                        else name], **results[name])
                for name, _, src, rep in KERNELS]
     sources = {name: src for name, _, src, _ in KERNELS}
     for entry, kernel, rep, *path in VARIANTS:
@@ -1917,7 +2095,14 @@ def main() -> int:
                             replaces=rep,
                             launches=counts[path][f"{kernel}[{form}]"],
                             **results[entry]))
+    log("rule-2 order (slower than the one PyTorch call, by ms / library "
+        "ms; then launches x (ms - bound) ms): " + ", ".join(
+            f"{n} {how} {v:.4f}" for n, how, v in rank_kernels(entries)))
     log(json.dumps({"kernels": entries}))
+    bad = over_bound(entries)
+    if bad:
+        raise AssertionError(f"entries above {BOUND_LIMIT:.0%} of their bound "
+                             f"(miscounted bytes or operations): {bad}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

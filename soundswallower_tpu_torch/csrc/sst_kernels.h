@@ -150,8 +150,8 @@ int sst_fe_noise(const double* mfspec, const int32_t* n_frames, double* power,
 
 // K10: log, DCT (kind 0 dct, 1 htk, 2 legacy), lifter.  mfspec float64
 // [M, nfilt]; mel_cosine float32 [ncep, nfilt]; lifter float32 [ncep] or
-// NULL -> ls_out float64 [M, nfilt] (or NULL) and cep float32 [M, ncep]
-// (or NULL).
+// NULL -> either ls_out float64 [M, nfilt] (the log spectra; cep NULL)
+// or cep float32 [M, ncep] (ls_out NULL).
 int sst_fe_cep(const double* mfspec, const float* mel_cosine,
                const float* lifter, double* ls_out, float* cep, int M,
                int nfilt, int ncep, int kind, float scale0, float sqrt_inv_2n,
@@ -196,3 +196,15 @@ int sst_yin_cmnd(const void* frames, int is_i16, float* cmnd,
 const char* sst_error_string(int err);
 
 }  // extern "C"
+
+// Blocks of `kernel` (`threads` a block, no dynamic shared memory) that
+// fill every SM of the current device once: the grid of a grid-stride
+// kernel.
+template <typename Kernel>
+inline int sst_fill_blocks(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  return (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+}

@@ -822,8 +822,11 @@ def fe_cep(fe: Frontend, mfspec: torch.Tensor,
         float(fe._sqrt_inv_2n if kind == 1 else fe._sqrt_inv_n),
         float(fe._sqrt_inv_2n), cuda_build.stream(mfspec))
     cuda_build.check(err, "fe_cep")
+    form = "logspec" if logspec else "cepstra"
     fe_cep.launches += 1
+    fe_cep.forms[form] = fe_cep.forms.get(form, 0) + 1
     return ls if logspec else cep
 
 
 fe_cep.launches = 0
+fe_cep.forms = {}

@@ -570,11 +570,14 @@ def frame_best_sub(x: torch.Tensor, sub: bool = True) -> torch.Tensor:
     err = cuda_build.lib().sst_frame_best_sub(
         x.data_ptr(), out.data_ptr(), N, S, int(sub), cuda_build.stream(x))
     cuda_build.check(err, "frame_best_sub")
+    form = "ptm" if sub else "semi"
     frame_best_sub.launches += 1
+    frame_best_sub.forms[form] = frame_best_sub.forms.get(form, 0) + 1
     return out
 
 
 frame_best_sub.launches = 0
+frame_best_sub.forms = {}
 
 
 def score_frames(ds, feats: torch.Tensor,

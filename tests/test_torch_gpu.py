@@ -670,3 +670,87 @@ def fe_launches():
     from soundswallower_tpu_torch.fe import frontend as ff
 
     return ff.fe_spec.launches, ff.fe_noise.launches, ff.fe_cep.launches
+
+
+# -- K10's and K7's edge shapes ------------------------------------------------
+
+def _bits(t):
+    """t's bits as integers (float32 -> int32, float64 -> int64)."""
+    return {torch.float32: lambda: t.view(torch.int32),
+            torch.float64: lambda: t.view(torch.int64)}.get(t.dtype,
+                                                             lambda: t)()
+
+
+def _off16(x):
+    """A copy of the contiguous x whose storage starts 8 bytes (float64)
+    or 4 bytes (int32) past a 16-byte boundary: a slice of a buffer one
+    element longer."""
+    buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    y = buf[1:].view(x.shape)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
+@pytest.mark.parametrize("lifter", [0, 22])
+@pytest.mark.parametrize("transform", ["dct", "htk", "legacy"])
+@pytest.mark.parametrize("nfilt", [20, 40])
+def test_fe_cep_forms_equal_plain_on_card(nfilt, transform, lifter):
+    """K10's cepstra and log spectra against fe_cep_plain, bit for bit:
+    M of 1, 7, 8k+3 and 81,920 frames (the device-FE path's B=256 x
+    320), 20 and 40 filters, each transform with and without a lifter,
+    from aligned storage and from storage off a 16-byte boundary; the
+    launches counted per form."""
+    _need_cuda()
+    from soundswallower_tpu_torch.fe import frontend as ff
+
+    fe = ff.Frontend(**(dict(FE_SYNTH, transform=transform,
+                             lifter_val=lifter) if nfilt == 20 else
+                        dict(FE_16K[0], transform=transform,
+                             lifter_val=lifter)))
+    assert fe.num_filters == nfilt
+    for M in (1, 7, 8 * 37 + 3, 81920):
+        rng = np.random.RandomState(M + nfilt)
+        v = rng.exponential(1e5, (M, nfilt))
+        v[rng.rand(M, nfilt) < 0.05] = 0.0        # the log floor alone
+        v[rng.rand(M, nfilt) < 0.05] = 1e-9
+        x = torch.from_numpy(v).cuda()
+        for src in (x, _off16(x)):
+            for logspec, form in ((False, "cepstra"), (True, "logspec")):
+                before = ff.fe_cep.forms.get(form, 0)
+                got = ff.fe_cep(fe, src, logspec)
+                assert ff.fe_cep.forms[form] == before + 1
+                want = ff.fe_cep_plain(fe, src, logspec)
+                assert got.dtype == want.dtype and got.shape == want.shape
+                assert torch.equal(_bits(got), _bits(want)), (M, logspec)
+
+
+@pytest.mark.parametrize("N", [1, 10240])
+@pytest.mark.parametrize("S", [1, 3, 5126, 5127])
+def test_frame_best_sub_forms_equal_plain_on_card(S, N):
+    """K7's ptm and semi forms against frame_best_sub_plain: S of 1, 3,
+    5,126 (en-us) and 5,127, N of 1 and 10,240 (the dense route's B=32 x
+    320), int32 scores past the int16 range (the wrap), each row's
+    minimum placed in turn in its unaligned head, its tail and its
+    middle, from aligned storage and from storage off a 16-byte
+    boundary; the launches counted per form."""
+    _need_cuda()
+    rng = np.random.RandomState(S + N)
+    x = rng.randint(-400000, 70000, (N, S)).astype(np.int64)
+    x[rng.rand(N, S) < 0.01] = 2 ** 31 - 1
+    # rows start at n * S: the head is the first (-n * S) % 4 scores
+    for n in range(N):
+        head = (-n * S) % 4
+        tail = (n * S + S) % 4 if S > head else 0
+        p = [0, head - 1, S - 1, S - tail, S // 2][n % 5]
+        p = min(max(p, 0), S - 1)
+        x[n, p] = max(-2 ** 31, int(x[n].min()) - 1 - n % 70000)
+    x[-1, -1] = -2 ** 31
+    xt = torch.from_numpy(x.astype(np.int32)).cuda()
+    for src in (xt, _off16(xt)):
+        for sub, form in ((True, "ptm"), (False, "semi")):
+            before = st.frame_best_sub.forms.get(form, 0)
+            got = st.frame_best_sub(src, sub)
+            assert st.frame_best_sub.forms[form] == before + 1
+            want = st.frame_best_sub_plain(src, sub)
+            assert got.dtype == torch.int16 and torch.equal(got, want)
