@@ -50,9 +50,11 @@ raises, so the exit code is non-zero and the last line is not printed:
    cepstra of austen.raw against the C reference's; the device front end
    per B=256 batch beside the host C++ one (informational); then K13 on
    rank 0's token chunk of the long-form batch (int16) and of the large
-   grammar's batch (int32), K4's carry form on a long-form chunk, K2's
-   mxu form (graph scorer, full inventory), K8 with remove_dc and K1's
-   float32 form on the f32 wire's cepstra; K14 on austen.raw's frames at
+   grammar's batch (int32), K4's carry form on one row's long-form chunk,
+   on a ring step over all rows of each (one launch of R = 4 and of R = 8
+   rows) and on the 5-minute row's first chunk, K2's mxu form (graph
+   scorer, full inventory), K8 with remove_dc and K1's float32 form on
+   the f32 wire's cepstra; K14 on austen.raw's frames at
    frame sizes 400, 200, 1024 and 4096, bit for bit;
 5. host-FE paths: align_batch on the 8 golden utterances, then 2
    pipelined batches of 256 (the 8 tiled); on a fresh union, align_batch
@@ -93,6 +95,9 @@ raises, so the exit code is non-zero and the last line is not printed:
    longform.json and ``align_batch``; ``align_longform`` on the large
    grammar (int32 tokens) against ``viterbi_single``; one row of about 5
    minutes through both routes (its token-stack bytes, informational);
+   each ring launches K4's carry form once a rank, whatever its rows
+   (printed and checked, and by rows and phones), and the phase's wall
+   is printed;
 12. the repaired configurations, each counted on its own: ``mxu``
    (``align_batch``, ``align_batch_scored``), ``wire_f32`` (same
    transcript, mixed, scored) and ``remove_dc`` (``align_batch``,
@@ -117,13 +122,21 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
+``python3 chip_smoke.py --before DIR`` also builds K4 and its carry form
+from DIR, a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
+declares them as BEFORE_PARAMS lists (the dense slot loop, one row a
+launch; any other declaration stops the run), checks them bit-equal to
+this tree's on every Viterbi entry's inputs and times both in turns
+(``ms_before``; the long form's ring steps as one earlier launch a row).
 """
 
 from __future__ import annotations
 
 import base64
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -258,8 +271,6 @@ VARIANTS = [
      "soundswallower_tpu/ops/senscore_jax.py:557", "backends"),
     ("feat_f32[wire f32]", "feat_f32", "soundswallower_tpu/fe/feat.py:372",
      "wire_f32"),
-    ("viterbi_chunk[long form, 8 ranks]", "viterbi_chunk",
-     "soundswallower_tpu/parallel/seqpipe.py:118", "longform"),
     # K14 at the frame sizes beside 400: 8 kHz (200), 1024 and 4096
     # (XLA's two tree levels and the scan's recursion)
     ("yin_cmnd[200]", "yin_cmnd", "soundswallower_tpu/yin.py:280", "api"),
@@ -290,8 +301,10 @@ FORMS = [
     ("viterbi_rows[3-state, int32, global, scores]", "viterbi_rows",
      "3-state, int32, global, scores", "large",
      "soundswallower_tpu/ops/align_jax.py:638"),
+    # one utterance, with the backtrace: the large grammar's device-FE
+    # decode, and the long form's checks of its rows
     ("viterbi_chunk[3-state, int32, global]", "viterbi_chunk",
-     "3-state, int32, global", "large",
+     "3-state, int32, global", ("large", "longform"),
      "soundswallower_tpu/ops/align_jax.py:368"),
     # the forms of PR 6: K13's token widths, K2's mxu form, K8's remove_dc
     ("backtrace_chunk[int16]", "backtrace_chunk", "int16", "longform",
@@ -309,6 +322,22 @@ FORMS = [
      "soundswallower_tpu/fe/frontend.py:535"),
     ("frame_best_sub[semi]", "frame_best_sub", "semi", "backends",
      "soundswallower_tpu/ops/senscore_jax.py:301"),
+    # the long form's carry form, counted on its path by form and by the
+    # rows and phones of the timed launch (its ``shape``): one row's
+    # chunk of the 4-row batch (R=1, which the rank-major forward no
+    # longer launches: one launch a rank takes all rows), a ring step
+    # over the 4 rows (R=4), the 5-minute row's (R=1 of its own graph),
+    # all of the int16 shared form; the large grammar's 8 rows (int32
+    # tokens, global)
+    ("viterbi_chunk[long form, 8 ranks]", "viterbi_chunk", "3-state",
+     "longform", "soundswallower_tpu/parallel/seqpipe.py:118"),
+    ("viterbi_chunk[long form, ring step]", "viterbi_chunk", "3-state",
+     "longform", "soundswallower_tpu/parallel/seqpipe.py:118"),
+    ("viterbi_chunk[long form, 5-minute row]", "viterbi_chunk", "3-state",
+     "longform", "soundswallower_tpu/parallel/seqpipe.py:118"),
+    ("viterbi_chunk[3-state, int32, global, long form]", "viterbi_chunk",
+     "3-state, int32, global", "longform",
+     "soundswallower_tpu/parallel/seqpipe.py:118"),
 ]
 # the form whose count is a kernel's own entry's launches, where its
 # other forms have entries of their own
@@ -545,7 +574,7 @@ def nbytes(*xs) -> int:
 
 def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
             ops: float = 0.0, rate: float = F32_OPS, library=None,
-            runs: int = 10, n_bytes: int | None = None):
+            runs: int = 10, n_bytes: int | None = None, before=None):
     """Kernel vs plain PyTorch on the same device inputs: bit-equal (every
     output, dtypes included).  ``ms`` is the device time per launch
     (time_ms), ``call_ms`` one call from an idle device (call_ms).
@@ -553,7 +582,10 @@ def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
     ``n_bytes`` where the data decide what is read, and the kernel's
     outputs, written once) over HBM_BPS and ``ops`` over ``rate``;
     ``library`` is one PyTorch call computing the same function, timed
-    as the kernel is (used nowhere in the port)."""
+    as the kernel is (used nowhere in the port).  ``before`` (the same
+    function on the parent's kernel, under ``--before``) must give the
+    same bits; it and the kernel are then timed in turns (kernel, before,
+    before, kernel: ``ms`` and ``ms_before`` the means of two)."""
     out_k = fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -567,6 +599,16 @@ def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
         raise AssertionError(f"{name}: kernel differs from its plain version "
                              f"(max_abs_err {err})")
     ms = time_ms(fn, runs, name)
+    turns = None
+    if before is not None:
+        berr = max_abs_err(before(), out_k)
+        if berr != 0.0:
+            raise AssertionError(f"{name}: the parent's kernel differs "
+                                 f"(max_abs_err {berr})")
+        turns = [ms, time_ms(before, runs, f"{name} before"),
+                 time_ms(before, runs, f"{name} before"),
+                 time_ms(fn, runs, name)]
+        ms = (turns[0] + turns[3]) / 2
     c_ms = call_ms(fn, runs)
     # plain_runs=0: the plain version's time is that of the comparison call
     plain_ms = (call_ms(plain, plain_runs) if plain_runs
@@ -581,6 +623,12 @@ def compare(name, fn, plain, results, plain_runs: int = 10, ins=(),
         + ("" if lib_ms is None else f", one PyTorch call {lib_ms:.4f} ms"))
     results[name] = dict(max_abs_err=err, ms=ms, call_ms=c_ms,
                          plain_ms=plain_ms, **b, library_ms=lib_ms)
+    if turns is not None:
+        r = results[name]
+        r["ms_before"] = (turns[1] + turns[2]) / 2
+        r["turns_ms"] = turns
+        log(f"  {name}: the parent's kernel {r['ms_before']:.4f} ms, this "
+            f"one {ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)})")
     for what in (name, f"{name} library"):
         if what in HOST_IN_WINDOW:
             results[name].setdefault("host_in_window", []).append(
@@ -608,6 +656,170 @@ def vit_ops(sen: torch.Tensor) -> float:
     """K4's and K6's int32 work: about 10 operations per frame and state
     (the HMM update's adds and maxes, the predecessor max, the token)."""
     return 10.0 * sen.numel()
+
+
+def vit_bytes(v) -> int:
+    """The bytes of K4's graph tables its bounded loop reads: the tmat
+    rows, windows, in-degrees, entries and final nodes, and each phone's
+    real predecessor slots (index and penalty), not the padded [P, K]."""
+    return (nbytes(v.tp, v.astart, v.aend, v.pred_n, v.entry, v.fin)
+            + 8 * int(v.pred_n.sum()))
+
+
+# -- the parent's K4 and carry form (--before DIR) ----------------------------
+
+# DIR's soundswallower_tpu_torch/csrc/viterbi.cu and viterbi_e5.cu built
+# into one library: K4 and its single-row carry form before the
+# redesign (dense [P, K] loop over pred_ok), called below with the
+# parameters their declarations in DIR's sst_kernels.h must list
+BEFORE: dict = {}
+BEFORE_PARAMS = {
+    "sst_viterbi_batch": "sen n_frames tp pred_idx pred_pen pred_ok astart "
+    "aend entry fin B T P E K n_fin tok tok_bytes tsc path pscore fscore "
+    "gstate stream",
+    "sst_viterbi_chunk": "sen t0 n tp pred_idx pred_pen pred_ok astart aend "
+    "score hist osc ohi best_prev C P E K tok tok_bytes fin n_fin path "
+    "fscore anext stream",
+}
+
+
+def header_params(header: str, name: str) -> list:
+    """(type, name) of each parameter of ``int name(...);`` in a C
+    header's text; ValueError where it declares no such function."""
+    m = re.search(rf"\bint {name}\(([^)]*)\);", header)
+    if m is None:
+        raise ValueError(f"no declaration of {name}")
+    out = []
+    for param in m.group(1).split(","):
+        *typ, nm = param.replace("*", " * ").split()
+        out.append((" ".join(typ), nm))
+    return out
+
+
+def before_argtypes(header: str) -> dict:
+    """ctypes argument types of BEFORE_PARAMS's launchers as the header
+    declares them; ValueError where a declaration lists other
+    parameters (another signature: calling it would be undefined)."""
+    sigs = {}
+    for name, want in BEFORE_PARAMS.items():
+        params = header_params(header, name)
+        got = [nm for _, nm in params]
+        if got != want.split():
+            raise ValueError(f"{name} is declared ({', '.join(got)}), not "
+                             f"({', '.join(want.split())})")
+        sigs[name] = [ctypes.c_void_p if "*" in t or t == "cudaStream_t"
+                      else ctypes.c_int for t, _ in params]
+    return sigs
+
+
+def build_before(root: str) -> None:
+    """Compile root's viterbi.cu and viterbi_e5.cu (one nvcc each, both
+    started together) and load them as BEFORE["lib"]; root's header must
+    declare the launchers as BEFORE_PARAMS lists."""
+    src = os.path.join(root, "soundswallower_tpu_torch", "csrc")
+    with open(os.path.join(src, "sst_kernels.h")) as f:
+        sigs = before_argtypes(f.read())
+    out = os.path.join(cuda_build.BUILD_DIR, "before")
+    os.makedirs(out, exist_ok=True)
+    nvcc = cuda_build.nvcc_path()
+    objs = [os.path.join(out, f + ".o") for f in ("viterbi", "viterbi_e5")]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([nvcc, *cuda_build.NVCC_FLAGS, "-c", "-o", o,
+                               os.path.join(src, os.path.basename(o)[:-2]
+                                            + ".cu")],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for o in objs]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    if any(p.returncode for p in procs):
+        raise RuntimeError("the parent's Viterbi did not build:\n"
+                           + "".join(logs))
+    so = os.path.join(out, "libsst_before.so")
+    subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
+                   check=True, timeout=300)
+    lib = ctypes.CDLL(so)
+    for name, argtypes in sigs.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    BEFORE["lib"] = lib
+    log(f"  the parent's K4 and carry form from {root}: built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def before_batch(sen, n, c, ws=False):
+    """K4 on the parent's kernel: (path, pscore, fscore), or None
+    without --before."""
+    if "lib" not in BEFORE:
+        return None
+
+    def run():
+        B, T, S = sen.shape
+        dev = sen.device
+        dt = align_torch.tok_dtype(S)
+        tok = torch.empty((B, T, S), dtype=dt, device=dev)
+        path = torch.empty((B, T), dtype=dt, device=dev)
+        fscore = torch.empty(B, dtype=torch.int32, device=dev)
+        tsc = pscore = None
+        if ws:
+            tsc = torch.empty((B, T, S), dtype=torch.int32, device=dev)
+            pscore = torch.empty((B, T), dtype=torch.int32, device=dev)
+        gstate = align_torch.state_scratch(cuda_build.lib(), c.P, c.E, B, dev)
+        ptr = align_torch._ptr
+        err = BEFORE["lib"].sst_viterbi_batch(
+            sen.data_ptr(), n.data_ptr(), c.tp.data_ptr(),
+            c.pred_idx.data_ptr(), c.pred_pen.data_ptr(),
+            c.pred_ok.data_ptr(), c.astart.data_ptr(), c.aend.data_ptr(),
+            c.entry.data_ptr(), c.fin.data_ptr(), B, T, c.P, c.E,
+            c.pred_idx.shape[1], c.fin.shape[0], tok.data_ptr(),
+            tok.element_size(), ptr(tsc), path.data_ptr(), ptr(pscore),
+            fscore.data_ptr(), ptr(gstate), cuda_build.stream(sen))
+        cuda_build.check(err, "viterbi_batch (parent)")
+        return path, pscore, fscore
+    return run
+
+
+def before_chunk(sen, carry, t0: int, ns: list, c, fin=None):
+    """The carry form on the parent's kernel, one launch a row as the
+    parent ran it: sen [R, C, S] and the carries stacked per row ->
+    (carries, tok [R, C, S]), or with ``fin`` (R = 1) the single path's
+    (path [C], fscore []); None without --before."""
+    if "lib" not in BEFORE:
+        return None
+
+    def run():
+        R, C, S = sen.shape
+        dev = sen.device
+        dt = align_torch.tok_dtype(S)
+        ptr = align_torch._ptr
+        glob = (cuda_build.lib().sst_viterbi_smem_bytes(c.P, c.E)
+                > align_torch.MAX_SMEM_BYTES)
+        news, toks, out = [], [], None
+        for r in range(R):
+            new = tuple(x[r].to(torch.int32).clone() for x in carry)
+            tok = torch.empty((C, S), dtype=dt, device=dev)
+            path = fscore = None
+            if fin is not None:
+                path = torch.empty(C, dtype=torch.int32, device=dev)
+                fscore = torch.empty((), dtype=torch.int32, device=dev)
+            anext = (torch.empty(c.P, dtype=torch.uint8, device=dev)
+                     if glob else None)
+            err = BEFORE["lib"].sst_viterbi_chunk(
+                sen[r].data_ptr(), int(t0), int(ns[r]), c.tp.data_ptr(),
+                c.pred_idx.data_ptr(), c.pred_pen.data_ptr(),
+                c.pred_ok.data_ptr(), c.astart.data_ptr(), c.aend.data_ptr(),
+                *(x.data_ptr() for x in new), C, c.P, c.E,
+                c.pred_idx.shape[1], tok.data_ptr(), tok.element_size(),
+                ptr(fin), 0 if fin is None else fin.shape[0], ptr(path),
+                ptr(fscore), ptr(anext), cuda_build.stream(sen))
+            cuda_build.check(err, "viterbi_chunk (parent)")
+            news.append(new)
+            toks.append(tok)
+            out = (path, fscore)
+        if fin is not None:
+            return out
+        return (tuple(torch.stack([nw[i] for nw in news]) for i in range(5)),
+                torch.stack(toks))
+    return run
 
 
 def phase_kernels(al: TorchAligner, audios: list, results: dict):
@@ -646,7 +858,9 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
     compare("viterbi_batch",
             lambda: align_torch.viterbi_batch(sen, Ts_d, c.vit),
             lambda: align_torch.viterbi_batch_plain(sen, Ts_d, c.vit),
-            results, ins=(sen, Ts_d, c.vit), ops=vit_ops(sen), rate=I32_OPS)
+            results, n_bytes=nbytes(sen, Ts_d) + vit_bytes(c.vit),
+            ops=vit_ops(sen), rate=I32_OPS,
+            before=before_batch(sen, Ts_d, c.vit))
 
 
 def eval_bound(s, cw, gs) -> dict:
@@ -937,13 +1151,25 @@ def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
             lambda: align_torch.viterbi_chunk(first, carry0, 0, T, c.vit),
             lambda: align_torch.viterbi_chunk_plain(first, carry0, 0, T,
                                                     c.vit),
-            results, plain_runs=0, ins=(first, carry0, c.vit),
-            ops=vit_ops(first), rate=I32_OPS)
-    compare("viterbi_chunk[single, backtrace]",
-            lambda: align_torch.viterbi_single(sen, T, c.vit),
-            lambda: align_torch.viterbi_single_plain(sen, T, c.vit),
-            results, plain_runs=0, ins=(sen, c.vit), ops=vit_ops(sen),
-            rate=I32_OPS)
+            results, plain_runs=0,
+            n_bytes=nbytes(first, carry0) + vit_bytes(c.vit),
+            ops=vit_ops(first), rate=I32_OPS,
+            before=before_row(first, carry0, T, c.vit))
+    compare_single("viterbi_chunk[single, backtrace]", sen, T, c.vit,
+                   results)
+
+
+def before_row(sen, carry, n: int, v, t0: int = 0):
+    """viterbi_chunk's output on the parent's kernel (one row), or None
+    without --before."""
+    run = before_chunk(sen[None], tuple(x[None] for x in carry), t0, [n], v)
+    if run is None:
+        return None
+
+    def row():
+        new, tok = run()
+        return tuple(x[0] for x in new), tok[0]
+    return row
 
 
 def check_rows(out, want, what, rep=segs_rep):
@@ -1357,17 +1583,24 @@ def compare_vit(name, sen, n, v, results, ws=False, runs=10):
     plain = (align_torch.viterbi_rows_plain if rows
              else align_torch.viterbi_batch_plain)
     shape_log(name, sen, v)
+    graph = dict(ins=(sen, n, v)) if rows else dict(
+        n_bytes=nbytes(sen, n) + vit_bytes(v),
+        before=before_batch(sen, n, v, ws))
     compare(name, lambda: fn(sen, n, v, ws), lambda: plain(sen, n, v, ws),
-            results, plain_runs=0, ins=(sen, n, v), ops=vit_ops(sen),
-            rate=I32_OPS, runs=runs)
+            results, plain_runs=0, ops=vit_ops(sen), rate=I32_OPS, runs=runs,
+            **graph)
 
 
 def compare_single(name, sen, T, v, results, runs=10):
+    """The single-utterance path (K4's carry form from vit_carry0 with
+    the final select and backtrace) against its plain version."""
     shape_log(name, sen, v)
+    carry0 = tuple(x[None] for x in align_torch.vit_carry0(v))
     compare(name, lambda: align_torch.viterbi_single(sen, T, v),
             lambda: align_torch.viterbi_single_plain(sen, T, v), results,
-            plain_runs=0, ins=(sen, v), ops=vit_ops(sen), rate=I32_OPS,
-            runs=runs)
+            plain_runs=0, n_bytes=nbytes(sen) + vit_bytes(v),
+            ops=vit_ops(sen), rate=I32_OPS, runs=runs,
+            before=before_chunk(sen[None], carry0, 0, [T], v, fin=v.fin))
 
 
 def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
@@ -1440,6 +1673,8 @@ def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
     sen, T, v = single_sen(al_dev, lgd, austen_audio(0))
     compare_single("viterbi_chunk[3-state, int32, global]", sen, T, v,
                    results, runs=3)
+    results["viterbi_chunk[3-state, int32, global]"]["shape"] = (
+        f"R=1, P={v.P}")
 
 
 def check_graph(g, want: dict, prefix: str, what: str) -> None:
@@ -1598,12 +1833,36 @@ def long_batch_sen(al: TorchAligner, audios: list, text: str, nseq: int):
 
 
 def first_chunk_tokens(sen, n, v, C: int) -> torch.Tensor:
-    """Rank 0's token chunk [B, C, S] of a long-form batch: K4's carry
-    form over each row's first C frames from vit_carry0."""
-    carry0 = align_torch.vit_carry0(v, n_emit=3)
-    return torch.stack([align_torch.viterbi_chunk(
-        sen[b, :C].contiguous(), carry0, 0, int(n[b]), v)[1]
-        for b in range(sen.shape[0])])
+    """Rank 0's token chunk [B, C, S] of a long-form batch: one launch of
+    K4's carry form over every row's first C frames from vit_carry0."""
+    B = sen.shape[0]
+    carry0 = tuple(x.expand(B, *x.shape)
+                   for x in align_torch.vit_carry0(v, n_emit=3))
+    return align_torch.viterbi_chunk_rows(sen[:, :C].contiguous(), carry0, 0,
+                                          n, v)[1]
+
+
+def compare_ring_step(name, sen, n, v, C: int, results, runs=10):
+    """One ring step of the long form: rank 0's launch over every row's
+    first C frames from vit_carry0 (the R-row carry form), against its
+    plain version; bound over the R rows' scores, carries and tokens;
+    the parent ran it as one launch a row."""
+    R = sen.shape[0]
+    chunk = sen[:, :C].contiguous()
+    carry = tuple(x.expand(R, *x.shape).contiguous()
+                  for x in align_torch.vit_carry0(v, n_emit=3))
+    ns = [int(x) for x in n.tolist()]
+    log(f"  {name}: R={R} C={C} S={chunk.shape[2]} P={v.P} "
+        f"K={v.pred_idx.shape[1]} tokens {align_torch.tok_dtype(v.P * 3)}")
+    compare(name, lambda: align_torch.viterbi_chunk_rows(chunk, carry, 0, n,
+                                                         v),
+            lambda: align_torch.viterbi_chunk_rows_plain(chunk, carry, 0, n,
+                                                         v),
+            results, plain_runs=0,
+            n_bytes=nbytes(chunk, carry, n) + vit_bytes(v),
+            ops=vit_ops(chunk), rate=I32_OPS, runs=runs,
+            before=before_chunk(chunk, carry, 0, ns, v))
+    results[name]["shape"] = f"R={R}, P={v.P}"
 
 
 def gather_loop(tok, start, t0: int, n):
@@ -1646,8 +1905,10 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     """The kernels and forms of the long form and the repairs against
     their plain versions at their paths' shapes: K13 on rank 0's token
     chunk of the long-form batch (int16) and of the large grammar's
-    decode batch (int32, S >= 32,767), K4's carry form on a long-form
-    chunk, K2's mxu form on the same-transcript B=256 batch's first
+    decode batch (int32, S >= 32,767), K4's carry form on one row's
+    long-form chunk, on a ring step over each batch's rows and on the
+    5-minute row's (LONG_K5 repeats) first chunk, K2's mxu
+    form on the same-transcript B=256 batch's first
     chunk and on DENSE_SLICE frames of the full inventory, K8 with
     remove_dc on the remove_dc aligner's B=256 batch, K1's float32 form
     on the f32 wire's host cepstra."""
@@ -1662,8 +1923,19 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     compare("viterbi_chunk[long form, 8 ranks]",
             lambda: align_torch.viterbi_chunk(chunk, carry0, 0, n0, v),
             lambda: align_torch.viterbi_chunk_plain(chunk, carry0, 0, n0, v),
-            results, plain_runs=0, ins=(chunk, carry0, v),
-            ops=vit_ops(chunk), rate=I32_OPS)
+            results, plain_runs=0,
+            n_bytes=nbytes(chunk, carry0) + vit_bytes(v),
+            ops=vit_ops(chunk), rate=I32_OPS,
+            before=before_row(chunk, carry0, n0, v))
+    results["viterbi_chunk[long form, 8 ranks]"]["shape"] = f"R=1, P={v.P}"
+    compare_ring_step("viterbi_chunk[long form, ring step]", sen, n, v, C,
+                      results)
+    sen5, n5, v5 = long_batch_sen(al, [longform_audio(0, LONG_K5)],
+                                  longform_text(LONG_K5), N_SEQ)
+    shape_log("5-minute row", sen5, v5)
+    compare_ring_step("viterbi_chunk[long form, 5-minute row]", sen5, n5, v5,
+                      sen5.shape[1] // N_SEQ, results)
+    del sen5
     tok = first_chunk_tokens(sen, n, v, C)
     rng = np.random.RandomState(13)
     start = torch.from_numpy(rng.randint(-2, tok.shape[2], LONG_B)
@@ -1673,6 +1945,8 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     lg = al.set_grammar(jsgf_string=large_grammar())
     sen32, n32, v32 = graph_batch_sen(al, lg, big[:N_UTT])
     C32 = sen32.shape[1] // N_SEQ
+    compare_ring_step("viterbi_chunk[3-state, int32, global, long form]",
+                      sen32, n32, v32, C32, results, runs=3)
     tok32 = first_chunk_tokens(sen32, n32, v32, C32)
     start32 = torch.from_numpy(rng.randint(-2, tok32.shape[2], N_UTT)
                                .astype(np.int32)).to(dev)
@@ -1729,6 +2003,16 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
             ins=(cep, T8_d), ops=6.0 * cep.numel())
 
 
+def carry_launches(k0: int, nseq: int, what: str) -> int:
+    """Launches of K4's carry form since the count read k0: one a rank
+    of the ring, whatever the rows (the rank-major forward)."""
+    k = align_torch.viterbi_chunk.launches - k0
+    if k != nseq:
+        raise AssertionError(f"{what}: {k} launches of K4's carry form on "
+                             f"a ring of {nseq}")
+    return k
+
+
 def phase_longform(al: TorchAligner, lg: dict, smi: str):
     """align_longform_batch on LONG_B rows of AUSTEN tiled past 60 s, on
     local rings of N_SEQ and of 1 rank, against each other, align_batch
@@ -1743,14 +2027,17 @@ def phase_longform(al: TorchAligner, lg: dict, smi: str):
     outs = {}
     for nseq in (N_SEQ, 1):
         t0 = time.perf_counter()
+        k0 = align_torch.viterbi_chunk.launches
         outs[nseq] = al.align_longform_batch(rows, [text] * LONG_B,
                                              ring=seq_ring(nseq, "cuda"))
         torch.cuda.synchronize()
+        k = carry_launches(k0, nseq, f"align_longform_batch (ring of {nseq})")
         check_rows(outs[nseq], lg["longform"],
                    f"align_longform_batch (ring of {nseq})")
         log(f"  align_longform_batch B={LONG_B} ({min(secs):.1f}-"
             f"{max(secs):.1f} s of audio each), local ring of {nseq}: equal "
-            f"to longform.json ({time.perf_counter() - t0:.3f} s)")
+            f"to longform.json ({time.perf_counter() - t0:.3f} s), {k} "
+            f"launches of K4's carry form")
     check_rows(al.align_batch(rows, [text] * LONG_B),
                [segs_rep(s) for s in outs[N_SEQ]], "align_batch (long rows)")
     log("  align_batch on the same rows: equal to the long form")
@@ -1764,11 +2051,16 @@ def phase_longform(al: TorchAligner, lg: dict, smi: str):
     pi, pp, pk = align_torch.build_pred_table(g.edge_src, g.edge_dst,
                                               g.edge_pen, P)
     from soundswallower_tpu_torch.parallel import align_longform
+    t0 = time.perf_counter()
+    k0 = align_torch.viterbi_chunk.launches
     path, score = align_longform(
         seq_ring(N_SEQ, "cuda"), sen[:, :T], np.arange(P * E).reshape(P, E),
         al.am.tmat.astype(np.int32)[g.tmatid], pi, pp, pk, g.astart, g.aend,
         n.cpu().numpy(), np.where(g.is_entry, g.entry_pen,
                                   align_torch.WORST_SCORE), g.final_nodes)
+    torch.cuda.synchronize()
+    k = carry_launches(k0, N_SEQ, "align_longform (large grammar)")
+    t1 = time.perf_counter()
     for b in range(N_UTT):
         p1, s1 = align_torch.viterbi_single(sen[b, :T].contiguous(),
                                             int(n[b]), v)
@@ -1776,15 +2068,19 @@ def phase_longform(al: TorchAligner, lg: dict, smi: str):
             raise AssertionError(f"align_longform (large grammar) row {b} "
                                  "differs from viterbi_single")
     log(f"  align_longform on the large grammar (S={P * E}, int32 tokens), "
-        f"B={N_UTT}, ring of {N_SEQ}: equal to viterbi_single per row")
+        f"B={N_UTT}, ring of {N_SEQ}: {k} launches of K4's carry form "
+        f"({t1 - t0:.3f} s), equal to viterbi_single per row "
+        f"({time.perf_counter() - t1:.3f} s, {N_UTT} launches)")
 
     # one row of about 5 minutes (informational)
     text5 = longform_text(LONG_K5)
     row5 = longform_audio(0, LONG_K5)
     t0 = time.perf_counter()
+    k0 = align_torch.viterbi_chunk.launches
     lf = al.align_longform_batch([row5], [text5],
                                  ring=seq_ring(N_SEQ, "cuda"))
     torch.cuda.synchronize()
+    carry_launches(k0, N_SEQ, "the 5-minute row's long form")
     t1 = time.perf_counter()
     base = al.align_batch([row5], [text5])
     t2 = time.perf_counter()
@@ -1916,18 +2212,55 @@ def phase_api(ag: dict):
 
 def count_path(wrappers: dict, drive) -> dict:
     """Launch counts of one path: every count set to 0 just before
-    drive(), read just after it."""
+    drive(), read just after it; ``name[form]`` for each form and, for
+    the carry form, ``name[form, R=.., P=..]`` for each shape."""
     for fn in wrappers.values():
         fn.launches = 0
-        if hasattr(fn, "forms"):
-            fn.forms.clear()
+        for counter in ("forms", "shapes"):
+            if hasattr(fn, counter):
+                getattr(fn, counter).clear()
     drive()
     torch.cuda.synchronize()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name, fn in wrappers.items():
-        for form, k in getattr(fn, "forms", {}).items():
-            counts[f"{name}[{form}]"] = k
+        for counter in ("forms", "shapes"):
+            for form, k in getattr(fn, counter, {}).items():
+                counts[f"{name}[{form}]"] = k
     return counts
+
+
+def form_paths(path) -> tuple:
+    """A FORMS entry's paths: one name or a tuple of them."""
+    return path if isinstance(path, tuple) else (path,)
+
+
+def kernel_entries(counts: dict, results: dict) -> list:
+    """The kernels line's entries: each kernel's launches from the path
+    that brought it in (its entry form's count where its other forms
+    have entries), each VARIANTS entry's from its kernel's count on its
+    path, each FORMS entry's from its form's count summed over its paths,
+    of its timed launch's rows and phones only where its result records
+    them (``shape``)."""
+    entries = [dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=counts[PATH_OF[name]].get(
+                        f"{name}[{ENTRY_FORM[name]}]" if name in ENTRY_FORM
+                        else name, 0), **results[name])
+               for name, _, src, rep in KERNELS]
+    sources = {name: src for name, _, src, _ in KERNELS}
+    for entry, kernel, rep, *path in VARIANTS:
+        path = path[0] if path else PATH_OF[kernel]
+        entries.append(dict(name=entry, route="cuda", source=sources[kernel],
+                            replaces=rep, launches=counts[path].get(kernel, 0),
+                            **results[entry]))
+    for entry, kernel, form, path, rep in FORMS:
+        shape = results[entry].get("shape")
+        key = f"{kernel}[{form}" + (f", {shape}]" if shape else "]")
+        entries.append(dict(name=entry, route="cuda", source=sources[kernel],
+                            replaces=rep,
+                            launches=sum(counts[p].get(key, 0)
+                                         for p in form_paths(path)),
+                            **results[entry]))
+    return entries
 
 
 def main() -> int:
@@ -1944,9 +2277,16 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build
+    # 2. build (and, with --before DIR, the parent's K4 and carry form)
     t0 = time.perf_counter()
-    cuda_build.lib()
+    if "--before" in sys.argv[1:]:
+        with ThreadPoolExecutor(1) as ex:
+            parent = ex.submit(build_before,
+                               sys.argv[sys.argv.index("--before") + 1])
+            cuda_build.lib()
+            parent.result()
+    else:
+        cuda_build.lib()
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {cuda_build.build_seconds:.2f} s)")
     # 3. model and batches
@@ -2051,7 +2391,9 @@ def main() -> int:
     large = count_path(wrappers, lambda: phase_large(al, al_dev, dcg, mg))
     # 11. the long form, counted
     log("long-form paths (8-bit ptm):")
+    t0 = time.perf_counter()
     longform = count_path(wrappers, lambda: phase_longform(al, lg, smi))
+    log(f"  long-form phase wall: {time.perf_counter() - t0:.3f} s")
     # 12. the repaired configurations, each counted
     log("repaired configurations (8-bit ptm):")
     repairs = {what: count_path(wrappers, lambda what=what: phase_repairs(
@@ -2071,30 +2413,15 @@ def main() -> int:
                         ("remove_dc", REMOVE_DC_PATH), ("api", API_PATH)):
         names = list(dict.fromkeys(names + [f"{k}[{f}]"
                                             for _, k, f, ph, _ in FORMS
-                                            if ph == path]))
+                                            if path in form_paths(ph)]))
         log(f"  {path} launches: " + ", ".join(
-            f"{n} {counts[path].get(n, 0)}" for n in names))
+            f"{n} {counts[path].get(n, 0)}" for n in names
+            + sorted(k for k in counts[path] if ", R=" in k)))
         missing = [n for n in names if counts[path].get(n, 0) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"paths: {missing}")
-    # each kernel's count from the path that brought it in
-    entries = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=counts[PATH_OF[name]][
-                        f"{name}[{ENTRY_FORM[name]}]" if name in ENTRY_FORM
-                        else name], **results[name])
-               for name, _, src, rep in KERNELS]
-    sources = {name: src for name, _, src, _ in KERNELS}
-    for entry, kernel, rep, *path in VARIANTS:
-        path = path[0] if path else PATH_OF[kernel]
-        entries.append(dict(name=entry, route="cuda", source=sources[kernel],
-                            replaces=rep, launches=counts[path][kernel],
-                            **results[entry]))
-    for entry, kernel, form, path, rep in FORMS:
-        entries.append(dict(name=entry, route="cuda", source=sources[kernel],
-                            replaces=rep,
-                            launches=counts[path][f"{kernel}[{form}]"],
-                            **results[entry]))
+    entries = kernel_entries(counts, results)
     log("rule-2 order (slower than the one PyTorch call, by ms / library "
         "ms; then launches x (ms - bound) ms): " + ", ".join(
             f"{n} {how} {v:.4f}" for n, how, v in rank_kernels(entries)))

@@ -87,9 +87,9 @@ from .fe.native_fe import NativeFrontend
 from .logmath import LogMath
 from .ops.align_graph import AlignGraph, build_chain_graph
 from .ops.align_torch import (WORST_SCORE, RowVitConsts, VitConsts,
-                              build_pred_table, row_consts_from_numpy,
-                              stack_graphs, viterbi_batch, viterbi_rows,
-                              viterbi_single)
+                              build_pred_table, pred_count,
+                              row_consts_from_numpy, stack_graphs,
+                              viterbi_batch, viterbi_rows, viterbi_single)
 from .ops.senscore_torch import (GraphScorer, dense_scorer, gather_cols,
                                  score_frames, score_frames_graph)
 from .utils import native_build, resolve_device, to_device
@@ -276,7 +276,8 @@ class TorchAligner:
             vit = VitConsts(
                 tp=dev(self.am.tmat.astype(np.int32)[g.tmatid]),
                 pred_idx=dev(pi), pred_pen=dev(pp),
-                pred_ok=dev(pk, np.uint8), astart=dev(g.astart),
+                pred_ok=dev(pk, np.uint8), pred_n=dev(pred_count(pk)),
+                astart=dev(g.astart),
                 aend=dev(g.aend),
                 entry=dev(np.where(g.is_entry, g.entry_pen, WORST_SCORE)),
                 fin=dev(g.final_nodes))

@@ -49,8 +49,10 @@ int sst_senone_eval(const int32_t* s, const int32_t* cw, const uint8_t* mixw,
 
 // K4: whole-utterance lane Viterbi + final-node select + backtrace.
 // sen int32 [B, T, P*E] (E = 3 or 5 emitting states); n_frames int32 [B];
-// tp int32 [P, E, E+1]; pred_idx/pred_pen int32 [P, K]; pred_ok uint8
-// [P, K]; astart/aend/entry int32 [P]; fin int32 [n_fin]
+// tp int32 [P, E, E+1]; pred_idx/pred_pen int32 [P, K] with pred_n int32
+// [P] real slots a phone, slots 0 .. pred_n-1 (align_torch.pred_count);
+// tp_t [E*(E+1), P], pred_idx_t/pred_pen_t [K, P] the same, slot-major;
+// astart/aend/entry int32 [P]; fin int32 [n_fin]
 // -> tok [B, T, P*E] (scratch), tsc int32 [B, T, P*E] (scratch, NULL
 // without scores), path [B, T] (tok and path int16 with tok_bytes 2,
 // int32 with 4), pscore int32 [B, T] (NULL without scores), fscore int32
@@ -58,9 +60,11 @@ int sst_senone_eval(const int32_t* s, const int32_t* cw, const uint8_t* mixw,
 // scratch of B * sst_viterbi_state_bytes(P, E) bytes (16-byte aligned).
 int sst_viterbi_batch(const int32_t* sen, const int32_t* n_frames,
                       const int32_t* tp, const int32_t* pred_idx,
-                      const int32_t* pred_pen, const uint8_t* pred_ok,
-                      const int32_t* astart, const int32_t* aend,
-                      const int32_t* entry, const int32_t* fin, int B, int T,
+                      const int32_t* pred_pen, const int32_t* tp_t,
+                      const int32_t* pred_idx_t, const int32_t* pred_pen_t,
+                      const int32_t* pred_n, const int32_t* astart,
+                      const int32_t* aend, const int32_t* entry,
+                      const int32_t* fin, int B, int T,
                       int P, int E, int K, int n_fin, void* tok, int tok_bytes,
                       int32_t* tsc, void* path, int32_t* pscore,
                       int32_t* fscore, uint8_t* gstate, cudaStream_t stream);
@@ -108,20 +112,24 @@ int sst_frame_best_sub(const int32_t* in, int16_t* out, int N, int S,
 int sst_feat_f32(const float* cep, const int32_t* n_frames, float* out,
                  int B, int T, int ncep, int do_cmn, cudaStream_t stream);
 
-// K4, carry form (single utterance, frames t0 .. t0+C-1).
-// sen int32 [C, P*E]; n = the utterance's frame count; graph tables as
-// K4; carry score/hist int32 [P, E], osc/ohi int32 [P], best_prev int32
-// [1], read and written back -> tok [C, P*E] (int16 or int32 by
+// K4, carry form (frames t0 .. t0+C-1 of R utterance rows, one block a
+// row).  sen int32 [R, C, P*E]; each row's frame count n_rows int32 [R]
+// or, n_rows NULL, n for every row; graph tables as K4's; carry
+// score/hist int32 [R, P, E], osc/ohi int32 [R, P], best_prev int32 [R],
+// read and written back -> tok [R, C, P*E] (int16 or int32 by
 // tok_bytes).  With fin != NULL (int32 [n_fin]), also the final-node
-// select and backtrace: path int32 [C] (-1 at and after n - t0), fscore
-// int32 [1].  anext: NULL for the state in shared memory, else a uint8
-// [P] scratch, and the kernel works on the carry in place.
-int sst_viterbi_chunk(const int32_t* sen, int t0, int n, const int32_t* tp,
+// select and backtrace: path int32 [R, C] (-1 at and after n - t0),
+// fscore int32 [R].  anext: NULL for the state in shared memory, else a
+// uint8 [R, P] scratch, and the kernel works on the carries in place.
+int sst_viterbi_chunk(const int32_t* sen, int t0, int n,
+                      const int32_t* n_rows, const int32_t* tp,
                       const int32_t* pred_idx, const int32_t* pred_pen,
-                      const uint8_t* pred_ok, const int32_t* astart,
-                      const int32_t* aend, int32_t* score, int32_t* hist,
-                      int32_t* osc, int32_t* ohi, int32_t* best_prev, int C,
-                      int P, int E, int K, void* tok, int tok_bytes,
+                      const int32_t* tp_t, const int32_t* pred_idx_t,
+                      const int32_t* pred_pen_t, const int32_t* pred_n,
+                      const int32_t* astart, const int32_t* aend,
+                      int32_t* score, int32_t* hist,
+                      int32_t* osc, int32_t* ohi, int32_t* best_prev, int R,
+                      int C, int P, int E, int K, void* tok, int tok_bytes,
                       const int32_t* fin, int n_fin, int32_t* path,
                       int32_t* fscore, uint8_t* anext, cudaStream_t stream);
 

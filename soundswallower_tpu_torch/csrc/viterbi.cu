@@ -14,15 +14,41 @@
 // frame), one thread per phone.  Each frame reads the row's S = E*P
 // senone scores and writes S tokens; two block barriers order the HMM
 // update, the predecessor max and the entries.  Rows run in parallel,
-// one block each.
+// one block each.  What the design does about the latency:
+//
+// - the edge loop is bounded by each phone's in-degree (pred_n): a
+//   phone's real slots are a prefix of its K padded ones, so the loop
+//   visits those and never reads pred_ok (a decode graph pads a few
+//   nodes' in-degree of a hundred onto every node: K = 125 slots where
+//   the graph has about 2.55 edges a phone);
+// - where a thread owns at most two phones (P <= 2 * threads), the
+//   phone's negated tmat row, active window, in-degree and first two
+//   predecessor slots sit in registers for the whole frame loop;
+// - where they do and the shared-layout state and two rows of S scores
+//   fit a block's shared memory, the next frame's scores are copied into a
+//   double buffer with cp.async while the current frame runs, so no
+//   frame waits on device memory for its scores;
+// - elsewhere (the constants read at every frame) the tmat rows and
+//   predecessor slots come from slot-major copies ([E*(E+1), P],
+//   [K, P]), so a warp's 32 phones read one line per entry, not 32
+//   sectors 48 or 500 bytes apart;
+// - the block's best score takes one shared load a lane after its
+//   barrier (block_max_warps).
+// The launcher takes the second to fourth from what it sees (P, E and
+// the block's threads; dispatch_layout); each is the same integer
+// operations on the same values in the same order, so the bits never
+// depend on the choice.  Prefetch goes with registers only: without
+// them a frame waits on the L1/L2 constants, not on its scores, and
+// the prefetch alone measured slower (PERF.md).
 //
 // Forms (template arguments): E = 3 or 5 emitting states (hmm.c's two
 // left-to-right updates); int16 tokens and paths, or int32 ones where
-// S >= 32767 (align_jax.py tok_dtype); the row's Viterbi state (score/
-// hist [P, E], out_score/out_hist [P], active_next [P]) in shared memory,
-// or, for a graph whose state does not fit a block's shared memory, in a
-// global scratch of state_bytes(P, E) per row that the caller allocates
-// (the L2 holds it); with or without the token-score stack.
+// S >= 32767 (align_jax.py tok_dtype; such a graph never fits shared
+// memory); the row's Viterbi state (score/hist [P, E], out_score/
+// out_hist [P], active_next [P]) in shared memory, or, for a graph whose
+// state does not fit a block's shared memory, in a global scratch of
+// state_bytes(P, E) per row that the caller allocates (the L2 holds it);
+// with or without the token-score stack.
 //
 // Integer semantics follow the JAX program exactly: state_align_search's
 // renormalization, hmm.c's update including the reuse of t2 when the 0->2
@@ -35,16 +61,21 @@
 // programs of the JAX package: align_jax.py make_vit_step scanned from
 // vit_carry0 (align_viterbi, and streaming.py AlignStream's 128-frame
 // chunks), with _viterbi_graph's final-node select and align_jax.py
-// backtrace when it is asked for a path.  One block runs frames t0 ..
-// t0+C-1 of one utterance against absolute astart/aend, from the carry
+// backtrace when it is asked for a path, and each chunk of the long
+// form's ring (soundswallower_tpu/parallel/seqpipe.py).  One launch runs
+// frames t0 .. t0+C-1 of R utterance rows against absolute astart/aend,
+// one block a row (one row alone fills 1 of 132 SMs, so the long form
+// puts all of a rank's rows into one launch), each from the carry
 // (score, hist, out_score, out_hist, best_prev) it is given, and writes
-// the carry back; in the global layout it works on the carry tensors in
+// the carries back; in the global layout it works on the carries in
 // place.  It shares the frame step with K4 (renormalization, hmm_update,
-// best over active phones, token record); the one difference is
-// make_vit_step's predecessor choice, jnp.argmax over the K slots: the
-// first slot's value is the start, so a slot at or below WORST_SCORE can
-// still win, where K4's strict `>` from WORST_SCORE takes none.  Padded
-// frames (t >= n) renormalize the scores, as the scan does.
+// best over active phones, token record, the options above); the one
+// difference is make_vit_step's predecessor choice, jnp.argmax over the
+// K slots: the first slot's value is the start, so a slot at or below
+// WORST_SCORE can still win, where K4's strict `>` from WORST_SCORE takes
+// none; its bounded loop weighs the first padded slot after the real
+// ones (enter_argmax).  Padded frames (t >= n) renormalize the scores,
+// as the scan does.
 //
 // This file holds the 3-state forms and the entry points; viterbi_e5.cu
 // compiles it again with SST_VIT_E5 defined for the 5-state forms alone
@@ -73,18 +104,52 @@ constexpr int kFormE = 3;
 using sst::kMissing;
 using sst::kWorst;
 
-template <int E, typename Tok, bool kGlobal, bool kScores>
+// predecessor slots held in registers beside a phone's constants
+constexpr int kRegSlots = 2;
+// dynamic shared memory a Hopper block can use
+constexpr size_t kMaxSmemBytes = 232448;
+
+using Graph = sst::VitGraph;
+
+// One phone's constants: from registers (kPh > 0: the j-th phone of the
+// thread) or loaded now.
+template <int E, int kPh>
+struct Consts {
+  static constexpr int KR = kPh > 0 ? kRegSlots : 0;
+  using Phone = sst::PhoneConsts<E, KR>;
+  Phone reg[kPh > 0 ? kPh : 1];
+
+  __device__ __forceinline__ void init(const Graph& g, int P) {
+    if (kPh > 0)
+      sst::for_phones<kPh>(
+          P, [&](int p, int j) { reg[j] = sst::load_phone<E, KR>(g, p); });
+  }
+  __device__ __forceinline__ Phone get(const Graph& g, int p, int j) const {
+    if (kPh > 0) return reg[j];
+    return sst::load_phone<E, KR>(g, p);
+  }
+  // Where phone p's slots start and their stride: register-held phones
+  // always get the [P, K] tables (graph() below), so theirs stay K and 1
+  // without reading the Graph's strides in the frame loop.
+  __device__ __forceinline__ static size_t slots_at(const Graph& g, int K,
+                                                    int p) {
+    return (size_t)p * (kPh > 0 ? K : g.k_p);
+  }
+  __device__ __forceinline__ static int slot_stride(const Graph& g) {
+    return kPh > 0 ? 1 : g.k_k;
+  }
+};
+
+template <int E, typename Tok, bool kGlobal, bool kScores, int kPh,
+          bool kPf>
 __global__ void __launch_bounds__(1024) viterbi_kernel(
     const int32_t* __restrict__ sen, const int32_t* __restrict__ n_frames,
-    const int32_t* __restrict__ tp, const int32_t* __restrict__ pred_idx,
-    const int32_t* __restrict__ pred_pen, const uint8_t* __restrict__ pred_ok,
-    const int32_t* __restrict__ astart, const int32_t* __restrict__ aend,
-    const int32_t* __restrict__ entry, const int32_t* __restrict__ fin, int T,
-    int P, int K, int n_fin, Tok* __restrict__ tok,
-    int32_t* __restrict__ tsc, Tok* __restrict__ path,
+    Graph g, const int32_t* __restrict__ entry,
+    const int32_t* __restrict__ fin, int T, int P, int K, int n_fin,
+    Tok* __restrict__ tok, int32_t* __restrict__ tsc, Tok* __restrict__ path,
     int32_t* __restrict__ pscore, int32_t* __restrict__ fscore,
     uint8_t* gstate) {
-  extern __shared__ int32_t sm[];
+  extern __shared__ __align__(16) int32_t sm[];
   int32_t* wmax = sm;  // [32]
   const int b = blockIdx.x;
   const sst::VitState v = sst::carve(
@@ -96,12 +161,16 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
   int32_t* const osc = v.osc;
   int32_t* const ohi = v.ohi;
   uint8_t* const anext = v.anext;
+  // [2][S] prefetch rows after the shared-layout state
+  int32_t* const sbuf = sm + 32 + sst::state_bytes(P, E) / sizeof(int32_t);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int n = n_frames[b];
   const int S = E * P;
-  constexpr int TQ = E * (E + 1);
+  const int32_t* const sen_b = sen + (size_t)b * T * S;
 
+  Consts<E, kPh> kc;
+  kc.init(g, P);
   for (int p = tid; p < P; p += nthr) {
     score[E * p] = entry[p];
 #pragma unroll
@@ -111,45 +180,48 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
     osc[p] = kWorst;
     ohi[p] = -1;
   }
+  if (kPf) {
+    sst::prefetch_row(sbuf, sen_b, S);
+    sst::cp_async_wait_all();
+  }
   int32_t best_prev = 0;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     const size_t row_t = ((size_t)b * T + t) * S;
-    const int32_t* sen_t = sen + row_t;
+    const int32_t* sen_t = kPf ? sbuf + (t & 1) * S : sen + row_t;
+    if (kPf && t + 1 < T)
+      sst::prefetch_row(sbuf + ((t + 1) & 1) * S, sen_b + (size_t)(t + 1) * S,
+                        S);
     const bool valid = t < n;
     const bool renorm = sst::wsub(best_prev, 0x300000) < kWorst;
     int32_t lbest = kWorst;
     // -- HMM update (_eval_3st_lanes / _eval_5st) --
-    for (int p = tid; p < P; p += nthr) {
-      const bool act = t >= astart[p] && t <= aend[p] && valid;
+    sst::for_phones<kPh>(P, [&](int p, int j) {
+      const auto c = kc.get(g, p, j);
+      const bool act = t >= c.ast && t <= c.aen && valid;
       lbest = max(lbest, sst::hmm_update<E>(score + E * p, hist + E * p,
-                                            osc + p, ohi + p, tp + TQ * p,
+                                            osc + p, ohi + p, c.tq,
                                             sen_t + E * p, act, renorm,
                                             best_prev));
-      anext[p] = act && t + 1 <= aend[p];
-    }
+      anext[p] = act && t + 1 <= c.aen;
+    });
     // block-wide best over active phones
-    const int32_t best = sst::block_max(lbest, wmax);
+    const int32_t best = sst::block_max_warps(lbest, wmax);
 
     // -- phone transitions, entries and token record --
     const int nf = t + 1;
-    for (int p = tid; p < P; p += nthr) {
-      int32_t es = kWorst, eh = -1;
-      bool eok = false;
-      for (int k = 0; k < K; ++k) {
-        const int src = pred_idx[p * K + k];
-        const bool ok = pred_ok[p * K + k] && anext[src];
-        const int32_t val = ok ? sst::wadd(osc[src], pred_pen[p * K + k]) : kWorst;
-        if (val > es) {  // strict: the first slot wins ties
-          es = val;
-          eh = ohi[src];
-          eok = ok;
-        }
-      }
-      if (!eok) eh = -1;
-      const bool act = t >= astart[p] && t <= aend[p] && valid;
-      const bool enter = eok && nf >= astart[p] && nf <= aend[p] && valid &&
+    sst::for_phones<kPh>(P, [&](int p, int j) {
+      const auto c = kc.get(g, p, j);
+      int32_t es, eh;
+      bool eok;
+      using KC = Consts<E, kPh>;
+      const size_t at = KC::slots_at(g, K, p);
+      sst::enter_strict<KC::KR>(c.np, c.src, c.pen, g.pred_idx + at,
+                                g.pred_pen + at, KC::slot_stride(g), osc,
+                                ohi, anext, &es, &eh, &eok);
+      const bool act = t >= c.ast && t <= c.aen && valid;
+      const bool enter = eok && nf >= c.ast && nf <= c.aen && valid &&
                          (!act || es > score[E * p]);
       if (enter) {
         score[E * p] = es;
@@ -170,8 +242,9 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
           if (kScores) tsc[row_t + E * p + e] = -1;
         }
       }
-    }
+    });
     best_prev = best;
+    if (kPf) sst::cp_async_wait_all();
     __syncthreads();
   }
 
@@ -206,32 +279,45 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
   }
 }
 
-template <int E, typename Tok, bool kGlobal>
+// The carry form over R rows, one block a row: row r's scores sen
+// [R, C, S], frame count n_rows[r] (or n for every row where n_rows is
+// NULL), carry score/hist [R, P, E], osc/ohi [R, P], best [R], tokens
+// [R, C, S]; in the global layout the carries are the state and g_anext
+// [R, P] the rows' active_next.
+template <int E, typename Tok, bool kGlobal, int kPh, bool kPf>
 __global__ void __launch_bounds__(1024) viterbi_chunk_kernel(
-    const int32_t* __restrict__ sen, int t0, int n,
-    const int32_t* __restrict__ tp, const int32_t* __restrict__ pred_idx,
-    const int32_t* __restrict__ pred_pen, const uint8_t* __restrict__ pred_ok,
-    const int32_t* __restrict__ astart, const int32_t* __restrict__ aend,
-    int32_t* c_score, int32_t* c_hist, int32_t* c_osc, int32_t* c_ohi,
-    int32_t* c_best, int C, int P, int K, Tok* __restrict__ tok,
-    const int32_t* __restrict__ fin, int n_fin, int32_t* __restrict__ path,
-    int32_t* __restrict__ fscore, uint8_t* g_anext) {
-  extern __shared__ int32_t sm[];
+    const int32_t* __restrict__ sen, int t0, int n_all,
+    const int32_t* __restrict__ n_rows, Graph g, int32_t* c_score,
+    int32_t* c_hist, int32_t* c_osc, int32_t* c_ohi, int32_t* c_best, int C,
+    int P, int K, Tok* __restrict__ tok, const int32_t* __restrict__ fin,
+    int n_fin, int32_t* __restrict__ path, int32_t* __restrict__ fscore,
+    uint8_t* g_anext) {
+  extern __shared__ __align__(16) int32_t sm[];
   int32_t* wmax = sm;  // [32]
+  const int r = blockIdx.x;
+  const int S = E * P;
+  c_score += (size_t)r * S;
+  c_hist += (size_t)r * S;
+  c_osc += (size_t)r * P;
+  c_ohi += (size_t)r * P;
+  const int32_t* const sen_r = sen + (size_t)r * C * S;
+  tok += (size_t)r * C * S;
   // the global layout works on the carry in place
   const sst::VitState v = kGlobal
-      ? sst::VitState{c_score, c_hist, c_osc, c_ohi, g_anext}
+      ? sst::VitState{c_score, c_hist, c_osc, c_ohi, g_anext + (size_t)r * P}
       : sst::carve(sm + 32, P, E);
   int32_t* const score = v.score;
   int32_t* const hist = v.hist;
   int32_t* const osc = v.osc;
   int32_t* const ohi = v.ohi;
   uint8_t* const anext = v.anext;
+  int32_t* const sbuf = sm + 32 + sst::state_bytes(P, E) / sizeof(int32_t);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int S = E * P;
-  constexpr int TQ = E * (E + 1);
+  const int n = n_rows != nullptr ? n_rows[r] : n_all;
 
+  Consts<E, kPh> kc;
+  kc.init(g, P);
   if (!kGlobal) {
     for (int p = tid; p < P; p += nthr) {
 #pragma unroll
@@ -243,43 +329,46 @@ __global__ void __launch_bounds__(1024) viterbi_chunk_kernel(
       ohi[p] = c_ohi[p];
     }
   }
-  int32_t best_prev = c_best[0];
+  if (kPf) {
+    sst::prefetch_row(sbuf, sen_r, S);
+    sst::cp_async_wait_all();
+  }
+  int32_t best_prev = c_best[r];
   __syncthreads();
 
   for (int c = 0; c < C; ++c) {
     const int t = t0 + c;
-    const int32_t* sen_t = sen + (size_t)c * S;
+    const int32_t* sen_t = kPf ? sbuf + (c & 1) * S : sen_r + (size_t)c * S;
+    if (kPf && c + 1 < C)
+      sst::prefetch_row(sbuf + ((c + 1) & 1) * S, sen_r + (size_t)(c + 1) * S,
+                        S);
     const bool valid = t < n;
     const bool renorm = sst::wsub(best_prev, 0x300000) < kWorst;
     int32_t lbest = kWorst;
-    for (int p = tid; p < P; p += nthr) {
-      const bool act = t >= astart[p] && t <= aend[p] && valid;
+    sst::for_phones<kPh>(P, [&](int p, int j) {
+      const auto k = kc.get(g, p, j);
+      const bool act = t >= k.ast && t <= k.aen && valid;
       lbest = max(lbest, sst::hmm_update<E>(score + E * p, hist + E * p,
-                                            osc + p, ohi + p, tp + TQ * p,
+                                            osc + p, ohi + p, k.tq,
                                             sen_t + E * p, act, renorm,
                                             best_prev));
-      anext[p] = act && t + 1 <= aend[p];
-    }
-    const int32_t best = sst::block_max(lbest, wmax);
+      anext[p] = act && t + 1 <= k.aen;
+    });
+    const int32_t best = sst::block_max_warps(lbest, wmax);
 
     const int nf = t + 1;
-    for (int p = tid; p < P; p += nthr) {
+    sst::for_phones<kPh>(P, [&](int p, int j) {
+      const auto k = kc.get(g, p, j);
       // jnp.argmax over the slots: the first maximum, starting at slot 0
-      int32_t es = kWorst, eh = -1;
-      bool eok = false;
-      for (int k = 0; k < K; ++k) {
-        const int src = pred_idx[p * K + k];
-        const bool ok = pred_ok[p * K + k] && anext[src];
-        const int32_t val = ok ? sst::wadd(osc[src], pred_pen[p * K + k]) : kWorst;
-        if (k == 0 || val > es) {
-          es = val;
-          eh = ohi[src];
-          eok = ok;
-        }
-      }
-      if (!eok) eh = -1;
-      const bool act = t >= astart[p] && t <= aend[p] && valid;
-      const bool enter = eok && nf >= astart[p] && nf <= aend[p] &&
+      int32_t es, eh;
+      bool eok;
+      using KC = Consts<E, kPh>;
+      const size_t at = KC::slots_at(g, K, p);
+      sst::enter_argmax<KC::KR>(k.np, K, k.src, k.pen, g.pred_idx + at,
+                                g.pred_pen + at, KC::slot_stride(g), osc,
+                                ohi, anext, &es, &eh, &eok);
+      const bool act = t >= k.ast && t <= k.aen && valid;
+      const bool enter = eok && nf >= k.ast && nf <= k.aen &&
                          (!act || es > score[E * p]);
       if (enter) {
         score[E * p] = es;
@@ -296,8 +385,9 @@ __global__ void __launch_bounds__(1024) viterbi_chunk_kernel(
 #pragma unroll
         for (int e = 0; e < E; ++e) tk[e] = -1;
       }
-    }
+    });
     best_prev = best;
+    if (kPf) sst::cp_async_wait_all();
     __syncthreads();
   }
 
@@ -312,19 +402,20 @@ __global__ void __launch_bounds__(1024) viterbi_chunk_kernel(
       c_ohi[p] = ohi[p];
     }
   }
-  if (tid == 0) c_best[0] = best_prev;
+  if (tid == 0) c_best[r] = best_prev;
   if (fin != nullptr && tid == 0) {
     // _viterbi_graph: first max over the final nodes
     int fnode = fin[0];
     for (int i = 1; i < n_fin; ++i)
       if (osc[fin[i]] > osc[fnode]) fnode = fin[i];
-    fscore[0] = osc[fnode];
+    fscore[r] = osc[fnode];
     // align_jax.py backtrace (frames counted from t0); the gather wraps a
     // negative state and clamps one past the end, as jnp indexing does
     int32_t cur = ohi[fnode];
     const int nl = n - t0;
+    int32_t* const path_r = path + (size_t)r * C;
     for (int c = C - 1; c >= 0; --c) {
-      path[c] = c < nl ? cur : -1;
+      path_r[c] = c < nl ? cur : -1;
       if (c < nl - 1) {
         const int at = min(max(cur < 0 ? cur + S : cur, 0), S - 1);
         cur = (int32_t)tok[(size_t)c * S + at];
@@ -348,20 +439,60 @@ int dispatch_bool(bool x, F&& f) {
   return x ? f(std::true_type{}) : f(std::false_type{});
 }
 
+// The graph tables a launch reads: the slot-major copies (tables[3..5])
+// where `sm` (the phones' constants are read at every frame), else the
+// [P, ...] ones (tables[0..2]).
+Graph graph(const int32_t* const* tables, const int32_t* pred_n,
+            const int32_t* astart, const int32_t* aend, int P, int E, int K,
+            bool sm) {
+  const int TQ = E * (E + 1);
+  const int32_t* const* t = tables + (sm ? 3 : 0);
+  return Graph{t[0],       t[1],        t[2],       pred_n, astart,
+               aend,       sm ? 1 : TQ, sm ? P : 1, sm ? 1 : K,
+               sm ? P : 1};
+}
+
+// The layout and the frame step of one launch: f(global, phones in
+// registers, prefetch) as integral constants.  The shared layout holds
+// int16 tokens only (S >= 32767 never fits shared memory); in it, a
+// thread's phones sit in registers where it owns at most two, and then
+// the next frame's scores are prefetched where two rows fit beside the
+// state.  The global layout takes neither.
+template <typename Tok, typename F>
+int dispatch_layout(bool global, int P, int E, int threads, F&& f) {
+  using F0 = std::false_type;
+  if (global)
+    return f(std::true_type{}, std::integral_constant<int, 0>{}, F0{});
+  if constexpr (!std::is_same<Tok, int16_t>::value) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int ph = sst::vit_reg_phones(P, threads);
+    const bool pf = ph > 0 && sst::smem_bytes_prefetch(P, E) <= kMaxSmemBytes;
+    return dispatch_bool(pf, [&](auto p) {
+      if (ph == 1) return f(F0{}, std::integral_constant<int, 1>{}, p);
+      if (ph == 2) return f(F0{}, std::integral_constant<int, 2>{}, p);
+      return f(F0{}, std::integral_constant<int, 0>{}, p);
+    });
+  }
+}
+
 }  // namespace
 
 #define SST_VIT_CHUNK_PARAMS                                                  \
-  const int32_t *sen, int t0, int n, const int32_t *tp,                       \
-      const int32_t *pred_idx, const int32_t *pred_pen,                       \
-      const uint8_t *pred_ok, const int32_t *astart, const int32_t *aend,     \
+  const int32_t *sen, int t0, int n, const int32_t *n_rows,                   \
+      const int32_t *tp, const int32_t *pred_idx, const int32_t *pred_pen,    \
+      const int32_t *tp_t, const int32_t *pred_idx_t,                         \
+      const int32_t *pred_pen_t, const int32_t *pred_n,                       \
+      const int32_t *astart, const int32_t *aend,                             \
       int32_t *score, int32_t *hist, int32_t *osc, int32_t *ohi,              \
-      int32_t *best_prev, int C, int P, int E, int K, void *tok,              \
+      int32_t *best_prev, int R, int C, int P, int E, int K, void *tok,       \
       int tok_bytes, const int32_t *fin, int n_fin, int32_t *path,            \
       int32_t *fscore, uint8_t *anext, cudaStream_t stream
 #define SST_VIT_BATCH_PARAMS                                                  \
   const int32_t *sen, const int32_t *n_frames, const int32_t *tp,             \
-      const int32_t *pred_idx, const int32_t *pred_pen,                       \
-      const uint8_t *pred_ok, const int32_t *astart, const int32_t *aend,     \
+      const int32_t *pred_idx, const int32_t *pred_pen, const int32_t *tp_t,  \
+      const int32_t *pred_idx_t, const int32_t *pred_pen_t,                   \
+      const int32_t *pred_n, const int32_t *astart, const int32_t *aend,      \
       const int32_t *entry, const int32_t *fin, int B, int T, int P, int E,   \
       int K, int n_fin, void *tok, int tok_bytes, int32_t *tsc, void *path,   \
       int32_t *pscore, int32_t *fscore, uint8_t *gstate, cudaStream_t stream
@@ -374,27 +505,37 @@ extern "C" int sst_viterbi_batch_e5(SST_VIT_BATCH_PARAMS);
 extern "C" int SST_VIT_CHUNK(SST_VIT_CHUNK_PARAMS) {
 #ifndef SST_VIT_E5
   if (E == 5)
-    return sst_viterbi_chunk_e5(sen, t0, n, tp, pred_idx, pred_pen, pred_ok,
-                                astart, aend, score, hist, osc, ohi,
-                                best_prev, C, P, E, K, tok, tok_bytes, fin,
+    return sst_viterbi_chunk_e5(sen, t0, n, n_rows, tp, pred_idx, pred_pen,
+                                tp_t, pred_idx_t, pred_pen_t, pred_n, astart,
+                                aend, score, hist, osc, ohi,
+                                best_prev, R, C, P, E, K, tok, tok_bytes, fin,
                                 n_fin, path, fscore, anext, stream);
 #endif
   if (P <= 0 || K <= 0 || (fin != nullptr && n_fin <= 0))
     return (int)cudaErrorInvalidValue;
-  if (C <= 0) return (int)cudaSuccess;
+  if (C <= 0 || R <= 0) return (int)cudaSuccess;
   const bool global = anext != nullptr;
-  const size_t smem = sst::smem_bytes(P, E, global);
+  const int threads = sst::vit_threads(P);
+  const int32_t* const tables[6] = {tp,   pred_idx,   pred_pen,
+                                     tp_t, pred_idx_t, pred_pen_t};
   return dispatch_form(E, tok_bytes, [&](auto e, auto tk) {
     constexpr int kE = decltype(e)::value;
     using Tok = decltype(tk);
-    return dispatch_bool(global, [&](auto g) {
-      auto kernel = viterbi_chunk_kernel<kE, Tok, decltype(g)::value>;
+    return dispatch_layout<Tok>(global, P, E, threads,
+                                [&](auto gl, auto ph, auto pf) {
+      constexpr bool kG = decltype(gl)::value;
+      constexpr bool kP = decltype(pf)::value;
+      constexpr int kPh = decltype(ph)::value;
+      auto kernel = viterbi_chunk_kernel<kE, Tok, kG, kPh, kP>;
+      const Graph g = graph(tables, pred_n, astart, aend, P, kE, K,
+                            kPh == 0);
+      const size_t smem = kP ? sst::smem_bytes_prefetch(P, kE)
+                             : sst::smem_bytes(P, kE, kG);
       const cudaError_t err = sst::allow_smem(kernel, smem);
       if (err != cudaSuccess) return (int)err;
-      kernel<<<1, sst::vit_threads(P), smem, stream>>>(
-          sen, t0, n, tp, pred_idx, pred_pen, pred_ok, astart, aend, score,
-          hist, osc, ohi, best_prev, C, P, K, static_cast<Tok*>(tok), fin,
-          n_fin, path, fscore, anext);
+      kernel<<<R, threads, smem, stream>>>(
+          sen, t0, n, n_rows, g, score, hist, osc, ohi, best_prev, C, P, K,
+          static_cast<Tok*>(tok), fin, n_fin, path, fscore, anext);
       return (int)cudaGetLastError();
     });
   });
@@ -413,8 +554,9 @@ extern "C" int64_t sst_viterbi_state_bytes(int P, int E) {
 extern "C" int SST_VIT_BATCH(SST_VIT_BATCH_PARAMS) {
 #ifndef SST_VIT_E5
   if (E == 5)
-    return sst_viterbi_batch_e5(sen, n_frames, tp, pred_idx, pred_pen,
-                                pred_ok, astart, aend, entry, fin, B, T, P, E,
+    return sst_viterbi_batch_e5(sen, n_frames, tp, pred_idx, pred_pen, tp_t,
+                                pred_idx_t, pred_pen_t, pred_n, astart, aend,
+                                entry, fin, B, T, P, E,
                                 K, n_fin, tok, tok_bytes, tsc, path, pscore,
                                 fscore, gstate, stream);
 #endif
@@ -423,20 +565,29 @@ extern "C" int SST_VIT_BATCH(SST_VIT_BATCH_PARAMS) {
   if (scores != (pscore != nullptr)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0) return (int)cudaSuccess;
   const bool global = gstate != nullptr;
-  const size_t smem = sst::smem_bytes(P, E, global);
+  const int threads = sst::vit_threads(P);
+  const int32_t* const tables[6] = {tp,   pred_idx,   pred_pen,
+                                     tp_t, pred_idx_t, pred_pen_t};
   return dispatch_form(E, tok_bytes, [&](auto e, auto tk) {
     constexpr int kE = decltype(e)::value;
     using Tok = decltype(tk);
-    return dispatch_bool(global, [&](auto g) {
-      return dispatch_bool(scores, [&](auto s) {
-        auto kernel = viterbi_kernel<kE, Tok, decltype(g)::value,
-                                     decltype(s)::value>;
+    return dispatch_bool(scores, [&](auto s) {
+      return dispatch_layout<Tok>(global, P, E, threads,
+                                  [&](auto gl, auto ph, auto pf) {
+        constexpr bool kG = decltype(gl)::value;
+        constexpr bool kP = decltype(pf)::value;
+        constexpr int kPh = decltype(ph)::value;
+        auto kernel = viterbi_kernel<kE, Tok, kG, decltype(s)::value, kPh, kP>;
+        const Graph g = graph(tables, pred_n, astart, aend, P, kE, K,
+                              kPh == 0);
+        const size_t smem = kP ? sst::smem_bytes_prefetch(P, kE)
+                               : sst::smem_bytes(P, kE, kG);
         const cudaError_t err = sst::allow_smem(kernel, smem);
         if (err != cudaSuccess) return (int)err;
-        kernel<<<B, sst::vit_threads(P), smem, stream>>>(
-            sen, n_frames, tp, pred_idx, pred_pen, pred_ok, astart, aend,
-            entry, fin, T, P, K, n_fin, static_cast<Tok*>(tok), tsc,
-            static_cast<Tok*>(path), pscore, fscore, gstate);
+        kernel<<<B, threads, smem, stream>>>(
+            sen, n_frames, g, entry, fin, T, P, K, n_fin,
+            static_cast<Tok*>(tok), tsc, static_cast<Tok*>(path), pscore,
+            fscore, gstate);
         return (int)cudaGetLastError();
       });
     });

@@ -216,6 +216,191 @@ __device__ __forceinline__ int32_t block_max(int32_t v, int32_t* wmax) {
   return best;
 }
 
+// Block-wide max of v, returned to every thread, as block_max, but
+// each warp takes the max of the warp maxima with one shared load a
+// lane and one reduction (block_max walks all of them in every thread).
+// Needs a block of whole warps.
+__device__ __forceinline__ int32_t block_max_warps(int32_t v, int32_t* wmax) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  v = __reduce_max_sync(0xffffffffu, v);
+  if (lane == 0) wmax[tid >> 5] = v;
+  __syncthreads();
+  const int32_t w = lane < (int)(blockDim.x >> 5) ? wmax[lane] : kWorst;
+  return __reduce_max_sync(0xffffffffu, w);
+}
+
+// -- K4's bounded edge loop --------------------------------------------------
+//
+// A phone's real predecessor slots are a prefix of its K slots (slots
+// fill in edge order from 0; align_torch.pred_count checks it), so
+// slots 0 .. n-1 hold the edges (pred_ok true) and n .. K-1 padding
+// whose value is WORST_SCORE (pred_ok false).  The loops below visit the
+// n real slots and never read pred_ok.  The first KR slots may come
+// from registers (src/pen), the others from the phone's slots pi/pp,
+// slot k at pi[k * ks] (ks 1 in the [P, K] tables, P in slot-major
+// [K, P] ones).
+
+// K4's rule: strict `>` from WORST_SCORE, so a padded slot never wins
+// and the loop stops at n.
+template <int KR>
+__device__ __forceinline__ void enter_strict(
+    int n, const int32_t* src_r, const int32_t* pen_r,
+    const int32_t* __restrict__ pi, const int32_t* __restrict__ pp, int ks,
+    const int32_t* osc, const int32_t* ohi, const uint8_t* anext,
+    int32_t* es, int32_t* eh, bool* eok) {
+  int32_t s = kWorst, h = -1;
+  bool o = false;
+  auto slot = [&](int src, int32_t pen) {
+    const bool ok = anext[src];
+    const int32_t val = ok ? wadd(osc[src], pen) : kWorst;
+    if (val > s) {  // strict: the first slot wins ties
+      s = val;
+      h = ohi[src];
+      o = ok;
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < KR; ++k)
+    if (k < n) slot(src_r[k], pen_r[k]);
+  for (int k = KR; k < n; ++k) slot(pi[k * ks], pp[k * ks]);
+  *es = s;
+  *eh = o ? h : -1;
+  *eok = o;
+}
+
+// The carry form's rule, jnp.argmax over the K slots: slot 0 is taken
+// whatever its value, a later slot where it is strictly greater.  After
+// the n real slots, the first padded slot (value WORST_SCORE, not ok)
+// is one more candidate when n < K: it wins where n == 0 or where every
+// real slot fell below WORST_SCORE, and later padded slots tie it.
+template <int KR>
+__device__ __forceinline__ void enter_argmax(
+    int n, int K, const int32_t* src_r, const int32_t* pen_r,
+    const int32_t* __restrict__ pi, const int32_t* __restrict__ pp, int ks,
+    const int32_t* osc, const int32_t* ohi, const uint8_t* anext,
+    int32_t* es, int32_t* eh, bool* eok) {
+  int32_t s = kWorst, h = -1;
+  bool o = false;
+  auto slot = [&](int k, int src, int32_t pen) {
+    const bool ok = anext[src];
+    const int32_t val = ok ? wadd(osc[src], pen) : kWorst;
+    if (k == 0 || val > s) {
+      s = val;
+      h = ohi[src];
+      o = ok;
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < KR; ++k)
+    if (k < n) slot(k, src_r[k], pen_r[k]);
+  for (int k = KR; k < n; ++k) slot(k, pi[k * ks], pp[k * ks]);
+  if (n < K && (n == 0 || kWorst > s)) {
+    s = kWorst;
+    o = false;
+  }
+  *es = s;
+  *eh = o ? h : -1;
+  *eok = o;
+}
+
+// -- the frame step's constants and scores (K4 and its carry form) -----------
+
+// K4's graph tables as its frame step reads them: entry i of phone p's
+// negated tmat row at tp[p * tq_p + i * tq_i] and its slot k at
+// pred_idx/pred_pen[p * k_p + k * k_k]; phone-major ([P, E*(E+1)],
+// [P, K]: tq_p = E*(E+1), k_p = K, the others 1) or slot-major
+// ([E*(E+1), P], [K, P]: tq_i = k_k = P, the others 1), where a warp's
+// 32 phones read one 128-byte line per entry or slot instead of 32.
+struct VitGraph {
+  const int32_t* __restrict__ tp;
+  const int32_t* __restrict__ pred_idx;
+  const int32_t* __restrict__ pred_pen;
+  const int32_t* __restrict__ pred_n;
+  const int32_t* __restrict__ astart;
+  const int32_t* __restrict__ aend;
+  int tq_p, tq_i, k_p, k_k;
+};
+
+// What one phone's frame step reads of the graph, whatever the frame:
+// its negated tmat row, its active window, its in-degree and its first
+// KR predecessor slots.  Held in registers across the frame loop where a
+// thread owns at most two phones; loaded at each use elsewhere (the
+// compiler drops the loads of the tq entries the update never reads).
+template <int E, int KR>
+struct PhoneConsts {
+  int32_t tq[E * (E + 1)];
+  int32_t ast, aen, np;
+  int32_t src[KR > 0 ? KR : 1], pen[KR > 0 ? KR : 1];
+};
+
+template <int E, int KR>
+__device__ __forceinline__ PhoneConsts<E, KR> load_phone(const VitGraph& g,
+                                                         int p) {
+  PhoneConsts<E, KR> c;
+#pragma unroll
+  for (int i = 0; i < E * (E + 1); ++i)
+    c.tq[i] = g.tp[(size_t)p * g.tq_p + (size_t)i * g.tq_i];
+  c.ast = g.astart[p];
+  c.aen = g.aend[p];
+  c.np = g.pred_n[p];
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    const size_t at = (size_t)p * g.k_p + (size_t)k * g.k_k;
+    c.src[k] = k < c.np ? g.pred_idx[at] : 0;
+    c.pen[k] = k < c.np ? g.pred_pen[at] : 0;
+  }
+  return c;
+}
+
+// Calls f(p, j) for each phone p of this thread: p = tid + j * blockDim.x,
+// j < kPh (unrolled, so that a register array indexed by j stays in
+// registers), or, kPh == 0, every such p below P (j = 0).
+template <int kPh, typename F>
+__device__ __forceinline__ void for_phones(int P, F&& f) {
+  if (kPh == 0) {
+    for (int p = threadIdx.x; p < P; p += blockDim.x) f(p, 0);
+  } else {
+#pragma unroll
+    for (int j = 0; j < (kPh > 0 ? kPh : 1); ++j) {
+      const int p = threadIdx.x + j * blockDim.x;
+      if (p < P) f(p, j);
+    }
+  }
+}
+
+// Phones a thread holds in registers: 1 or 2 where the block's threads
+// cover P that many times, else 0 (loaded at each use).
+inline int vit_reg_phones(int P, int threads) {
+  return P <= threads ? 1 : (P <= 2 * threads ? 2 : 0);
+}
+
+// The next frame's S senone scores, copied into shared memory with
+// 4-byte cp.async (rows of S int32 start off a 16-byte boundary at every
+// other frame where S % 4 != 0); cp_async_wait_all, then a barrier,
+// makes them visible to the block.
+__device__ __forceinline__ void prefetch_row(int32_t* dst,
+                                            const int32_t* __restrict__ src,
+                                            int S) {
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src + i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Dynamic shared memory with the two prefetch rows of S int32 after the
+// shared-layout state.
+__host__ __device__ inline size_t smem_bytes_prefetch(int P, int E) {
+  return smem_bytes(P, E, false) + 2 * (size_t)E * P * sizeof(int32_t);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when it
 // needs it.
 template <typename Kernel>

@@ -12,12 +12,14 @@ backtrace_batch, in its two graph forms:
   under ``with_scores``, the token-score stack and path scores;
 
 and of the single-utterance programs (make_vit_step, vit_carry0,
-align_viterbi, backtrace), as K4's carry form (which also runs each
-chunk of the long form's ring, parallel/seqpipe.py):
+align_viterbi, backtrace), as K4's carry form, one launch over R rows:
 
-* ``viterbi_chunk``: frames t0 .. t0+C-1 of one utterance from a carry
-  (score, hist [P, E], out_score, out_hist [P], best_prev []) to the
-  next, tokens [C, S] (AlignStream's 128-frame chunks);
+* ``viterbi_chunk_rows``: frames t0 .. t0+C-1 of R utterances, each
+  from its carry (score, hist [R, P, E], out_score, out_hist [R, P],
+  best_prev [R]) to the next, tokens [R, C, S] (a rank's chunk of all
+  rows of the long form's ring, parallel/seqpipe.py);
+* ``viterbi_chunk``: the same for one utterance, tokens [C, S]
+  (AlignStream's 128-frame chunks);
 * ``viterbi_single``: a whole utterance from ``vit_carry0``, then
   _viterbi_graph's final-node select and backtrace: path int32 [T],
   -1 at and after n;
@@ -45,12 +47,16 @@ reads.
 Each kernel keeps a row's Viterbi state in shared memory while it fits
 a block's (``sst_viterbi_smem_bytes(P, E)`` <= 232,448 bytes: 7,040
 phones of 3 states, 4,741 of 5) and in a global scratch beyond that
-(``state_scratch``); both layouts give the same bits.
+(``state_scratch``); both layouts give the same bits.  K4 and its carry
+form loop over each phone's real predecessor slots only (``pred_n``, a
+prefix of the K padded ones: ``pred_count``); their launchers choose
+how a frame reads its constants and scores from the graph's size
+(viterbi.cu), which changes no bit.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -89,6 +95,23 @@ def build_pred_table(edge_src, edge_dst, edge_pen, n_nodes: int,
         pred_ok[d, k] = True
         slot[d] += 1
     return pred_idx, pred_pen, pred_ok
+
+
+def pred_count(pred_ok) -> np.ndarray:
+    """Each phone's in-degree, int32 [P], from pred_ok [P, K] (numpy or
+    tensor): the number of its real slots, which must be slots 0 ..
+    n-1, as build_pred_table fills them; raises ValueError where a real
+    slot follows a padded one.  K4 and its carry form loop over these."""
+    ok = np.asarray(pred_ok.cpu() if isinstance(pred_ok, torch.Tensor)
+                    else pred_ok).astype(bool)
+    n = ok.sum(axis=-1)
+    prefix = np.arange(ok.shape[-1]) < n[..., None]
+    if not np.array_equal(ok, prefix):
+        bad = np.nonzero((ok != prefix).any(axis=-1))[0]
+        raise ValueError(f"the real predecessor slots of phones "
+                         f"{bad[:8].tolist()} are not a prefix of their "
+                         f"{ok.shape[-1]} slots")
+    return n.astype(np.int32)
 
 
 def stack_graphs(graphs: list, tmat: np.ndarray, sen_remap: np.ndarray,
@@ -164,16 +187,33 @@ def stack_graphs(graphs: list, tmat: np.ndarray, sen_remap: np.ndarray,
 
 @dataclass(eq=False)
 class VitConsts:
-    """Device constants of one graph's Viterbi (K4)."""
+    """Device constants of one graph's Viterbi (K4), with slot-major
+    copies of the tmat rows and predecessor slots (tp_t [E*(E+1), P],
+    pred_idx_t/pred_pen_t [K, P]) for the kernels where they read a
+    phone's constants at every frame, built once per graph."""
 
     tp: torch.Tensor         # int32 [P, E, E+1] quantized negated tmat
     pred_idx: torch.Tensor   # int32 [P, K]
     pred_pen: torch.Tensor   # int32 [P, K]
     pred_ok: torch.Tensor    # uint8 [P, K]
+    pred_n: torch.Tensor     # int32 [P] real slots a phone (pred_count)
     astart: torch.Tensor     # int32 [P]
     aend: torch.Tensor       # int32 [P]
     entry: torch.Tensor      # int32 [P] entry score, WORST_SCORE if none
     fin: torch.Tensor        # int32 [n_fin] final nodes
+    tp_t: torch.Tensor = field(init=False)
+    pred_idx_t: torch.Tensor = field(init=False)
+    pred_pen_t: torch.Tensor = field(init=False)
+
+    def __post_init__(self):
+        self.tp_t = self.tp.reshape(self.tp.shape[0], -1).t().contiguous()
+        self.pred_idx_t = self.pred_idx.t().contiguous()
+        self.pred_pen_t = self.pred_pen.t().contiguous()
+
+    def kernel_tables(self) -> list:
+        """Pointers to the tables in the kernels' order: tp, pred_idx,
+        pred_pen, then their slot-major copies."""
+        return [getattr(self, name).data_ptr() for name in VIT_TABLES]
 
     @property
     def P(self) -> int:
@@ -226,6 +266,7 @@ def graph_consts_from_numpy(c: dict, device="cpu") -> VitConsts:
     return VitConsts(
         tp=dev(c["tp"], np.int32), pred_idx=dev(c["pi"], np.int32),
         pred_pen=dev(c["pp"], np.int32), pred_ok=dev(c["pk"], np.uint8),
+        pred_n=dev(pred_count(c["pk"]), np.int32),
         astart=dev(c["ast"], np.int32), aend=dev(c["aen"], np.int32),
         entry=dev(c["entry"], np.int32), fin=dev(c["fin"], np.int32))
 
@@ -707,16 +748,22 @@ def _check_viterbi_shape(name: str, sen: torch.Tensor, P: int,
         raise ValueError(f"{name}: unsupported device {sen.device}")
 
 
-def _count(fn, E: int, dt, state, with_scores: bool) -> None:
+def _count(fn, E: int, dt, state, with_scores: bool) -> str:
     """One launch of fn's kernel: its count, and the count of its form
     in ``fn.forms``, named "3-state" or "5-state", then ", int32" (token
     stacks), ", global" (the state's layout) and ", scores" where they
-    apply."""
+    apply; returns the form's name."""
     form = (f"{E}-state" + (", int32" if dt == torch.int32 else "")
             + (", global" if state is not None else "")
             + (", scores" if with_scores else ""))
     fn.launches += 1
     fn.forms[form] = fn.forms.get(form, 0) + 1
+    return form
+
+
+# the graph tables K4 and its carry form take, in their launchers' order
+VIT_TABLES = ("tp", "pred_idx", "pred_pen", "tp_t", "pred_idx_t",
+              "pred_pen_t")
 
 
 def state_scratch(lib, P: int, E: int, rows: int, dev):
@@ -747,10 +794,8 @@ def viterbi_batch(sen: torch.Tensor, n_frames: torch.Tensor, c: VitConsts,
     ck = cuda_build.check_tensor
     ck(sen, torch.int32, "sen")
     ck(n_frames, torch.int32, "n_frames", dev)
-    for name in ("tp", "pred_idx", "pred_pen", "astart", "aend", "entry",
-                 "fin"):
+    for name in VIT_TABLES + ("pred_n", "astart", "aend", "entry", "fin"):
         ck(getattr(c, name), torch.int32, name, dev)
-    ck(c.pred_ok, torch.uint8, "pred_ok", dev)
     dt = tok_dtype(S)
     tok = torch.empty((B, T, S), dtype=dt, device=dev)
     path = torch.empty((B, T), dtype=dt, device=dev)
@@ -761,10 +806,10 @@ def viterbi_batch(sen: torch.Tensor, n_frames: torch.Tensor, c: VitConsts,
         pscore = torch.empty((B, T), dtype=torch.int32, device=dev)
     gstate = state_scratch(lib, c.P, c.E, B, dev)
     err = lib.sst_viterbi_batch(
-        sen.data_ptr(), n_frames.data_ptr(), c.tp.data_ptr(),
-        c.pred_idx.data_ptr(), c.pred_pen.data_ptr(), c.pred_ok.data_ptr(),
-        c.astart.data_ptr(), c.aend.data_ptr(), c.entry.data_ptr(),
-        c.fin.data_ptr(), B, T, c.P, c.E, c.pred_idx.shape[1],
+        sen.data_ptr(), n_frames.data_ptr(), *c.kernel_tables(),
+        c.pred_n.data_ptr(), c.astart.data_ptr(), c.aend.data_ptr(),
+        c.entry.data_ptr(), c.fin.data_ptr(), B, T, c.P, c.E,
+        c.pred_idx.shape[1],
         c.fin.shape[0], tok.data_ptr(), tok.element_size(), _ptr(tsc),
         path.data_ptr(), _ptr(pscore), fscore.data_ptr(), _ptr(gstate),
         cuda_build.stream(sen))
@@ -829,60 +874,119 @@ viterbi_rows.launches = 0
 viterbi_rows.forms = {}
 
 
-def _launch_chunk(sen, carry, t0: int, n: int, c: VitConsts, fin):
-    """One launch of K4's carry form (see sst_viterbi_chunk); the carry
-    tensors are copies, written in place by the kernel."""
+def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None):
+    """One launch of K4's carry form over R rows (see sst_viterbi_chunk):
+    sen int32 [R, C, S], the stacked carry, n an int (every row) or
+    int32 [R] on the device; the carry tensors are copies, written in
+    place by the kernel; tokens into ``out`` [R, C, S] when given."""
     _check_viterbi_shape("viterbi_chunk", sen, c.P, c.E)
-    C, S = sen.shape
+    R, C, S = sen.shape
     lib = cuda_build.lib()
     dev = sen.device
     ck = cuda_build.check_tensor
     ck(sen, torch.int32, "sen")
-    for name in ("tp", "pred_idx", "pred_pen", "astart", "aend", "fin"):
+    for name in VIT_TABLES + ("pred_n", "astart", "aend", "fin"):
         ck(getattr(c, name), torch.int32, name, dev)
-    ck(c.pred_ok, torch.uint8, "pred_ok", dev)
-    new = tuple(x.to(device=dev, dtype=torch.int32).contiguous().clone()
+    n_rows = None
+    if isinstance(n, torch.Tensor):
+        ck(n, torch.int32, "n", dev)
+        if n.shape != (R,):
+            raise ValueError(f"viterbi_chunk: n {tuple(n.shape)} for {R} "
+                             "rows")
+        n_rows = n
+    new = tuple(torch.empty(x.shape, dtype=torch.int32, device=dev).copy_(x)
                 for x in carry)
     dt = tok_dtype(S)
-    tok = torch.empty((C, S), dtype=dt, device=dev)
+    if out is None:
+        out = torch.empty((R, C, S), dtype=dt, device=dev)
+    ck(out, dt, "out", dev)
+    if out.shape != (R, C, S):
+        raise ValueError(f"viterbi_chunk: out {tuple(out.shape)} for "
+                         f"{(R, C, S)}")
     path = fscore = None
     if fin is not None:
-        path = torch.empty(C, dtype=torch.int32, device=dev)
-        fscore = torch.empty((), dtype=torch.int32, device=dev)
-    # the global layout runs on the carry in place, with an active_next
+        path = torch.empty((R, C), dtype=torch.int32, device=dev)
+        fscore = torch.empty(R, dtype=torch.int32, device=dev)
+    # the global layout runs on the carries in place, with an active_next
+    # a row
     anext = None
     if lib.sst_viterbi_smem_bytes(c.P, c.E) > MAX_SMEM_BYTES:
-        anext = torch.empty(c.P, dtype=torch.uint8, device=dev)
+        anext = torch.empty((R, c.P), dtype=torch.uint8, device=dev)
     err = lib.sst_viterbi_chunk(
-        sen.data_ptr(), int(t0), int(n), c.tp.data_ptr(),
-        c.pred_idx.data_ptr(), c.pred_pen.data_ptr(), c.pred_ok.data_ptr(),
-        c.astart.data_ptr(), c.aend.data_ptr(), *(x.data_ptr() for x in new),
-        C, c.P, c.E, c.pred_idx.shape[1], tok.data_ptr(), tok.element_size(),
-        _ptr(fin), 0 if fin is None else fin.shape[0], _ptr(path),
-        _ptr(fscore), _ptr(anext), cuda_build.stream(sen))
+        sen.data_ptr(), int(t0), 0 if n_rows is not None else int(n),
+        _ptr(n_rows), *c.kernel_tables(), c.pred_n.data_ptr(),
+        c.astart.data_ptr(), c.aend.data_ptr(),
+        *(x.data_ptr() for x in new), R, C, c.P, c.E, c.pred_idx.shape[1],
+        out.data_ptr(), out.element_size(), _ptr(fin),
+        0 if fin is None else fin.shape[0], _ptr(path), _ptr(fscore),
+        _ptr(anext), cuda_build.stream(sen))
     cuda_build.check(err, "viterbi_chunk")
-    _count(viterbi_chunk, c.E, dt, anext, False)
-    return new, tok, path, fscore
+    # by form, and by form, rows and phones in viterbi_chunk.shapes
+    shape = (f"{_count(viterbi_chunk, c.E, dt, anext, False)}, R={R}, "
+             f"P={c.P}")
+    viterbi_chunk.shapes[shape] = viterbi_chunk.shapes.get(shape, 0) + 1
+    return new, out, path, fscore
+
+
+def viterbi_chunk_rows_plain(sen: torch.Tensor, carry: tuple, t0: int, n,
+                             c: VitConsts):
+    """Plain PyTorch version of the R-row carry form: viterbi_chunk_plain
+    row by row (sen int32 [R, C, S], carry stacked per row, n an int or
+    int [R]) -> (the stacked carry after frame t0+C-1, tok [R, C, S])."""
+    R = sen.shape[0]
+    ns = ([int(n)] * R if not isinstance(n, torch.Tensor)
+          else [int(x) for x in n.tolist()])
+    outs = [viterbi_chunk_plain(sen[r], tuple(x[r] for x in carry), t0,
+                                ns[r], c) for r in range(R)]
+    carry = tuple(torch.stack([o[0][i] for o in outs]) for i in range(5))
+    return carry, torch.stack([o[1] for o in outs])
+
+
+def viterbi_chunk_rows(sen: torch.Tensor, carry: tuple, t0: int, n,
+                       c: VitConsts, out: torch.Tensor | None = None):
+    """K4's carry form over R rows in one launch, one block a row: sen
+    int32 [R, C, S], each row's carry before frame t0 (score, hist int32
+    [R, P, E], out_score, out_hist [R, P], best_prev [R]), n the rows'
+    frame counts (an int for every row, or int32 [R] on sen's device;
+    frames >= n are padding) -> (the carries after frame t0+C-1, tok [R,
+    C, S] int16, or int32 where S >= 32767, written into ``out`` when
+    given).  Launches and forms count on ``viterbi_chunk``."""
+    _check_carry(carry, c, sen.shape[0])
+    if sen.device.type == "cpu":
+        new, tok = viterbi_chunk_rows_plain(sen, carry, t0, n, c)
+        if out is None:
+            return new, tok
+        out.copy_(tok)
+        return new, out
+    if sen.device.type != "cuda":
+        raise ValueError(f"viterbi_chunk: unsupported device {sen.device}")
+    new, tok, _, _ = _launch_chunk(sen, carry, t0, n, c, None, out)
+    return new, tok
 
 
 def viterbi_chunk(sen: torch.Tensor, carry: tuple, t0: int, n: int,
                   c: VitConsts):
     """K4's carry form: sen int32 [C, S], the carry before frame t0, the
     utterance's frame count n (frames >= n are padding) -> (carry after
-    frame t0+C-1, tok [C, S] int16, or int32 where S >= 32767)."""
+    frame t0+C-1, tok [C, S] int16, or int32 where S >= 32767); one row
+    of viterbi_chunk_rows."""
     _check_carry(carry, c)
     if sen.device.type == "cpu":
         return viterbi_chunk_plain(sen, carry, t0, n, c)
     if sen.device.type != "cuda":
         raise ValueError(f"viterbi_chunk: unsupported device {sen.device}")
-    new, tok, _, _ = _launch_chunk(sen, carry, t0, n, c, None)
-    return new, tok
+    new, tok, _, _ = _launch_chunk(sen[None], tuple(x[None] for x in carry),
+                                   t0, n, c, None)
+    return tuple(x[0] for x in new), tok[0]
 
 
-def _check_carry(carry: tuple, c: VitConsts) -> None:
+def _check_carry(carry: tuple, c: VitConsts, rows: int | None = None) -> None:
     """The carry must have the shapes of the carry the chunk returns, as
-    the JAX scan requires of its carry (TypeError there too)."""
+    the JAX scan requires of its carry (TypeError there too); ``rows``
+    stacked rows of it where given."""
     shapes = ((c.P, c.E), (c.P, c.E), (c.P,), (c.P,), ())
+    if rows is not None:
+        shapes = tuple((rows,) + x for x in shapes)
     got = tuple(tuple(x.shape) for x in carry)
     if got != shapes:
         raise TypeError(f"viterbi_chunk: carry shapes {list(got)}, the "
@@ -891,6 +995,7 @@ def _check_carry(carry: tuple, c: VitConsts) -> None:
 
 viterbi_chunk.launches = 0
 viterbi_chunk.forms = {}
+viterbi_chunk.shapes = {}
 
 
 def viterbi_single(sen: torch.Tensor, n: int, c: VitConsts):
@@ -901,5 +1006,6 @@ def viterbi_single(sen: torch.Tensor, n: int, c: VitConsts):
         return viterbi_single_plain(sen, n, c)
     if sen.device.type != "cuda":
         raise ValueError(f"viterbi_single: unsupported device {sen.device}")
-    _, _, path, fscore = _launch_chunk(sen, vit_carry0(c), 0, n, c, c.fin)
-    return path, fscore
+    _, _, path, fscore = _launch_chunk(
+        sen[None], tuple(x[None] for x in vit_carry0(c)), 0, n, c, c.fin)
+    return path[0], fscore[0]

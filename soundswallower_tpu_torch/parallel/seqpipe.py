@@ -6,18 +6,35 @@ batch of scores [B, T, S] is cut into nseq chunks of C = T / nseq
 frames; rank p of a ``SeqRing`` owns chunk p and keeps only its own
 token chunk [B, C, S], so the longest utterance grows with the ring.
 
-* Forward wavefront: at ring step k, rank p runs chunk p of row k - p
-  through K4's carry form (``viterbi_chunk``, frames p*C .. p*C+C-1 with
-  the row's frame count) and hands the carry to rank p + 1.  Rank 0
-  starts every row from ``vit_carry0`` with the JAX function's 3-state
-  default, so a 5-state model fails here as it does there.
+* Forward, rank-major: rank p receives the B rows' carries from rank
+  p - 1 (one packed tensor), gathers and casts its scores of all rows
+  at once, runs frames p*C .. p*C+C-1 of all B rows in one launch of K4's
+  carry form (``viterbi_chunk_rows``, one block a row, each row with its
+  own frame count) into its token chunk, and hands the B carries to rank
+  p + 1.  Rank 0 starts every row from ``vit_carry0`` with the JAX
+  function's 3-state default, so a 5-state model fails here as it does
+  there.  A ring makes nseq launches, whatever B.  The rank's int32
+  scores of all rows (B*C*S*4 bytes, and the gather's copy where the
+  states are remapped) are then held at once, twice the int16 token
+  chunk they feed, where the wavefront held one row's: about 49 MB at
+  B=4, C=832, S=3,714.
 * Final select: the first maximum over the final nodes of the last
   rank's carries.
 * Reverse pass: rank p walks its token chunk back from the states rank
   p + 1 hands it, for all B rows in one launch of K13
   (``backtrace_chunk``), and hands the states leaving the chunk to rank
-  p - 1.  Rows are independent, so this order gives the reference's
-  reverse wavefront's paths.
+  p - 1.
+
+What differs from the JAX schedule: there the forward is a wavefront
+(at ring step k, rank p runs row k - p), which pipelines the rows so
+that the ring's separate TPU devices stay busy at once, at B + nseq - 1
+steps of one row each.  On this card one row's chunk fills 1 of 132
+SMs, so the rows go inside one launch instead of being pipelined: B
+rows cost about what one row did, and a ring of 8 makes 8 launches
+where the wavefront made 8 B.  Across cards (the distributed transport)
+a rank now waits for all rows of the rank before it, so the ranks no
+longer overlap; each card runs all rows at once instead.  Rows are
+independent, so neither order changes a path or a score.
 
 A ring has two transports that run the same per-chunk code:
 
@@ -25,8 +42,8 @@ A ring has two transports that run the same per-chunk code:
   package's ('seq',) mesh over virtual devices), the carries passed in
   memory;
 * distributed: one rank per process of the default ``torch.distributed``
-  group (NCCL on the card, gloo on the CPU), carries passed with
-  ``send``/``recv`` to the neighbours.  Every rank passes the same
+  group (NCCL on the card, gloo on the CPU), the B carries passed with
+  one ``send``/``recv`` to the neighbours.  Every rank passes the same
   arguments and keeps only its own chunk of scores and tokens; every
   rank gets the gathered paths and final scores back.
 
@@ -41,7 +58,7 @@ import torch
 
 from ..ops.align_torch import (_first_argmax, backtrace_chunk,
                                graph_consts_from_numpy, tok_dtype,
-                               vit_carry0, viterbi_chunk)
+                               vit_carry0, viterbi_chunk_rows)
 from ..utils import resolve_device
 
 
@@ -143,33 +160,31 @@ def align_longform(ring: SeqRing, senscr, senid, tp, pred_idx, pred_pen,
     # each rank's chunk of the scores, on the ring's device
     sen = {p: senscr[:, p * C:(p + 1) * C].to(dev) for p in ring.ranks()}
 
-    def chunk_scores(p: int, b: int) -> torch.Tensor:
-        x = sen[p][b]
+    def chunk_scores(p: int) -> torch.Tensor:
+        """Rank p's scores of all rows in graph-state order, int32 [B, C,
+        S]."""
+        x = sen[p]
         if cols is not None:
-            x = x.index_select(1, cols)
+            x = x.index_select(2, cols)
         return x.to(torch.int32).contiguous()
 
-    # forward wavefront: ring step k, rank p, row k - p
-    carry0 = vit_carry0(vit, n_emit=3)
-    tok = {p: torch.empty((B, C, S), dtype=tok_dtype(S), device=dev)
-           for p in ring.ranks()}
+    # forward, rank-major: rank p runs all B rows in one launch
+    carry0 = tuple(x.expand(B, *x.shape) for x in vit_carry0(vit, n_emit=3))
+    packed = torch.empty(sum(x.numel() for x in carry0), dtype=torch.int32,
+                         device=dev)
+    tok = {}
     last = nseq - 1
-    fin_score = torch.zeros((B, Pn), dtype=torch.int32, device=dev)
-    fin_hist = torch.zeros_like(fin_score)
-    for k in range(B + nseq - 1):
-        for p in ring.ranks():
-            b = k - p
-            if not 0 <= b < B:
-                continue
-            carry = carry0 if p == 0 else _unpack(
-                ring.recv(("f", p, b), _pack(carry0), p - 1), carry0)
-            new, tok[p][b] = viterbi_chunk(chunk_scores(p, b), carry, p * C,
-                                           int(nfr[b]), vit)
-            if p == last:
-                fin_score[b] = new[2]
-                fin_hist[b] = new[3]
-            else:
-                ring.send(("f", p + 1, b), _pack(new), p + 1)
+    fin_score = fin_hist = None
+    for p in ring.ranks():
+        carry = carry0 if p == 0 else _unpack(
+            ring.recv(("f", p), packed, p - 1), carry0)
+        tok[p] = torch.empty((B, C, S), dtype=tok_dtype(S), device=dev)
+        new, _ = viterbi_chunk_rows(chunk_scores(p), carry, p * C, nfr_d, vit,
+                                    out=tok[p])
+        if p == last:
+            fin_score, fin_hist = new[2], new[3]
+        else:
+            ring.send(("f", p + 1), _pack(new), p + 1)
 
     # the best final node per row, and the backtrace's start (last rank)
     fstate = fscore = None

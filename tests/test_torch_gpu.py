@@ -754,3 +754,112 @@ def test_frame_best_sub_forms_equal_plain_on_card(S, N):
             assert st.frame_best_sub.forms[form] == before + 1
             want = st.frame_best_sub_plain(src, sub)
             assert got.dtype == torch.int16 and torch.equal(got, want)
+
+
+# -- K4 and its carry form redesigned: the bounded loop, R rows a launch, the
+# frame step's registers and prefetch ---------------------------------------
+
+# (E, P): the shared layout with two phones a thread in registers (the
+# long form's P=1,238 at 3 states), with one (5 states, P=200) and with
+# none (P=3,000), the global layout with int16 tokens just past the
+# switch, and with int32 ones
+CHUNK_FORMS = [(3, 1238), (5, 200), (3, 3000), (3, 7041), (5, 4742),
+               (3, 11000), (5, 6554)]
+
+
+@pytest.mark.parametrize("R", [1, 4, 8])
+@pytest.mark.parametrize("E,P", CHUNK_FORMS)
+def test_viterbi_chunk_rows_equal_plain_on_card(E, P, R):
+    """The R-row carry form against its plain version: R rows from
+    carries one 16-frame chunk in, frame counts mixed (past the chunk,
+    ending inside it, at t0, before t0), tokens into ``out``; one launch
+    and one form count per call."""
+    _need_cuda()
+    rng = np.random.RandomState(P + E + R)
+    C, t0, S = 16, 16, E * P
+    g = random_graph(P, E, rng, T=t0 + C)
+    c = at.graph_consts_from_numpy(g, "cuda")
+    sen = torch.from_numpy(rng.randint(0, 4, (R, t0 + C, S))
+                           .astype(np.int32)).cuda()
+    ns = [t0 + C + 3, t0 + 5, t0, t0 - 4, 2, t0 + C, t0 + 1, 9][:R]
+    n = torch.tensor(ns, dtype=torch.int32, device="cuda")
+    carry0 = tuple(x.expand(R, *x.shape) for x in at.vit_carry0(c))
+    carry, _ = at.viterbi_chunk_rows_plain(sen[:, :t0].contiguous(), carry0,
+                                           0, n, c)
+    chunk = sen[:, t0:].contiguous()
+    want = at.viterbi_chunk_rows_plain(chunk, carry, t0, n, c)
+    glob = cuda_build.lib().sst_viterbi_smem_bytes(P, E) > at.MAX_SMEM_BYTES
+    form = (f"{E}-state" + (", int32" if S >= 32767 else "")
+            + (", global" if glob else ""))
+    before = (at.viterbi_chunk.launches, at.viterbi_chunk.forms.get(form, 0))
+    out = torch.empty((R, C, S), dtype=at.tok_dtype(S), device="cuda")
+    new, tok = at.viterbi_chunk_rows(chunk, carry, t0, n, c, out=out)
+    assert tok is out
+    _equal((tok,) + tuple(new), (want[1],) + tuple(want[0]))
+    assert (at.viterbi_chunk.launches,
+            at.viterbi_chunk.forms[form]) == (before[0] + 1, before[1] + 1)
+
+
+def _padded_graph(P: int, E: int, rng, K: int = 125, T: int = 48) -> dict:
+    """random_graph's tables with in-degrees 0..3 padded to K slots (a
+    decode graph's shape), and a tenth of the nodes of in-degree 3."""
+    g = random_graph(P, E, rng, T=T)
+    n = at.pred_count(g["pk"])
+    src = np.concatenate([g["pi"][p, :n[p]] for p in range(P)])
+    dst = np.repeat(np.arange(P), n)
+    pen = np.concatenate([g["pp"][p, :n[p]] for p in range(P)])
+    g["pi"], g["pp"], g["pk"] = at.build_pred_table(src, dst, pen, P,
+                                                    k_pad=K)
+    return g
+
+
+@pytest.mark.parametrize("case", ["random", "guards"])
+@pytest.mark.parametrize("E,P", [(3, 300), (5, 300), (3, 2500), (3, 7041),
+                                 (5, 4742)])
+def test_viterbi_bounded_loop_equals_plain_on_card(E, P, case):
+    """K4 (with and without scores) and the carry form (16-frame chunks,
+    then the single-utterance path) with K = 125 padded slots on random
+    graphs of in-degree 0..3, shared (a thread's phones in registers, and
+    P=2,500 without) and global layouts; "guards" drives a fifth of the
+    states below WORST_SCORE, so real slots fall below it and the carry
+    form's padded slot must win."""
+    _need_cuda()
+    rng = np.random.RandomState(P + E + len(case))
+    T, S = 48, E * P
+    g = _padded_graph(P, E, rng, T=T)
+    c = at.graph_consts_from_numpy(g, "cuda")
+    assert c.pred_idx.shape[1] == 125 and int(c.pred_n.max()) <= 3
+    sen = rng.randint(0, 4000, (3, T, S))
+    if case == "guards":
+        sen[rng.random_sample(sen.shape) < 0.2] = 0x30000000
+    sen = torch.from_numpy(sen.astype(np.int32)).cuda()
+    n = torch.tensor([T, T - 5, 2], dtype=torch.int32).cuda()
+    for ws in (False, True):
+        _equal(at.viterbi_batch(sen, n, c, ws),
+               at.viterbi_batch_plain(sen, n, c, ws))
+    ck = cp = at.vit_carry0(c)
+    for t0 in range(0, T, 16):
+        ck, tk = at.viterbi_chunk(sen[0, t0:t0 + 16], ck, t0, T - 5, c)
+        cp, tp_ = at.viterbi_chunk_plain(sen[0, t0:t0 + 16], cp, t0, T - 5,
+                                         c)
+        _equal((tk,) + tuple(ck), (tp_,) + tuple(cp))
+    for nn in (T - 5, 2):
+        _equal(at.viterbi_single(sen[0], nn, c),
+               at.viterbi_single_plain(sen[0], nn, c))
+
+
+def test_viterbi_batch_register_forms_on_card(cuda_aligner):
+    """K4 on the same-transcript route's graphs with one phone a thread
+    in registers (the transcript), two (24 repeats, P between 1,024 and
+    2,048) and none (40 repeats, shared layout), with and without
+    scores: the plain version's bits."""
+    al = cuda_aligner
+    rng = np.random.RandomState(9)
+    for text in (TEXT, " ".join([TEXT] * 24), " ".join([TEXT] * 40)):
+        c = al._graph_consts(al.graph_for_text(text))
+        sen = torch.from_numpy(rng.randint(0, 3000, (3, 96, c.gs.S))
+                               .astype(np.int32)).cuda()
+        n = torch.tensor([96, 50, 2], dtype=torch.int32, device="cuda")
+        for ws in (False, True):
+            _equal(at.viterbi_batch(sen, n, c.vit, ws),
+                   at.viterbi_batch_plain(sen, n, c.vit, ws))

@@ -99,3 +99,106 @@ def test_gather_bytes_count_the_selected_columns():
     # and two out of range (read as the minimum, no source byte)
     cols = torch.tensor([[1, 1, 9, -1], [3, 4, 10, -11]], dtype=torch.int32)
     assert cs.gather_bytes(src, cols) == (2 + 2) * 5 * 2 + cols.numel() * 4
+
+
+def _all_entries():
+    """Every entry name of the kernels line and every path its counts
+    are read from."""
+    names = ([k[0] for k in cs.KERNELS] + [v[0] for v in cs.VARIANTS]
+             + [f[0] for f in cs.FORMS])
+    paths = (set(cs.PATH_OF.values())
+             | {v[3] for v in cs.VARIANTS if len(v) > 3}
+             | {p for f in cs.FORMS for p in cs.form_paths(f[3])})
+    return names, paths
+
+
+def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
+    """The long-form path launches K4's carry form in two forms: the
+    int16 shared one (a launch a rank over the 4-row batch on rings of 8
+    and 1, and the 5-minute row's own launches) and the int32 global one
+    (the large grammar's 8 rows a launch, and the single-utterance
+    checks of its rows).  Each entry reads its own form's count at the
+    rows and phones it was timed at: a shape the path no longer launches
+    reads 0, and the checks count on the single-utterance entry, with
+    the large path's launch of it."""
+    names, paths = _all_entries()
+    results = {n: dict(ms=1.0, bound_ms=0.1) for n in names}
+    for name, shape in (("viterbi_chunk[long form, 8 ranks]", "R=1, P=1238"),
+                        ("viterbi_chunk[long form, ring step]", "R=4, P=1238"),
+                        ("viterbi_chunk[long form, 5-minute row]",
+                         "R=1, P=5899"),
+                        ("viterbi_chunk[3-state, int32, global, long form]",
+                         "R=8, P=13159"),
+                        ("viterbi_chunk[3-state, int32, global]",
+                         "R=1, P=13159")):
+        results[name]["shape"] = shape
+    counts = {p: {} for p in paths}
+    counts["longform"] = {
+        "viterbi_chunk": 33, "viterbi_chunk[3-state]": 17,
+        "viterbi_chunk[3-state, R=4, P=1238]": 9,
+        "viterbi_chunk[3-state, R=1, P=5899]": 8,
+        "viterbi_chunk[3-state, int32, global]": 16,
+        "viterbi_chunk[3-state, int32, global, R=8, P=13159]": 8,
+        "viterbi_chunk[3-state, int32, global, R=1, P=13159]": 8}
+    counts["large"] = {
+        "viterbi_chunk": 1, "viterbi_chunk[3-state, int32, global]": 1,
+        "viterbi_chunk[3-state, int32, global, R=1, P=13159]": 1}
+    got = {e["name"]: e["launches"]
+           for e in cs.kernel_entries(counts, results)}
+    assert len(got) == len(names)
+    assert got["viterbi_chunk[long form, 8 ranks]"] == 0
+    assert got["viterbi_chunk[long form, ring step]"] == 9
+    assert got["viterbi_chunk[long form, 5-minute row]"] == 8
+    assert got["viterbi_chunk[3-state, int32, global, long form]"] == 8
+    assert got["viterbi_chunk[3-state, int32, global]"] == 9
+    # an entry without a recorded shape reads its form's whole count
+    del results["viterbi_chunk[3-state, int32, global, long form]"]["shape"]
+    got = {e["name"]: e["launches"]
+           for e in cs.kernel_entries(counts, results)}
+    assert got["viterbi_chunk[3-state, int32, global, long form]"] == 16
+
+
+def test_before_takes_only_the_declarations_it_calls():
+    """--before DIR calls DIR's K4 and carry form with the parameters
+    BEFORE_PARAMS lists, typed as DIR's header declares them; a header
+    that declares them otherwise (this tree's) is refused."""
+    import ctypes
+
+    def decl(name):
+        params = cs.BEFORE_PARAMS[name].split()
+        return (f"int {name}(" + ", ".join(
+            ("cudaStream_t " if p == "stream" else
+             "int " if p in ("t0", "n", "B", "T", "P", "E", "K", "C",
+                             "n_fin", "tok_bytes") else
+             "const int32_t* ") + p for p in params) + ");\n")
+
+    header = "// K4\n" + decl("sst_viterbi_batch") + decl("sst_viterbi_chunk")
+    sigs = cs.before_argtypes(header)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert sigs["sst_viterbi_batch"] == [P] * 10 + [I] * 6 + [P, I] + [P] * 6
+    assert sigs["sst_viterbi_chunk"] == ([P, I, I] + [P] * 11 + [I] * 4
+                                         + [P, I, P, I, P, P, P, P])
+    with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
+                           "sst_kernels.h")) as f:
+        with pytest.raises(ValueError, match="sst_viterbi_batch is declared"):
+            cs.before_argtypes(f.read())
+    with pytest.raises(ValueError, match="no declaration"):
+        cs.before_argtypes(decl("sst_viterbi_batch"))
+
+
+def test_vit_bytes_count_the_real_slots():
+    """K4's bound reads each phone's real predecessor slots, not the
+    padded [P, K] tables or pred_ok."""
+    import numpy as np
+
+    from soundswallower_tpu_torch.ops import align_torch as at
+
+    pi, pp, pk = at.build_pred_table([0, 1, 2, 0], [1, 2, 2, 3], [0, -1, -2,
+                                                                  -3], 4,
+                                     k_pad=125)
+    v = at.graph_consts_from_numpy(dict(
+        tp=np.zeros((4, 3, 4), np.int32), pi=pi, pp=pp, pk=pk,
+        ast=np.zeros(4, np.int32), aen=np.ones(4, np.int32),
+        entry=np.zeros(4, np.int32), fin=np.array([3], np.int32)))
+    assert v.pred_n.tolist() == [0, 1, 2, 1]
+    assert cs.vit_bytes(v) == 4 * (48 + 4 + 4 + 4 + 4 + 1) + 8 * 4
