@@ -55,7 +55,11 @@ raises, so the exit code is non-zero and the last line is not printed:
    rows) and on the 5-minute row's first chunk, K2's mxu form (graph
    scorer, full inventory), K8 with remove_dc and K1's float32 form on
    the f32 wire's cepstra; K14 on austen.raw's frames at
-   frame sizes 400, 200, 1024 and 4096, bit for bit;
+   frame sizes 400, 200, 1024 and 4096, bit for bit; K2 also at a tile
+   remainder and at top-N 1 and 8, K6 also through the mixed stack's
+   K-slot lists and a forced cluster of 8, the large grammar's rows at
+   one block and at a cluster of 16 (where the card runs one), and the
+   decode grammar's scored rows (K-slot);
 5. host-FE paths: align_batch on the 8 golden utterances, then 2
    pipelined batches of 256 (the 8 tiled); on a fresh union, align_batch
    on the 32 mixed rows, 2 pipelined batches of 256 that tile them,
@@ -122,18 +126,22 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K4 and its carry form
-from DIR, a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
-declares them as BEFORE_PARAMS lists (the dense slot loop, one row a
-launch; any other declaration stops the run), checks them bit-equal to
-this tree's on every Viterbi entry's inputs and times both in turns
-(``ms_before``; the long form's ring steps as one earlier launch a row).
+``python3 chip_smoke.py --before DIR`` also builds K6 and K2 from DIR, a
+checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h`` declares
+them as BEFORE_PARAMS lists (K6 over dense slots or the band, one block
+a row; K2 one block a frame; any other declaration stops the run),
+checks them bit-equal to this tree's on every K6 and K2 entry's inputs
+and times both in turns (``ms_before``).  K6's entries print the
+layout they take (one block, a cluster of N blocks a row, or the state
+in global memory) and K2's the frame tile; each path's launches are
+also counted by K6 layout and table form and by K2 tile.
 """
 
 from __future__ import annotations
 
 import base64
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -276,7 +284,30 @@ VARIANTS = [
     ("yin_cmnd[200]", "yin_cmnd", "soundswallower_tpu/yin.py:280", "api"),
     ("yin_cmnd[1024]", "yin_cmnd", "soundswallower_tpu/yin.py:255", "api"),
     ("yin_cmnd[4096]", "yin_cmnd", "soundswallower_tpu/yin.py:255", "api"),
+    # the forms of K2's tiling and K6's lists and clusters that no
+    # path takes at their timed shape (launches 0): K2 on the host-FE
+    # batch's frames at a tile remainder and at top-N 1 and 8; K6 on the
+    # mixed batch through the K-slot lists and a forced cluster of 8, and
+    # on the large grammar's scored rows at one block (global memory) and
+    # at a cluster of 16 (where the card runs one: OPTIONAL)
+    ("dist_topn_norm[tile remainder]", "dist_topn_norm",
+     "soundswallower_tpu/ops/senscore_jax.py:535", "forced"),
+    ("dist_topn_norm[topn 1]", "dist_topn_norm",
+     "soundswallower_tpu/ops/senscore_jax.py:535", "forced"),
+    ("dist_topn_norm[topn 8]", "dist_topn_norm",
+     "soundswallower_tpu/ops/senscore_jax.py:535", "forced"),
+    ("viterbi_rows[K-slot]", "viterbi_rows",
+     "soundswallower_tpu/aligner.py:1032", "forced"),
+    ("viterbi_rows[cluster 8]", "viterbi_rows",
+     "soundswallower_tpu/aligner.py:1032", "forced"),
+    ("viterbi_rows[3-state, int32, scores, cluster 1]", "viterbi_rows",
+     "soundswallower_tpu/ops/align_jax.py:638", "forced"),
+    ("viterbi_rows[3-state, int32, scores, cluster 16]", "viterbi_rows",
+     "soundswallower_tpu/ops/align_jax.py:638", "forced"),
 ]
+# entries that a card may not run (a cluster of 16 needs 16 free SMs of
+# one GPC): absent from the kernels line where they did not run
+OPTIONAL = {"viterbi_rows[3-state, int32, scores, cluster 16]"}
 # the Viterbi forms beyond 3 states, int16 tokens and shared memory:
 # (entry, kernel, form, the path whose count of that form is its
 # launches, TPU program)
@@ -301,6 +332,9 @@ FORMS = [
     ("viterbi_rows[3-state, int32, global, scores]", "viterbi_rows",
      "3-state, int32, global, scores", "large",
      "soundswallower_tpu/ops/align_jax.py:638"),
+    # the decode grammar's decode_batch_scored (K-slot lists)
+    ("viterbi_rows[decode, K-slot, scores]", "viterbi_rows",
+     "3-state, scores", "decode", "soundswallower_tpu/aligner.py:1032"),
     # one utterance, with the backtrace: the large grammar's device-FE
     # decode, and the long form's checks of its rows
     ("viterbi_chunk[3-state, int32, global]", "viterbi_chunk",
@@ -666,20 +700,30 @@ def vit_bytes(v) -> int:
             + 8 * int(v.pred_n.sum()))
 
 
-# -- the parent's K4 and carry form (--before DIR) ----------------------------
+def rows_bytes(v) -> int:
+    """The bytes of K6's graph tables its bounded loop reads: the tmat
+    rows, windows, entries, final masks and list lengths, and each
+    phone's real predecessors (index and penalty) in its form's lists."""
+    nin = v.lists()[3]
+    return (nbytes(v.tp, v.astart, v.aend, v.entry, v.final_mask, nin)
+            + 8 * int(nin.sum()))
 
-# DIR's soundswallower_tpu_torch/csrc/viterbi.cu and viterbi_e5.cu built
-# into one library: K4 and its single-row carry form before the
-# redesign (dense [P, K] loop over pred_ok), called below with the
-# parameters their declarations in DIR's sst_kernels.h must list
+
+# -- the parent's K6 and K2 (--before DIR) ----------------------------------
+
+# DIR's soundswallower_tpu_torch/csrc/viterbi_rows.cu, viterbi_rows_e5.cu
+# and senscore.cu built into one library: K6 and K2 before their
+# redesign (K6 over the dense [P, K] slots or the [W, P] band, one block
+# a row; K2 one block a frame), called below with the parameters their
+# declarations in DIR's sst_kernels.h must list
 BEFORE: dict = {}
+BEFORE_SOURCES = ("viterbi_rows", "viterbi_rows_e5", "senscore")
 BEFORE_PARAMS = {
-    "sst_viterbi_batch": "sen n_frames tp pred_idx pred_pen pred_ok astart "
-    "aend entry fin B T P E K n_fin tok tok_bytes tsc path pscore fscore "
-    "gstate stream",
-    "sst_viterbi_chunk": "sen t0 n tp pred_idx pred_pen pred_ok astart aend "
-    "score hist osc ohi best_prev C P E K tok tok_bytes fin n_fin path "
-    "fscore anext stream",
+    "sst_viterbi_rows": "sen n_frames tp pred_idx pred_pen pred_ok band_pen "
+    "band_ok astart aend entry final_mask B T P E K W tok tok_bytes tsc path "
+    "pscore fscore gstate stream",
+    "sst_dist_topn_norm": "feats means var_t det muv c s cw N Cu F D L topn "
+    "mxu stream",
 }
 
 
@@ -713,16 +757,16 @@ def before_argtypes(header: str) -> dict:
 
 
 def build_before(root: str) -> None:
-    """Compile root's viterbi.cu and viterbi_e5.cu (one nvcc each, both
-    started together) and load them as BEFORE["lib"]; root's header must
-    declare the launchers as BEFORE_PARAMS lists."""
+    """Compile root's BEFORE_SOURCES (one nvcc each, all started
+    together) and load them as BEFORE["lib"]; root's header must declare
+    the launchers as BEFORE_PARAMS lists."""
     src = os.path.join(root, "soundswallower_tpu_torch", "csrc")
     with open(os.path.join(src, "sst_kernels.h")) as f:
         sigs = before_argtypes(f.read())
     out = os.path.join(cuda_build.BUILD_DIR, "before")
     os.makedirs(out, exist_ok=True)
     nvcc = cuda_build.nvcc_path()
-    objs = [os.path.join(out, f + ".o") for f in ("viterbi", "viterbi_e5")]
+    objs = [os.path.join(out, f + ".o") for f in BEFORE_SOURCES]
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *cuda_build.NVCC_FLAGS, "-c", "-o", o,
                                os.path.join(src, os.path.basename(o)[:-2]
@@ -732,7 +776,7 @@ def build_before(root: str) -> None:
              for o in objs]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     if any(p.returncode for p in procs):
-        raise RuntimeError("the parent's Viterbi did not build:\n"
+        raise RuntimeError("the parent's K6 and K2 did not build:\n"
                            + "".join(logs))
     so = os.path.join(out, "libsst_before.so")
     subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
@@ -742,12 +786,12 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's K4 and carry form from {root}: built in "
+    log(f"  the parent's K6 and K2 from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_batch(sen, n, c, ws=False):
-    """K4 on the parent's kernel: (path, pscore, fscore), or None
+def before_rows(sen, n, v, ws=False):
+    """K6 on the parent's kernel: (path, pscore, fscore), or None
     without --before."""
     if "lib" not in BEFORE:
         return None
@@ -763,62 +807,41 @@ def before_batch(sen, n, c, ws=False):
         if ws:
             tsc = torch.empty((B, T, S), dtype=torch.int32, device=dev)
             pscore = torch.empty((B, T), dtype=torch.int32, device=dev)
-        gstate = align_torch.state_scratch(cuda_build.lib(), c.P, c.E, B, dev)
+        gstate = align_torch.state_scratch(cuda_build.lib(), v.P, v.E, B, dev)
         ptr = align_torch._ptr
-        err = BEFORE["lib"].sst_viterbi_batch(
-            sen.data_ptr(), n.data_ptr(), c.tp.data_ptr(),
-            c.pred_idx.data_ptr(), c.pred_pen.data_ptr(),
-            c.pred_ok.data_ptr(), c.astart.data_ptr(), c.aend.data_ptr(),
-            c.entry.data_ptr(), c.fin.data_ptr(), B, T, c.P, c.E,
-            c.pred_idx.shape[1], c.fin.shape[0], tok.data_ptr(),
-            tok.element_size(), ptr(tsc), path.data_ptr(), ptr(pscore),
-            fscore.data_ptr(), ptr(gstate), cuda_build.stream(sen))
-        cuda_build.check(err, "viterbi_batch (parent)")
+        W = 0 if v.band_pen is None else v.band_pen.shape[1]
+        err = BEFORE["lib"].sst_viterbi_rows(
+            sen.data_ptr(), n.data_ptr(), v.tp.data_ptr(),
+            v.pred_idx.data_ptr(), v.pred_pen.data_ptr(),
+            v.pred_ok.data_ptr(), ptr(v.band_pen), ptr(v.band_ok),
+            v.astart.data_ptr(), v.aend.data_ptr(), v.entry.data_ptr(),
+            v.final_mask.data_ptr(), B, T, v.P, v.E, v.pred_idx.shape[2], W,
+            tok.data_ptr(), tok.element_size(), ptr(tsc), path.data_ptr(),
+            ptr(pscore), fscore.data_ptr(), ptr(gstate),
+            cuda_build.stream(sen))
+        cuda_build.check(err, "viterbi_rows (parent)")
         return path, pscore, fscore
     return run
 
 
-def before_chunk(sen, carry, t0: int, ns: list, c, fin=None):
-    """The carry form on the parent's kernel, one launch a row as the
-    parent ran it: sen [R, C, S] and the carries stacked per row ->
-    (carries, tok [R, C, S]), or with ``fin`` (R = 1) the single path's
-    (path [C], fscore []); None without --before."""
+def before_dist(feats, gs, mode: str = "fold"):
+    """K2 on the parent's kernel: (s, cw), or None without --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        R, C, S = sen.shape
-        dev = sen.device
-        dt = align_torch.tok_dtype(S)
-        ptr = align_torch._ptr
-        glob = (cuda_build.lib().sst_viterbi_smem_bytes(c.P, c.E)
-                > align_torch.MAX_SMEM_BYTES)
-        news, toks, out = [], [], None
-        for r in range(R):
-            new = tuple(x[r].to(torch.int32).clone() for x in carry)
-            tok = torch.empty((C, S), dtype=dt, device=dev)
-            path = fscore = None
-            if fin is not None:
-                path = torch.empty(C, dtype=torch.int32, device=dev)
-                fscore = torch.empty((), dtype=torch.int32, device=dev)
-            anext = (torch.empty(c.P, dtype=torch.uint8, device=dev)
-                     if glob else None)
-            err = BEFORE["lib"].sst_viterbi_chunk(
-                sen[r].data_ptr(), int(t0), int(ns[r]), c.tp.data_ptr(),
-                c.pred_idx.data_ptr(), c.pred_pen.data_ptr(),
-                c.pred_ok.data_ptr(), c.astart.data_ptr(), c.aend.data_ptr(),
-                *(x.data_ptr() for x in new), C, c.P, c.E,
-                c.pred_idx.shape[1], tok.data_ptr(), tok.element_size(),
-                ptr(fin), 0 if fin is None else fin.shape[0], ptr(path),
-                ptr(fscore), ptr(anext), cuda_build.stream(sen))
-            cuda_build.check(err, "viterbi_chunk (parent)")
-            news.append(new)
-            toks.append(tok)
-            out = (path, fscore)
-        if fin is not None:
-            return out
-        return (tuple(torch.stack([nw[i] for nw in news]) for i in range(5)),
-                torch.stack(toks))
+        N, F, L = feats.shape
+        Cu, _, D, _ = gs.means.shape
+        s = torch.empty((N, Cu, F, gs.topn), dtype=torch.int32,
+                        device=feats.device)
+        cw = torch.empty_like(s)
+        err = BEFORE["lib"].sst_dist_topn_norm(
+            feats.data_ptr(), gs.means.data_ptr(), gs.var_t.data_ptr(),
+            gs.det.data_ptr(), gs.muv.data_ptr(), gs.c.data_ptr(),
+            s.data_ptr(), cw.data_ptr(), N, Cu, F, D, L, gs.topn,
+            int(mode == "mxu"), cuda_build.stream(feats))
+        cuda_build.check(err, "dist_topn_norm (parent)")
+        return s, cw
     return run
 
 
@@ -841,12 +864,14 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
                     results, ins=(pl, Tn), ops=8.0 * n * Tmax * 13)
         flat = feats.view(n * Tmax, 3, -1)
         if first:
-            s, cw = compare(
-                "dist_topn_norm",
-                lambda: senscore_torch.dist_topn_norm(flat, c.gs),
-                lambda: senscore_torch.dist_topn_norm_plain(flat, c.gs),
-                results, ins=(flat, c.gs.means, c.gs.var_t, c.gs.det),
-                ops=fold_ops(flat.shape[0], c.gs))
+            s, cw = compare_dist("dist_topn_norm", flat, c.gs, results,
+                                 plain_runs=10)
+            # a tile remainder, and top-N 1 and 8, on the same frames
+            compare_dist("dist_topn_norm[tile remainder]",
+                         flat[:flat.shape[0] - 37], c.gs, results)
+            for topn in (1, 8):
+                compare_dist(f"dist_topn_norm[topn {topn}]", flat,
+                             dataclasses.replace(c.gs, topn=topn), results)
             compare("senone_eval",
                     lambda: senscore_torch.senone_eval(s, cw, c.gs),
                     lambda: senscore_torch.senone_eval_plain(s, cw, c.gs),
@@ -859,8 +884,27 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
             lambda: align_torch.viterbi_batch(sen, Ts_d, c.vit),
             lambda: align_torch.viterbi_batch_plain(sen, Ts_d, c.vit),
             results, n_bytes=nbytes(sen, Ts_d) + vit_bytes(c.vit),
-            ops=vit_ops(sen), rate=I32_OPS,
-            before=before_batch(sen, Ts_d, c.vit))
+            ops=vit_ops(sen), rate=I32_OPS)
+
+
+def compare_dist(name, x, gs, results, mode: str = "fold",
+                 plain_runs: int = 0):
+    """K2 (``mode`` fold or mxu) against its plain version and, under
+    --before, the parent's kernel, with the tile the launcher takes."""
+    N, F, _ = x.shape
+    tile = cuda_build.lib().sst_dist_topn_tile(N, F)
+    log(f"  {name}: N={N} frames, Cu={gs.means.shape[0]} F={F} "
+        f"D={gs.means.shape[2]} top-{gs.topn}, tiles of {tile} frames "
+        f"({-(-N // tile)} x {F} blocks, the last tile {N - (N - 1) // tile * tile} "
+        "frames)")
+    out = compare(name, lambda: senscore_torch.dist_topn_norm(x, gs, mode),
+                  lambda: senscore_torch.dist_topn_norm_plain(x, gs, mode),
+                  results, plain_runs=plain_runs,
+                  ins=((x, gs.var_t, gs.det, gs.muv, gs.c) if mode == "mxu"
+                       else (x, gs.means, gs.var_t, gs.det)),
+                  ops=fold_ops(N, gs), before=before_dist(x, gs, mode))
+    results[name]["tile"] = tile
+    return out
 
 
 def eval_bound(s, cw, gs) -> dict:
@@ -930,11 +974,22 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
         f"W={0 if v.band_pen is None else v.band_pen.shape[1]}")
     if v.band_pen is None:
         raise AssertionError("the mixed batch's stack took no band")
-    for name, ws in (("viterbi_rows", False), ("viterbi_rows[scores]", True)):
-        compare(name, lambda: align_torch.viterbi_rows(sen, Ts_d, v, ws),
-                lambda: align_torch.viterbi_rows_plain(sen, Ts_d, v, ws),
-                results, plain_runs=0, ins=(sen, Ts_d, v), ops=vit_ops(sen),
-                rate=I32_OPS)
+    # the band lists' build on the card, once per stack (informational)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    align_torch.band_lists(v.band_pen, v.band_ok)
+    torch.cuda.synchronize()
+    log(f"  band_lists of the B={v.band_pen.shape[0]} stack "
+        f"(W={v.band_pen.shape[1]}, P={v.P}): "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms of wall on the card, "
+        "once per stack")
+    compare_vit("viterbi_rows", sen, Ts_d, v, results)
+    compare_vit("viterbi_rows[scores]", sen, Ts_d, v, results, True)
+    # the same rows through the K-slot lists, and through a cluster of 8
+    compare_vit("viterbi_rows[K-slot]", sen, Ts_d, dataclasses.replace(
+        v, band_pen=None, band_ok=None, band_src=None, band_pen_c=None,
+        band_n=None), results)
+    compare_vit("viterbi_rows[cluster 8]", sen, Ts_d, v, results, cluster=8)
     fresh_union(al)
     # the dense route: B=32, one chunk
     audios, Ts, Tmax = al._batch_shape([mixed_audio(i)
@@ -948,12 +1003,8 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
         part = flat[:DENSE_SLICE]
         log(f"  full inventory: N={flat.shape[0]} frames, compared on "
             f"N={part.shape[0]}; Cu={ds.means.shape[0]} S={ds.S}")
-        s, cw = compare(
-            "dist_topn_norm[full inventory]",
-            lambda: senscore_torch.dist_topn_norm(part, ds),
-            lambda: senscore_torch.dist_topn_norm_plain(part, ds),
-            results, plain_runs=0, ins=(part, ds.means, ds.var_t, ds.det),
-            ops=fold_ops(part.shape[0], ds))
+        s, cw = compare_dist("dist_topn_norm[full inventory]", part, ds,
+                             results)
         compare("senone_eval[full inventory]",
                 lambda: senscore_torch.senone_eval(s, cw, ds),
                 lambda: senscore_torch.senone_eval_plain(s, cw, ds),
@@ -1153,23 +1204,9 @@ def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
                                                     c.vit),
             results, plain_runs=0,
             n_bytes=nbytes(first, carry0) + vit_bytes(c.vit),
-            ops=vit_ops(first), rate=I32_OPS,
-            before=before_row(first, carry0, T, c.vit))
+            ops=vit_ops(first), rate=I32_OPS)
     compare_single("viterbi_chunk[single, backtrace]", sen, T, c.vit,
                    results)
-
-
-def before_row(sen, carry, n: int, v, t0: int = 0):
-    """viterbi_chunk's output on the parent's kernel (one row), or None
-    without --before."""
-    run = before_chunk(sen[None], tuple(x[None] for x in carry), t0, [n], v)
-    if run is None:
-        return None
-
-    def row():
-        new, tok = run()
-        return tuple(x[0] for x in new), tok[0]
-    return row
 
 
 def check_rows(out, want, what, rep=segs_rep):
@@ -1575,20 +1612,36 @@ def shape_log(what, sen, v) -> None:
             v.P, v.E) > align_torch.MAX_SMEM_BYTES else "shared memory"))
 
 
-def compare_vit(name, sen, n, v, results, ws=False, runs=10):
-    """K4 (VitConsts) or K6 (RowVitConsts) against its plain version; the
-    plain version's time is that of the comparison call."""
+def compare_vit(name, sen, n, v, results, ws=False, runs=10,
+                cluster: int = 0):
+    """K4 (VitConsts) or K6 (RowVitConsts, at ``cluster`` blocks a row,
+    0 the launcher's choice, against the parent's kernel under
+    --before) against its plain version; the plain version's time is
+    that of the comparison call."""
     rows = isinstance(v, align_torch.RowVitConsts)
-    fn = align_torch.viterbi_rows if rows else align_torch.viterbi_batch
-    plain = (align_torch.viterbi_rows_plain if rows
-             else align_torch.viterbi_batch_plain)
     shape_log(name, sen, v)
-    graph = dict(ins=(sen, n, v)) if rows else dict(
-        n_bytes=nbytes(sen, n) + vit_bytes(v),
-        before=before_batch(sen, n, v, ws))
-    compare(name, lambda: fn(sen, n, v, ws), lambda: plain(sen, n, v, ws),
-            results, plain_runs=0, ops=vit_ops(sen), rate=I32_OPS, runs=runs,
-            **graph)
+    if rows:
+        cs = align_torch.rows_layout(v.P, v.E, sen.shape[2], ws, cluster)
+        log(f"  {name}: {v.lists()[0]} lists of up to "
+            f"{int(v.lists()[3].max())} of {v.lists()[1].shape[2]} slots, "
+            + ("one block, the state in global memory" if cs == 0 else
+               "one block" if cs == 1 else f"a cluster of {cs} blocks")
+            + " a row")
+
+        def fn():
+            return align_torch.viterbi_rows(sen, n, v, ws, cluster)
+        graph = dict(n_bytes=nbytes(sen, n) + rows_bytes(v),
+                     before=before_rows(sen, n, v, ws))
+        plain = align_torch.viterbi_rows_plain
+    else:
+        def fn():
+            return align_torch.viterbi_batch(sen, n, v, ws)
+        graph = dict(n_bytes=nbytes(sen, n) + vit_bytes(v))
+        plain = align_torch.viterbi_batch_plain
+    compare(name, fn, lambda: plain(sen, n, v, ws), results, plain_runs=0,
+            ops=vit_ops(sen), rate=I32_OPS, runs=runs, **graph)
+    if rows:
+        results[name]["cluster"] = cs
 
 
 def compare_single(name, sen, T, v, results, runs=10):
@@ -1599,8 +1652,7 @@ def compare_single(name, sen, T, v, results, runs=10):
     compare(name, lambda: align_torch.viterbi_single(sen, T, v),
             lambda: align_torch.viterbi_single_plain(sen, T, v), results,
             plain_runs=0, n_bytes=nbytes(sen) + vit_bytes(v),
-            ops=vit_ops(sen), rate=I32_OPS, runs=runs,
-            before=before_chunk(sen[None], carry0, 0, [T], v, fin=v.fin))
+            ops=vit_ops(sen), rate=I32_OPS, runs=runs)
 
 
 def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
@@ -1611,8 +1663,10 @@ def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
     same-transcript B=256 batch); the global-state layout with int16
     tokens (K4 and K6 on a transcript of REPEATS repeats, random scores,
     B=4, T=256) and with int32 tokens (the large grammar: K4 on its
-    decode_batch B=8, K6 with scores on its decode_batch_scored B=8,
-    the carry form on its device-FE decode)."""
+    decode_batch B=8, K6 with scores on its decode_batch_scored B=8 at
+    the launcher's layout, at one block and at a cluster of 16, the
+    carry form on its device-FE decode); K6 on the decode grammar's
+    decode_batch_scored B=32 (K-slot lists)."""
     big = [austen_audio(i % N_UTT) for i in range(BIG_B)]
     texts = mg["texts"]
     mixed = [mixed_audio(i % N_MIXED) for i in range(BIG_B)]
@@ -1669,6 +1723,29 @@ def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
         al.want_scores = False
     compare_vit("viterbi_rows[3-state, int32, global, scores]", sen, n, v,
                 results, True, runs=3)
+    # the same rows at one block (its state in global memory) and at a
+    # cluster of 16 blocks a row, where the card runs one
+    compare_vit("viterbi_rows[3-state, int32, scores, cluster 1]", sen, n, v,
+                results, True, runs=3, cluster=1)
+    try:
+        align_torch.rows_layout(v.P, v.E, sen.shape[2], True, 16)
+    except ValueError as e:
+        log(f"  viterbi_rows at a cluster of 16: {e}")
+    else:
+        compare_vit("viterbi_rows[3-state, int32, scores, cluster 16]", sen,
+                    n, v, results, True, runs=3, cluster=16)
+    # the decode scored path's K-slot stack: the decode grammar's graph
+    # (P=200, K=33) at B=32
+    dgr = al.set_grammar(jsgf_string=GRAMMAR)
+    al.want_scores = True
+    try:
+        sen, n, v = rows_batch_sen(al, [dgr] * N_MIXED,
+                                   [decode_audio(i % N_DECODE)
+                                    for i in range(N_MIXED)])
+    finally:
+        al.want_scores = False
+    compare_vit("viterbi_rows[decode, K-slot, scores]", sen, n, v, results,
+                True)
     lgd = al_dev.set_grammar(jsgf_string=large_grammar())
     sen, T, v = single_sen(al_dev, lgd, austen_audio(0))
     compare_single("viterbi_chunk[3-state, int32, global]", sen, T, v,
@@ -1851,7 +1928,6 @@ def compare_ring_step(name, sen, n, v, C: int, results, runs=10):
     chunk = sen[:, :C].contiguous()
     carry = tuple(x.expand(R, *x.shape).contiguous()
                   for x in align_torch.vit_carry0(v, n_emit=3))
-    ns = [int(x) for x in n.tolist()]
     log(f"  {name}: R={R} C={C} S={chunk.shape[2]} P={v.P} "
         f"K={v.pred_idx.shape[1]} tokens {align_torch.tok_dtype(v.P * 3)}")
     compare(name, lambda: align_torch.viterbi_chunk_rows(chunk, carry, 0, n,
@@ -1860,8 +1936,7 @@ def compare_ring_step(name, sen, n, v, C: int, results, runs=10):
                                                          v),
             results, plain_runs=0,
             n_bytes=nbytes(chunk, carry, n) + vit_bytes(v),
-            ops=vit_ops(chunk), rate=I32_OPS, runs=runs,
-            before=before_chunk(chunk, carry, 0, ns, v))
+            ops=vit_ops(chunk), rate=I32_OPS, runs=runs)
     results[name]["shape"] = f"R={R}, P={v.P}"
 
 
@@ -1925,8 +2000,7 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
             lambda: align_torch.viterbi_chunk_plain(chunk, carry0, 0, n0, v),
             results, plain_runs=0,
             n_bytes=nbytes(chunk, carry0) + vit_bytes(v),
-            ops=vit_ops(chunk), rate=I32_OPS,
-            before=before_row(chunk, carry0, n0, v))
+            ops=vit_ops(chunk), rate=I32_OPS)
     results["viterbi_chunk[long form, 8 ranks]"]["shape"] = f"R=1, P={v.P}"
     compare_ring_step("viterbi_chunk[long form, ring step]", sen, n, v, C,
                       results)
@@ -1962,13 +2036,7 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     for name, x, sc in (("dist_topn_norm[mxu]", flat, c.gs),
                         ("dist_topn_norm[mxu, full inventory]",
                          flat[:DENSE_SLICE].contiguous(), al.dense)):
-        log(f"  {name}: N={x.shape[0]} Cu={sc.means.shape[0]}")
-        compare(name,
-                lambda: senscore_torch.dist_topn_norm(x, sc, "mxu"),
-                lambda: senscore_torch.dist_topn_norm_plain(x, sc, "mxu"),
-                results, plain_runs=0,
-                ins=(x, sc.var_t, sc.det, sc.muv, sc.c),
-                ops=fold_ops(x.shape[0], sc))
+        compare_dist(name, x, sc, results, "mxu")
 
     # K8 with remove_dc
     fe = al_dc.fe
@@ -2210,20 +2278,47 @@ def phase_api(ag: dict):
         log("  update_mllr, then align_batch and align_batch_scored: equal")
 
 
+# a wrapper's counters beside its launches: forms, the carry form's
+# shapes, K6's layouts and tables, K2's tiles
+COUNTERS = ("forms", "shapes", "layouts", "tables", "tiles")
+
+
+# the K6 layouts each path's launches take: one block a row, but on the
+# large path, where the REPEATS stack (P=7,680) takes a cluster of 4 and
+# the large grammar (P=13,184, int32 tokens) one of 8; a row that falls
+# to the global-memory layout where a cluster should hold it fails
+K6_LAYOUTS = {"large": {"cluster 4", "cluster 8"}}
+
+
+def k6_layouts(counts: dict) -> set:
+    """The layouts of a path's K6 launches ("block", "cluster N",
+    "global memory") from its counts."""
+    out = set()
+    for key, k in counts.items():
+        if k and key.startswith("viterbi_rows["):
+            layout = key[len("viterbi_rows["):-1]
+            if layout in ("block", "global memory") or layout.startswith(
+                    "cluster "):
+                out.add(layout)
+    return out
+
+
 def count_path(wrappers: dict, drive) -> dict:
     """Launch counts of one path: every count set to 0 just before
     drive(), read just after it; ``name[form]`` for each form and, for
-    the carry form, ``name[form, R=.., P=..]`` for each shape."""
+    the carry form, ``name[form, R=.., P=..]`` for each shape, K6's
+    ``name[cluster 8]`` (layout) and ``name[band]`` (table), K2's
+    ``name[64]`` (tile)."""
     for fn in wrappers.values():
         fn.launches = 0
-        for counter in ("forms", "shapes"):
+        for counter in COUNTERS:
             if hasattr(fn, counter):
                 getattr(fn, counter).clear()
     drive()
     torch.cuda.synchronize()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name, fn in wrappers.items():
-        for counter in ("forms", "shapes"):
+        for counter in COUNTERS:
             for form, k in getattr(fn, counter, {}).items():
                 counts[f"{name}[{form}]"] = k
     return counts
@@ -2248,9 +2343,13 @@ def kernel_entries(counts: dict, results: dict) -> list:
                for name, _, src, rep in KERNELS]
     sources = {name: src for name, _, src, _ in KERNELS}
     for entry, kernel, rep, *path in VARIANTS:
+        if entry not in results and entry in OPTIONAL:
+            log(f"  {entry}: did not run on this card, left out")
+            continue
         path = path[0] if path else PATH_OF[kernel]
         entries.append(dict(name=entry, route="cuda", source=sources[kernel],
-                            replaces=rep, launches=counts[path].get(kernel, 0),
+                            replaces=rep,
+                            launches=counts.get(path, {}).get(kernel, 0),
                             **results[entry]))
     for entry, kernel, form, path, rep in FORMS:
         shape = results[entry].get("shape")
@@ -2277,7 +2376,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's K4 and carry form)
+    # 2. build (and, with --before DIR, the parent's K6 and K2)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:
@@ -2417,10 +2516,21 @@ def main() -> int:
         log(f"  {path} launches: " + ", ".join(
             f"{n} {counts[path].get(n, 0)}" for n in names
             + sorted(k for k in counts[path] if ", R=" in k)))
+        log(f"  {path} K6 layouts and tables, K2 tiles: " + (", ".join(
+            f"{k} {v}" for k, v in sorted(counts[path].items())
+            if k.startswith(("viterbi_rows[", "dist_topn_norm["))
+            and not k.split("[", 1)[1].startswith(("3-state", "5-state",
+                                                   "fold", "mxu")))
+            or "none"))
         missing = [n for n in names if counts[path].get(n, 0) == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"paths: {missing}")
+        got = k6_layouts(counts[path])
+        want = K6_LAYOUTS.get(path, {"block"}) if got else set()
+        if got != want:
+            raise AssertionError(f"K6 on the {path} paths took the layouts "
+                                 f"{sorted(got)}, not {sorted(want)}")
     entries = kernel_entries(counts, results)
     log("rule-2 order (slower than the one PyTorch call, by ms / library "
         "ms; then launches x (ms - bound) ms): " + ", ".join(

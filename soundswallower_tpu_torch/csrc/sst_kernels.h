@@ -29,7 +29,8 @@ int sst_feat(const uint8_t* planes, const int32_t* n_frames, float* out,
 
 // K2: Mahalanobis fold (or, mxu != 0, the expanded distance with the
 // per-table muv f32 [Cu, F, D, L] and c f32 [Cu, F, D]) + top-N +
-// cross-codebook norm.
+// cross-codebook norm, one block a tile of sst_dist_topn_tile(N, F)
+// frames of one stream.
 // feats f32 [N, F, L]; means/var_t f32 [Cu, F, D, L]; det f32 [Cu, F, D]
 // -> s int32 [N, Cu, F, topn] (normalized, clamped to 96),
 //    cw int32 [N, Cu, F, topn] (density indices).
@@ -38,6 +39,10 @@ int sst_dist_topn_norm(const float* feats, const float* means,
                        const float* c, int32_t* s, int32_t* cw, int N, int Cu,
                        int F, int D, int L, int topn, int mxu,
                        cudaStream_t stream);
+
+// K2's frame tile for N frames of F streams on the current device (16,
+// 32 or 64), -1 where the device cannot be read.
+int sst_dist_topn_tile(int N, int F);
 
 // K3: senone evaluation in graph-state order.
 // s/cw int32 [N, Cu, F, topn]; mixw uint8 [F, D, S]; cb_pos int32 [S];
@@ -84,22 +89,36 @@ int sst_gather_cols(const void* src, int elem_bytes, const int32_t* cols,
 
 // K6: per-row-graph lane Viterbi + masked final select + backtrace.
 // sen int32 [B, T, P*E]; n_frames int32 [B]; tp int32 [B, P, E, E+1];
-// pred_idx/pred_pen int32 [B, P, K]; pred_ok uint8 [B, P, K];
-// band_pen int32 / band_ok uint8 [B, W, P] (W > 0: the band form, else
-// NULL and the K-slot form); astart/aend/entry int32 [B, P];
-// final_mask uint8 [B, P] -> tok [B, T, P*E] (scratch), tsc int32
-// [B, T, P*E] (scratch, NULL without scores), path [B, T] (tok and path
-// int16 or int32 by tok_bytes), pscore int32 [B, T] (NULL without
-// scores), fscore int32 [B]; gstate as K4's.
+// src/pen int32 [B, P, K] each phone's predecessors and penalties in the
+// order they are weighed, nin int32 [B, P] how many (the K-slot form's
+// pred_idx/pred_pen/pred_n, or the band form's lists,
+// align_torch.band_lists); astart/aend/entry int32 [B, P]; final_mask
+// uint8 [B, P] -> tok [B, T, P*E] (scratch), tsc int32 [B, T, P*E]
+// (scratch, NULL without scores), path [B, T] (tok and path int16 or
+// int32 by tok_bytes), pscore int32 [B, T] (NULL without scores), fscore
+// int32 [B].  cluster: what sst_viterbi_rows_cluster returned for the
+// same P, E, tok_bytes, scores and asked size (> 0: blocks a row, the
+// state in shared memory; 0: one block, the state in gstate, a scratch of
+// B * sst_viterbi_state_bytes(P, E) bytes, else NULL).
 int sst_viterbi_rows(const int32_t* sen, const int32_t* n_frames,
-                     const int32_t* tp, const int32_t* pred_idx,
-                     const int32_t* pred_pen, const uint8_t* pred_ok,
-                     const int32_t* band_pen, const uint8_t* band_ok,
+                     const int32_t* tp, const int32_t* src,
+                     const int32_t* pen, const int32_t* nin,
                      const int32_t* astart, const int32_t* aend,
                      const int32_t* entry, const uint8_t* final_mask, int B,
-                     int T, int P, int E, int K, int W, void* tok,
-                     int tok_bytes, int32_t* tsc, void* path, int32_t* pscore,
-                     int32_t* fscore, uint8_t* gstate, cudaStream_t stream);
+                     int T, int P, int E, int K, void* tok, int tok_bytes,
+                     int32_t* tsc, void* path, int32_t* pscore,
+                     int32_t* fscore, uint8_t* gstate, int cluster,
+                     cudaStream_t stream);
+
+// K6's layout for P phones of E states, in *layout: blocks a row (a
+// thread-block cluster past 1), 0 for one block with the state in global
+// memory, -1 where the asked size cannot run.  cluster 0 asks for the
+// smallest of 1, 2, 4, 8 and 16 blocks that holds each thread's phones in
+// registers with the prefetch and can be resident; 1 for one block; 2-16
+// for a cluster of that size.  Returns the cudaError_t of the occupancy
+// query (a fault of the card, never a size that cannot run).
+int sst_viterbi_rows_cluster(int P, int E, int tok_bytes, int scores,
+                             int cluster, int* layout);
 
 // K7: the dense per-frame tail.  in int32 [N, S] -> out int16 [N, S] =
 // int16(in) - int16(min over the frame's S scores) (sub = 1, ptm), or

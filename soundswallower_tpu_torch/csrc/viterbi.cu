@@ -101,13 +101,12 @@ constexpr int kFormE = 5;
 constexpr int kFormE = 3;
 #endif
 
+using sst::dispatch_bool;
+using sst::kMaxSmemBytes;
 using sst::kMissing;
+using sst::kRegSlots;
 using sst::kWorst;
 
-// predecessor slots held in registers beside a phone's constants
-constexpr int kRegSlots = 2;
-// dynamic shared memory a Hopper block can use
-constexpr size_t kMaxSmemBytes = 232448;
 
 using Graph = sst::VitGraph;
 
@@ -217,9 +216,10 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
       bool eok;
       using KC = Consts<E, kPh>;
       const size_t at = KC::slots_at(g, K, p);
-      sst::enter_strict<KC::KR>(c.np, c.src, c.pen, g.pred_idx + at,
-                                g.pred_pen + at, KC::slot_stride(g), osc,
-                                ohi, anext, &es, &eh, &eok);
+      sst::enter_strict_at<KC::KR>(c.np, c.src, c.pen, g.pred_idx + at,
+                                   g.pred_pen + at, KC::slot_stride(g),
+                                   sst::LocalNodes{osc, ohi, anext}, &es,
+                                   &eh, &eok);
       const bool act = t >= c.ast && t <= c.aen && valid;
       const bool enter = eok && nf >= c.ast && nf <= c.aen && valid &&
                          (!act || es > score[E * p]);
@@ -432,11 +432,6 @@ int dispatch_form(int E, int tok_bytes, F&& f) {
   if (E == kFormE && tok_bytes == 2) return f(IE{}, int16_t{});
   if (E == kFormE && tok_bytes == 4) return f(IE{}, int32_t{});
   return (int)cudaErrorInvalidValue;
-}
-
-template <typename F>
-int dispatch_bool(bool x, F&& f) {
-  return x ? f(std::true_type{}) : f(std::false_type{});
 }
 
 // The graph tables a launch reads: the slot-major copies (tables[3..5])

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <climits>
+#include <type_traits>
 
 #include "sst_kernels.h"
 
@@ -13,6 +14,16 @@ namespace sst {
 
 constexpr int32_t kWorst = SST_WORST_SCORE;
 constexpr int32_t kMissing = -(1 << 30);  // backtrace_batch's masked-max floor
+// dynamic shared memory a Hopper block can use
+constexpr size_t kMaxSmemBytes = 232448;
+// predecessor slots held in registers beside a phone's constants
+constexpr int kRegSlots = 2;
+
+// f(true_type) or f(false_type): a runtime flag as a template argument
+template <typename F>
+int dispatch_bool(bool x, F&& f) {
+  return x ? f(std::true_type{}) : f(std::false_type{});
+}
 
 __device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
@@ -230,33 +241,53 @@ __device__ __forceinline__ int32_t block_max_warps(int32_t v, int32_t* wmax) {
   return __reduce_max_sync(0xffffffffu, w);
 }
 
-// -- K4's bounded edge loop --------------------------------------------------
+// -- the bounded edge loop (K4, its carry form, K6) ---------------------------
 //
 // A phone's real predecessor slots are a prefix of its K slots (slots
 // fill in edge order from 0; align_torch.pred_count checks it), so
 // slots 0 .. n-1 hold the edges (pred_ok true) and n .. K-1 padding
 // whose value is WORST_SCORE (pred_ok false).  The loops below visit the
-// n real slots and never read pred_ok.  The first KR slots may come
-// from registers (src/pen), the others from the phone's slots pi/pp,
-// slot k at pi[k * ks] (ks 1 in the [P, K] tables, P in slot-major
-// [K, P] ones).
+// n real slots and never read pred_ok.  K6's band form hands them its
+// band slots with band_ok as such a list (align_torch.band_lists).  The
+// first KR slots may come from registers (src/pen), the others from the
+// phone's slots pi/pp, slot k at pi[k * ks] (ks 1 in the [P, K] tables,
+// P in slot-major [K, P] ones).
 
-// K4's rule: strict `>` from WORST_SCORE, so a padded slot never wins
-// and the loop stops at n.
-template <int KR>
-__device__ __forceinline__ void enter_strict(
+// Where a predecessor's out_score, out_hist and active_next live: a
+// NodeRef of three pointers, from a Nodes policy's ref(src).  LocalNodes
+// are one block's arrays; K6's cluster form (viterbi_rows.cu) maps a
+// phone of another block of the cluster into that block's shared memory.
+struct NodeRef {
+  const int32_t* osc;
+  const int32_t* ohi;
+  const uint8_t* anext;
+};
+
+struct LocalNodes {
+  const int32_t* osc;
+  const int32_t* ohi;
+  const uint8_t* anext;
+  __device__ __forceinline__ NodeRef ref(int src) const {
+    return NodeRef{osc + src, ohi + src, anext + src};
+  }
+};
+
+// K4's and K6's rule: strict `>` from WORST_SCORE, so a padded slot
+// never wins and the loop stops at n.
+template <int KR, typename Nodes>
+__device__ __forceinline__ void enter_strict_at(
     int n, const int32_t* src_r, const int32_t* pen_r,
     const int32_t* __restrict__ pi, const int32_t* __restrict__ pp, int ks,
-    const int32_t* osc, const int32_t* ohi, const uint8_t* anext,
-    int32_t* es, int32_t* eh, bool* eok) {
+    const Nodes& nodes, int32_t* es, int32_t* eh, bool* eok) {
   int32_t s = kWorst, h = -1;
   bool o = false;
   auto slot = [&](int src, int32_t pen) {
-    const bool ok = anext[src];
-    const int32_t val = ok ? wadd(osc[src], pen) : kWorst;
+    const NodeRef r = nodes.ref(src);
+    const bool ok = *r.anext;
+    const int32_t val = ok ? wadd(*r.osc, pen) : kWorst;
     if (val > s) {  // strict: the first slot wins ties
       s = val;
-      h = ohi[src];
+      h = *r.ohi;
       o = ok;
     }
   };

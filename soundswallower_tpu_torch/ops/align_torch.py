@@ -9,7 +9,12 @@ backtrace_batch, in its two graph forms:
   and, under ``with_scores``, the token-score stack and path scores;
 * K6 ``viterbi_rows``: a graph per row (``stack_graphs``), with the
   masked select of _vit_full_mg.run, the banded predecessor form and,
-  under ``with_scores``, the token-score stack and path scores;
+  under ``with_scores``, the token-score stack and path scores; it
+  loops over each phone's real predecessors only, from the K-slot
+  tables up to ``pred_n`` or from the band's ``band_lists``, and holds
+  a row in one block or, past what one block holds at two phones a
+  thread, in a thread-block cluster of up to 16 blocks
+  (``rows_layout``);
 
 and of the single-utterance programs (make_vit_step, vit_carry0,
 align_viterbi, backtrace), as K4's carry form, one launch over R rows:
@@ -44,10 +49,13 @@ values of the JAX program: its masked lookup yields -2^30, which int16
 holds as 0 and int32 as -2^30, and ``path[n-1] < 0`` is what extraction
 reads.
 
-Each kernel keeps a row's Viterbi state in shared memory while it fits
-a block's (``sst_viterbi_smem_bytes(P, E)`` <= 232,448 bytes: 7,040
-phones of 3 states, 4,741 of 5) and in a global scratch beyond that
-(``state_scratch``); both layouts give the same bits.  K4 and its carry
+K4 and its carry form keep a row's Viterbi state in shared memory while
+it fits a block's (``sst_viterbi_smem_bytes(P, E)`` <= 232,448 bytes:
+7,040 phones of 3 states, 4,741 of 5) and in a global scratch beyond
+that (``state_scratch``); K6 spreads it over a cluster's shared
+memories first, and keeps it in global memory only past a cluster of
+16 blocks or where one block is asked for.  Every layout gives the same
+bits.  K4 and its carry
 form loop over each phone's real predecessor slots only (``pred_n``, a
 prefix of the K padded ones: ``pred_count``); their launchers choose
 how a frame reads its constants and scores from the graph's size
@@ -56,6 +64,7 @@ how a frame reads its constants and scores from the graph's size
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -107,11 +116,38 @@ def pred_count(pred_ok) -> np.ndarray:
     n = ok.sum(axis=-1)
     prefix = np.arange(ok.shape[-1]) < n[..., None]
     if not np.array_equal(ok, prefix):
-        bad = np.nonzero((ok != prefix).any(axis=-1))[0]
+        bad = np.argwhere((ok != prefix).any(axis=-1))   # [row,] phone
+        bad = bad[:, 0] if bad.shape[1] == 1 else bad
         raise ValueError(f"the real predecessor slots of phones "
                          f"{bad[:8].tolist()} are not a prefix of their "
                          f"{ok.shape[-1]} slots")
     return n.astype(np.int32)
+
+
+def band_lists(band_pen: torch.Tensor, band_ok: torch.Tensor):
+    """The band form's predecessors as per-row lists, for K6's bounded
+    loop: for each row and phone p, the band slots i with band_ok whose
+    source p-(W-i) is a phone, in i order (offset descending, source
+    ascending, the order the band form weighs them in; not pred_idx's
+    edge order, which breaks ties differently).  band_pen int32 /
+    band_ok [B, W, P], on any device, the lists built there (no host
+    round trip) -> (src, pen int32 [B, P, W], n int32 [B, P]), the slots
+    past n zero.  Exact under the strict ``>``: a slot without band_ok
+    has the value WORST_SCORE, which never wins."""
+    B, W, P = band_ok.shape
+    dev = band_ok.device
+    i = torch.arange(W, device=dev)
+    src = torch.arange(P, device=dev)[:, None] - (W - i)           # [P, W]
+    ok = band_ok.permute(0, 2, 1).bool() & (src >= 0)              # [B, P, W]
+    # the listed slots first, each part in i order (the keys are distinct)
+    order = torch.where(ok, i, i + W).argsort(dim=-1)
+    n = ok.sum(dim=-1, dtype=torch.int32)
+    keep = i < n[..., None]
+    lsrc = src.expand(B, P, W).gather(-1, order)
+    lpen = band_pen.permute(0, 2, 1).gather(-1, order)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return (torch.where(keep, lsrc.int(), zero).contiguous(),
+            torch.where(keep, lpen.int(), zero).contiguous(), n)
 
 
 def stack_graphs(graphs: list, tmat: np.ndarray, sen_remap: np.ndarray,
@@ -226,18 +262,25 @@ class VitConsts:
 
 @dataclass(eq=False)
 class RowVitConsts:
-    """Device constants of a stacked batch of graphs, one per row (K6)."""
+    """Device constants of a stacked batch of graphs, one per row (K6):
+    the stack, each phone's in-degree (pred_n) and, with a band, its
+    band slots as lists (band_lists); K6 loops over the lists of its
+    form, the plain version over the dense tables."""
 
     tp: torch.Tensor         # int32 [B, P, E, E+1]
     pred_idx: torch.Tensor   # int32 [B, P, K]
     pred_pen: torch.Tensor   # int32 [B, P, K]
     pred_ok: torch.Tensor    # uint8 [B, P, K]
+    pred_n: torch.Tensor     # int32 [B, P] real slots a phone (pred_count)
     astart: torch.Tensor     # int32 [B, P]
     aend: torch.Tensor       # int32 [B, P]
     entry: torch.Tensor      # int32 [B, P]
     final_mask: torch.Tensor  # uint8 [B, P]
     band_pen: torch.Tensor | None = None  # int32 [B, W, P]
     band_ok: torch.Tensor | None = None   # uint8 [B, W, P]
+    band_src: torch.Tensor | None = None  # int32 [B, P, W] band_lists
+    band_pen_c: torch.Tensor | None = None  # int32 [B, P, W]
+    band_n: torch.Tensor | None = None    # int32 [B, P]
 
     @property
     def P(self) -> int:
@@ -246,6 +289,13 @@ class RowVitConsts:
     @property
     def E(self) -> int:
         return self.tp.shape[2]
+
+    def lists(self) -> tuple:
+        """What K6 loops over: (form, src, pen, n), the band lists where
+        the stack has a band, else the K-slot tables and pred_n."""
+        if self.band_pen is not None:
+            return "band", self.band_src, self.band_pen_c, self.band_n
+        return "K-slot", self.pred_idx, self.pred_pen, self.pred_n
 
 
 def _check_topology(tp) -> None:
@@ -274,21 +324,27 @@ def graph_consts_from_numpy(c: dict, device="cpu") -> VitConsts:
 def row_consts_from_numpy(st: dict, device="cpu") -> RowVitConsts:
     """RowVitConsts from host arrays under the keys of ``stack_graphs``
     (the port's or the JAX package's, or the JAX aligner's
-    ``_stacked_graphs`` read as numpy); no band when the dict has
+    ``_stacked_graphs`` read as numpy), with pred_n (pred_count per row)
+    and, where the dict has a band, band_lists; no band when it has
     none."""
-    def dev(key, dtype):
-        return to_device(st[key], dtype, device)
+    def dev(a, dtype):
+        return to_device(a, dtype, device)
 
     _check_topology(st["tp"])
-    band = "band_pen" in st and st["band_pen"] is not None
+    band = {}
+    if st.get("band_pen") is not None:
+        band = dict(band_pen=dev(st["band_pen"], np.int32),
+                    band_ok=dev(st["band_ok"], np.uint8))
+        band.update(zip(("band_src", "band_pen_c", "band_n"),
+                        band_lists(band["band_pen"], band["band_ok"])))
     return RowVitConsts(
-        tp=dev("tp", np.int32), pred_idx=dev("pred_idx", np.int32),
-        pred_pen=dev("pred_pen", np.int32), pred_ok=dev("pred_ok", np.uint8),
-        astart=dev("astart", np.int32), aend=dev("aend", np.int32),
-        entry=dev("entry", np.int32),
-        final_mask=dev("final_mask", np.uint8),
-        band_pen=dev("band_pen", np.int32) if band else None,
-        band_ok=dev("band_ok", np.uint8) if band else None)
+        tp=dev(st["tp"], np.int32), pred_idx=dev(st["pred_idx"], np.int32),
+        pred_pen=dev(st["pred_pen"], np.int32),
+        pred_ok=dev(st["pred_ok"], np.uint8),
+        pred_n=dev(pred_count(st["pred_ok"]), np.int32),
+        astart=dev(st["astart"], np.int32), aend=dev(st["aend"], np.int32),
+        entry=dev(st["entry"], np.int32),
+        final_mask=dev(st["final_mask"], np.uint8), **band)
 
 
 # -- plain versions ------------------------------------------------------------
@@ -613,6 +669,12 @@ def viterbi_rows_plain(sen: torch.Tensor, n_frames: torch.Tensor,
         enter = _band_enter(c.band_pen, c.band_ok)
     else:
         enter = _kslot_enter(c.pred_idx, c.pred_pen, c.pred_ok)
+    return _rows_plain(sen, n_frames, c, enter, with_scores)
+
+
+def _rows_plain(sen, n_frames, c: RowVitConsts, enter, with_scores: bool):
+    """K6's recurrence with the predecessor max ``enter``, then the
+    masked select and the backtrace."""
     tok, tsc, (_, _, osc, ohi, _) = _forward_plain(
         sen, n_frames, c.tp, c.astart, c.aend, c.entry, enter, with_scores)
     # masked select: first max over node index; a row that reached no
@@ -822,11 +884,36 @@ viterbi_batch.launches = 0
 viterbi_batch.forms = {}
 
 
+def rows_layout(P: int, E: int, S: int, with_scores: bool,
+                cluster: int = 0) -> int:
+    """K6's layout for a launch (sst_viterbi_rows_cluster): blocks a row
+    (1: one block, the state in its shared memory; 2-16: a thread-block
+    cluster), or 0: one block with the state in a global scratch.
+    ``cluster`` 0 lets the launcher choose; another value asks for that
+    many blocks a row and raises ValueError where they cannot run.  A
+    fault of the occupancy query raises RuntimeError."""
+    cs = ctypes.c_int(-1)
+    err = cuda_build.lib().sst_viterbi_rows_cluster(
+        P, E, tok_dtype(S).itemsize, int(with_scores), int(cluster),
+        ctypes.byref(cs))
+    cuda_build.check(err, "viterbi_rows (layout)")
+    cs = cs.value
+    if cs < 0:
+        raise ValueError(f"viterbi_rows: a cluster of {cluster} blocks "
+                         f"cannot hold P={P} phones of {E} states")
+    return cs
+
+
 def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
-                 c: RowVitConsts, with_scores: bool = False):
+                 c: RowVitConsts, with_scores: bool = False,
+                 cluster: int = 0):
     """K6: sen int32 [B, T, S], n_frames int32 [B], a graph per row ->
     (path [B, T] int16, or int32 where S >= 32767, pscore int32 [B, T]
-    or None, fscore int32 [B])."""
+    or None, fscore int32 [B]).  ``cluster``: blocks a row (rows_layout;
+    0 chooses from the graph's size).  Each launch counts on
+    ``viterbi_rows.forms`` (", global" where the row's state passes one
+    block's shared memory), ``.layouts`` ("block", "cluster N", "global
+    memory") and ``.tables`` ("band", "K-slot")."""
     _check_viterbi_shape("viterbi_rows", sen, c.P, c.E)
     B, T, S = sen.shape
     if c.tp.shape[0] != B:
@@ -839,15 +926,13 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
     ck = cuda_build.check_tensor
     ck(sen, torch.int32, "sen")
     ck(n_frames, torch.int32, "n_frames", dev)
-    for name in ("tp", "pred_idx", "pred_pen", "astart", "aend", "entry"):
-        ck(getattr(c, name), torch.int32, name, dev)
-    ck(c.pred_ok, torch.uint8, "pred_ok", dev)
+    table, src, pen, nin = c.lists()
+    for name, x in (("tp", c.tp), ("src", src), ("pen", pen), ("n", nin),
+                    ("astart", c.astart), ("aend", c.aend),
+                    ("entry", c.entry)):
+        ck(x, torch.int32, name, dev)
     ck(c.final_mask, torch.uint8, "final_mask", dev)
-    W = 0
-    if c.band_pen is not None:
-        ck(c.band_pen, torch.int32, "band_pen", dev)
-        ck(c.band_ok, torch.uint8, "band_ok", dev)
-        W = c.band_pen.shape[1]
+    cs = rows_layout(c.P, c.E, S, with_scores, cluster)
     dt = tok_dtype(S)
     tok = torch.empty((B, T, S), dtype=dt, device=dev)
     path = torch.empty((B, T), dtype=dt, device=dev)
@@ -856,22 +941,32 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
     if with_scores:
         tsc = torch.empty((B, T, S), dtype=torch.int32, device=dev)
         pscore = torch.empty((B, T), dtype=torch.int32, device=dev)
-    gstate = state_scratch(lib, c.P, c.E, B, dev)
+    gstate = None
+    if cs == 0:
+        gstate = torch.empty(B * lib.sst_viterbi_state_bytes(c.P, c.E),
+                             dtype=torch.uint8, device=dev)
     err = lib.sst_viterbi_rows(
         sen.data_ptr(), n_frames.data_ptr(), c.tp.data_ptr(),
-        c.pred_idx.data_ptr(), c.pred_pen.data_ptr(), c.pred_ok.data_ptr(),
-        _ptr(c.band_pen), _ptr(c.band_ok), c.astart.data_ptr(),
+        src.data_ptr(), pen.data_ptr(), nin.data_ptr(), c.astart.data_ptr(),
         c.aend.data_ptr(), c.entry.data_ptr(), c.final_mask.data_ptr(), B, T,
-        c.P, c.E, c.pred_idx.shape[2], W, tok.data_ptr(), tok.element_size(),
+        c.P, c.E, src.shape[2], tok.data_ptr(), tok.element_size(),
         _ptr(tsc), path.data_ptr(), _ptr(pscore), fscore.data_ptr(),
-        _ptr(gstate), cuda_build.stream(sen))
+        _ptr(gstate), cs, cuda_build.stream(sen))
     cuda_build.check(err, "viterbi_rows")
-    _count(viterbi_rows, c.E, dt, gstate, with_scores)
+    glob = lib.sst_viterbi_smem_bytes(c.P, c.E) > MAX_SMEM_BYTES
+    _count(viterbi_rows, c.E, dt, True if glob else None, with_scores)
+    layout = ("global memory" if cs == 0 else "block" if cs == 1
+              else f"cluster {cs}")
+    for counter, key in ((viterbi_rows.layouts, layout),
+                         (viterbi_rows.tables, table)):
+        counter[key] = counter.get(key, 0) + 1
     return path, pscore, fscore
 
 
 viterbi_rows.launches = 0
 viterbi_rows.forms = {}
+viterbi_rows.layouts = {}
+viterbi_rows.tables = {}
 
 
 def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None):

@@ -424,7 +424,9 @@ def dist_topn_norm(feats: torch.Tensor, gs: GraphScorer,
                    dist_mode: str = "fold"):
     """K2: feats f32 [N, F, L] -> (s, cw) int32 [N, Cu, F, topn]; the
     distance is the fold, or the expanded form under ``dist_mode="mxu"``
-    (any other mode is the fold, as in the JAX package)."""
+    (any other mode is the fold, as in the JAX package).  Each launch
+    counts on ``dist_topn_norm.forms`` ("fold", "mxu") and ``.tiles``
+    (the frames a block takes, the launcher's sst_dist_topn_tile)."""
     if feats.device.type == "cpu":
         return dist_topn_norm_plain(feats, gs, dist_mode)
     if feats.device.type != "cuda":
@@ -446,14 +448,18 @@ def dist_topn_norm(feats: torch.Tensor, gs: GraphScorer,
         cw.data_ptr(), N, Cu, F, D, L, gs.topn, int(mxu),
         cuda_build.stream(feats))
     cuda_build.check(err, "dist_topn_norm")
+    tile = lib.sst_dist_topn_tile(N, F)
     form = "mxu" if mxu else "fold"
     dist_topn_norm.launches += 1
-    dist_topn_norm.forms[form] = dist_topn_norm.forms.get(form, 0) + 1
+    for counter, key in ((dist_topn_norm.forms, form),
+                         (dist_topn_norm.tiles, tile)):
+        counter[key] = counter.get(key, 0) + 1
     return s, cw
 
 
 dist_topn_norm.launches = 0
 dist_topn_norm.forms = {}
+dist_topn_norm.tiles = {}
 
 
 # -- K3 ----------------------------------------------------------------------

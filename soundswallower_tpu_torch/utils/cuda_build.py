@@ -49,13 +49,16 @@ _D = ctypes.c_double
 _SIGS = {
     "sst_feat": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
     "sst_dist_topn_norm": [_P] * 8 + [_I] * 7 + [_P],
+    "sst_dist_topn_tile": [_I, _I],
     "sst_senone_eval": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P],
     "sst_viterbi_batch": [_P] * 13 + [_I] * 6 + [_P, _I] + [_P] * 6,
     "sst_viterbi_smem_bytes": [_I, _I],
     "sst_viterbi_state_bytes": [_I, _I],
     "sst_gather_cols": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "sst_viterbi_rows": [_P] * 12 + [_I] * 6 + [_P, _I] + [_P] * 6,
+    "sst_viterbi_rows": [_P] * 10 + [_I] * 5 + [_P, _I] + [_P] * 5
+    + [_I, _P],
+    "sst_viterbi_rows_cluster": [_I] * 5 + [_P],
     "sst_frame_best_sub": [_P, _P, _I, _I, _I, _P],
     "sst_feat_f32": [_P] * 3 + [_I] * 4 + [_P],
     "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 15 + [_I] * 5

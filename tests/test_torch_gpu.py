@@ -863,3 +863,138 @@ def test_viterbi_batch_register_forms_on_card(cuda_aligner):
         for ws in (False, True):
             _equal(at.viterbi_batch(sen, n, c.vit, ws),
                    at.viterbi_batch_plain(sen, n, c.vit, ws))
+
+
+# -- K6's bounded loop, registers, prefetch and clusters ---------------------
+
+# (E, P): a graph one block holds at one phone a thread (300), the
+# shared-memory limit of one block (7,040 phones of 3 states, 4,741 of
+# 5) and one past it, and int32 tokens (S >= 32,767)
+ROWS_FORMS = [(3, 300), (5, 300), (3, 7040), (3, 7041), (5, 4741),
+              (5, 4742), (3, 11000), (5, 6554)]
+
+
+def _heavy_graph(P: int, E: int, rng, T: int = 48) -> dict:
+    """random_graph's tables plus a few phones of in-degree 9 to 120
+    from anywhere in the graph (a decode graph's junctions), which K6
+    weighs a warp each."""
+    g = random_graph(P, E, rng, T=T)
+    n = at.pred_count(g["pk"])
+    src = [g["pi"][p, :n[p]] for p in range(P)]
+    pen = [g["pp"][p, :n[p]] for p in range(P)]
+    for p in rng.choice(P, min(P, 6), replace=False):
+        k = rng.randint(9, 121)
+        src[p] = np.concatenate([src[p], rng.randint(0, P, k)])
+        pen[p] = np.concatenate([pen[p], -rng.randint(0, 4000, k)])
+    dst = np.repeat(np.arange(P), [len(x) for x in src])
+    g["pi"], g["pp"], g["pk"] = at.build_pred_table(
+        np.concatenate(src), dst, np.concatenate(pen), P, k_pad=126)
+    return g
+
+
+@pytest.mark.parametrize("E,P", ROWS_FORMS)
+def test_viterbi_rows_clusters_equal_plain_on_card(E, P):
+    """K6 on random stacks of three rows, K-slot (cyclic, in-degree 0..3
+    with a few phones of 9 to 120, padded to K = 126) and band (forward
+    edges, W = 8) lists, with and without scores, at the launcher's
+    choice and at clusters of 1, 8 and 16 blocks a row (16 where the
+    card can run it; 1 past one block's shared memory is the
+    global-memory layout): every output equal to the plain version,
+    each launch counted at its layout."""
+    _need_cuda()
+    rng = np.random.RandomState(P + 10 * E)
+    T, S = 40, E * P
+    kg = [_heavy_graph(P, E, rng, T=T) for _ in range(3)]
+    stacks = {"K-slot": stack_random(kg),
+              "band": stack_random([random_graph(P, E, rng, T=T,
+                                                 cyclic=False)
+                                    for _ in range(3)], band_w=8)}
+    sen = rng.randint(0, 4000, (3, T, S))
+    sen[rng.random_sample(sen.shape) < 0.1] = 0x30000000   # below WORST
+    sen = torch.from_numpy(sen.astype(np.int32)).cuda()
+    n = torch.tensor([T, T - 5, 2], dtype=torch.int32).cuda()
+    ran = set()
+    for table, st_ in stacks.items():
+        rc = at.row_consts_from_numpy(st_, "cuda")
+        assert rc.lists()[0] == table
+        for ws in (False, True):
+            want = at.viterbi_rows_plain(sen, n, rc, ws)
+            for cluster in (0, 1, 8, 16):
+                try:
+                    cs = at.rows_layout(P, E, S, ws, cluster)
+                except ValueError:
+                    assert cluster == 16, (table, ws, cluster)
+                    continue
+                before = dict(at.viterbi_rows.layouts)
+                _equal(at.viterbi_rows(sen, n, rc, ws, cluster), want)
+                key = ("global memory" if cs == 0 else "block" if cs == 1
+                       else f"cluster {cs}")
+                assert at.viterbi_rows.layouts[key] == before.get(key, 0) + 1
+                ran.add((cluster, cs))
+    assert {c for c, _ in ran} >= {0, 1, 8}
+    # one block where it holds the row at two phones a thread; past that,
+    # a cluster; one block asked for past its shared memory: global memory
+    auto = dict(ran)[0]
+    assert (auto == 1) == (P <= 2048)
+    glob = cuda_build.lib().sst_viterbi_smem_bytes(P, E) > at.MAX_SMEM_BYTES
+    assert (dict(ran)[1] == 0) == glob
+
+
+def _random_scorer(Cu: int, F: int, D: int, L: int, topn: int, rng):
+    """A GraphScorer of random float32 tables (its mixture weights unused
+    here), densities 1 and 2 copies of density 0 (ties)."""
+    means = rng.standard_normal((Cu, F, D, L)).astype(np.float32)
+    var_t = rng.uniform(0.5, 3.0, (Cu, F, D, L)).astype(np.float32)
+    det = rng.uniform(-3e3, 3e3, (Cu, F, D)).astype(np.float32)
+    for a in (means, var_t, det):
+        a[:, :, 1:3] = a[:, :, :1]
+    muv, c = st.mxu_constants(means, var_t)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    return st.GraphScorer(
+        means=dev(means), var_t=dev(var_t), det=dev(det),
+        mixw=torch.zeros((F, D, 1), dtype=torch.uint8, device="cuda"),
+        cb_pos=torch.zeros(1, dtype=torch.int32, device="cuda"),
+        logadd=torch.zeros(1, dtype=torch.int32, device="cuda"),
+        muv=dev(muv), c=dev(c), topn=topn)
+
+
+def _tile_frames(F: int) -> list:
+    """Frame counts that leave a tile remainder (1, 37, 1,001) and, on
+    this card, the first N past each step of sst_dist_topn_tile's rule
+    (tiles of 32 and of 64 from two blocks an SM), each one frame past a
+    whole tile."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return [1, 37, 1001] + [tile * -(-2 * sms // F) + 1 for tile in (32, 64)]
+
+
+@pytest.mark.parametrize("D,L", [(128, 13), (96, 13), (32, 13), (7, 13),
+                                 (128, 8)])
+def test_dist_topn_tiles_equal_plain_on_card(D, L):
+    """K2 (fold and mxu) against its plain version at frame counts that
+    leave a tile remainder, at each of the launcher's tiles (16, 32 and
+    64, chosen by N), top-N 1 to 8 (at most D), D below a warp and
+    between warps, L = 13 (the model rows in registers) and L = 8 (read
+    from shared memory); frames whose distances clamp at INT_MIN."""
+    _need_cuda()
+    rng = np.random.RandomState(D + L)
+    tiles = set()
+    for N in _tile_frames(3):
+        feats = rng.standard_normal((N, 3, L)).astype(np.float32) * 4
+        feats[0] = 1e5
+        x = torch.from_numpy(feats).cuda()
+        tile = cuda_build.lib().sst_dist_topn_tile(N, 3)
+        assert N % tile, (N, tile)
+        tiles.add(tile)
+        for topn in range(1, min(8, D) + 1):
+            gs = _random_scorer(5, 3, D, L, topn, rng)
+            for mode in ("fold", "mxu"):
+                want = st.dist_topn_norm_plain(x, gs, mode)
+                before = st.dist_topn_norm.tiles.get(tile, 0)
+                got = st.dist_topn_norm(x, gs, mode)
+                assert st.dist_topn_norm.tiles[tile] == before + 1
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (N, topn, mode, tile)
+    assert tiles == {16, 32, 64}

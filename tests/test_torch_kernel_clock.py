@@ -159,7 +159,7 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's K4 and carry form with the parameters
+    """--before DIR calls DIR's K6 and K2 with the parameters
     BEFORE_PARAMS lists, typed as DIR's header declares them; a header
     that declares them otherwise (this tree's) is refused."""
     import ctypes
@@ -168,22 +168,67 @@ def test_before_takes_only_the_declarations_it_calls():
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             "int " if p in ("t0", "n", "B", "T", "P", "E", "K", "C",
-                             "n_fin", "tok_bytes") else
+             "int " if p in ("B", "T", "P", "E", "K", "W", "tok_bytes", "N",
+                             "Cu", "F", "D", "L", "topn", "mxu") else
              "const int32_t* ") + p for p in params) + ");\n")
 
-    header = "// K4\n" + decl("sst_viterbi_batch") + decl("sst_viterbi_chunk")
+    header = "// K6, K2\n" + decl("sst_viterbi_rows") \
+        + decl("sst_dist_topn_norm")
     sigs = cs.before_argtypes(header)
     P, I = ctypes.c_void_p, ctypes.c_int
-    assert sigs["sst_viterbi_batch"] == [P] * 10 + [I] * 6 + [P, I] + [P] * 6
-    assert sigs["sst_viterbi_chunk"] == ([P, I, I] + [P] * 11 + [I] * 4
-                                         + [P, I, P, I, P, P, P, P])
+    assert sigs["sst_viterbi_rows"] == [P] * 12 + [I] * 6 + [P, I] + [P] * 6
+    assert sigs["sst_dist_topn_norm"] == [P] * 8 + [I] * 7 + [P]
+    assert cs.BEFORE_SOURCES == ("viterbi_rows", "viterbi_rows_e5",
+                                 "senscore")
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
-        with pytest.raises(ValueError, match="sst_viterbi_batch is declared"):
+        with pytest.raises(ValueError, match="sst_viterbi_rows is declared"):
             cs.before_argtypes(f.read())
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(decl("sst_viterbi_batch"))
+        cs.before_argtypes(decl("sst_viterbi_rows"))
+
+
+def test_rows_bytes_count_the_real_list_entries():
+    """K6's bound reads each phone's real predecessors in its form's
+    lists (the band's where the stack has one), not the padded tables."""
+    import numpy as np
+
+    from soundswallower_tpu_torch.ops import align_torch as at
+
+    pi, pp, pk = at.build_pred_table([0, 1, 2, 0], [1, 2, 2, 3],
+                                     [0, -1, -2, -3], 4, k_pad=33)
+    st = dict(tp=np.zeros((1, 4, 3, 4), np.int32), pred_idx=pi[None],
+              pred_pen=pp[None], pred_ok=pk[None],
+              astart=np.zeros((1, 4), np.int32),
+              aend=np.ones((1, 4), np.int32),
+              entry=np.zeros((1, 4), np.int32),
+              final_mask=np.zeros((1, 4), bool))
+    base = 4 * (48 + 4 + 4 + 4 + 4) + 4
+    v = at.row_consts_from_numpy(st)
+    assert v.pred_n.tolist() == [[0, 1, 2, 1]]
+    assert cs.rows_bytes(v) == base + 8 * 4
+    W = 4
+    st["band_pen"] = np.full((1, W, 4), -(1 << 30), np.int32)
+    st["band_ok"] = np.zeros((1, W, 4), bool)
+    for src, dst, pen in ((0, 1, 0), (1, 2, -1), (0, 3, -3)):
+        st["band_pen"][0, W - (dst - src), dst] = pen
+        st["band_ok"][0, W - (dst - src), dst] = True
+    v = at.row_consts_from_numpy(st)
+    assert v.lists()[0] == "band" and v.band_n.tolist() == [[0, 1, 1, 1]]
+    assert cs.rows_bytes(v) == base + 8 * 3
+
+
+def test_k6_layouts_read_from_a_path_s_counts():
+    """The layouts of a path's K6 launches from its counts, not its
+    forms or tables, a layout counted 0 left out; none where the path
+    launched no K6.  The large path must take its two clusters."""
+    counts = {"viterbi_rows": 3, "viterbi_rows[3-state, scores]": 1,
+              "viterbi_rows[band]": 2, "viterbi_rows[K-slot]": 1,
+              "viterbi_rows[block]": 1, "viterbi_rows[cluster 8]": 2,
+              "viterbi_rows[global memory]": 0, "dist_topn_norm[64]": 3}
+    assert cs.k6_layouts(counts) == {"block", "cluster 8"}
+    assert cs.k6_layouts({"dist_topn_norm[16]": 2}) == set()
+    assert cs.K6_LAYOUTS["large"] == {"cluster 4", "cluster 8"}
 
 
 def test_vit_bytes_count_the_real_slots():

@@ -92,7 +92,7 @@ def test_pred_count_raises_where_slots_are_not_a_prefix():
 # -- the bounded loop in plain PyTorch ----------------------------------------
 
 def bounded_enter(pred_idx, pred_pen, pred_n, argmax: bool):
-    """The kernels' bounded edge loop (viterbi_step.h enter_strict and
+    """The kernels' bounded edge loop (viterbi_step.h enter_strict_at and
     enter_argmax) over tables [P, K] and state [B, P]: slots 0 .. n-1 of
     each phone in order, K4's strict ``>`` from WORST_SCORE, or the
     carry form's first maximum from slot 0 followed by the first padded

@@ -6,7 +6,11 @@ On one CUDA device, with the synthetic en-us-width model
 three traffic mixes: ``same``, the 8 golden austen utterances of one
 transcript (tools/make_torch_synth_golden.py), ``mixed``, the 32
 different transcripts of tools/make_torch_mixed_golden.py (the union
-scorer's route), or ``decode``, the 8 austen utterances decoded against
+scorer's route), ``fresh``, the same 32 transcripts assigned to the rows
+in a new order every batch (a batch of graphs the aligner has not
+stacked yet, so each batch builds its stack anew, as traffic whose
+transcripts change every batch does; the graphs and the union scorer
+stay cached), or ``decode``, the 8 austen utterances decoded against
 the grammar of tools/make_torch_decode_golden.py (``decode_batch``'s
 route: its begin half ``_batch_begin`` on the decode graph, its end
 half ``_decode_end``), each tiled to B:
@@ -25,7 +29,7 @@ half ``_decode_end``), each tiled to B:
 
 Prints one JSON object.
 Usage: ``[SST_FE=device] python tools/profile_torch_batch.py [B] [N]
-[same|mixed|decode] [ptm|ptm4b|semi|semi4b|ms|ptm5st]``.
+[same|mixed|fresh|decode] [ptm|ptm4b|semi|semi4b|ms|ptm5st]``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from make_synth_model import VARIANTS, make_synth_model  # noqa: E402
@@ -66,7 +71,7 @@ def main(B: int = 256, N: int = 8, traffic: str = "same",
     if traffic in ("same", "decode"):
         audios = [austen_audio(i % N_UTT) for i in range(B)]
         texts = [TEXT] * B
-    elif traffic == "mixed":
+    elif traffic in ("mixed", "fresh"):
         audios = [mixed_audio(i % N_MIXED) for i in range(B)]
         texts32 = mixed_texts()
         texts = [texts32[i % N_MIXED] for i in range(B)]
@@ -85,7 +90,12 @@ def main(B: int = 256, N: int = 8, traffic: str = "same",
             return [al._extract_decode(g, paths[i], int(h.Ts[i]))
                     for i in range(h.realB)]
     else:
+        rng = np.random.RandomState(0)
+
         def begin():
+            if traffic == "fresh":
+                return al.align_batch_begin(
+                    audios, [texts[i] for i in rng.permutation(B)])
             return al.align_batch_begin(audios, texts)
 
         end = al.align_batch_end
