@@ -46,9 +46,11 @@ raises, so the exit code is non-zero and the last line is not printed:
    the events) and as one call from an idle device (``call_ms``), with
    its bound from this run's inputs and, where one PyTorch call
    computes the same function, that call's time on the same clock; a
-   torch.profiler pass over K10's and K7's forms; the device front end's
-   cepstra of austen.raw against the C reference's; the device front end
-   per B=256 batch beside the host C++ one (informational); then K13 on
+   torch.profiler pass over K10's and K7's forms; K8 and K9 also on the
+   device-FE route's 128-row chunk and on one stream piece; the device
+   front end's cepstra of austen.raw against the C reference's; the
+   device front end per B=256 batch beside the host C++ one
+   (informational); then K13 on
    rank 0's token chunk of the long-form batch (int16) and of the large
    grammar's batch (int32), K4's carry form on one row's long-form chunk,
    on a ring step over all rows of each (one launch of R = 4 and of R = 8
@@ -126,12 +128,13 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K6 and K2 from DIR, a
+``python3 chip_smoke.py --before DIR`` also builds K8 and K9 from DIR, a
 checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h`` declares
-them as BEFORE_PARAMS lists (K6 over dense slots or the band, one block
-a row; K2 one block a frame; any other declaration stops the run),
-checks them bit-equal to this tree's on every K6 and K2 entry's inputs
-and times both in turns (``ms_before``).  K6's entries print the
+them as BEFORE_PARAMS lists (their C signatures, unchanged by their
+redesign; any other declaration stops the run), checks them bit-equal to
+this tree's on every K8 and K9 entry's inputs and times both in turns
+(``ms_before``).  K8's and K9's entries print the frames a block and the
+frame tile their launchers take.  K6's entries print the
 layout they take (one block, a cluster of N blocks a row, or the state
 in global memory) and K2's the frame tile; each path's launches are
 also counted by K6 layout and table form and by K2 tile.
@@ -351,6 +354,17 @@ FORMS = [
      "soundswallower_tpu/ops/senscore_jax.py:242"),
     ("fe_spec[remove_dc]", "fe_spec", "remove_dc", "remove_dc",
      "soundswallower_tpu/fe/frontend.py:513"),
+    # K8 and K9 at the device-FE route's 128-row chunk and at one
+    # stream piece (B=1, 32 frames, the masked scan), counted on their
+    # path by form and by rows and frames (``shape``)
+    ("fe_spec[route chunk]", "fe_spec", "window", "device-FE",
+     "soundswallower_tpu/fe/frontend.py:484"),
+    ("fe_noise[route chunk]", "fe_noise", "plain", "device-FE",
+     "soundswallower_tpu/fe/frontend.py:357"),
+    ("fe_spec[stream piece]", "fe_spec", "window", "device-FE",
+     "soundswallower_tpu/fe/frontend.py:484"),
+    ("fe_noise[stream piece]", "fe_noise", "masked", "device-FE",
+     "soundswallower_tpu/fe/frontend.py:403"),
     # PR 8: K10's log spectra (spectrogram) and K7's semi form
     ("fe_cep[logspec]", "fe_cep", "logspec", "device-FE",
      "soundswallower_tpu/fe/frontend.py:535"),
@@ -709,22 +723,22 @@ def rows_bytes(v) -> int:
             + 8 * int(nin.sum()))
 
 
-# -- the parent's K6 and K2 (--before DIR) ----------------------------------
+# -- the parent's K8 and K9 (--before DIR) ----------------------------------
 
-# DIR's soundswallower_tpu_torch/csrc/viterbi_rows.cu, viterbi_rows_e5.cu
-# and senscore.cu built into one library: K6 and K2 before their
-# redesign (K6 over the dense [P, K] slots or the [W, P] band, one block
-# a row; K2 one block a frame), called below with the parameters their
-# declarations in DIR's sst_kernels.h must list
+# DIR's soundswallower_tpu_torch/csrc/fe_spec.cu and fe_noise.cu built
+# into one library: K8 and K9 before their redesign (K8 one block a
+# frame, K9 one block a row with two barriers a frame), called below with
+# the parameters their declarations in DIR's sst_kernels.h must list
 BEFORE: dict = {}
-BEFORE_SOURCES = ("viterbi_rows", "viterbi_rows_e5", "senscore")
+BEFORE_SOURCES = ("fe_spec", "fe_noise")
 BEFORE_PARAMS = {
-    "sst_viterbi_rows": "sen n_frames tp pred_idx pred_pen pred_ok band_pen "
-    "band_ok astart aend entry final_mask B T P E K W tok tok_bytes tsc path "
-    "pscore fscore gstate stream",
-    "sst_dist_topn_norm": "feats means var_t det muv c s cw N Cu F D L topn "
-    "mxu stream",
+    "sst_fe_spec": "sig sig_i16 n_samps prior window perm ccc sss spec_start "
+    "widths coeff out B N T shift size nfft nfilt maxw alpha remove_dc stream",
+    "sst_fe_noise": "mfspec n_frames power noise floor_ peak undef out B T nf "
+    "masked stream",
 }
+# ctypes types of the declared scalar parameters
+BEFORE_SCALARS = {"int": ctypes.c_int, "double": ctypes.c_double}
 
 
 def header_params(header: str, name: str) -> list:
@@ -742,8 +756,10 @@ def header_params(header: str, name: str) -> list:
 
 def before_argtypes(header: str) -> dict:
     """ctypes argument types of BEFORE_PARAMS's launchers as the header
-    declares them; ValueError where a declaration lists other
-    parameters (another signature: calling it would be undefined)."""
+    declares them (pointers and the stream c_void_p, int c_int, double
+    c_double); ValueError where a declaration lists other parameters or
+    a scalar of another type (another signature: calling it would be
+    undefined)."""
     sigs = {}
     for name, want in BEFORE_PARAMS.items():
         params = header_params(header, name)
@@ -751,8 +767,15 @@ def before_argtypes(header: str) -> dict:
         if got != want.split():
             raise ValueError(f"{name} is declared ({', '.join(got)}), not "
                              f"({', '.join(want.split())})")
-        sigs[name] = [ctypes.c_void_p if "*" in t or t == "cudaStream_t"
-                      else ctypes.c_int for t, _ in params]
+        types = []
+        for t, nm in params:
+            if "*" in t or t == "cudaStream_t":
+                types.append(ctypes.c_void_p)
+            elif t in BEFORE_SCALARS:
+                types.append(BEFORE_SCALARS[t])
+            else:
+                raise ValueError(f"{name}: parameter {nm} of type {t}")
+        sigs[name] = types
     return sigs
 
 
@@ -776,7 +799,7 @@ def build_before(root: str) -> None:
              for o in objs]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     if any(p.returncode for p in procs):
-        raise RuntimeError("the parent's K6 and K2 did not build:\n"
+        raise RuntimeError("the parent's K8 and K9 did not build:\n"
                            + "".join(logs))
     so = os.path.join(out, "libsst_before.so")
     subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
@@ -786,62 +809,54 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's K6 and K2 from {root}: built in "
+    log(f"  the parent's K8 and K9 from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_rows(sen, n, v, ws=False):
-    """K6 on the parent's kernel: (path, pscore, fscore), or None
-    without --before."""
+def before_spec(fe, sig, ns, prior, T: int):
+    """K8 on the parent's kernel: mfspec [B, T, nfilt], or None without
+    --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        B, T, S = sen.shape
-        dev = sen.device
-        dt = align_torch.tok_dtype(S)
-        tok = torch.empty((B, T, S), dtype=dt, device=dev)
-        path = torch.empty((B, T), dtype=dt, device=dev)
-        fscore = torch.empty(B, dtype=torch.int32, device=dev)
-        tsc = pscore = None
-        if ws:
-            tsc = torch.empty((B, T, S), dtype=torch.int32, device=dev)
-            pscore = torch.empty((B, T), dtype=torch.int32, device=dev)
-        gstate = align_torch.state_scratch(cuda_build.lib(), v.P, v.E, B, dev)
-        ptr = align_torch._ptr
-        W = 0 if v.band_pen is None else v.band_pen.shape[1]
-        err = BEFORE["lib"].sst_viterbi_rows(
-            sen.data_ptr(), n.data_ptr(), v.tp.data_ptr(),
-            v.pred_idx.data_ptr(), v.pred_pen.data_ptr(),
-            v.pred_ok.data_ptr(), ptr(v.band_pen), ptr(v.band_ok),
-            v.astart.data_ptr(), v.aend.data_ptr(), v.entry.data_ptr(),
-            v.final_mask.data_ptr(), B, T, v.P, v.E, v.pred_idx.shape[2], W,
-            tok.data_ptr(), tok.element_size(), ptr(tsc), path.data_ptr(),
-            ptr(pscore), fscore.data_ptr(), ptr(gstate),
-            cuda_build.stream(sen))
-        cuda_build.check(err, "viterbi_rows (parent)")
-        return path, pscore, fscore
+        B, N = sig.shape
+        tb = fe.tables(sig.device)
+        out = torch.empty((B, T, fe.num_filters), dtype=torch.float64,
+                          device=sig.device)
+        err = BEFORE["lib"].sst_fe_spec(
+            sig.data_ptr(), int(sig.dtype == torch.int16), ns.data_ptr(),
+            prior.data_ptr(), tb["window"].data_ptr(), tb["perm"].data_ptr(),
+            tb["ccc"].data_ptr(), tb["sss"].data_ptr(),
+            tb["spec_start"].data_ptr(), tb["widths"].data_ptr(),
+            tb["coeff"].data_ptr(), out.data_ptr(), B, N, T, fe.frame_shift,
+            fe.frame_size, fe.fft_size, fe.num_filters, fe._maxw,
+            float(np.float32(fe.pre_emphasis_alpha)), int(fe.remove_dc),
+            cuda_build.stream(sig))
+        cuda_build.check(err, "fe_spec (parent)")
+        return out
     return run
 
 
-def before_dist(feats, gs, mode: str = "fold"):
-    """K2 on the parent's kernel: (s, cw), or None without --before."""
+def before_noise(spec, carry, n_frames=None):
+    """K9 on the parent's kernel: (out, new carry) as fe_noise returns
+    them, or None without --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        N, F, L = feats.shape
-        Cu, _, D, _ = gs.means.shape
-        s = torch.empty((N, Cu, F, gs.topn), dtype=torch.int32,
-                        device=feats.device)
-        cw = torch.empty_like(s)
-        err = BEFORE["lib"].sst_dist_topn_norm(
-            feats.data_ptr(), gs.means.data_ptr(), gs.var_t.data_ptr(),
-            gs.det.data_ptr(), gs.muv.data_ptr(), gs.c.data_ptr(),
-            s.data_ptr(), cw.data_ptr(), N, Cu, F, D, L, gs.topn,
-            int(mode == "mxu"), cuda_build.stream(feats))
-        cuda_build.check(err, "dist_topn_norm (parent)")
-        return s, cw
+        B, T, nf = spec.shape
+        new = [c.to(torch.float64).contiguous().clone() for c in carry[:4]]
+        undef = carry[4].to(torch.uint8).contiguous().clone()
+        n = (torch.full((B,), T, dtype=torch.int32, device=spec.device)
+             if n_frames is None else n_frames)
+        out = torch.empty_like(spec)
+        err = BEFORE["lib"].sst_fe_noise(
+            spec.data_ptr(), n.data_ptr(), *(c.data_ptr() for c in new),
+            undef.data_ptr(), out.data_ptr(), B, T, nf,
+            int(n_frames is not None), cuda_build.stream(spec))
+        cuda_build.check(err, "fe_noise (parent)")
+        return out, (*new, undef.bool())
     return run
 
 
@@ -889,8 +904,8 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
 
 def compare_dist(name, x, gs, results, mode: str = "fold",
                  plain_runs: int = 0):
-    """K2 (``mode`` fold or mxu) against its plain version and, under
-    --before, the parent's kernel, with the tile the launcher takes."""
+    """K2 (``mode`` fold or mxu) against its plain version, with the tile
+    the launcher takes."""
     N, F, _ = x.shape
     tile = cuda_build.lib().sst_dist_topn_tile(N, F)
     log(f"  {name}: N={N} frames, Cu={gs.means.shape[0]} F={F} "
@@ -902,7 +917,7 @@ def compare_dist(name, x, gs, results, mode: str = "fold",
                   results, plain_runs=plain_runs,
                   ins=((x, gs.var_t, gs.det, gs.muv, gs.c) if mode == "mxu"
                        else (x, gs.means, gs.var_t, gs.det)),
-                  ops=fold_ops(N, gs), before=before_dist(x, gs, mode))
+                  ops=fold_ops(N, gs))
     results[name]["tile"] = tile
     return out
 
@@ -1040,11 +1055,12 @@ def wall_ms(fn, runs: int = 5) -> float:
 def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
                      big: list, results: dict):
     """K8, K9, K10 and K1's float32 form on the device-FE route's B=256
-    batch, one launch each over all rows (the route launches 128-row
-    chunks), K9 also in the stream's masked form from a carried state;
-    K8-K10 at 16 kHz with nfft 512; the device FE's cepstra of
-    austen.raw against the C reference's; the device FE per B=256 batch
-    beside the host C++ FE (informational)."""
+    batch, one launch each over all rows, K9 also in the stream's masked
+    form from a carried state; K8 and K9 also on the route's own 128-row
+    chunk and on one stream piece (B=1, 20 of 32 frames, masked, from the
+    carry of the frames before it); K8-K10 at 16 kHz with nfft 512; the
+    device FE's cepstra of austen.raw against the C reference's; the
+    device FE per B=256 batch beside the host C++ FE (informational)."""
     fe, dev = al_dev.fe, al_dev.device
     audios, Ts, Tmax = al_dev._batch_shape(big)
     B = len(audios)
@@ -1058,21 +1074,29 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
     prior = torch.zeros(B, dtype=torch.float32, device=dev)
     log(f"  device FE shapes: B={B} N={buf.shape[1]} Tmax={Tmax} "
         f"nfft={fe.fft_size} nfilt={fe.num_filters} ncep={fe.num_cepstra}")
-    spec = compare("fe_spec", lambda: fe_mod.fe_spec(fe, sig, ns, prior, Tmax),
-                   lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, Tmax),
-                   results, plain_runs=0, **spec_bound(fe, sig, ns, prior,
-                                                       B * Tmax))
+    spec = compare_spec("fe_spec", fe, sig, ns, prior, Tmax, results)
     fresh = fe.noise_init(B, dev)
-    den, carry = compare(
-        "fe_noise", lambda: fe_mod.fe_noise(fe, spec, fresh),
-        lambda: fe_mod.fe_noise_plain(fe, spec, fresh, None), results,
-        plain_runs=0, ins=(spec, fresh), ops=40.0 * spec.numel(),
-        rate=F64_OPS)
-    compare("fe_noise[masked, carried]",
-            lambda: fe_mod.fe_noise(fe, spec, carry, Ts_d),
-            lambda: fe_mod.fe_noise_plain(fe, spec, carry, Ts_d), results,
-            plain_runs=0, ins=(spec, carry, Ts_d), ops=40.0 * spec.numel(),
-            rate=F64_OPS)
+    den, carry = compare_noise("fe_noise", fe, spec, fresh, None, results)
+    compare_noise("fe_noise[masked, carried]", fe, spec, carry, Ts_d,
+                  results)
+    # the route's own 128-row chunk (_chunk_feats_device), from a fresh
+    # state
+    ck = al_dev._chunk_size(B)
+    spec_c = compare_spec("fe_spec[route chunk]", fe, sig[:ck], ns[:ck],
+                          prior[:ck], Tmax, results)
+    compare_noise("fe_noise[route chunk]", fe, spec_c,
+                  fe.noise_init(ck, dev), None, results)
+    sig_s, ns_s, prior_s, nf_s, carry_s = stream_piece(fe, dev)
+    spec_s = compare_spec("fe_spec[stream piece]", fe, sig_s, ns_s, prior_s,
+                          32, results)
+    compare_noise("fe_noise[stream piece]", fe, spec_s, carry_s, nf_s,
+                  results)
+    # these entries count their path's launches of their own rows and
+    # frames (fe_spec.shapes, fe_noise.shapes)
+    for name, rows, frames in (("route chunk", ck, Tmax),
+                               ("stream piece", 1, 32)):
+        for k in ("fe_spec", "fe_noise"):
+            results[f"{k}[{name}]"]["shape"] = f"B={rows}, T={frames}"
     cep = compare("fe_cep", lambda: fe_mod.fe_cep(fe, den),
                   lambda: fe_mod.fe_cep_plain(fe, den), results, plain_runs=0,
                   **cep_bound(fe, den))
@@ -1104,18 +1128,10 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
     p16 = torch.zeros(B16, dtype=torch.float32, device=dev)
     log(f"  16 kHz shapes: B={B16} N={N16} T={T16} nfft={fe16.fft_size} "
         f"nfilt={fe16.num_filters}")
-    spec16 = compare("fe_spec[16 kHz, nfft 512]",
-                     lambda: fe_mod.fe_spec(fe16, x16, ns16, p16, T16),
-                     lambda: fe_mod.fe_spec_plain(fe16, x16, ns16, p16, T16),
-                     results, plain_runs=0,
-                     **spec_bound(fe16, x16, ns16, p16, B16 * T16))
-    fresh16 = fe16.noise_init(B16, dev)
-    den16, _ = compare("fe_noise[16 kHz]",
-                       lambda: fe_mod.fe_noise(fe16, spec16, fresh16),
-                       lambda: fe_mod.fe_noise_plain(fe16, spec16, fresh16,
-                                                     None),
-                       results, plain_runs=0, ins=(spec16, fresh16),
-                       ops=40.0 * spec16.numel(), rate=F64_OPS)
+    spec16 = compare_spec("fe_spec[16 kHz, nfft 512]", fe16, x16, ns16, p16,
+                          T16, results)
+    den16, _ = compare_noise("fe_noise[16 kHz]", fe16, spec16,
+                             fe16.noise_init(B16, dev), None, results)
     compare("fe_cep[16 kHz, legacy]", lambda: fe_mod.fe_cep(fe16, den16),
             lambda: fe_mod.fe_cep_plain(fe16, den16), results, plain_runs=0,
             **cep_bound(fe16, den16))
@@ -1153,6 +1169,70 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
         "upload, K8-K10, K1 per chunk): "
         + ", ".join(f"{k} {ms:.3f} ms" for k, ms in fe_walls)
         + " (informational)")
+
+
+def stream_piece(fe, dev):
+    """K8's and K9's inputs for one stream piece as AlignStream._fe_frames
+    makes them: the 1,600 samples of austen.raw after its first 4,800,
+    20 frames of float32 samples padded to 2,048 and 32 frames, the
+    prior, and the masked scan's frame count and the carry of the frames
+    before it: (sig, n_samps, prior, n_frames, carry), B=1."""
+    a0 = austen_audio(0)
+    shift, size = fe.frame_shift, fe.frame_size
+    head = 4800
+    n0 = 1 + (head - size) // shift
+    _, state = fe.mfcc_chunk(torch.from_numpy(a0[:head].astype(np.float32))
+                             .to(dev), head, 64, 0.0, None, n0)
+    off = n0 * shift
+    count = 1 + (head + 1600 - off - size) // shift
+    n_seg = (count - 1) * shift + size
+    seg = np.zeros((1, 2048), np.float32)
+    seg[0, :n_seg] = a0[off:off + n_seg]
+    log(f"  stream piece: B=1, {n_seg} samples of 2048, {count} frames of "
+        f"32, masked, carried")
+    return (torch.from_numpy(seg).to(dev),
+            torch.tensor([n_seg], dtype=torch.int32, device=dev),
+            torch.tensor([float(a0[off - 1])], dtype=torch.float32,
+                         device=dev),
+            torch.tensor([count], dtype=torch.int32, device=dev),
+            tuple(x[None] for x in state))
+
+
+def compare_spec(name, fe, sig, ns, prior, T: int, results: dict,
+                 extra_ops: float = 0.0):
+    """K8 against its plain version and, under --before, the parent's
+    kernel, with the frames a block its launcher takes; ``extra_ops``
+    beside spec_bound's (remove_dc's mean)."""
+    B = sig.shape[0]
+    W = fe_mod.spec_frames(fe)
+    log(f"  {name}: B={B} T={T} nfft={fe.fft_size} nfilt={fe.num_filters}, "
+        f"{W} frames a block ({-(-T // W)} x {B} blocks)")
+    sb = spec_bound(fe, sig, ns, prior, B * T)
+    sb["ops"] += extra_ops
+    out = compare(name, lambda: fe_mod.fe_spec(fe, sig, ns, prior, T),
+                  lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, T),
+                  results, plain_runs=0,
+                  before=before_spec(fe, sig, ns, prior, T), **sb)
+    results[name]["frames_a_block"] = W
+    return out
+
+
+def compare_noise(name, fe, spec, carry, n_frames, results: dict):
+    """K9 (the masked scan where n_frames is given) against its plain
+    version and, under --before, the parent's kernel, with the frame
+    tile its launcher takes."""
+    B, T, nf = spec.shape
+    F = fe_mod.noise_tile(nf)
+    log(f"  {name}: B={B} T={T} nf={nf}, "
+        f"{'masked' if n_frames is not None else 'plain'}, tiles of {F} "
+        f"frames ({-(-T // F)} a row)")
+    ins = (spec, carry) if n_frames is None else (spec, carry, n_frames)
+    out = compare(name, lambda: fe_mod.fe_noise(fe, spec, carry, n_frames),
+                  lambda: fe_mod.fe_noise_plain(fe, spec, carry, n_frames),
+                  results, plain_runs=0, ins=ins, ops=40.0 * spec.numel(),
+                  rate=F64_OPS, before=before_noise(spec, carry, n_frames))
+    results[name]["tile"] = F
+    return out
 
 
 def spec_bound(fe, sig, ns, prior, frames: int) -> dict:
@@ -1615,9 +1695,8 @@ def shape_log(what, sen, v) -> None:
 def compare_vit(name, sen, n, v, results, ws=False, runs=10,
                 cluster: int = 0):
     """K4 (VitConsts) or K6 (RowVitConsts, at ``cluster`` blocks a row,
-    0 the launcher's choice, against the parent's kernel under
-    --before) against its plain version; the plain version's time is
-    that of the comparison call."""
+    0 the launcher's choice) against its plain version; the plain
+    version's time is that of the comparison call."""
     rows = isinstance(v, align_torch.RowVitConsts)
     shape_log(name, sen, v)
     if rows:
@@ -1630,8 +1709,7 @@ def compare_vit(name, sen, n, v, results, ws=False, runs=10,
 
         def fn():
             return align_torch.viterbi_rows(sen, n, v, ws, cluster)
-        graph = dict(n_bytes=nbytes(sen, n) + rows_bytes(v),
-                     before=before_rows(sen, n, v, ws))
+        graph = dict(n_bytes=nbytes(sen, n) + rows_bytes(v))
         plain = align_torch.viterbi_rows_plain
     else:
         def fn():
@@ -2049,14 +2127,9 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     sig = torch.from_numpy(buf).to(dev)
     ns = torch.from_numpy(ns_h).to(dev)
     prior = torch.zeros(len(dca), dtype=torch.float32, device=dev)
-    sb = spec_bound(fe, sig, ns, prior, len(dca) * Tdc)
-    sb["ops"] += 2.0 * fe.frame_size * len(dca) * Tdc   # the mean
-    log(f"  fe_spec[remove_dc]: B={len(dca)} Tmax={Tdc} "
-        f"frame={fe.frame_size}")
-    compare("fe_spec[remove_dc]",
-            lambda: fe_mod.fe_spec(fe, sig, ns, prior, Tdc),
-            lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, Tdc), results,
-            plain_runs=0, **sb)
+    log(f"  fe_spec[remove_dc]: frame={fe.frame_size}")
+    compare_spec("fe_spec[remove_dc]", fe, sig, ns, prior, Tdc, results,
+                 extra_ops=2.0 * fe.frame_size * len(dca) * Tdc)   # the mean
 
     # K1's float32 form on the f32 wire's host cepstra
     audios8, T8, Tm8 = al_f32._batch_shape([austen_audio(i)
@@ -2376,7 +2449,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's K6 and K2)
+    # 2. build (and, with --before DIR, the parent's K8 and K9)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:

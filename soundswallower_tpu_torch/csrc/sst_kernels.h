@@ -153,9 +153,11 @@ int sst_viterbi_chunk(const int32_t* sen, int t0, int n,
                       int32_t* fscore, uint8_t* anext, cudaStream_t stream);
 
 // K8: pre-emphasis, framing, the frame mean (remove_dc != 0), window,
-// FFT, power spectrum, mel fold.
+// FFT, power spectrum, mel fold; one block a tile of
+// sst_fe_spec_frames(...) consecutive frames of one row, a warp a frame.
 // sig int16 (sig_i16 = 1) or float32 [B, N]; n_samps int32 [B]; prior
-// float32 [B]; window float64 [size]; perm int32 [nfft]; ccc/sss float64
+// float32 [B]; window float64 [size]; perm int32 [nfft] the bit reversal
+// (the plain version's table; the kernel computes it); ccc/sss float64
 // [nfft/4]; spec_start/widths int32 [nfilt]; coeff float32 [nfilt, maxw]
 // -> out float64 [B, T, nfilt].
 int sst_fe_spec(const void* sig, int sig_i16, const int32_t* n_samps,
@@ -166,14 +168,25 @@ int sst_fe_spec(const void* sig, int sig_i16, const int32_t* n_samps,
                 int shift, int size, int nfft, int nfilt, int maxw,
                 double alpha, int remove_dc, cudaStream_t stream);
 
-// K9: noise removal.  mfspec float64 [B, T, nf]; n_frames int32 [B];
-// carry power/noise/floor/peak float64 [B, nf] and undef uint8 [B], read
-// and written back -> out float64 [B, T, nf].  masked: the floor
-// update's operand order of the JAX program's masked scan.
+// K8's frames a block for nfft on the current device (1 to 16), 0 where
+// one frame's shared memory does not fit, -1 where the device cannot be
+// read.
+int sst_fe_spec_frames(int shift, int size, int nfft, int nfilt, int maxw);
+
+// K9: noise removal, one block a row in tiles of sst_fe_noise_tile(nf)
+// frames.  mfspec float64 [B, T, nf]; n_frames int32 [B] (NULL: T for
+// every row); carry power/noise/floor/peak float64 [B, nf] and undef
+// uint8 [B], read and written back -> out float64 [B, T, nf].  masked:
+// the floor update's operand order of the JAX program's masked scan.
 int sst_fe_noise(const double* mfspec, const int32_t* n_frames, double* power,
                  double* noise, double* floor_, double* peak, uint8_t* undef,
                  double* out, int B, int T, int nf, int masked,
                  cudaStream_t stream);
+
+// K9's frame tile for nf filters on the current device (32, halved until
+// the block's shared memory fits), -1 where none fits or the device
+// cannot be read.
+int sst_fe_noise_tile(int nf);
 
 // K10: log, DCT (kind 0 dct, 1 htk, 2 legacy), lifter.  mfspec float64
 // [M, nfilt]; mel_cosine float32 [ncep, nfilt]; lifter float32 [ncep] or

@@ -619,13 +619,23 @@ def fe_spec(fe: Frontend, sig: torch.Tensor, n_samps: torch.Tensor,
         cuda_build.stream(sig))
     cuda_build.check(err, "fe_spec")
     form = "remove_dc" if fe.remove_dc else "window"
+    shape = f"{form}, B={B}, T={T}"
     fe_spec.launches += 1
     fe_spec.forms[form] = fe_spec.forms.get(form, 0) + 1
+    fe_spec.shapes[shape] = fe_spec.shapes.get(shape, 0) + 1
     return out
 
 
 fe_spec.launches = 0
 fe_spec.forms = {}
+fe_spec.shapes = {}
+
+
+def spec_frames(fe: Frontend) -> int:
+    """The frames K8's launcher gives a block on the current CUDA device
+    (sst_fe_spec_frames)."""
+    return cuda_build.lib().sst_fe_spec_frames(
+        fe.frame_shift, fe.frame_size, fe.fft_size, fe.num_filters, fe._maxw)
 
 
 # -- K9 ----------------------------------------------------------------------------
@@ -652,19 +662,18 @@ def _noise_floor(p, nz, fl, masked: bool, shared: bool = False):
 
 def fe_noise_plain(fe: Frontend, mfspec: torch.Tensor, carry: tuple,
                    n_frames: torch.Tensor | None):
-    """Plain PyTorch version of K9: mfspec [B, T, nfilt] float64, carry
-    (power, noise, floor, peak [B, nfilt] float64, undef [B] bool),
-    n_frames int32 [B] or None (every frame advances the carry) ->
-    (out [B, T, nfilt] float64, new carry)."""
+    """Plain PyTorch version of K9, in its two phases: mfspec [B, T,
+    nfilt] float64, carry (power, noise, floor, peak [B, nfilt] float64,
+    undef [B] bool), n_frames int32 [B] or None (every frame advances the
+    carry) -> (out [B, T, nfilt] float64, new carry).  The recurrence
+    runs over the frames and yields each frame's gains (the carry never
+    reads them); the smoothing across filters then runs over all frames
+    at once."""
     B, T, nf = mfspec.shape
     dev = mfspec.device
     power, noise, floor, peak, undef = carry
     masked = n_frames is not None
-    # +-SMOOTH_WINDOW neighbourhood of each filter, summed in index order
-    lo = np.maximum(np.arange(nf) - SMOOTH_WINDOW, 0)
-    hi = np.minimum(np.arange(nf) + SMOOTH_WINDOW, nf - 1)
-    inv_width = torch.from_numpy(1.0 / (hi - lo + 1).astype(np.float64)).to(dev)
-    outs = []
+    gains = []
     for t in range(T):
         mfs = mfspec[:, t]
         u = undef[:, None]
@@ -687,15 +696,9 @@ def fe_noise_plain(fe: Frontend, mfspec: torch.Tensor, carry: tuple,
         sig_m = torch.where(sig < pk * LT_LT, pk * LT_MU, sig)
         pk = torch.where(sig > pk * LAMBDA_T, sig, pk * LAMBDA_T)
         sig = torch.maximum(sig_m, fl)
-        gain = torch.where(sig < p * MAX_GAIN,
-                           torch.clamp(sig / p, min=INV_MAX_GAIN),
-                           torch.full_like(sig, MAX_GAIN))
-        coef = torch.zeros_like(gain)
-        for o in range(2 * SMOOTH_WINDOW + 1):
-            take = torch.from_numpy((lo + o) <= hi).to(dev)
-            j = torch.from_numpy(np.minimum(lo + o, hi)).to(dev)
-            coef = torch.where(take, coef + gain[:, j], coef)
-        outs.append(mfs * (coef * inv_width))
+        gains.append(torch.where(sig < p * MAX_GAIN,
+                                 torch.clamp(sig / p, min=INV_MAX_GAIN),
+                                 torch.full_like(sig, MAX_GAIN)))
         keep = torch.ones(B, dtype=torch.bool, device=dev) if n_frames is None \
             else t < n_frames
         k = keep[:, None]
@@ -704,7 +707,18 @@ def fe_noise_plain(fe: Frontend, mfspec: torch.Tensor, carry: tuple,
         floor = torch.where(k, fl_keep, floor)
         peak = torch.where(k, pk, peak)
         undef = torch.where(keep, torch.zeros_like(undef), undef)
-    return torch.stack(outs, dim=1), (power, noise, floor, peak, undef)
+    gain = torch.stack(gains, dim=1) if gains else torch.empty_like(mfspec)
+    # the +-SMOOTH_WINDOW neighbourhood of each filter, summed in index
+    # order, for every frame
+    lo = np.maximum(np.arange(nf) - SMOOTH_WINDOW, 0)
+    hi = np.minimum(np.arange(nf) + SMOOTH_WINDOW, nf - 1)
+    inv_width = torch.from_numpy(1.0 / (hi - lo + 1).astype(np.float64)).to(dev)
+    coef = torch.zeros_like(gain)
+    for o in range(2 * SMOOTH_WINDOW + 1):
+        take = torch.from_numpy((lo + o) <= hi).to(dev)
+        j = torch.from_numpy(np.minimum(lo + o, hi)).to(dev)
+        coef = torch.where(take, coef + gain[..., j], coef)
+    return mfspec * (coef * inv_width), (power, noise, floor, peak, undef)
 
 
 def fe_noise(fe: Frontend, mfspec: torch.Tensor, carry: tuple,
@@ -721,33 +735,48 @@ def fe_noise(fe: Frontend, mfspec: torch.Tensor, carry: tuple,
     ck(mfspec, torch.float64, "mfspec")
     if nf > 1024:
         raise ValueError(f"fe_noise: {nf} filters, at most 1024")
-    new = [c.to(torch.float64).contiguous().clone() for c in carry[:4]]
-    for c in new:
+    for c in carry[:4]:
         if c.shape != (B, nf) or c.device != dev:
             raise ValueError(f"fe_noise: carry shape {tuple(c.shape)} on "
                              f"{c.device}, expected ({B}, {nf}) on {dev}")
-    undef = carry[4].to(torch.uint8).contiguous().clone()
-    masked = n_frames is not None
-    if n_frames is None:
-        n_frames = torch.full((B,), T, dtype=torch.int32, device=dev)
-    ck(n_frames, torch.int32, "n_frames", dev)
-    if (n_frames.shape != (B,) or carry[4].shape != (B,)
-            or carry[4].device != dev):
-        raise ValueError(f"fe_noise: n_frames {tuple(n_frames.shape)} and "
-                         f"undef {tuple(carry[4].shape)} on "
+    if carry[4].shape != (B,) or carry[4].device != dev:
+        raise ValueError(f"fe_noise: undef {tuple(carry[4].shape)} on "
                          f"{carry[4].device}, expected ({B},) on {dev}")
+    # the new carry: one copy of the four float64 carries, one of undef
+    # (as bytes), which the kernel updates in place
+    new = torch.stack([c.to(torch.float64) for c in carry[:4]])
+    undef = carry[4].to(torch.bool).view(torch.uint8).clone()
+    masked = n_frames is not None
+    if masked:
+        ck(n_frames, torch.int32, "n_frames", dev)
+        if n_frames.shape != (B,):
+            raise ValueError(f"fe_noise: n_frames {tuple(n_frames.shape)}, "
+                             f"expected ({B},)")
     out = torch.empty_like(mfspec)
     lib = cuda_build.lib()
-    err = lib.sst_fe_noise(mfspec.data_ptr(), n_frames.data_ptr(),
+    err = lib.sst_fe_noise(mfspec.data_ptr(),
+                           n_frames.data_ptr() if masked else None,
                            *(c.data_ptr() for c in new), undef.data_ptr(),
                            out.data_ptr(), B, T, nf, int(masked),
                            cuda_build.stream(mfspec))
     cuda_build.check(err, "fe_noise")
+    form = "masked" if masked else "plain"
+    shape = f"{form}, B={B}, T={T}"
     fe_noise.launches += 1
-    return out, (*new, undef.bool())
+    fe_noise.forms[form] = fe_noise.forms.get(form, 0) + 1
+    fe_noise.shapes[shape] = fe_noise.shapes.get(shape, 0) + 1
+    return out, (*new.unbind(0), undef.view(torch.bool))
 
 
 fe_noise.launches = 0
+fe_noise.forms = {}
+fe_noise.shapes = {}
+
+
+def noise_tile(nf: int) -> int:
+    """K9's frame tile for nf filters on the current CUDA device
+    (sst_fe_noise_tile)."""
+    return cuda_build.lib().sst_fe_noise_tile(nf)
 
 
 # -- K10 ---------------------------------------------------------------------------

@@ -64,7 +64,9 @@ _SIGS = {
     "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 15 + [_I] * 5
     + [_P, _I, _P, _I, _P, _P, _P, _P],
     "sst_fe_spec": [_P, _I] + [_P] * 10 + [_I] * 8 + [_D, _I, _P],
+    "sst_fe_spec_frames": [_I] * 5,
     "sst_fe_noise": [_P] * 8 + [_I] * 4 + [_P],
+    "sst_fe_noise_tile": [_I],
     "sst_fe_cep": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "sst_ms_dist_topn": [_P] * 6 + [_I] * 6 + [_P],
     "sst_ms_senone_eval": [_P] * 5 + [_I, _P] + [_I] * 8 + [_P],

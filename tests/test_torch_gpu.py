@@ -262,6 +262,102 @@ def test_fe_kernels_equal_plain_on_card(cfg):
     assert torch.equal(fm.feat_f32(cep, n, True), fm.feats_plain(cep, n, True))
 
 
+# K8 and K9 at the edges of their tiling: nfft 128 to 2,048 (16 to 1
+# frames a block), 20, 40 and 45 filters (one producer warp, two, and
+# two with idle lanes; K9's shared tiles past 48 KB at 40 and 45), and
+# remove_dc with one and two levels of the frame sum
+FE_EDGES = {
+    "nfft128": dict(sampling_rate=4000, fft_size=128, num_filters=20,
+                    lower_filt_freq=130, upper_filt_freq=1900,
+                    remove_noise=True),
+    "nfft256": FE_SYNTH,
+    "nfft512-nf40": FE_16K[0],
+    "nfft1024-nf45": dict(sampling_rate=16000, fft_size=1024,
+                          num_filters=45, remove_noise=True),
+    "remove_dc": dict(FE_SYNTH, remove_dc=True),
+    "remove_dc-48k": dict(sampling_rate=48000, remove_dc=True,
+                          remove_noise=True),
+}
+
+
+@pytest.mark.parametrize("cfg", list(FE_EDGES.values()), ids=list(FE_EDGES))
+def test_fe_kernel_tiling_edges_on_card(cfg):
+    """K8 and K9 against their plain versions at B = 1 and an odd B of
+    33, at T = 1 and one below and one above a multiple of K8's frames a
+    block (W) and of K9's frame tile (F); K9 plain and masked, with
+    n_frames of 0, mid-tile and past T, from a fresh and a carried
+    state; the launch counters move once a call."""
+    _need_cuda()
+    from soundswallower_tpu_torch.fe import frontend as ff
+
+    fe = ff.Frontend(**cfg)
+    rng = np.random.RandomState(3)
+    W = ff.spec_frames(fe)
+    F = ff.noise_tile(fe.num_filters)
+    assert W >= 1 and F >= 1
+    form = "remove_dc" if fe.remove_dc else "window"
+    for B in (1, 33):
+        for T in sorted({1, 4 * W - 1, 4 * W + 1, 2 * F - 1, 2 * F + 1}):
+            N = T * fe.frame_shift + fe.frame_size
+            sig = np.clip(np.round(rng.randn(B, N) * 3000), -32768, 32767)
+            x = torch.from_numpy(sig.astype(np.int16 if B > 1
+                                            else np.float32)).cuda()
+            ns = rng.randint(0, N + 1, B).astype(np.int32)
+            ns[0] = N
+            if B > 1:
+                ns[1:3] = (1, max(N - 777, 0))
+            ns = torch.from_numpy(ns).cuda()
+            prior = torch.from_numpy(rng.randn(B).astype(np.float32)
+                                     * 100).cuda()
+            k0, f0 = ff.fe_spec.launches, ff.fe_spec.forms.get(form, 0)
+            spec = ff.fe_spec(fe, x, ns, prior, T)
+            assert ff.fe_spec.launches == k0 + 1
+            assert ff.fe_spec.forms[form] == f0 + 1
+            assert torch.equal(spec, ff.fe_spec_plain(fe, x, ns, prior, T)), \
+                (B, T, W)
+            nf = rng.randint(0, T + 2, B).astype(np.int32)
+            nf[0] = min(F // 2 + 1, T)
+            if B > 1:
+                nf[1:3] = (0, T)
+            nf = torch.from_numpy(nf).cuda()
+            carry = fe.noise_init(B, "cuda")
+            k0 = ff.fe_noise.launches
+            for n_frames in (None, nf, nf):
+                got = ff.fe_noise(fe, spec, carry, n_frames)
+                want = ff.fe_noise_plain(fe, spec, carry, n_frames)
+                assert torch.equal(got[0], want[0]), (B, T, F, n_frames)
+                for a, b in zip(got[1], want[1]):
+                    assert torch.equal(a, b)
+                carry = got[1]
+            assert ff.fe_noise.launches == k0 + 3
+
+
+@pytest.mark.parametrize("nf", [33, 992, 1000, 1024])
+def test_fe_noise_wide_on_card(nf):
+    """K9 at filter counts past one producer warp: 33 (an idle lane
+    past a warp), 992 (31 producer warps and one consumer), 1000 and
+    1024 (no room for consumers: the producers smooth their own tiles)
+    against its plain version, plain and masked."""
+    _need_cuda()
+    from soundswallower_tpu_torch.fe import frontend as ff
+
+    fe = ff.Frontend(**FE_SYNTH)
+    rng = np.random.RandomState(nf)
+    B, T = 3, 2 * ff.noise_tile(nf) + 1
+    spec = torch.from_numpy(np.exp(rng.randn(B, T, nf) * 2.5 + 9.0)).cuda()
+    nf_d = torch.tensor([T, 0, T // 2], dtype=torch.int32).cuda()
+    carry = tuple(torch.zeros((B, nf), dtype=torch.float64).cuda()
+                  for _ in range(4)) + (torch.ones(B, dtype=torch.bool)
+                                        .cuda(),)
+    for n_frames in (None, nf_d):
+        got = ff.fe_noise(fe, spec, carry, n_frames)
+        want = ff.fe_noise_plain(fe, spec, carry, n_frames)
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a, b)
+        carry = got[1]
+
+
 def test_fe_austen_equals_c_golden_on_card():
     _need_cuda()
     import os

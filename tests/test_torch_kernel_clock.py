@@ -159,33 +159,44 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's K6 and K2 with the parameters
-    BEFORE_PARAMS lists, typed as DIR's header declares them; a header
-    that declares them otherwise (this tree's) is refused."""
+    """--before DIR calls DIR's K8 and K9 with the parameters
+    BEFORE_PARAMS lists, typed as DIR's header declares them (a double
+    as a double: K8's alpha); a header that declares them otherwise, or
+    a scalar of a type the harness does not pass, is refused.  This
+    tree's header declares them so (their signatures are unchanged)."""
     import ctypes
 
-    def decl(name):
+    doubles = {"alpha"}
+    ints = {"sig_i16", "B", "N", "T", "shift", "size", "nfft", "nfilt",
+            "maxw", "remove_dc", "nf", "masked"}
+
+    def decl(name, alpha="double"):
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             "int " if p in ("B", "T", "P", "E", "K", "W", "tok_bytes", "N",
-                             "Cu", "F", "D", "L", "topn", "mxu") else
-             "const int32_t* ") + p for p in params) + ");\n")
+             f"{alpha} " if p in doubles else
+             "int " if p in ints else "const int32_t* ") + p
+            for p in params) + ");\n")
 
-    header = "// K6, K2\n" + decl("sst_viterbi_rows") \
-        + decl("sst_dist_topn_norm")
+    header = "// K8, K9\n" + decl("sst_fe_spec") + decl("sst_fe_noise")
     sigs = cs.before_argtypes(header)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    assert sigs["sst_viterbi_rows"] == [P] * 12 + [I] * 6 + [P, I] + [P] * 6
-    assert sigs["sst_dist_topn_norm"] == [P] * 8 + [I] * 7 + [P]
-    assert cs.BEFORE_SOURCES == ("viterbi_rows", "viterbi_rows_e5",
-                                 "senscore")
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    assert sigs["sst_fe_spec"] == [P, I] + [P] * 10 + [I] * 8 + [D, I, P]
+    assert sigs["sst_fe_noise"] == [P] * 8 + [I] * 4 + [P]
+    assert cs.BEFORE_SOURCES == ("fe_spec", "fe_noise")
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
-        with pytest.raises(ValueError, match="sst_viterbi_rows is declared"):
-            cs.before_argtypes(f.read())
+        assert cs.before_argtypes(f.read()) == sigs
+    # a parameter list that differs (K9 without masked), a scalar the
+    # harness cannot type, a missing declaration
+    with pytest.raises(ValueError, match="sst_fe_noise is declared"):
+        cs.before_argtypes(decl("sst_fe_spec") + decl("sst_fe_noise")
+                           .replace(", int masked", ""))
+    with pytest.raises(ValueError, match="alpha of type float"):
+        cs.before_argtypes(decl("sst_fe_spec", "float")
+                           + decl("sst_fe_noise"))
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(decl("sst_viterbi_rows"))
+        cs.before_argtypes(decl("sst_fe_spec"))
 
 
 def test_rows_bytes_count_the_real_list_entries():
