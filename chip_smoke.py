@@ -34,7 +34,9 @@ raises, so the exit code is non-zero and the last line is not printed:
 4. each kernel (K1-K12, K1's float32 form and K4's carry form) against
    its plain PyTorch version on the card, bit-equal, at the shapes the
    paths give it (K2/K3 at the full-inventory shape and K11/K12 on a
-   slice of the dense routes' frames; K8-K10 on the whole B=256 batch
+   slice of the dense routes' frames, K3's full inventory and K11/K12
+   also on the whole chunk the path launches them on, K11/K12 also at
+   a tile remainder, top-N 8 and aw 2; K8-K10 on the whole B=256 batch
    and at 16 kHz, nfft 512; K3's wrap_u8 on the 4-bit semi union route,
    K7's semi form on the semi dense route; K4, K6 and the carry form in
    their 5-state forms on the ptm5st paths, K4 with scores on the
@@ -128,13 +130,16 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K8 and K9 from DIR, a
-checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h`` declares
-them as BEFORE_PARAMS lists (their C signatures, unchanged by their
+``python3 chip_smoke.py --before DIR`` also builds K11 and K12 from DIR,
+a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
+declares them as BEFORE_PARAMS lists (their C signatures before their
 redesign; any other declaration stops the run), checks them bit-equal to
-this tree's on every K8 and K9 entry's inputs and times both in turns
-(``ms_before``).  K8's and K9's entries print the frames a block and the
-frame tile their launchers take.  K6's entries print the
+this tree's on every K11 and K12 entry's inputs and times both in turns
+(``ms_before``).  K11's entries print the frame tile its launcher takes,
+K12's the senone group and frame tile; an entry timed at a shape a path
+launches counts that path's launches at that shape (``shape``), so rule
+2's order reads the path's own shapes.  K8's and K9's entries print the
+frames a block and the frame tile their launchers take.  K6's entries print the
 layout they take (one block, a cluster of N blocks a row, or the state
 in global memory) and K2's the frame tile; each path's launches are
 also counted by K6 layout and table form and by K2 tile.
@@ -269,6 +274,14 @@ VARIANTS = [
      "tools/exp_pallas2.py:54"),
     ("senone_eval[full inventory]", "senone_eval",
      "soundswallower_tpu/ops/senscore_jax.py:254"),
+    # the whole chunks the paths launch K3's full inventory (the dense
+    # route's B=32 rows) and K11/K12 (the ms route's 128 rows) on
+    ("senone_eval[full inventory, chunk]", "senone_eval",
+     "soundswallower_tpu/ops/senscore_jax.py:254"),
+    ("ms_dist_topn[chunk]", "ms_dist_topn",
+     "soundswallower_tpu/ops/senscore_jax.py:316", "backends"),
+    ("ms_senone_eval[chunk]", "ms_senone_eval",
+     "soundswallower_tpu/ops/senscore_jax.py:323", "backends"),
     ("fe_noise[masked, carried]", "fe_noise",
      "soundswallower_tpu/fe/frontend.py:403"),
     ("fe_spec[16 kHz, nfft 512]", "fe_spec",
@@ -307,6 +320,16 @@ VARIANTS = [
      "soundswallower_tpu/ops/align_jax.py:638", "forced"),
     ("viterbi_rows[3-state, int32, scores, cluster 16]", "viterbi_rows",
      "soundswallower_tpu/ops/align_jax.py:638", "forced"),
+    # K11 at a tile remainder and at top-N 8, K12 at top-N 8 and aw 2, on
+    # the ms slice's frames
+    ("ms_dist_topn[tile remainder]", "ms_dist_topn",
+     "soundswallower_tpu/ops/senscore_jax.py:316", "forced"),
+    ("ms_dist_topn[topn 8]", "ms_dist_topn",
+     "soundswallower_tpu/ops/senscore_jax.py:316", "forced"),
+    ("ms_senone_eval[topn 8]", "ms_senone_eval",
+     "soundswallower_tpu/ops/senscore_jax.py:323", "forced"),
+    ("ms_senone_eval[aw 2]", "ms_senone_eval",
+     "soundswallower_tpu/ops/senscore_jax.py:323", "forced"),
 ]
 # entries that a card may not run (a cluster of 16 needs 16 free SMs of
 # one GPC): absent from the kernels line where they did not run
@@ -389,7 +412,7 @@ FORMS = [
 ]
 # the form whose count is a kernel's own entry's launches, where its
 # other forms have entries of their own
-ENTRY_FORM = {"fe_cep": "cepstra"}
+ENTRY_FORM = {"fe_cep": "cepstra", "backtrace_chunk": "int16"}
 # the kernels each of the decode, 5-state and large-graph paths must
 # launch: both front ends, both batch routes, K7 and the carry form
 SLICE_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
@@ -422,7 +445,7 @@ N_BATCHES = 2
 N_BACKEND_BATCHES = 2
 N_FIVE_BATCHES = 2
 N_REQUESTS = 16
-DENSE_SLICE = 2048      # frames of the dense route for K2/K3's comparison
+DENSE_SLICE = 2048      # frames of the dense routes' slice (K2, K3, K11, K12)
 
 
 def log(*a):
@@ -444,11 +467,17 @@ HOST_IN_WINDOW: set = set()
 def flush_l2() -> None:
     """Write a scratch buffer twice the L2's size, so the next launch
     reads its inputs from HBM, as the main path's kernels do (their
-    inputs come from the previous kernel and exceed the L2)."""
+    inputs come from the previous kernel and exceed the L2); then read a
+    clean buffer as large, so that the L2 holds no dirty line whose
+    write-back would fall into the next launch's time."""
     if "buf" not in _clock:
         _clock["buf"] = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
                                     device="cuda")
+        _clock["clean"] = torch.zeros(FLUSH_BYTES // 8, dtype=torch.int64,
+                                      device="cuda")
+        _clock["max"] = torch.empty((), dtype=torch.int64, device="cuda")
     _clock["buf"].zero_()
+    torch.amax(_clock["clean"], dim=0, out=_clock["max"])
 
 
 def sleep_ms(ms: float) -> None:
@@ -723,19 +752,18 @@ def rows_bytes(v) -> int:
             + 8 * int(nin.sum()))
 
 
-# -- the parent's K8 and K9 (--before DIR) ----------------------------------
+# -- the parent's K11 and K12 (--before DIR) -------------------------------
 
-# DIR's soundswallower_tpu_torch/csrc/fe_spec.cu and fe_noise.cu built
-# into one library: K8 and K9 before their redesign (K8 one block a
-# frame, K9 one block a row with two barriers a frame), called below with
-# the parameters their declarations in DIR's sst_kernels.h must list
+# DIR's soundswallower_tpu_torch/csrc/ms_senscore.cu built into a library
+# of its own: K11 and K12 before their redesign (one block a frame, K12
+# over every senone of it), called below with the parameters their
+# declarations in DIR's sst_kernels.h must list
 BEFORE: dict = {}
-BEFORE_SOURCES = ("fe_spec", "fe_noise")
+BEFORE_SOURCES = ("ms_senscore",)
 BEFORE_PARAMS = {
-    "sst_fe_spec": "sig sig_i16 n_samps prior window perm ccc sss spec_start "
-    "widths coeff out B N T shift size nfft nfilt maxw alpha remove_dc stream",
-    "sst_fe_noise": "mfspec n_frames power noise floor_ peak undef out B T nf "
-    "masked stream",
+    "sst_ms_dist_topn": "feats means var_t det dval cw N C F D L ne stream",
+    "sst_ms_senone_eval": "dval cw mixw sen2cb table table_len out N C F D "
+    "S ne zero8 aw stream",
 }
 # ctypes types of the declared scalar parameters
 BEFORE_SCALARS = {"int": ctypes.c_int, "double": ctypes.c_double}
@@ -799,7 +827,7 @@ def build_before(root: str) -> None:
              for o in objs]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     if any(p.returncode for p in procs):
-        raise RuntimeError("the parent's K8 and K9 did not build:\n"
+        raise RuntimeError("the parent's K11 and K12 did not build:\n"
                            + "".join(logs))
     so = os.path.join(out, "libsst_before.so")
     subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
@@ -809,54 +837,48 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's K8 and K9 from {root}: built in "
+    log(f"  the parent's K11 and K12 from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_spec(fe, sig, ns, prior, T: int):
-    """K8 on the parent's kernel: mfspec [B, T, nfilt], or None without
+def before_ms_dist(x, ms):
+    """K11 on the parent's kernel: (dval, cw) [N, C, F, n_best], or None
+    without --before."""
+    if "lib" not in BEFORE:
+        return None
+
+    def run():
+        N, F, L = x.shape
+        C, _, D, _ = ms.means.shape
+        ne = ms.n_best
+        dval = torch.empty((N, C, F, ne), dtype=torch.float32,
+                           device=x.device)
+        cw = torch.empty((N, C, F, ne), dtype=torch.int32, device=x.device)
+        err = BEFORE["lib"].sst_ms_dist_topn(
+            x.data_ptr(), ms.means.data_ptr(), ms.var_t.data_ptr(),
+            ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D, L,
+            ne, cuda_build.stream(x))
+        cuda_build.check(err, "ms_dist_topn (parent)")
+        return dval, cw
+    return run
+
+
+def before_ms_eval(dval, cw, ms):
+    """K12 on the parent's kernel: int16 [N, S], or None without
     --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        B, N = sig.shape
-        tb = fe.tables(sig.device)
-        out = torch.empty((B, T, fe.num_filters), dtype=torch.float64,
-                          device=sig.device)
-        err = BEFORE["lib"].sst_fe_spec(
-            sig.data_ptr(), int(sig.dtype == torch.int16), ns.data_ptr(),
-            prior.data_ptr(), tb["window"].data_ptr(), tb["perm"].data_ptr(),
-            tb["ccc"].data_ptr(), tb["sss"].data_ptr(),
-            tb["spec_start"].data_ptr(), tb["widths"].data_ptr(),
-            tb["coeff"].data_ptr(), out.data_ptr(), B, N, T, fe.frame_shift,
-            fe.frame_size, fe.fft_size, fe.num_filters, fe._maxw,
-            float(np.float32(fe.pre_emphasis_alpha)), int(fe.remove_dc),
-            cuda_build.stream(sig))
-        cuda_build.check(err, "fe_spec (parent)")
+        N, C, F, n = dval.shape
+        out = torch.empty((N, ms.S), dtype=torch.int16, device=dval.device)
+        err = BEFORE["lib"].sst_ms_senone_eval(
+            dval.data_ptr(), cw.data_ptr(), ms.mixw.data_ptr(),
+            ms.sen2cb.data_ptr(), ms.logadd.data_ptr(), ms.logadd.shape[0],
+            out.data_ptr(), N, C, F, ms.mixw.shape[2], ms.S, n, ms.zero8,
+            ms.aw, cuda_build.stream(dval))
+        cuda_build.check(err, "ms_senone_eval (parent)")
         return out
-    return run
-
-
-def before_noise(spec, carry, n_frames=None):
-    """K9 on the parent's kernel: (out, new carry) as fe_noise returns
-    them, or None without --before."""
-    if "lib" not in BEFORE:
-        return None
-
-    def run():
-        B, T, nf = spec.shape
-        new = [c.to(torch.float64).contiguous().clone() for c in carry[:4]]
-        undef = carry[4].to(torch.uint8).contiguous().clone()
-        n = (torch.full((B,), T, dtype=torch.int32, device=spec.device)
-             if n_frames is None else n_frames)
-        out = torch.empty_like(spec)
-        err = BEFORE["lib"].sst_fe_noise(
-            spec.data_ptr(), n.data_ptr(), *(c.data_ptr() for c in new),
-            undef.data_ptr(), out.data_ptr(), B, T, nf,
-            int(n_frames is not None), cuda_build.stream(spec))
-        cuda_build.check(err, "fe_noise (parent)")
-        return out, (*new, undef.bool())
     return run
 
 
@@ -1025,7 +1047,15 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
                 lambda: senscore_torch.senone_eval_plain(s, cw, ds),
                 results, plain_runs=0, **eval_bound(s, cw, ds))
         s, cw = senscore_torch.dist_topn_norm(flat, ds)
-        x = senscore_torch.senone_eval(s, cw, ds)
+        # K3 on the whole chunk, as the dense route launches it
+        x = compare("senone_eval[full inventory, chunk]",
+                    lambda: senscore_torch.senone_eval(s, cw, ds),
+                    lambda: senscore_torch.senone_eval_plain(s, cw, ds),
+                    results, plain_runs=0, **eval_bound(s, cw, ds))
+        for name, n in (("senone_eval[full inventory]", part.shape[0]),
+                        ("senone_eval[full inventory, chunk]",
+                         flat.shape[0])):
+            results[name]["shape"] = f"N={n}, S={ds.S}"
         compare("frame_best_sub",
                 lambda: senscore_torch.frame_best_sub(x),
                 lambda: senscore_torch.frame_best_sub_plain(x), results,
@@ -1200,9 +1230,9 @@ def stream_piece(fe, dev):
 
 def compare_spec(name, fe, sig, ns, prior, T: int, results: dict,
                  extra_ops: float = 0.0):
-    """K8 against its plain version and, under --before, the parent's
-    kernel, with the frames a block its launcher takes; ``extra_ops``
-    beside spec_bound's (remove_dc's mean)."""
+    """K8 against its plain version, with the frames a block its
+    launcher takes; ``extra_ops`` beside spec_bound's (remove_dc's
+    mean)."""
     B = sig.shape[0]
     W = fe_mod.spec_frames(fe)
     log(f"  {name}: B={B} T={T} nfft={fe.fft_size} nfilt={fe.num_filters}, "
@@ -1211,16 +1241,14 @@ def compare_spec(name, fe, sig, ns, prior, T: int, results: dict,
     sb["ops"] += extra_ops
     out = compare(name, lambda: fe_mod.fe_spec(fe, sig, ns, prior, T),
                   lambda: fe_mod.fe_spec_plain(fe, sig, ns, prior, T),
-                  results, plain_runs=0,
-                  before=before_spec(fe, sig, ns, prior, T), **sb)
+                  results, plain_runs=0, **sb)
     results[name]["frames_a_block"] = W
     return out
 
 
 def compare_noise(name, fe, spec, carry, n_frames, results: dict):
     """K9 (the masked scan where n_frames is given) against its plain
-    version and, under --before, the parent's kernel, with the frame
-    tile its launcher takes."""
+    version, with the frame tile its launcher takes."""
     B, T, nf = spec.shape
     F = fe_mod.noise_tile(nf)
     log(f"  {name}: B={B} T={T} nf={nf}, "
@@ -1230,7 +1258,7 @@ def compare_noise(name, fe, spec, carry, n_frames, results: dict):
     out = compare(name, lambda: fe_mod.fe_noise(fe, spec, carry, n_frames),
                   lambda: fe_mod.fe_noise_plain(fe, spec, carry, n_frames),
                   results, plain_runs=0, ins=ins, ops=40.0 * spec.numel(),
-                  rate=F64_OPS, before=before_noise(spec, carry, n_frames))
+                  rate=F64_OPS)
     results[name]["tile"] = F
     return out
 
@@ -1494,13 +1522,53 @@ def phase_device_fe(al: TorchAligner, audios8: list, dg: dict):
         f"after {pushed} samples: equal to the golden")
 
 
+def compare_ms_dist(name, x, ms, results):
+    """K11 against its plain version and, under --before, the parent's
+    kernel, with the tile its launcher takes; its launches count at its
+    frames (``shape``)."""
+    N, F, _ = x.shape
+    C, _, D, L = ms.means.shape
+    tile = cuda_build.lib().sst_dist_topn_tile(N, F)
+    log(f"  {name}: N={N} frames, C={C} F={F} D={D} L={L} "
+        f"top-{ms.n_best}, tiles of {tile} frames ({-(-N // tile)} x {F} "
+        f"blocks, the last tile {N - (N - 1) // tile * tile} frames)")
+    out = compare(name, lambda: senscore_torch.ms_dist_topn(x, ms),
+                  lambda: senscore_torch.ms_dist_topn_plain(x, ms), results,
+                  plain_runs=0, ins=(x, ms.means, ms.var_t, ms.det),
+                  ops=fold_ops(N, ms), before=before_ms_dist(x, ms))
+    results[name].update(tile=tile, shape=f"N={N}, S={ms.S}")
+    return out
+
+
+def compare_ms_eval(name, dval, cw, ms, results):
+    """K12 against its plain version and, under --before, the parent's
+    kernel, with the senone group and frame tile its launcher takes; its
+    launches count at its frames (``shape``).  Bound: 8 int32 operations
+    per (frame, senone, stream, top-N entry)."""
+    N, C, F, n = dval.shape
+    g = senscore_torch.ms_groups(ms)
+    tile = cuda_build.lib().sst_ms_senone_eval_tile(N, ms.S, g.G, g.U, F, n)
+    log(f"  {name}: N={N} frames, S={ms.S} in groups of {g.G} senones "
+        f"(at most {g.U} codebooks a group), tiles of {tile} frames "
+        f"({-(-N // tile)} x {-(-ms.S // g.G)} blocks), top-{n}, aw {ms.aw}")
+    out = compare(name, lambda: senscore_torch.ms_senone_eval(dval, cw, ms),
+                  lambda: senscore_torch.ms_senone_eval_plain(dval, cw, ms),
+                  results, plain_runs=0,
+                  ins=(dval, cw, ms.mixw, ms.sen2cb, ms.logadd),
+                  ops=8.0 * N * ms.S * F * n, rate=I32_OPS,
+                  before=before_ms_eval(dval, cw, ms))
+    results[name].update(tile=tile, group=g.G, shape=f"N={N}, S={ms.S}")
+    return out
+
+
 def phase_kernels_backends(als: dict, results: dict):
-    """K11 and K12 on the ms model's B=256 same-transcript batch (its
-    first 128-row chunk; compared on DENSE_SLICE frames, the kernels
-    also timed on the whole chunk), K3's wrap_u8 on the 4-bit semi
-    union route's B=256 batch, K7's semi form on the semi dense route's
-    B=32 batch; every backend's full-inventory scores of the golden's
-    frames."""
+    """K11 and K12 on the ms model's B=256 same-transcript batch: on
+    DENSE_SLICE frames of its first 128-row chunk, on the whole chunk
+    (the shape the path launches them at), and, on the slice, K11 at a
+    tile remainder and at top-N 8, K12 at top-N 8 and aw 2; K3's wrap_u8
+    on the 4-bit semi union route's B=256 batch, K7's semi form on the
+    semi dense route's B=32 batch; every backend's full-inventory scores
+    of the golden's frames."""
     al = als["ms"]
     ms = al.dense
     big = [austen_audio(i % N_UTT) for i in range(BIG_B)]
@@ -1509,35 +1577,21 @@ def phase_kernels_backends(als: dict, results: dict):
     _, _, feats = next(iter(al._chunk_feats(audios, Ts_d, Tmax)))
     flat = feats.view(-1, 3, feats.shape[-1])
     part = flat[:DENSE_SLICE]
-    C, F, D, L = ms.means.shape
-    log(f"  ms shapes: chunk N={flat.shape[0]} frames, compared on "
-        f"N={part.shape[0]}; C={C} F={F} D={D} L={L} top-{ms.n_best} "
-        f"S={ms.S} aw={ms.aw}")
-    dval, cw = compare(
-        "ms_dist_topn", lambda: senscore_torch.ms_dist_topn(part, ms),
-        lambda: senscore_torch.ms_dist_topn_plain(part, ms), results,
-        plain_runs=0, ins=(part, ms.means, ms.var_t, ms.det),
-        ops=fold_ops(part.shape[0], ms))
-    compare("ms_senone_eval",
-            lambda: senscore_torch.ms_senone_eval(dval, cw, ms),
-            lambda: senscore_torch.ms_senone_eval_plain(dval, cw, ms),
-            results, plain_runs=0,
-            ins=(dval, cw, ms.mixw, ms.sen2cb, ms.logadd),
-            ops=8.0 * part.shape[0] * ms.S * F * ms.n_best, rate=I32_OPS)
-    k11 = time_ms(lambda: senscore_torch.ms_dist_topn(flat, ms), 10,
-                  "ms_dist_topn[chunk]")
-    dval, cw = senscore_torch.ms_dist_topn(flat, ms)
-    k12 = time_ms(lambda: senscore_torch.ms_senone_eval(dval, cw, ms), 10,
-                  "ms_senone_eval[chunk]")
-    N = flat.shape[0]
-    b11 = bound(nbytes(flat, ms.means, ms.var_t, ms.det, dval, cw),
-                fold_ops(N, ms), F32_OPS)
-    b12 = bound(nbytes(dval, cw, ms.mixw, ms.sen2cb, ms.logadd)
-                + 2 * N * ms.S, 8.0 * N * ms.S * F * ms.n_best, I32_OPS)
-    log(f"  ms kernels on the whole {N}-frame chunk (informational): "
-        f"K11 {k11:.4f} ms (bound {b11['bound_ms']:.4f} ms, "
-        f"{b11['bound_by']}), K12 {k12:.4f} ms (bound "
-        f"{b12['bound_ms']:.4f} ms, {b12['bound_by']})")
+    L = ms.means.shape[3]
+    log(f"  ms shapes: chunk N={flat.shape[0]} frames, slice "
+        f"N={part.shape[0]}; S={ms.S} aw={ms.aw}")
+    dval, cw = compare_ms_dist("ms_dist_topn", part, ms, results)
+    compare_ms_eval("ms_senone_eval", dval, cw, ms, results)
+    dval_c, cw_c = compare_ms_dist("ms_dist_topn[chunk]", flat, ms, results)
+    compare_ms_eval("ms_senone_eval[chunk]", dval_c, cw_c, ms, results)
+    del dval_c, cw_c
+    compare_ms_dist("ms_dist_topn[tile remainder]",
+                    part[:part.shape[0] - 37], ms, results)
+    ms8 = dataclasses.replace(ms, topn=8)
+    d8, c8 = compare_ms_dist("ms_dist_topn[topn 8]", part, ms8, results)
+    compare_ms_eval("ms_senone_eval[topn 8]", d8, c8, ms8, results)
+    compare_ms_eval("ms_senone_eval[aw 2]", dval, cw,
+                    dataclasses.replace(ms, aw=2), results)
 
     al = als["semi4b"]
     fresh_union(al)
@@ -2402,17 +2456,26 @@ def form_paths(path) -> tuple:
     return path if isinstance(path, tuple) else (path,)
 
 
+def count_key(kernel: str, result: dict) -> str:
+    """The count a KERNELS or VARIANTS entry's launches read: the
+    kernel's, or its count at the entry's timed shape where its result
+    records one (``shape``, the frames and states of ``fn.shapes``)."""
+    shape = result.get("shape")
+    return f"{kernel}[{shape}]" if shape else kernel
+
+
 def kernel_entries(counts: dict, results: dict) -> list:
     """The kernels line's entries: each kernel's launches from the path
     that brought it in (its entry form's count where its other forms
     have entries), each VARIANTS entry's from its kernel's count on its
-    path, each FORMS entry's from its form's count summed over its paths,
-    of its timed launch's rows and phones only where its result records
-    them (``shape``)."""
+    path, each FORMS entry's from its form's count summed over its paths;
+    of its timed launch's frames and states (KERNELS, VARIANTS) or rows
+    and phones (FORMS) only where its result records them (``shape``)."""
     entries = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts[PATH_OF[name]].get(
                         f"{name}[{ENTRY_FORM[name]}]" if name in ENTRY_FORM
-                        else name, 0), **results[name])
+                        else count_key(name, results[name]), 0),
+                    **results[name])
                for name, _, src, rep in KERNELS]
     sources = {name: src for name, _, src, _ in KERNELS}
     for entry, kernel, rep, *path in VARIANTS:
@@ -2422,7 +2485,8 @@ def kernel_entries(counts: dict, results: dict) -> list:
         path = path[0] if path else PATH_OF[kernel]
         entries.append(dict(name=entry, route="cuda", source=sources[kernel],
                             replaces=rep,
-                            launches=counts.get(path, {}).get(kernel, 0),
+                            launches=counts.get(path, {}).get(
+                                count_key(kernel, results[entry]), 0),
                             **results[entry]))
     for entry, kernel, form, path, rep in FORMS:
         shape = results[entry].get("shape")
@@ -2449,7 +2513,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's K8 and K9)
+    # 2. build (and, with --before DIR, the parent's K11 and K12)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:
@@ -2588,7 +2652,7 @@ def main() -> int:
                                             if path in form_paths(ph)]))
         log(f"  {path} launches: " + ", ".join(
             f"{n} {counts[path].get(n, 0)}" for n in names
-            + sorted(k for k in counts[path] if ", R=" in k)))
+            + sorted(k for k in counts[path] if ", R=" in k or "[N=" in k)))
         log(f"  {path} K6 layouts and tables, K2 tiles: " + (", ".join(
             f"{k} {v}" for k, v in sorted(counts[path].items())
             if k.startswith(("viterbi_rows[", "dist_topn_norm["))

@@ -198,7 +198,8 @@ int sst_fe_cep(const double* mfspec, const float* mel_cosine,
                cudaStream_t stream);
 
 // K11: ms fold + float top-N (ties to the later density, the
-// WORST_DIST floor) or, with ne == D, every density in index order.
+// WORST_DIST floor) or, with ne == D, every density in index order; one
+// block a tile of sst_dist_topn_tile(N, F) frames of one stream (K2's).
 // feats f32 [N, F, L]; means/var_t f32 [C, F, D, L]; det f32 [C, F, D]
 // -> dval f32 [N, C, F, ne], cw int32 [N, C, F, ne].
 int sst_ms_dist_topn(const float* feats, const float* means,
@@ -206,15 +207,28 @@ int sst_ms_dist_topn(const float* feats, const float* means,
                      int32_t* cw, int N, int C, int F, int D, int L, int ne,
                      cudaStream_t stream);
 
-// K12: ms senone eval.  dval f32 / cw int32 [N, C, F, ne]; mixw int32
-// [S, F, D]; sen2cb int32 [S]; table int32 [table_len] (8-bit log-add
-// table); zero8 the 8-bit logmath zero; aw >= 1 -> out int16 [N, S],
-// 0 = best per frame.
+// K12: ms senone eval, in groups of G senones (a power of two up to
+// 128) in codebook order that span at most U codebooks
+// (senscore_torch.ms_groups), one block a group and a tile of
+// sst_ms_senone_eval_tile frames, then each frame's best subtracted.
+// dval f32 / cw int32 [N, C, F, ne]; wts uint8 [S, row] each sorted
+// senone's weights [F, D], rows of row bytes (a multiple of 4); order
+// int32 [S] the senone at each sorted place; slot int32 [S] (sorted) its
+// codebook's place in its group's list gcb int32 [ceil(S / G), U]
+// (codebooks, -1 past a group's own); table int32 [table_len] (8-bit
+// log-add table, entries in [0, 255]); zero8 the 8-bit logmath zero;
+// aw >= 1 -> out int16 [N, S] in senone order, 0 = best per frame;
+// fmin int32 [N] scratch (each frame's best).
 int sst_ms_senone_eval(const float* dval, const int32_t* cw,
-                       const int32_t* mixw, const int32_t* sen2cb,
+                       const uint8_t* wts, int row, const int32_t* order,
+                       const int32_t* slot, const int32_t* gcb, int G, int U,
                        const int32_t* table, int table_len, int16_t* out,
-                       int N, int C, int F, int D, int S, int ne, int zero8,
-                       int aw, cudaStream_t stream);
+                       int32_t* fmin, int N, int C, int F, int D, int S,
+                       int ne, int zero8, int aw, cudaStream_t stream);
+
+// The frame tile K12 takes (0 where one frame's terms do not fit, -1
+// where the device cannot be read).
+int sst_ms_senone_eval_tile(int N, int S, int G, int U, int F, int ne);
 
 // K13: backtrace over one rank's token chunk.  tok int16 (tok_bytes 2)
 // or int32 (4) [R, C, S]; start int32 [R] (the state entering from the

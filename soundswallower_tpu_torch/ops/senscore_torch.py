@@ -53,8 +53,11 @@ Kernels:
 * K12 ``ms_senone_eval``: per (frame, senone) the rounded-up shift of
   each top distance, minus the senone's mixture weight, the full
   logmath_add over the top N with both zero guards, the negated sum over
-  streams in int64, the acoustic weight's truncation, the int16 clamp,
-  then the frame's best subtracted, clamped -> int16 [N, S].
+  streams, the acoustic weight's truncation, the int16 clamp, then the
+  frame's best subtracted, clamped -> int16 [N, S].  The plain version
+  sums in int64; the kernel takes the senones in groups by codebook
+  (``ms_groups``, built once per scorer) and sums in int32 where the
+  value ranges prove the same bits.
 * K5 ``gather_cols``: ``out[b, t, s] = src[b, t, cols[b, s]]`` from an
   int32 or int16 source, widened to int32, with jnp.take_along_axis's
   index rule (a negative index wraps once, one past the end reads the
@@ -73,7 +76,7 @@ the full-inventory shapes.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -85,6 +88,14 @@ MAX_NEG_ASCR = 96
 INT_MIN = -2147483648
 WORST_DIST = float(INT_MIN)  # ms_gauden.c's floor, as a float32
 PLAIN_BLOCK_BYTES = 1 << 28  # working set of one frame block, plain K2/K3
+
+
+def _count(fn, shape: str) -> None:
+    """One launch of fn, also counted on ``fn.shapes`` by its frames and
+    senones (``"N=40960, S=5126"``), so that a timed entry can read the
+    launches a path made at its shape."""
+    fn.launches += 1
+    fn.shapes[shape] = fn.shapes.get(shape, 0) + 1
 
 
 def _frame_blocks(n: int, bytes_per_frame: int):
@@ -258,6 +269,9 @@ class MsScorer:
     zero8: int               # the 8-bit logmath's zero
     aw: int = 1              # acoustic weight (scores truncate by it)
     topn: int = 4
+    # K12's senone groups (ms_groups), built once per scorer; a scorer
+    # made by dataclasses.replace builds its own
+    groups: "MsGroups | None" = field(default=None, init=False, repr=False)
 
     @property
     def S(self) -> int:
@@ -271,19 +285,91 @@ class MsScorer:
         return min(self.topn, D) if self.topn > 0 else D
 
 
+MS_GROUP_MAX = 128       # senones a K12 group holds at most
+MS_GROUP_CODEBOOKS = 8   # codebooks a K12 group spans at most
+
+
+@dataclass(eq=False)
+class MsGroups:
+    """K12's senone groups: the senones in codebook order, cut into
+    groups of G consecutive ones (the last may hold fewer) that span at
+    most U codebooks."""
+
+    G: int                   # senones a group: a power of two <= 128
+    U: int                   # codebooks a group spans at most
+    order: torch.Tensor      # int32 [S] the senone at each sorted place
+    slot: torch.Tensor       # int32 [S] (sorted) the place of its
+    #                          codebook in its group's list
+    gcb: torch.Tensor        # int32 [ceil(S / G), U] each group's
+    #                          codebooks, ascending, -1 past its own
+    wts: torch.Tensor        # uint8 [S, row] the sorted senones' weights
+    #                          [F, D], rows an odd number of 4-byte words
+
+
+def build_ms_groups(sen2cb: torch.Tensor, mixw: torch.Tensor,
+                    logadd: torch.Tensor) -> MsGroups:
+    """K12's groups on sen2cb's device: the senones sorted by codebook
+    (stable), cut into windows of G places, G the largest power of two up
+    to MS_GROUP_MAX whose windows each span at most MS_GROUP_CODEBOOKS
+    codebooks (a 42-codebook model: 128; one codebook a senone: 8).  K12
+    reads the weights and the log-add table as uint8 and sums in int32,
+    exact only for entries in [0, 255] (quantize_mixw_ms clamps the
+    weights at 255; the 8-bit table is uint8): others raise."""
+    for what, t in (("mixture weights", mixw), ("log-add table", logadd)):
+        if t.numel() and (int(t.min()) < 0 or int(t.max()) > 255):
+            raise ValueError(f"the ms {what} must lie in [0, 255]")
+    dev = sen2cb.device
+    sc = sen2cb.long()
+    S = sc.shape[0]
+    order = torch.sort(sc, stable=True).indices
+    cb = sc[order]
+    pos = torch.arange(S, device=dev)
+    new = torch.ones(S, dtype=torch.bool, device=dev)
+    new[1:] = cb[1:] != cb[:-1]
+    G = MS_GROUP_MAX
+    while True:
+        run = torch.cumsum(new | (pos % G == 0), 0) - 1
+        slot = run - run[pos - pos % G]
+        U = int(slot.max()) + 1 if S else 1
+        if G == 1 or U <= MS_GROUP_CODEBOOKS:
+            break
+        G //= 2
+    gcb = torch.full(((S + G - 1) // G, U), -1, dtype=torch.int32,
+                     device=dev)
+    gcb[pos // G, slot] = cb.to(torch.int32)
+    F, D = mixw.shape[1], mixw.shape[2]
+    row = 4 * (((F * D + 3) // 4) | 1)
+    wts = torch.zeros((S, row), dtype=torch.uint8, device=dev)
+    wts[:, :F * D] = mixw[order].reshape(S, F * D).to(torch.uint8)
+    return MsGroups(G=G, U=U, order=order.to(torch.int32),
+                    slot=slot.to(torch.int32), gcb=gcb, wts=wts)
+
+
+def ms_groups(ms: "MsScorer") -> MsGroups:
+    """The scorer's K12 groups, built on its device at first use."""
+    if ms.groups is None:
+        ms.groups = build_ms_groups(ms.sen2cb, ms.mixw, ms.logadd)
+    return ms.groups
+
+
 def ms_scorer_from_numpy(means, var_t, det, mixw_ms, sen2cb, logadd_table,
                          zero8: int, aw: int, topn: int,
                          device) -> MsScorer:
+    """The ms scorer's tables on ``device``; on the card also K12's
+    groups (ms_groups), once per scorer."""
     def dev(a, dtype):
         return to_device(a, dtype, device)
 
     if int(aw) < 1:
         raise ValueError(f"aw={aw}: the acoustic weight must be >= 1")
-    return MsScorer(
+    ms = MsScorer(
         means=dev(means, np.float32), var_t=dev(var_t, np.float32),
         det=dev(det, np.float32), mixw=dev(mixw_ms, np.int32),
         sen2cb=dev(sen2cb, np.int32), logadd=dev(logadd_table, np.int32),
         zero8=int(zero8), aw=int(aw), topn=int(topn))
+    if ms.sen2cb.device.type == "cuda":
+        ms_groups(ms)
+    return ms
 
 
 def ms_scorer(am, device) -> MsScorer:
@@ -507,7 +593,9 @@ def _senone_eval_block(s: torch.Tensor, cw: torch.Tensor,
 def senone_eval(s: torch.Tensor, cw: torch.Tensor, gs: GraphScorer,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """K3: s/cw int32 [N, Cu, F, topn] -> int32 [N, S], written into
-    ``out`` when given (a contiguous [N, S] view of the batch buffer)."""
+    ``out`` when given (a contiguous [N, S] view of the batch buffer).
+    Each launch also counts on ``senone_eval.shapes`` by frames and
+    states."""
     if s.device.type == "cpu":
         r = senone_eval_plain(s, cw, gs)
         if out is None:
@@ -536,11 +624,12 @@ def senone_eval(s: torch.Tensor, cw: torch.Tensor, gs: GraphScorer,
         gs.logadd.data_ptr(), gs.logadd.shape[0], out.data_ptr(), N, Cu, F,
         D, gs.S, topn, int(gs.wrap_u8), cuda_build.stream(s))
     cuda_build.check(err, "senone_eval")
-    senone_eval.launches += 1
+    _count(senone_eval, f"N={N}, S={gs.S}")
     return out
 
 
 senone_eval.launches = 0
+senone_eval.shapes = {}
 
 
 def score_frames_graph(gs: GraphScorer, feats: torch.Tensor,
@@ -654,7 +743,8 @@ def _ms_dist_topn_block(feats: torch.Tensor, ms: MsScorer):
 
 def ms_dist_topn(feats: torch.Tensor, ms: MsScorer):
     """K11: feats f32 [N, F, L] -> (dval f32, cw int32) [N, C, F,
-    n_best]."""
+    n_best].  Each launch also counts on ``ms_dist_topn.shapes`` by its
+    frames and the scorer's senones."""
     if feats.device.type == "cpu":
         return ms_dist_topn_plain(feats, ms)
     if feats.device.type != "cuda":
@@ -674,11 +764,12 @@ def ms_dist_topn(feats: torch.Tensor, ms: MsScorer):
         ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D, L,
         ne, cuda_build.stream(feats))
     cuda_build.check(err, "ms_dist_topn")
-    ms_dist_topn.launches += 1
+    _count(ms_dist_topn, f"N={N}, S={ms.S}")
     return dval, cw
 
 
 ms_dist_topn.launches = 0
+ms_dist_topn.shapes = {}
 
 
 # -- K12 ---------------------------------------------------------------------
@@ -734,7 +825,9 @@ def _ms_senone_eval_block(dval, cw, ms: MsScorer) -> torch.Tensor:
 
 def ms_senone_eval(dval: torch.Tensor, cw: torch.Tensor,
                    ms: MsScorer) -> torch.Tensor:
-    """K12: (dval f32, cw int32) [N, C, F, n] -> int16 [N, S]."""
+    """K12: (dval f32, cw int32) [N, C, F, n] -> int16 [N, S].  Each
+    launch also counts on ``ms_senone_eval.shapes`` by frames and
+    senones."""
     if dval.device.type == "cpu":
         return ms_senone_eval_plain(dval, cw, ms)
     if dval.device.type != "cuda":
@@ -750,18 +843,25 @@ def ms_senone_eval(dval: torch.Tensor, cw: torch.Tensor,
     ck(ms.logadd, torch.int32, "logadd", dev)
     if tuple(cw.shape) != (N, C, F, n):
         raise ValueError(f"ms_senone_eval: cw shape {tuple(cw.shape)}")
+    grp = ms_groups(ms)
+    for name in ("order", "slot", "gcb"):
+        ck(getattr(grp, name), torch.int32, name, dev)
+    ck(grp.wts, torch.uint8, "wts", dev)
     out = torch.empty((N, ms.S), dtype=torch.int16, device=dev)
+    fmin = torch.empty(N, dtype=torch.int32, device=dev)
     err = cuda_build.lib().sst_ms_senone_eval(
-        dval.data_ptr(), cw.data_ptr(), ms.mixw.data_ptr(),
-        ms.sen2cb.data_ptr(), ms.logadd.data_ptr(), ms.logadd.shape[0],
-        out.data_ptr(), N, C, F, D, ms.S, n, ms.zero8, ms.aw,
+        dval.data_ptr(), cw.data_ptr(), grp.wts.data_ptr(), grp.wts.shape[1],
+        grp.order.data_ptr(), grp.slot.data_ptr(), grp.gcb.data_ptr(), grp.G,
+        grp.U, ms.logadd.data_ptr(), ms.logadd.shape[0], out.data_ptr(),
+        fmin.data_ptr(), N, C, F, D, ms.S, n, ms.zero8, ms.aw,
         cuda_build.stream(dval))
     cuda_build.check(err, "ms_senone_eval")
-    ms_senone_eval.launches += 1
+    _count(ms_senone_eval, f"N={N}, S={ms.S}")
     return out
 
 
 ms_senone_eval.launches = 0
+ms_senone_eval.shapes = {}
 
 
 def score_frames_ms(ms: MsScorer, feats: torch.Tensor) -> torch.Tensor:

@@ -1094,3 +1094,163 @@ def test_dist_topn_tiles_equal_plain_on_card(D, L):
                 assert all(torch.equal(a, b) for a, b in zip(got, want)), \
                     (N, topn, mode, tile)
     assert tiles == {16, 32, 64}
+
+
+def _random_ms(C: int, F: int, D: int, L: int, S: int, topn: int, rng,
+               aw: int = 1) -> st.MsScorer:
+    """An ms scorer on the card of random float32 tables and weights:
+    densities 1 and 2 copies of density 0 (ties), densities 3 and 4 one
+    mean (``ZERO_MEAN``) with det -0.0 and +0.0 (distances -0.0 and +0.0
+    at a frame on that mean), every other det negative; S senones on C
+    codebooks (senone s on codebook s where C == S, the 1:1 map); the
+    8-bit table of base 1.0001 (256 entries) and its zero."""
+    from soundswallower_tpu_torch.logmath import SENSCR_SHIFT, LogMath
+    means = rng.standard_normal((C, F, D, L)).astype(np.float32)
+    var_t = rng.uniform(0.5, 3.0, (C, F, D, L)).astype(np.float32)
+    det = rng.uniform(-3e3, -1.0, (C, F, D)).astype(np.float32)
+    for a in (means, var_t, det):
+        a[:, :, 1:3] = a[:, :, :1]
+    if D >= 5:
+        means[:, :, 3:5] = ZERO_MEAN
+        det[:, :, 3] = -0.0
+        det[:, :, 4] = 0.0
+    sen2cb = np.arange(S) if C == S else rng.randint(0, C, S)
+    mixw = rng.randint(0, 256, (S, F, D))
+    lm = LogMath(1.0001, SENSCR_SHIFT, True)
+    return st.ms_scorer_from_numpy(means, var_t, det, mixw, sen2cb,
+                                   np.asarray(lm.table, np.int32), lm.zero,
+                                   aw, topn, "cuda")
+
+
+ZERO_MEAN = np.float32(0.25)
+
+
+def _k11_frames(N: int, F: int, L: int, rng) -> torch.Tensor:
+    """Random frames on the card: frame 0 past every distance's floor,
+    frame 1 partly, frame 2 on ZERO_MEAN (the signed zeros)."""
+    f = (rng.standard_normal((N, F, L)) * 2).astype(np.float32)
+    f[0] = 1e5
+    if N > 1:
+        f[1, :, :4] = 3e3
+    if N > 2:
+        f[2] = ZERO_MEAN
+    return torch.from_numpy(f).cuda()
+
+
+@pytest.mark.parametrize("D", [7, 100, 128])
+def test_ms_dist_topn_tiles_equal_plain_on_card(D):
+    """K11 against its plain version at frame counts that leave a tile
+    remainder and at each of the launcher's tiles (16, 32 and 64, chosen
+    by N), C = 1, 42 and 1:1 (C = S = 64), top-N 1, 4, 8 and D (every
+    density in index order); ties (the later density first), the floor
+    (frame 0: (WORST_DIST, 0)), -0.0 below +0.0 (frame 2)."""
+    _need_cuda()
+    rng = np.random.RandomState(D)
+    tiles = set()
+    for N in _tile_frames(3):
+        x = _k11_frames(N, 3, 13, rng)
+        tile = cuda_build.lib().sst_dist_topn_tile(N, 3)
+        assert N % tile, (N, tile)
+        tiles.add(tile)
+        for C in (1, 42, 64):
+            for topn in sorted({1, 4, 8, D}):
+                ms = _random_ms(C, 3, D, 13, C if C == 64 else 200, topn,
+                                rng)
+                before = ms_dist_topn_shapes()
+                got = st.ms_dist_topn(x, ms)
+                want = st.ms_dist_topn_plain(x, ms)
+                assert ms_dist_topn_shapes() == before + 1
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (N, C, topn, tile)
+                dval, cw = got
+                if topn < D:
+                    assert bool((dval[0] == st.WORST_DIST).all()
+                                and (cw[0] == 0).all())
+                    if N > 2 and D >= 5:
+                        # +0.0 first, then -0.0; ties: density 2 first
+                        assert bool((cw[2, :, :, 0] == 4).all())
+                        if topn > 1:
+                            assert bool((cw[2, :, :, 1] == 3).all())
+                            z = dval[2, :, :, :2].view(torch.int32)
+                            assert bool((z[..., 0] == 0).all()
+                                        and (z[..., 1] == -2 ** 31).all())
+                    # equal distances (densities 0-2): the later first
+                    for a, b in ((0, 1), (1, 2), (0, 2)):
+                        assert not bool(((cw[..., :-1] == a)
+                                         & (cw[..., 1:] == b)).any())
+                else:
+                    assert bool((cw == torch.arange(
+                        D, dtype=torch.int32, device="cuda")).all())
+    assert tiles == {16, 32, 64}
+
+
+def ms_dist_topn_shapes() -> int:
+    return sum(st.ms_dist_topn.shapes.values())
+
+
+def _k12_inputs(N: int, C: int, F: int, n: int, D: int, rng):
+    """K12's inputs on the card: random top-N distances and densities,
+    and frames that reach the floor (0), the first zero guard (1: the
+    first term at or below zero8), the second (2: a later term), the
+    table's end (3: terms 0-600 table steps apart), the lower int16 clamp
+    for some codebooks beside the upper for the others (4, then the
+    clamp after the best's subtraction), the top of the int32 range (5)
+    and a distance past it (6: that tile takes int64)."""
+    dv = rng.uniform(-4e5, 1e4, (N, C, F, n)).astype(np.float32)
+    rows = [np.float32(-2 ** 31) * np.float32(1.5), None, None, None, None,
+            2147482000.0, 3e9]
+    for i, v in enumerate(rows[:N]):
+        if v is not None:
+            dv[i] = v
+    if N > 1:
+        dv[1, ..., 0] = -6e8
+    if N > 2 and n > 1:
+        dv[2, ..., 1:] = -6e8
+    if N > 3:
+        dv[3] = -1e5 + rng.randint(0, 600, (C, F, n)) * 1024.0
+    if N > 4:
+        dv[4] = -4e7
+        dv[4, :C // 2 + 1, 0] = 3e8
+    if N > 6:
+        dv[6, :, :, 1:] = -1e3
+    cw = rng.randint(0, D, (N, C, F, n)).astype(np.int32)
+    return (torch.from_numpy(dv).cuda(), torch.from_numpy(cw).cuda())
+
+
+@pytest.mark.parametrize("C,S,D", [(1, 1000, 7), (42, 5126, 128),
+                                   (42, 1000, 100), (203, 203, 128)])
+def test_ms_senone_eval_groups_equal_plain_on_card(C, S, D):
+    """K12 against its plain version: one codebook, 42 (en-us's count) at
+    S = 5,126 and 1,000 (neither a multiple of the group of 128), the
+    1:1 map (groups of 8 senones, 8 codebooks); D 7, 100, 128; top-N 1,
+    4, 8 and D; aw 1, 2, 3; every frame tile (16 to 128, and the small
+    tiles of a large top-N) with remainders; the floor, both zero guards,
+    table-edge differences, both int16 clamps, the top of the int32
+    range and a distance past it."""
+    _need_cuda()
+    rng = np.random.RandomState(C + S + D)
+    lib = cuda_build.lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = set()
+    for topn in sorted({1, 4, 8, D}):
+        for aw in (1, 2, 3):
+            ms = _random_ms(C, 3, D, 13, S, topn, rng, aw)
+            g = st.ms_groups(ms)
+            assert S % g.G and (g.G, g.U) == ((8, 8) if C == S else
+                                              (128, 1 if C == 1 else g.U))
+            Ns = [1, 7, 37]
+            if topn <= 8 and aw == 1:
+                # the first N of each tile of 32 to 128, one frame past a
+                # whole tile
+                Ns += [t * -(-2 * sms // g.gcb.shape[0]) + 1
+                       for t in (32, 64, 128)]
+            for N in Ns:
+                tile = lib.sst_ms_senone_eval_tile(N, S, g.G, g.U, 3, topn)
+                tiles.add(tile)
+                dval, cw = _k12_inputs(N, C, 3, ms.n_best, D, rng)
+                got = st.ms_senone_eval(dval, cw, ms)
+                want = st.ms_senone_eval_plain(dval, cw, ms)
+                assert torch.equal(got, want), (topn, aw, N, tile)
+                if N > 4 and aw == 1 and C > 1:
+                    assert bool((want[4] == 32767).any())
+    assert {16, 32, 64, 128} <= tiles or C == S

@@ -159,44 +159,101 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's K8 and K9 with the parameters
-    BEFORE_PARAMS lists, typed as DIR's header declares them (a double
-    as a double: K8's alpha); a header that declares them otherwise, or
-    a scalar of a type the harness does not pass, is refused.  This
-    tree's header declares them so (their signatures are unchanged)."""
+    """--before DIR calls DIR's K11 and K12 with the parameters
+    BEFORE_PARAMS lists (their signatures before the redesign), typed as
+    DIR's header declares them; a header that declares them otherwise,
+    or a scalar of a type the harness does not pass, is refused.  This
+    tree's header declares K11 so (its signature is unchanged) and K12
+    otherwise (it takes the senone groups), so a later parent needs its
+    own list."""
     import ctypes
 
-    doubles = {"alpha"}
-    ints = {"sig_i16", "B", "N", "T", "shift", "size", "nfft", "nfilt",
-            "maxw", "remove_dc", "nf", "masked"}
+    ints = {"N", "C", "F", "D", "L", "ne", "table_len", "S", "zero8", "aw"}
 
-    def decl(name, alpha="double"):
+    def decl(name, zero8="int"):
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             f"{alpha} " if p in doubles else
+             f"{zero8} " if p == "zero8" else
              "int " if p in ints else "const int32_t* ") + p
             for p in params) + ");\n")
 
-    header = "// K8, K9\n" + decl("sst_fe_spec") + decl("sst_fe_noise")
+    header = ("// K11, K12\n" + decl("sst_ms_dist_topn")
+              + decl("sst_ms_senone_eval"))
     sigs = cs.before_argtypes(header)
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    assert sigs["sst_fe_spec"] == [P, I] + [P] * 10 + [I] * 8 + [D, I, P]
-    assert sigs["sst_fe_noise"] == [P] * 8 + [I] * 4 + [P]
-    assert cs.BEFORE_SOURCES == ("fe_spec", "fe_noise")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert sigs["sst_ms_dist_topn"] == [P] * 6 + [I] * 6 + [P]
+    assert sigs["sst_ms_senone_eval"] == [P] * 5 + [I, P] + [I] * 8 + [P]
+    assert cs.BEFORE_SOURCES == ("ms_senscore",)
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
-        assert cs.before_argtypes(f.read()) == sigs
-    # a parameter list that differs (K9 without masked), a scalar the
+        here = f.read()
+    with pytest.raises(ValueError, match="sst_ms_senone_eval is declared"):
+        cs.before_argtypes(here)
+    k11 = cs.header_params(here, "sst_ms_dist_topn")
+    assert [nm for _, nm in k11] == cs.BEFORE_PARAMS[
+        "sst_ms_dist_topn"].split()
+    # a parameter list that differs (K12 without aw), a scalar the
     # harness cannot type, a missing declaration
-    with pytest.raises(ValueError, match="sst_fe_noise is declared"):
-        cs.before_argtypes(decl("sst_fe_spec") + decl("sst_fe_noise")
-                           .replace(", int masked", ""))
-    with pytest.raises(ValueError, match="alpha of type float"):
-        cs.before_argtypes(decl("sst_fe_spec", "float")
-                           + decl("sst_fe_noise"))
+    with pytest.raises(ValueError, match="sst_ms_senone_eval is declared"):
+        cs.before_argtypes(decl("sst_ms_dist_topn")
+                           + decl("sst_ms_senone_eval")
+                           .replace(", int aw", ""))
+    with pytest.raises(ValueError, match="zero8 of type float"):
+        cs.before_argtypes(decl("sst_ms_dist_topn")
+                           + decl("sst_ms_senone_eval", "float"))
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(decl("sst_fe_spec"))
+        cs.before_argtypes(decl("sst_ms_dist_topn"))
+
+
+def test_entries_count_launches_at_their_shape():
+    """An entry whose result records the frames and states it was timed
+    at (``shape``) reads its kernel's launches at that shape on its path
+    (``fn.shapes``): the ms chunk entries the path's chunks, the slice
+    entries 0, K3's full-inventory chunk the dense route's; an entry
+    without one reads the kernel's whole count.  K13's own entry counts
+    its int16 launches only."""
+    names, paths = _all_entries()
+    results = {n: dict(ms=1.0, bound_ms=0.1) for n in names}
+    for name, shape in (("ms_dist_topn", "N=2048, S=5126"),
+                        ("ms_senone_eval", "N=2048, S=5126"),
+                        ("ms_dist_topn[chunk]", "N=40960, S=5126"),
+                        ("ms_senone_eval[chunk]", "N=40960, S=5126"),
+                        ("senone_eval[full inventory]", "N=2048, S=5126"),
+                        ("senone_eval[full inventory, chunk]",
+                         "N=10240, S=5126")):
+        results[name]["shape"] = shape
+    counts = {p: {} for p in paths}
+    counts["backends"] = {
+        "ms_dist_topn": 9, "ms_senone_eval": 9,
+        "ms_dist_topn[N=40960, S=5126]": 8, "ms_dist_topn[N=9600, S=5126]": 1,
+        "ms_senone_eval[N=40960, S=5126]": 8,
+        "ms_senone_eval[N=9600, S=5126]": 1}
+    counts["host-FE"] = {"senone_eval": 17,
+                         "senone_eval[N=10240, S=5126]": 2,
+                         "senone_eval[N=40960, S=174]": 15}
+    counts["longform"] = {"backtrace_chunk": 25,
+                          "backtrace_chunk[int16]": 17,
+                          "backtrace_chunk[int32]": 8}
+    got = {e["name"]: e["launches"]
+           for e in cs.kernel_entries(counts, results)}
+    assert got["ms_dist_topn[chunk]"] == got["ms_senone_eval[chunk]"] == 8
+    assert got["ms_dist_topn"] == got["ms_senone_eval"] == 0
+    assert got["senone_eval[full inventory, chunk]"] == 2
+    assert got["senone_eval[full inventory]"] == 0
+    assert got["senone_eval"] == 17
+    assert got["backtrace_chunk"] == got["backtrace_chunk[int16]"] == 17
+    assert got["backtrace_chunk[int32]"] == 8
+    # rule 2 ranks the chunk entries, not the slices counted 0 times
+    ranked = cs.rank_kernels([e for e in cs.kernel_entries(counts, results)
+                              if e["name"].startswith("ms_")])
+    assert [n for n, _, _ in ranked[:2]] == ["ms_dist_topn[chunk]",
+                                             "ms_senone_eval[chunk]"]
+    assert all(v == 0 for _, _, v in ranked[2:])
+    # the forced K11/K12 forms count on no path
+    for name in ("ms_dist_topn[tile remainder]", "ms_dist_topn[topn 8]",
+                 "ms_senone_eval[topn 8]", "ms_senone_eval[aw 2]"):
+        assert got[name] == 0
 
 
 def test_rows_bytes_count_the_real_list_entries():
