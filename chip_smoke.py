@@ -130,13 +130,15 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K11 and K12 from DIR,
+``python3 chip_smoke.py --before DIR`` also builds K3 and K13 from DIR,
 a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
 declares them as BEFORE_PARAMS lists (their C signatures before their
 redesign; any other declaration stops the run), checks them bit-equal to
-this tree's on every K11 and K12 entry's inputs and times both in turns
-(``ms_before``).  K11's entries print the frame tile its launcher takes,
-K12's the senone group and frame tile; an entry timed at a shape a path
+this tree's on every K3 and K13 entry's inputs and times both in turns
+(``ms_before``).  K3's entries print the columns a block, the frame tile
+and the frames a pass of terms its launcher takes, K13's the segment
+length; K11's entries print the frame tile its launcher takes, K12's
+the senone group and frame tile; an entry timed at a shape a path
 launches counts that path's launches at that shape (``shape``), so rule
 2's order reads the path's own shapes.  K8's and K9's entries print the
 frames a block and the frame tile their launchers take.  K6's entries print the
@@ -151,6 +153,7 @@ import base64
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -752,18 +755,20 @@ def rows_bytes(v) -> int:
             + 8 * int(nin.sum()))
 
 
-# -- the parent's K11 and K12 (--before DIR) -------------------------------
+# -- the parent's K3 and K13 (--before DIR) --------------------------------
 
-# DIR's soundswallower_tpu_torch/csrc/ms_senscore.cu built into a library
-# of its own: K11 and K12 before their redesign (one block a frame, K12
-# over every senone of it), called below with the parameters their
-# declarations in DIR's sst_kernels.h must list
+# DIR's soundswallower_tpu_torch/csrc/senscore.cu and backtrace_chunk.cu
+# built into a library of their own: K3 and K13 before their redesign
+# (K3 a block of 16 frames, a thread a (frame, column); K13 a thread a
+# row), called below with the parameters their declarations in DIR's
+# sst_kernels.h must list
 BEFORE: dict = {}
-BEFORE_SOURCES = ("ms_senscore",)
+BEFORE_SOURCES = ("senscore", "backtrace_chunk")
 BEFORE_PARAMS = {
-    "sst_ms_dist_topn": "feats means var_t det dval cw N C F D L ne stream",
-    "sst_ms_senone_eval": "dval cw mixw sen2cb table table_len out N C F D "
-    "S ne zero8 aw stream",
+    "sst_senone_eval": "s cw mixw cb_pos table table_len out N Cu F D S "
+    "topn wrap_u8 stream",
+    "sst_backtrace_chunk": "tok tok_bytes start n_frames path out_state R C "
+    "S t0 stream",
 }
 # ctypes types of the declared scalar parameters
 BEFORE_SCALARS = {"int": ctypes.c_int, "double": ctypes.c_double}
@@ -827,7 +832,7 @@ def build_before(root: str) -> None:
              for o in objs]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     if any(p.returncode for p in procs):
-        raise RuntimeError("the parent's K11 and K12 did not build:\n"
+        raise RuntimeError("the parent's K3 and K13 did not build:\n"
                            + "".join(logs))
     so = os.path.join(out, "libsst_before.so")
     subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
@@ -837,48 +842,45 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's K11 and K12 from {root}: built in "
+    log(f"  the parent's K3 and K13 from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_ms_dist(x, ms):
-    """K11 on the parent's kernel: (dval, cw) [N, C, F, n_best], or None
-    without --before."""
-    if "lib" not in BEFORE:
-        return None
-
-    def run():
-        N, F, L = x.shape
-        C, _, D, _ = ms.means.shape
-        ne = ms.n_best
-        dval = torch.empty((N, C, F, ne), dtype=torch.float32,
-                           device=x.device)
-        cw = torch.empty((N, C, F, ne), dtype=torch.int32, device=x.device)
-        err = BEFORE["lib"].sst_ms_dist_topn(
-            x.data_ptr(), ms.means.data_ptr(), ms.var_t.data_ptr(),
-            ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D, L,
-            ne, cuda_build.stream(x))
-        cuda_build.check(err, "ms_dist_topn (parent)")
-        return dval, cw
-    return run
-
-
-def before_ms_eval(dval, cw, ms):
-    """K12 on the parent's kernel: int16 [N, S], or None without
+def before_senone_eval(s, cw, gs):
+    """K3 on the parent's kernel: int32 [N, S], or None without
     --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        N, C, F, n = dval.shape
-        out = torch.empty((N, ms.S), dtype=torch.int16, device=dval.device)
-        err = BEFORE["lib"].sst_ms_senone_eval(
-            dval.data_ptr(), cw.data_ptr(), ms.mixw.data_ptr(),
-            ms.sen2cb.data_ptr(), ms.logadd.data_ptr(), ms.logadd.shape[0],
-            out.data_ptr(), N, C, F, ms.mixw.shape[2], ms.S, n, ms.zero8,
-            ms.aw, cuda_build.stream(dval))
-        cuda_build.check(err, "ms_senone_eval (parent)")
+        N, Cu, F, topn = s.shape
+        out = torch.empty((N, gs.S), dtype=torch.int32, device=s.device)
+        err = BEFORE["lib"].sst_senone_eval(
+            s.data_ptr(), cw.data_ptr(), gs.mixw.data_ptr(),
+            gs.cb_pos.data_ptr(), gs.logadd.data_ptr(), gs.logadd.shape[0],
+            out.data_ptr(), N, Cu, F, gs.mixw.shape[1], gs.S, topn,
+            int(gs.wrap_u8), cuda_build.stream(s))
+        cuda_build.check(err, "senone_eval (parent)")
         return out
+    return run
+
+
+def before_backtrace(tok, start, t0: int, n):
+    """K13 on the parent's kernel: (path [R, C], the state leaving the
+    chunk [R]), or None without --before."""
+    if "lib" not in BEFORE:
+        return None
+
+    def run():
+        R, C, S = tok.shape
+        path = torch.empty((R, C), dtype=torch.int32, device=tok.device)
+        out = torch.empty(R, dtype=torch.int32, device=tok.device)
+        err = BEFORE["lib"].sst_backtrace_chunk(
+            tok.data_ptr(), tok.element_size(), start.data_ptr(),
+            n.data_ptr(), path.data_ptr(), out.data_ptr(), R, C, S, int(t0),
+            cuda_build.stream(tok))
+        cuda_build.check(err, "backtrace_chunk (parent)")
+        return path, out
     return run
 
 
@@ -909,10 +911,8 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
             for topn in (1, 8):
                 compare_dist(f"dist_topn_norm[topn {topn}]", flat,
                              dataclasses.replace(c.gs, topn=topn), results)
-            compare("senone_eval",
-                    lambda: senscore_torch.senone_eval(s, cw, c.gs),
-                    lambda: senscore_torch.senone_eval_plain(s, cw, c.gs),
-                    results, **eval_bound(s, cw, c.gs))
+            compare_eval("senone_eval", s, cw, c.gs, results,
+                         plain_runs=10)
         senscore_torch.score_frames_graph(
             c.gs, flat, out=sen[i0:i0 + n].view(n * Tmax, -1))
     log(f"  shapes: B={len(audios)} Tmax={Tmax} S={c.gs.S} "
@@ -944,13 +944,34 @@ def compare_dist(name, x, gs, results, mode: str = "fold",
     return out
 
 
-def eval_bound(s, cw, gs) -> dict:
-    """K3's bound arguments: the top-N scores and indices, the mixture
-    weights, the column map and the table in; about 6 int32 operations
-    per (frame, state, stream, top-N entry)."""
-    N, _, F, topn = s.shape
-    return dict(ins=(s, cw, gs.mixw, gs.cb_pos, gs.logadd),
-                ops=6.0 * N * gs.S * F * topn, rate=I32_OPS)
+def k3_ops(N: int, S: int, F: int, topn: int, wrap_u8: bool) -> float:
+    """K3's int32 operations: per (frame, state, stream) the first term's
+    add, then per later term the add, the min, |diff| (two) and the
+    table's subtraction, and the sum over streams; wrap_u8's & 0xFF a
+    term more."""
+    return float(N * S * F) * (5 * topn - 3 + (topn if wrap_u8 else 0))
+
+
+def compare_eval(name, s, cw, gs, results, plain_runs: int = 0):
+    """K3 against its plain version and, under --before, the parent's
+    kernel, with the layout its launcher takes.  Bound: the top-N scores
+    and indices, the mixture weights, the column map and the table in;
+    the int32 operations of its chains (k3_ops)."""
+    N, Cu, F, topn = s.shape
+    G, tile, sub = senscore_torch.senone_eval_layout(N, gs.S, Cu, F, topn)
+    log(f"  {name}: N={N} frames, S={gs.S}, Cu={Cu} F={F} top-{topn}"
+        f"{' wrap_u8' if gs.wrap_u8 else ''}: ranges of {G} columns, tiles "
+        f"of {tile} frames ({-(-gs.S // G)} x {-(-N // tile)} blocks), "
+        f"terms in passes of {sub} frames where a range holds "
+        f"{min(Cu, G)} codebooks")
+    out = compare(name, lambda: senscore_torch.senone_eval(s, cw, gs),
+                  lambda: senscore_torch.senone_eval_plain(s, cw, gs),
+                  results, plain_runs=plain_runs,
+                  ins=(s, cw, gs.mixw, gs.cb_pos, gs.logadd),
+                  ops=k3_ops(N, gs.S, F, topn, gs.wrap_u8), rate=I32_OPS,
+                  before=before_senone_eval(s, cw, gs))
+    results[name].update(cols=G, tile=tile, pass_frames=sub)
+    return out
 
 
 def gather_bytes(src, cols) -> int:
@@ -1042,16 +1063,11 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
             f"N={part.shape[0]}; Cu={ds.means.shape[0]} S={ds.S}")
         s, cw = compare_dist("dist_topn_norm[full inventory]", part, ds,
                              results)
-        compare("senone_eval[full inventory]",
-                lambda: senscore_torch.senone_eval(s, cw, ds),
-                lambda: senscore_torch.senone_eval_plain(s, cw, ds),
-                results, plain_runs=0, **eval_bound(s, cw, ds))
+        compare_eval("senone_eval[full inventory]", s, cw, ds, results)
         s, cw = senscore_torch.dist_topn_norm(flat, ds)
         # K3 on the whole chunk, as the dense route launches it
-        x = compare("senone_eval[full inventory, chunk]",
-                    lambda: senscore_torch.senone_eval(s, cw, ds),
-                    lambda: senscore_torch.senone_eval_plain(s, cw, ds),
-                    results, plain_runs=0, **eval_bound(s, cw, ds))
+        x = compare_eval("senone_eval[full inventory, chunk]", s, cw, ds,
+                         results)
         for name, n in (("senone_eval[full inventory]", part.shape[0]),
                         ("senone_eval[full inventory, chunk]",
                          flat.shape[0])):
@@ -1523,9 +1539,8 @@ def phase_device_fe(al: TorchAligner, audios8: list, dg: dict):
 
 
 def compare_ms_dist(name, x, ms, results):
-    """K11 against its plain version and, under --before, the parent's
-    kernel, with the tile its launcher takes; its launches count at its
-    frames (``shape``)."""
+    """K11 against its plain version, with the tile its launcher takes;
+    its launches count at its frames (``shape``)."""
     N, F, _ = x.shape
     C, _, D, L = ms.means.shape
     tile = cuda_build.lib().sst_dist_topn_tile(N, F)
@@ -1535,16 +1550,16 @@ def compare_ms_dist(name, x, ms, results):
     out = compare(name, lambda: senscore_torch.ms_dist_topn(x, ms),
                   lambda: senscore_torch.ms_dist_topn_plain(x, ms), results,
                   plain_runs=0, ins=(x, ms.means, ms.var_t, ms.det),
-                  ops=fold_ops(N, ms), before=before_ms_dist(x, ms))
+                  ops=fold_ops(N, ms))
     results[name].update(tile=tile, shape=f"N={N}, S={ms.S}")
     return out
 
 
 def compare_ms_eval(name, dval, cw, ms, results):
-    """K12 against its plain version and, under --before, the parent's
-    kernel, with the senone group and frame tile its launcher takes; its
-    launches count at its frames (``shape``).  Bound: 8 int32 operations
-    per (frame, senone, stream, top-N entry)."""
+    """K12 against its plain version, with the senone group and frame
+    tile its launcher takes; its launches count at its frames
+    (``shape``).  Bound: 8 int32 operations per (frame, senone, stream,
+    top-N entry)."""
     N, C, F, n = dval.shape
     g = senscore_torch.ms_groups(ms)
     tile = cuda_build.lib().sst_ms_senone_eval_tile(N, ms.S, g.G, g.U, F, n)
@@ -1555,8 +1570,7 @@ def compare_ms_eval(name, dval, cw, ms, results):
                   lambda: senscore_torch.ms_senone_eval_plain(dval, cw, ms),
                   results, plain_runs=0,
                   ins=(dval, cw, ms.mixw, ms.sen2cb, ms.logadd),
-                  ops=8.0 * N * ms.S * F * n, rate=I32_OPS,
-                  before=before_ms_eval(dval, cw, ms))
+                  ops=8.0 * N * ms.S * F * n, rate=I32_OPS)
     results[name].update(tile=tile, group=g.G, shape=f"N={N}, S={ms.S}")
     return out
 
@@ -1606,10 +1620,7 @@ def phase_kernels_backends(als: dict, results: dict):
     if not gs.wrap_u8:
         raise AssertionError("the 4-bit semi union scorer does not wrap")
     s, cw = senscore_torch.dist_topn_norm(feats.view(-1, 3, L), gs)
-    compare("senone_eval[wrap_u8]",
-            lambda: senscore_torch.senone_eval(s, cw, gs),
-            lambda: senscore_torch.senone_eval_plain(s, cw, gs), results,
-            **eval_bound(s, cw, gs))
+    compare_eval("senone_eval[wrap_u8]", s, cw, gs, results, plain_runs=10)
     fresh_union(al)
 
     al = als["semi"]
@@ -2091,20 +2102,78 @@ def gather_loop(tok, start, t0: int, n):
 
 
 def compare_backtrace(name, tok, start, t0: int, n, results, runs=10):
-    """K13 against its plain version; bound: the path written, the
-    tokens read (one per row and frame), the starts and counts."""
+    """K13 against its plain version and, under --before, the parent's
+    kernel, with the segment length its launcher takes; bound: the path
+    written, the tokens read (one per row and frame), the starts and
+    counts."""
     R, C, S = tok.shape
-    log(f"  {name}: R={R} C={C} S={S} tokens {tok.dtype}")
+    L = cuda_build.lib().sst_backtrace_segment_len(R, C, S,
+                                                   tok.element_size())
+    log(f"  {name}: R={R} C={C} S={S} tokens {tok.dtype}: segments of {L} "
+        f"frames ({-(-C // L)} a row"
+        f"{', one chain' if L == C else ''})")
     res = {}
     compare(name, lambda: align_torch.backtrace_chunk(tok, start, t0, n),
             lambda: align_torch.backtrace_chunk_plain(tok, start, t0, n),
             res, plain_runs=0, ins=(start, n), runs=runs,
-            library=gather_loop(tok, start, t0, n))
+            library=gather_loop(tok, start, t0, n),
+            before=before_backtrace(tok, start, t0, n))
     r = res[name]
     b = bound(R * C * tok.element_size() + nbytes(start, n) + 4 * R * C
               + 4 * R, 0.0, I32_OPS)
-    r.update(b)
+    r.update(b, segment=L)
+    r["other_form"] = other_backtrace_form(name, tok, start, t0, n, L,
+                                           r["ms"], runs)
     results[name] = r
+
+
+def backtrace_at(tok, start, t0: int, n, L: int):
+    """K13's launcher with segments of L frames (the wrapper takes
+    sst_backtrace_segment_len's): (path [R, C], the state leaving the
+    chunk [R])."""
+    R, C, S = tok.shape
+    K = -(-C // L)
+
+    def run():
+        path = torch.empty((R, C), dtype=torch.int32, device=tok.device)
+        out = torch.empty(R, dtype=torch.int32, device=tok.device)
+        maps = torch.empty((R, K, S) if K > 1 else (0,), dtype=torch.int32,
+                           device=tok.device)
+        err = cuda_build.lib().sst_backtrace_chunk(
+            tok.data_ptr(), tok.element_size(), start.data_ptr(),
+            n.data_ptr(), path.data_ptr(), out.data_ptr(), maps.data_ptr(),
+            R, C, S, int(t0), L, cuda_build.stream(tok))
+        cuda_build.check(err, "backtrace_chunk")
+        return path, out
+    return run
+
+
+def other_backtrace_form(name, tok, start, t0: int, n, L: int, ms: float,
+                         runs: int) -> dict:
+    """The form K13's launcher did not take on this chunk, checked
+    bit-equal and timed in turns with the one it took (taken, other,
+    other, taken): one chain where it cut segments, segments of
+    ceil(sqrt(C)) frames where it kept one chain.  It reads which side
+    of sst_backtrace_segment_len's estimate is faster here."""
+    C = tok.shape[1]
+    other = (C if L < C
+             else max(math.ceil(math.sqrt(C)), -(-C // 1024)))
+    taken = backtrace_at(tok, start, t0, n, L)
+    alt = backtrace_at(tok, start, t0, n, other)
+    if max_abs_err(alt(), taken()) != 0.0:
+        raise AssertionError(f"{name}: segments of {other} frames differ "
+                             f"from segments of {L}")
+    what = f"{name} segments"
+    turns = [time_ms(taken, runs, what), time_ms(alt, runs, what),
+             time_ms(alt, runs, what), time_ms(taken, runs, what)]
+    res = dict(segment=other, ms=(turns[1] + turns[2]) / 2,
+               taken_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+    log(f"  {name}: segments of {other} frames "
+        f"{'(one chain) ' if other == C else ''}{res['ms']:.4f} ms, of "
+        f"{L} (taken) {res['taken_ms']:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in turns)}); the wrapper's launch "
+        f"{ms:.4f} ms")
+    return res
 
 
 def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
@@ -2513,7 +2582,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's K11 and K12)
+    # 2. build (and, with --before DIR, the parent's K3 and K13)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:

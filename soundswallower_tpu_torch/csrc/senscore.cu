@@ -48,12 +48,44 @@
 //
 // K3 replaces the senone-evaluation half of B3 (_topn_sen_stage_graph
 // + _fast_logadd).  The TPU program looked the mixture weights up with
-// a one-hot bf16 matmul on the MXU; here each thread gathers them
-// directly from the [F, D, S] uint8 table and does the 8-bit log-add
-// with a table in shared memory, which equals the TPU's staircase sum
+// a one-hot bf16 matmul on the MXU; here the weights are read directly
+// from the [F, D, S] uint8 table and the 8-bit log-add reads the table
+// in shared memory, which equals the TPU's staircase sum
 // (ScorerTables.from_am asserts the staircase rebuilds the table).
-// Bound: gathers, 2*F*topn 4-byte reads + F*topn byte reads per
-// (frame, state).
+// Bound: operations, about 6 int32 operations per (frame, state, stream,
+// top-N entry).
+// Design (K12's, ms_senscore.cu): a block takes a range of G consecutive
+// columns (128, or 64 or 32 where that wastes fewer of the last range's
+// lanes, k3_cols) and a tile of NT frames (128, halved to 16 while the
+// card would be short of blocks, k3_tile); the ranges of a tile are
+// neighbours in the grid, so they run together and read the tile's
+// terms from HBM once.  A block stages its columns' weights
+// mixw[:, :, range] once, F*D rows of G bytes an odd number of words
+// apart (a warp whose columns read different cw reads different banks),
+// and the table.  It reads cb_pos for its columns and finds their U
+// distinct codebooks itself (first occurrence order), so no host
+// structure is built per scorer (the fresh route builds a union scorer
+// every batch).  Then it stages the top-N terms of those codebooks,
+// each packed in 16 bits as (s << 7) | cw (s lies in [0,
+// SST_MAX_NEG_ASCR] after K2's norm and cw < D <= 128), for as many of
+// the tile's frames as its term buffer holds (20 KB, k3_term_bytes, so
+// that three blocks fit an SM at en-us width): where U codebooks
+// outnumber what the buffer holds for the whole tile, the block takes
+// the tile's frames in passes, every column in every pass.  Both
+// stagings keep eight loads a thread in flight before the first store
+// (the weights a warp-wide row at a time, rows of any alignment
+// funnel-shifted into words): issued one by one they leave each block
+// waiting on L2 latency.  A thread takes one column and every
+// (256 / G)-th frame of a pass, two frames' chains at once: per stream
+// the log-add over j in order, the first term as it is, wrap_u8's
+// & 0xFF, then the int32 sum over streams.  The table sits in shared
+// memory zero-padded to 768 entries, and a difference reads it at
+// min(diff, 767), whose entry is 0: the running log-add goes below 0,
+// so a difference can pass the table's end, and there the guard's 0 is
+// what it reads.  A pass whose terms hold an s outside [0, 511] (no K2
+// output does), or a table of 768 entries or more, reads the terms from
+// global memory and the table with the guard instead.  top-N and
+// wrap_u8 are template parameters.
 //
 // Both are bit-equal to the JAX programs: the fold is rounded as XLA's
 // CPU backend rounds it (each step one fused multiply-add of the rounded
@@ -62,16 +94,22 @@
 // INT_MIN clamp, and every tie goes to the lowest index.  K3 at the
 // full inventory (S = n_sen, cb_pos = sen2cb) is B7's mixture eval.
 #include <climits>
+#include <type_traits>
 
 #include "sst_kernels.h"
 
 namespace {
 
 constexpr int kPerLane = SST_MAX_DENSITIES / 32;
-constexpr int kFramesPerBlock = 16;  // K3 block: frames sharing one table load
 constexpr int kK2Threads = 256;      // K2 block
 constexpr int kK2Fold = 4;           // frames a K2 thread folds at once
 constexpr int kK2L = 13;             // the dims whose model rows sit in registers
+constexpr int kK3Threads = 256;          // K3 block
+constexpr int kK3TermBytes = 20 * 1024;  // K3: a pass's staged terms at most
+constexpr int kK3TileMax = 128;          // K3: frames a tile at most
+constexpr int kK3Ilp = 2;                // K3: frames a thread scores at once
+constexpr int kK3Rows = 8;               // K3: staging loads a thread has in flight
+constexpr int kK3Tab = 768;              // K3: the table's entries in shared memory
 
 __device__ __forceinline__ int32_t int_dist(float d) {
   // XLA's convert truncates toward zero; _int_dist clamps below INT_MIN.
@@ -342,38 +380,269 @@ __global__ void __launch_bounds__(kK2Threads) dist_topn_norm_kernel(
   }
 }
 
-__global__ void senone_eval_kernel(
+__host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
+
+// K3's dynamic shared memory: the weight rows [F*D][G + 4] (uint8), the
+// term buffer of TB bytes ([sub][U][F*topn] uint16), the table
+// zero-padded to kK3Tab, then
+// the range's codebooks, the first occurrence and slot of each column,
+// the distinct codebooks [G] each, and a count a warp.
+inline size_t k3_smem_bytes(int F, int D, int G, int TB) {
+  return (size_t)round16(F * D * (G + 4)) + round16(TB) +
+         sizeof(int32_t) * ((size_t)kK3Tab + 4 * G + kK3Threads / 32);
+}
+
+// Rows of cnt <= G bytes, row i at src + i * S (any alignment), into
+// dst + i * RS (RS = G + 4): a warp takes 32 / W rows at once (W = G / 4
+// words a row), a lane a word, kK3Rows row groups a step with every load
+// in flight before the first store.  Each destination word comes from
+// the one or two aligned source words it spans (funnel shift); the
+// second is read only where a byte of the row lies in it.
+__device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* src,
+                                           int rows, int S, int cnt, int G) {
+  const int W = G >> 2, RS = G + 4;
+  const int lane = threadIdx.x & 31;
+  const int k = lane & (W - 1);  // this lane's word
+  const int step = (blockDim.x >> 5) * (32 / W);
+  const bool need = 4 * k < cnt;
+  for (int r0 = (threadIdx.x >> 5) * (32 / W) + lane / W; r0 < rows;
+       r0 += kK3Rows * step) {
+    uint32_t lo[kK3Rows], hi[kK3Rows];
+    unsigned mis[kK3Rows];
+#pragma unroll
+    for (int u = 0; u < kK3Rows; ++u) {
+      const int row = r0 + u * step;
+      lo[u] = hi[u] = 0u;
+      mis[u] = 0u;
+      if (row < rows && need) {
+        const uintptr_t a = reinterpret_cast<uintptr_t>(src + (size_t)row * S);
+        const uintptr_t p = a + 4 * k;
+        mis[u] = (unsigned)(p & 3);
+        const uint32_t* const q = reinterpret_cast<const uint32_t*>(p - mis[u]);
+        lo[u] = __ldg(q);
+        if (mis[u] && p - mis[u] + 4 < a + cnt) hi[u] = __ldg(q + 1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kK3Rows; ++u) {
+      const int row = r0 + u * step;
+      if (row < rows && need)
+        reinterpret_cast<uint32_t*>(dst + row * RS)[k] =
+            __funnelshift_r(lo[u], hi[u], 8 * mis[u]);
+    }
+  }
+}
+
+template <int kTopn, bool kWrap>
+__global__ void __launch_bounds__(kK3Threads) senone_eval_kernel(
     const int32_t* __restrict__ s, const int32_t* __restrict__ cw,
     const uint8_t* __restrict__ mixw, const int32_t* __restrict__ cb_pos,
     const int32_t* __restrict__ table, int table_len, int32_t* __restrict__ out,
-    int N, int Cu, int F, int D, int S, int topn, int wrap_u8) {
-  extern __shared__ int32_t tab[];
-  for (int i = threadIdx.x; i < table_len; i += blockDim.x) tab[i] = table[i];
+    int N, int Cu, int F, int D, int S, int G, int NT, int TB) {
+  extern __shared__ __align__(16) uint8_t smb[];
+  const int RS = G + 4;  // a weight row: G bytes, an odd number of words
+  const int Fn = F * kTopn;
+  uint8_t* const w = smb;  // [F * D][RS]
+  uint16_t* const terms =
+      reinterpret_cast<uint16_t*>(smb + round16(F * D * RS));  // [sub][U][Fn]
+  int32_t* const tab = reinterpret_cast<int32_t*>(
+      reinterpret_cast<uint8_t*>(terms) + round16(TB));
+  int32_t* const cbs = tab + kK3Tab;     // [G] each column's codebook
+  int32_t* const first = cbs + G;        // [G] its first occurrence
+  int32_t* const slot = first + G;       // [G] its codebook's slot
+  int32_t* const ucb = slot + G;         // [G] the distinct codebooks
+  int32_t* const wcount = ucb + G;       // [warps] first occurrences a warp
+  const int tid = threadIdx.x;
+  // the ranges of one tile are neighbours in the grid, so they run
+  // together and the tile's terms come from HBM once
+  const int c0 = blockIdx.x * G;
+  const int cnt = min(G, S - c0);
+  const int t0 = blockIdx.y * NT;
+  const int nt = min(NT, N - t0);
+
+  stage_rows(w, mixw + c0, F * D, S, cnt, G);
+  // the table, 0 past its end; the packed path reads it at
+  // min(diff, kK3Tab - 1), which is 0 where table_len < kK3Tab
+  for (int i = tid; i < kK3Tab; i += blockDim.x)
+    tab[i] = i < table_len ? table[i] : 0;
+  if (tid < G) cbs[tid] = tid < cnt ? cb_pos[c0 + tid] : -1;
   __syncthreads();
-  const int n0 = blockIdx.x * kFramesPerBlock;
-  const int nf = min(kFramesPerBlock, N - n0);
-  for (int i = threadIdx.x; i < nf * S; i += blockDim.x) {
-    const int n = n0 + i / S;
-    const int st = i % S;
-    const size_t base = ((size_t)n * Cu + cb_pos[st]) * F * topn;
-    int32_t ascore = 0;
-    for (int f = 0; f < F; ++f) {
-      int32_t fden = 0;
-      for (int j = 0; j < topn; ++j) {
-        const size_t q = base + (size_t)f * topn + j;
-        int32_t term = (int32_t)mixw[((size_t)f * D + cw[q]) * S + st] + s[q];
-        if (wrap_u8) term &= 0xFF;
-        if (j == 0) {
-          fden = term;
-        } else {
-          const int32_t diff = fden > term ? fden - term : term - fden;
-          fden = min(fden, term) - (diff < table_len ? tab[diff] : 0);
+  // the range's distinct codebooks, in order of first occurrence
+  bool head = false;
+  if (tid < cnt) {
+    const int cb = cbs[tid];
+    int f0 = tid;
+    for (int i = 0; i < tid; ++i)
+      if (cbs[i] == cb) {
+        f0 = i;
+        break;
+      }
+    first[tid] = f0;
+    head = f0 == tid;
+  }
+  const unsigned heads = __ballot_sync(0xffffffffu, head);
+  if ((tid & 31) == 0) wcount[tid >> 5] = __popc(heads);
+  __syncthreads();
+  int U = 0, before = 0;
+  for (int i = 0; i < kK3Threads / 32; ++i) {
+    if (i == (tid >> 5)) before = U;
+    U += wcount[i];
+  }
+  if (head) {
+    const int u = before + __popc(heads & ((1u << (tid & 31)) - 1u));
+    slot[tid] = u;
+    ucb[u] = cbs[tid];
+  }
+  __syncthreads();
+  const int j = tid % G;            // this thread's column
+  const int H = kK3Threads / G;     // frames scored at once by a column
+  const int h = tid / G;
+  const int my_slot = j < cnt ? slot[first[j]] : -1;
+  const uint8_t* const wj = w + j;
+  int32_t* const oj = out + c0 + j;
+
+  // the tile's frames in passes of as many as the term buffer holds for
+  // the range's U codebooks
+  const int sub = min(NT, TB / (2 * U * Fn));
+  const int sl = my_slot;
+  for (int n0 = t0; n0 < t0 + nt; n0 += sub) {
+    const int nq = min(sub, t0 + nt - n0);
+    if (n0 > t0) __syncthreads();  // the last pass's terms are read
+    // the pass's terms: [q][u][f * topn + e], kK3Rows elements a step
+    // with their loads in flight together; (q, u, e) of element i
+    // advanced by the block's stride, no division
+    bool wide = table_len >= kK3Tab;
+    {
+      const int per = U * Fn, total = nq * per;
+      int q = tid / per, u = (tid % per) / Fn, e = tid % Fn;
+      const int dq = kK3Threads / per, du = (kK3Threads % per) / Fn,
+                de = kK3Threads % Fn;
+      for (int i0 = tid; i0 < total; i0 += kK3Rows * kK3Threads) {
+        int32_t sv[kK3Rows], cv[kK3Rows];
+#pragma unroll
+        for (int r = 0; r < kK3Rows; ++r) {
+          sv[r] = 0;
+          cv[r] = 0;
+          if (i0 + r * kK3Threads < total) {
+            const size_t src = ((size_t)(n0 + q) * Cu + ucb[u]) * Fn + e;
+            sv[r] = __ldg(s + src);
+            cv[r] = __ldg(cw + src);
+          }
+          e += de;
+          if (e >= Fn) {
+            e -= Fn;
+            ++u;
+          }
+          u += du;
+          if (u >= U) {
+            u -= U;
+            ++q;
+          }
+          q += dq;
+        }
+#pragma unroll
+        for (int r = 0; r < kK3Rows; ++r) {
+          const int i = i0 + r * kK3Threads;
+          if (i < total) {
+            wide |= (uint32_t)sv[r] > 511u;
+            terms[i] = (uint16_t)(((uint32_t)sv[r] << 7) |
+                                  ((uint32_t)cv[r] & 127u));
+          }
         }
       }
-      ascore += fden;
     }
-    out[(size_t)n * S + st] = ascore;
+    wide = __syncthreads_or(wide);
+    if (sl < 0) continue;  // a lane past the last range's columns
+    if (!wide) {
+      for (int qb = h; qb < nq; qb += H * kK3Ilp) {
+        const uint16_t* t[kK3Ilp];
+#pragma unroll
+        for (int i = 0; i < kK3Ilp; ++i)
+          t[i] = terms + (min(qb + i * H, nq - 1) * U + sl) * Fn;
+        int32_t ascore[kK3Ilp] = {};
+        for (int f = 0; f < F; ++f) {
+          const uint8_t* const wf = wj + f * D * RS;
+          int32_t fden[kK3Ilp] = {};
+#pragma unroll
+          for (int e = 0; e < kTopn; ++e) {
+#pragma unroll
+            for (int i = 0; i < kK3Ilp; ++i) {
+              const int tv = t[i][f * kTopn + e];
+              int32_t term = (int32_t)wf[(tv & 127) * RS] + (tv >> 7);
+              if (kWrap) term &= 0xFF;
+              if (e == 0) {
+                fden[i] = term;
+              } else {
+                const int32_t diff = abs(fden[i] - term);
+                fden[i] = min(fden[i], term) - tab[min(diff, kK3Tab - 1)];
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kK3Ilp; ++i) ascore[i] += fden[i];
+        }
+#pragma unroll
+        for (int i = 0; i < kK3Ilp; ++i) {
+          const int q = qb + i * H;
+          if (q < nq) oj[(size_t)(n0 + q) * S] = ascore[i];
+        }
+      }
+    } else {
+      // an s outside the packed range, or a table past the staged one:
+      // the terms from global memory, the table's end guarded
+      const int cb = ucb[sl];
+      for (int q = h; q < nq; q += H) {
+        const size_t base = ((size_t)(n0 + q) * Cu + cb) * Fn;
+        int32_t ascore = 0;
+        for (int f = 0; f < F; ++f) {
+          const uint8_t* const wf = wj + f * D * RS;
+          int32_t fden = 0;
+#pragma unroll
+          for (int e = 0; e < kTopn; ++e) {
+            const size_t qi = base + f * kTopn + e;
+            int32_t term =
+                (int32_t)((uint32_t)wf[cw[qi] * RS] + (uint32_t)s[qi]);
+            if (kWrap) term &= 0xFF;
+            if (e == 0) {
+              fden = term;
+            } else {
+              const int32_t diff = fden > term ? fden - term : term - fden;
+              fden = min(fden, term) - (diff < table_len ? table[diff] : 0);
+            }
+          }
+          ascore += fden;
+        }
+        oj[(size_t)(n0 + q) * S] = ascore;
+      }
+    }
   }
+}
+
+// K3's columns a block: 128, or the widest of 64 and 32 whose last range
+// leaves at most an eighth of the lanes of all ranges idle.
+int k3_cols(int S) {
+  for (int g = 128; g > 32; g /= 2) {
+    const long span = (long)(S + g - 1) / g * g;
+    if ((span - S) * 8 <= span) return g;
+  }
+  return 32;
+}
+
+// K3's frame tile: 128 frames, halved (down to 16) while the grid of
+// ranges x ceil(N / tile) blocks would give an SM fewer than two blocks.
+int k3_tile(int N, int S, int G, int sms) {
+  const long ranges = (S + G - 1) / G;
+  int tile = kK3TileMax;
+  while (tile > 16 && (long)((N + tile - 1) / tile) * ranges < 2L * sms)
+    tile /= 2;
+  return tile;
+}
+
+// K3's term buffer in bytes: a tile's terms of min(Cu, G) codebooks, at
+// most kK3TermBytes.
+int k3_term_bytes(int Cu, int Fn, int G, int tile) {
+  const long want = 2L * Fn * (Cu < G ? Cu : G) * tile;
+  return (int)(want < kK3TermBytes ? want : kK3TermBytes);
 }
 
 // K2's frame tile for N frames of F streams on the current device: 64,
@@ -433,16 +702,71 @@ extern "C" int sst_dist_topn_norm(const float* feats, const float* means,
              : go(dist_topn_norm_kernel<false, 0>);
 }
 
+extern "C" int sst_senone_eval_layout(int N, int S, int Cu, int F,
+                                      int topn, int32_t* layout) {
+  if (S < 1 || Cu < 1 || F < 1 || topn < 1 || topn > SST_MAX_TOPN)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int G = k3_cols(S);
+  const int tile = k3_tile(N, S, G, sms);
+  const int tb = k3_term_bytes(Cu, F * topn, G, tile);
+  const int most = Cu < G ? Cu : G;
+  const int sub = tb / (2 * F * topn * most);
+  layout[0] = G;
+  layout[1] = tile;
+  layout[2] = sub < tile ? sub : tile;
+  return (int)cudaSuccess;
+}
+
 extern "C" int sst_senone_eval(const int32_t* s, const int32_t* cw,
                                const uint8_t* mixw, const int32_t* cb_pos,
                                const int32_t* table, int table_len,
                                int32_t* out, int N, int Cu, int F, int D,
                                int S, int topn, int wrap_u8,
                                cudaStream_t stream) {
+  // a term packs cw into 7 bits; a pass holds a frame's terms of 128
+  // codebooks
+  if (topn < 1 || topn > SST_MAX_TOPN || D < 1 || D > SST_MAX_DENSITIES ||
+      F < 1 || Cu < 1 || table_len < 0 || 256 * F * topn > kK3TermBytes)
+    return (int)cudaErrorInvalidValue;
   if (N <= 0 || S <= 0) return (int)cudaSuccess;
-  const int blocks = (N + kFramesPerBlock - 1) / kFramesPerBlock;
-  senone_eval_kernel<<<blocks, 256, table_len * sizeof(int32_t), stream>>>(
-      s, cw, mixw, cb_pos, table, table_len, out, N, Cu, F, D, S, topn,
-      wrap_u8);
-  return (int)cudaGetLastError();
+  int32_t lay[3];
+  cudaError_t err =
+      (cudaError_t)sst_senone_eval_layout(N, S, Cu, F, topn, lay);
+  if (err != cudaSuccess) return (int)err;
+  const int G = lay[0], tile = lay[1];
+  const int tb = k3_term_bytes(Cu, F * topn, G, tile);
+  const size_t smem = k3_smem_bytes(F, D, G, tb);
+  const dim3 grid((unsigned)((S + G - 1) / G),
+                  (unsigned)((N + tile - 1) / tile));
+  auto go = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<grid, kK3Threads, smem, stream>>>(s, cw, mixw, cb_pos, table,
+                                               table_len, out, N, Cu, F, D, S,
+                                               G, tile, tb);
+    return (int)cudaGetLastError();
+  };
+  auto by_wrap = [&](auto topn_c) {
+    constexpr int kN = decltype(topn_c)::value;
+    return wrap_u8 ? go(senone_eval_kernel<kN, true>)
+                   : go(senone_eval_kernel<kN, false>);
+  };
+  switch (topn) {
+    case 1: return by_wrap(std::integral_constant<int, 1>());
+    case 2: return by_wrap(std::integral_constant<int, 2>());
+    case 3: return by_wrap(std::integral_constant<int, 3>());
+    case 4: return by_wrap(std::integral_constant<int, 4>());
+    case 5: return by_wrap(std::integral_constant<int, 5>());
+    case 6: return by_wrap(std::integral_constant<int, 6>());
+    case 7: return by_wrap(std::integral_constant<int, 7>());
+    default: return by_wrap(std::integral_constant<int, 8>());
+  }
 }

@@ -45,12 +45,20 @@ int sst_dist_topn_norm(const float* feats, const float* means,
 int sst_dist_topn_tile(int N, int F);
 
 // K3: senone evaluation in graph-state order.
-// s/cw int32 [N, Cu, F, topn]; mixw uint8 [F, D, S]; cb_pos int32 [S];
-// table int32 [table_len] (8-bit log-add table) -> out int32 [N, S].
+// s/cw int32 [N, Cu, F, topn] (cw in [0, D)); mixw uint8 [F, D, S];
+// cb_pos int32 [S]; table int32 [table_len] (8-bit log-add table)
+// -> out int32 [N, S].  A block takes a range of columns and a tile of
+// frames (sst_senone_eval_layout).
 int sst_senone_eval(const int32_t* s, const int32_t* cw, const uint8_t* mixw,
                     const int32_t* cb_pos, const int32_t* table,
                     int table_len, int32_t* out, int N, int Cu, int F, int D,
                     int S, int topn, int wrap_u8, cudaStream_t stream);
+
+// K3's layout for N frames of S columns on the current device: layout
+// int32 [3] <- the columns a block (128, 64 or 32), its frame tile
+// (16-128) and the codebooks it stages a pass.  Returns a cudaError_t.
+int sst_senone_eval_layout(int N, int S, int Cu, int F, int topn,
+                           int32_t* layout);
 
 // K4: whole-utterance lane Viterbi + final-node select + backtrace.
 // sen int32 [B, T, P*E] (E = 3 or 5 emitting states); n_frames int32 [B];
@@ -234,10 +242,18 @@ int sst_ms_senone_eval_tile(int N, int S, int G, int U, int F, int ne);
 // or int32 (4) [R, C, S]; start int32 [R] (the state entering from the
 // next chunk); n_frames int32 [R]; chunk frames t0 .. t0+C-1 -> path
 // int32 [R, C], out_state int32 [R] (the state leaving the chunk).
+// The chunk is walked in K = ceil(C / L) segments of L frames (L >= 1,
+// K <= 1024; the wrapper takes sst_backtrace_segment_len(R, C, S,
+// tok_bytes)); maps: a scratch of R * K * S int32 (unread, and may be
+// NULL, where K = 1).
 int sst_backtrace_chunk(const void* tok, int tok_bytes, const int32_t* start,
                         const int32_t* n_frames, int32_t* path,
-                        int32_t* out_state, int R, int C, int S, int t0,
-                        cudaStream_t stream);
+                        int32_t* out_state, int32_t* maps, int R, int C,
+                        int S, int t0, int L, cudaStream_t stream);
+
+// The segment length K13 takes for a chunk of R rows, C frames and S
+// states (C: one segment, the one-chain walk).
+int sst_backtrace_segment_len(int R, int C, int S, int tok_bytes);
 
 // K14: YIN's float32 CMND and period pick, one block per frame.
 // frames int16 (is_i16 = 1) or float32 [N, F]; lags t < ndiff (samples

@@ -755,7 +755,10 @@ def backtrace_chunk(tok: torch.Tensor, start: torch.Tensor, t0: int,
     """K13: the backtrace over one chunk of token stacks (the long form's
     reverse pass, parallel/seqpipe.py): tok int16/int32 [R, C, S], start
     int32 [R], the chunk's first frame t0, n_frames int32 [R] -> (path
-    int32 [R, C], the state leaving the chunk int32 [R])."""
+    int32 [R, C], the state leaving the chunk int32 [R]).  The kernel
+    walks segments of ``sst_backtrace_segment_len`` frames (about
+    sqrt(C); C for a chunk too short to gain) from maps of each segment
+    it builds first, in a scratch of [R, K, S] int32."""
     if tok.device.type == "cpu":
         return backtrace_chunk_plain(tok, start, t0, n_frames)
     if tok.device.type != "cuda":
@@ -773,10 +776,16 @@ def backtrace_chunk(tok: torch.Tensor, start: torch.Tensor, t0: int,
                          f"n_frames {tuple(n_frames.shape)} for {R} rows")
     path = torch.empty((R, C), dtype=torch.int32, device=dev)
     out = torch.empty(R, dtype=torch.int32, device=dev)
-    err = cuda_build.lib().sst_backtrace_chunk(
+    lib = cuda_build.lib()
+    L = lib.sst_backtrace_segment_len(R, C, S, tok.element_size())
+    K = -(-C // L)
+    # the segments' maps, [R, K, S] (none for one segment)
+    maps = torch.empty((R, K, S) if K > 1 else (0,), dtype=torch.int32,
+                       device=dev)
+    err = lib.sst_backtrace_chunk(
         tok.data_ptr(), tok.element_size(), start.data_ptr(),
-        n_frames.data_ptr(), path.data_ptr(), out.data_ptr(), R, C, S,
-        int(t0), cuda_build.stream(tok))
+        n_frames.data_ptr(), path.data_ptr(), out.data_ptr(),
+        maps.data_ptr(), R, C, S, int(t0), L, cuda_build.stream(tok))
     cuda_build.check(err, "backtrace_chunk")
     form = "int32" if tok.dtype == torch.int32 else "int16"
     backtrace_chunk.launches += 1

@@ -39,9 +39,11 @@ Kernels:
   the removed Pallas kernel ``tools/exp_pallas2.py`` dist_topn_fused2.
 * K3 ``senone_eval``: per (frame, state) the sum over streams of the
   8-bit log-add over j of ``mixw[f, cw_j, s] + s_j`` (``& 0xFF`` for the
-  semi 4-bit quirk).  mixw is gathered directly from [F, D, S] uint8 and
+  semi 4-bit quirk).  mixw is read directly from [F, D, S] uint8 and
   the log-add reads the 8-bit table, which equals the JAX package's
-  staircase.
+  staircase.  The kernel takes a range of columns and a tile of frames
+  a block (``senone_eval_layout``), stages the range's weights once and
+  the terms of its codebooks once a pass of frames, a term in 16 bits.
 * K7 ``frame_best_sub``: the per-frame tail (_sen_eval): the int32
   scores cast to int16 (wrapping), minus (ptm) the int16 cast of the
   frame's minimum int32 score; semi's form is the cast alone.
@@ -630,6 +632,19 @@ def senone_eval(s: torch.Tensor, cw: torch.Tensor, gs: GraphScorer,
 
 senone_eval.launches = 0
 senone_eval.shapes = {}
+
+
+def senone_eval_layout(N: int, S: int, Cu: int, F: int,
+                       topn: int) -> tuple[int, int, int]:
+    """K3's layout on the current CUDA device for N frames of S columns:
+    (columns a block, frames a tile, frames a pass of terms where a
+    range holds min(Cu, columns) codebooks)."""
+    import ctypes
+
+    lay = (ctypes.c_int32 * 3)()
+    cuda_build.check(cuda_build.lib().sst_senone_eval_layout(
+        N, S, Cu, F, topn, ctypes.addressof(lay)), "senone_eval_layout")
+    return lay[0], lay[1], lay[2]
 
 
 def score_frames_graph(gs: GraphScorer, feats: torch.Tensor,

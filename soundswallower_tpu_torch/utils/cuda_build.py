@@ -52,6 +52,7 @@ _SIGS = {
     "sst_dist_topn_tile": [_I, _I],
     "sst_senone_eval": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                         _I, _P],
+    "sst_senone_eval_layout": [_I] * 5 + [_P],
     "sst_viterbi_batch": [_P] * 13 + [_I] * 6 + [_P, _I] + [_P] * 6,
     "sst_viterbi_smem_bytes": [_I, _I],
     "sst_viterbi_state_bytes": [_I, _I],
@@ -72,7 +73,8 @@ _SIGS = {
     "sst_ms_senone_eval": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P,
                            _P] + [_I] * 8 + [_P],
     "sst_ms_senone_eval_tile": [_I] * 6,
-    "sst_backtrace_chunk": [_P, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    "sst_backtrace_chunk": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
+    "sst_backtrace_segment_len": [_I] * 4,
     "sst_yin_cmnd": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 # launchers return the cudaError_t of their launch; these return sizes

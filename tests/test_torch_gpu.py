@@ -610,27 +610,167 @@ def test_gpu_decode_and_5st_match_cpu(tmp_path_factory):
         assert out["cpu"][0][-1] is None
 
 
+def _segment_limit(R, S, nbytes):
+    """The shortest chunk K13's launcher cuts into segments (L < C)."""
+    lib = cuda_build.lib()
+    C = 2
+    while lib.sst_backtrace_segment_len(R, C, S, nbytes) == C:
+        C += 1
+        assert C < 10 ** 5
+    return C
+
+
+@pytest.mark.parametrize("C", [1, "below", "above", 96, 832, 3737])
 @pytest.mark.parametrize("dtype,S", [(torch.int16, 1700),
                                      (torch.int32, 40000)])
-def test_backtrace_chunk_equals_plain_on_card(dtype, S):
-    """K13 against its plain version on random token chunks (states and
-    -1), start states that include negative ones, ragged frame counts
-    and a chunk that does not start at frame 0."""
+def test_backtrace_chunk_equals_plain_on_card(dtype, S, C):
+    """K13 against its plain version on random token chunks (states, -1
+    and states past either end), start states that include negative ones
+    down to -S - 3, frame counts that end 13 frames before the chunk's
+    end, inside a segment, at the chunk's last, first and before its
+    first frame, at 0 and past the chunk, in a chunk that does not start
+    at frame 0; C of 1, one either side of the launcher's single-segment
+    limit, 96, 832 and 3,737 (neither of the last two a multiple of the
+    segment length the launcher takes)."""
     _need_cuda()
-    rng = np.random.RandomState(S)
-    R, C, t0 = 6, 96, 192
-    tok = rng.randint(-1, S, (R, C, S)).astype(
-        np.int16 if dtype == torch.int16 else np.int32)
-    tok = torch.from_numpy(tok).cuda()
-    start = torch.tensor([0, 5, S - 1, -1, -7, -S - 3],
+    R, t0 = 7, 192
+    nbytes = 2 if dtype == torch.int16 else 4
+    if C in ("below", "above"):
+        C = _segment_limit(R, S, nbytes) - (C == "below")
+    L = cuda_build.lib().sst_backtrace_segment_len(R, C, S, nbytes)
+    assert (L == C) == (C < _segment_limit(R, S, nbytes))
+    if C >= 832:
+        assert C % L and L * L >= C > (L - 1) * (L - 1)
+    gen = torch.Generator(device="cuda").manual_seed(S + C)
+    tok = torch.randint(-1, S, (R, C, S), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    wild = torch.rand((R, C, S), generator=gen, device="cuda") < 0.02
+    tok[wild] = torch.randint(-S - 9, S + 9, (int(wild.sum()),),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+    tok = tok.to(dtype)
+    start = torch.tensor([0, 5, S - 1, -1, -7, -S - 3, 11],
                          dtype=torch.int32).cuda()
-    n = torch.tensor([t0 + C, t0 + C - 13, t0 + 1, t0, 0, 10 ** 6],
+    mid = t0 + C // 2 + min(L, C) // 3    # ends inside a segment
+    n = torch.tensor([t0 + C, t0 + C - 13, t0 + 1, t0, 0, 10 ** 6, mid],
                      dtype=torch.int32).cuda()
     before = at.backtrace_chunk.launches
     got = at.backtrace_chunk(tok, start, t0, n)
     assert at.backtrace_chunk.launches == before + 1
     want = at.backtrace_chunk_plain(tok, start, t0, n)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _k3_inputs(N, S, Cu, F, D, topn, layout, rng, wrap=False, high=False,
+               n_tab=256):
+    """Random K3 inputs on the card: s in [0, 96] with cw in [0, D) (K2's
+    range), weights with 0 and 255, a table of ``n_tab`` entries from 255
+    down (0 from entry 510), and cb_pos laid out as ``layout``: "graph"
+    (runs of 3 columns of random codebooks, as a graph's phones),
+    "union" (one codebook), "inventory" (sorted runs, as sen2cb),
+    "distinct" (every column of a range a codebook of its own).  With
+    ``high``, s in [400, 511] with cw 0 (weight 255) or 1 (weight 0),
+    and frame 2's terms 0, ..., 0, 766: the running log-add falls below
+    0, so a later difference passes the staged table's end."""
+    import types
+
+    if layout == "graph":
+        cb = np.repeat(rng.randint(0, Cu, -(-S // 3)), 3)[:S]
+    elif layout == "union":
+        cb = np.zeros(S, np.int64)
+    elif layout == "inventory":
+        cb = np.sort(rng.randint(0, Cu, S))
+    else:
+        cb = np.arange(S) % Cu
+    mixw = rng.randint(0, 256, (F, D, S)).astype(np.uint8)
+    mixw[:, 0, ::7] = 255
+    mixw[:, 1, ::5] = 0
+    table = np.maximum(0, 255 - np.arange(n_tab) // 2).astype(np.int32)
+    s = rng.randint(0, 97, (N, Cu, F, topn)).astype(np.int32)
+    cw = rng.randint(0, D, (N, Cu, F, topn)).astype(np.int32)
+    if high:
+        mixw[:, 0], mixw[:, 1] = 255, 0
+        s = rng.randint(400, 512, (N, Cu, F, topn)).astype(np.int32)
+        cw = rng.randint(0, 2, (N, Cu, F, topn)).astype(np.int32)
+        if N > 3:
+            s[2], cw[2] = 0, 1
+            s[2, :, :, -1], cw[2, :, :, -1] = 511, 0
+    gs = types.SimpleNamespace(
+        mixw=torch.from_numpy(mixw).cuda(),
+        cb_pos=torch.from_numpy(cb.astype(np.int32)).cuda(),
+        logadd=torch.from_numpy(table).cuda(), S=S, wrap_u8=wrap)
+    return torch.from_numpy(s).cuda(), torch.from_numpy(cw).cuda(), gs
+
+
+K3_CASES = [
+    # layout, S, Cu, F, D, topn, wrap_u8
+    ("graph", 174, 42, 3, 128, 4, False),      # 64-column ranges
+    ("graph", 1000, 42, 3, 128, 8, False),
+    ("graph", 37, 20, 1, 128, 1, False),       # 32-column ranges
+    ("union", 462, 1, 3, 128, 4, True),
+    ("union", 512, 1, 1, 64, 8, True),
+    ("inventory", 5126, 42, 3, 128, 4, False),
+    ("inventory", 5126, 42, 1, 100, 1, True),
+    ("distinct", 1024, 128, 3, 128, 8, False),  # passes of a few frames
+    ("distinct", 1000, 300, 4, 128, 4, True),
+    # s in [400, 511]; then the same against a table past the staged one
+    ("graph", 174, 42, 3, 128, 8, False, "high"),
+    ("inventory", 5126, 42, 3, 128, 4, True, "high"),
+    ("graph", 1000, 42, 3, 128, 8, False, "high", 800),
+]
+
+
+def _k3_case_id(c) -> str:
+    return (f"{c[0]}-S{c[1]}-Cu{c[2]}-F{c[3]}-top{c[5]}"
+            f"{'-wrap' if c[6] else ''}"
+            + "".join(f"-{x}" if isinstance(x, str) else f"-table{x}"
+                      for x in c[7:]))
+
+
+@pytest.mark.parametrize("case", K3_CASES,
+                         ids=[_k3_case_id(c) for c in K3_CASES])
+def test_senone_eval_layouts_equal_plain_on_card(case):
+    """K3 against its plain version: graph-like interleaved codebooks,
+    the union's one codebook, the full inventory's sorted runs, ranges
+    of all-distinct codebooks whose terms take the tile in several
+    passes of frames (asserted);
+    top-N 1, 4 and 8, F 1 and 3, wrap_u8 on and off; S not a multiple of
+    the column range; N at the launcher's tile, at a remainder and one
+    frame; log-add differences at 255 and past the table's end (s 96
+    with weight 255 against s 0 with weight 0), and past the staged
+    table's end (s in [400, 511], the running log-add below 0); a table
+    longer than the staged one; and a frame with s outside the packed
+    range (-3, 600, 2^20), which its pass reads from global memory."""
+    _need_cuda()
+    layout, S, Cu, F, D, topn, wrap = case[:7]
+    high = "high" in case[7:]
+    n_tab = case[8] if len(case) > 8 else 256
+    rng = np.random.RandomState(S + Cu + topn)
+    G, tile, sub = st.senone_eval_layout(64, S, Cu, F, topn)
+    if layout == "distinct":
+        assert G == 128 and sub < tile
+    if S in (174, 37):
+        assert G == (64 if S == 174 else 32) and S % G
+    for N in sorted({1, tile, 2 * tile + 5}):
+        G, tile, sub = st.senone_eval_layout(N, S, Cu, F, topn)
+        s, cw, gs = _k3_inputs(N, S, Cu, F, D, topn, layout, rng, wrap,
+                               high, n_tab)
+        if N > 2:
+            # differences of 351 (past the table) and 255 (its last entry)
+            # where columns meet weight 255 (cw 0) and 0 (cw 1)
+            for q, top in ((0, 96), (1, 0)):
+                s[q, :, :, 0], cw[q, :, :, 0] = top, 0
+                s[q, :, :, -1], cw[q, :, :, -1] = 0, 1
+            s[-1, :, 0, :] = torch.tensor(
+                np.resize([-3, 600, 2 ** 20, 7], topn), dtype=torch.int32)
+        got = st.senone_eval(s, cw, gs)
+        want = st.senone_eval_plain(s, cw, gs)
+        assert torch.equal(got, want), (N, G, tile, sub)
+        # into rows of a larger buffer, as the batch path's out=
+        buf = torch.full((N + 2, S), -5, dtype=torch.int32, device="cuda")
+        st.senone_eval(s, cw, gs, out=buf[1:N + 1])
+        assert torch.equal(buf[1:N + 1], want)
+        assert bool((buf[0] == -5).all() and (buf[-1] == -5).all())
 
 
 def test_longform_on_card_equals_cpu(tmp_path_factory):

@@ -76,6 +76,17 @@ def test_bound_is_the_larger_of_bytes_and_operations():
     assert cs.bound(int(3.35e9), 33.5e9, cs.I32_OPS)["bound_by"] == "bytes"
 
 
+def test_k3_ops_count_the_chains_own_work():
+    # a stream of top-1: the first term's add and the sum over streams
+    assert cs.k3_ops(1, 1, 1, 1, False) == 2
+    # each later term: add, min, |diff| (two), the table's subtraction
+    assert cs.k3_ops(1, 1, 1, 4, False) == 2 + 3 * 5
+    # wrap_u8: & 0xFF on every term
+    assert cs.k3_ops(1, 1, 1, 4, True) == 2 + 3 * 5 + 4
+    # per (frame, state, stream)
+    assert cs.k3_ops(10, 174, 3, 4, False) == 10 * 174 * 3 * 17
+
+
 def test_flush_is_at_least_twice_the_l2():
     assert cs.L2_BYTES >= 50 * 10 ** 6
     assert cs.FLUSH_BYTES >= 2 * 50 * 10 ** 6
@@ -159,51 +170,52 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's K11 and K12 with the parameters
+    """--before DIR calls DIR's K3 and K13 with the parameters
     BEFORE_PARAMS lists (their signatures before the redesign), typed as
     DIR's header declares them; a header that declares them otherwise,
     or a scalar of a type the harness does not pass, is refused.  This
-    tree's header declares K11 so (its signature is unchanged) and K12
-    otherwise (it takes the senone groups), so a later parent needs its
+    tree's header declares K3 so (its signature is unchanged) and K13
+    otherwise (it takes the segments' maps), so a later parent needs its
     own list."""
     import ctypes
 
-    ints = {"N", "C", "F", "D", "L", "ne", "table_len", "S", "zero8", "aw"}
+    ints = {"table_len", "N", "Cu", "F", "D", "S", "topn", "wrap_u8",
+            "tok_bytes", "R", "C", "t0"}
 
-    def decl(name, zero8="int"):
+    def decl(name, wrap_u8="int"):
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             f"{zero8} " if p == "zero8" else
+             f"{wrap_u8} " if p == "wrap_u8" else
              "int " if p in ints else "const int32_t* ") + p
             for p in params) + ");\n")
 
-    header = ("// K11, K12\n" + decl("sst_ms_dist_topn")
-              + decl("sst_ms_senone_eval"))
+    header = ("// K3, K13\n" + decl("sst_senone_eval")
+              + decl("sst_backtrace_chunk"))
     sigs = cs.before_argtypes(header)
     P, I = ctypes.c_void_p, ctypes.c_int
-    assert sigs["sst_ms_dist_topn"] == [P] * 6 + [I] * 6 + [P]
-    assert sigs["sst_ms_senone_eval"] == [P] * 5 + [I, P] + [I] * 8 + [P]
-    assert cs.BEFORE_SOURCES == ("ms_senscore",)
+    assert sigs["sst_senone_eval"] == [P] * 5 + [I, P] + [I] * 7 + [P]
+    assert sigs["sst_backtrace_chunk"] == [P, I] + [P] * 4 + [I] * 4 + [P]
+    assert cs.BEFORE_SOURCES == ("senscore", "backtrace_chunk")
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
         here = f.read()
-    with pytest.raises(ValueError, match="sst_ms_senone_eval is declared"):
+    with pytest.raises(ValueError, match="sst_backtrace_chunk is declared"):
         cs.before_argtypes(here)
-    k11 = cs.header_params(here, "sst_ms_dist_topn")
-    assert [nm for _, nm in k11] == cs.BEFORE_PARAMS[
-        "sst_ms_dist_topn"].split()
-    # a parameter list that differs (K12 without aw), a scalar the
+    k3 = cs.header_params(here, "sst_senone_eval")
+    assert [nm for _, nm in k3] == cs.BEFORE_PARAMS[
+        "sst_senone_eval"].split()
+    # a parameter list that differs (K13 without t0), a scalar the
     # harness cannot type, a missing declaration
-    with pytest.raises(ValueError, match="sst_ms_senone_eval is declared"):
-        cs.before_argtypes(decl("sst_ms_dist_topn")
-                           + decl("sst_ms_senone_eval")
-                           .replace(", int aw", ""))
-    with pytest.raises(ValueError, match="zero8 of type float"):
-        cs.before_argtypes(decl("sst_ms_dist_topn")
-                           + decl("sst_ms_senone_eval", "float"))
+    with pytest.raises(ValueError, match="sst_backtrace_chunk is declared"):
+        cs.before_argtypes(decl("sst_senone_eval")
+                           + decl("sst_backtrace_chunk")
+                           .replace(", int t0", ""))
+    with pytest.raises(ValueError, match="wrap_u8 of type float"):
+        cs.before_argtypes(decl("sst_senone_eval", "float")
+                           + decl("sst_backtrace_chunk"))
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(decl("sst_ms_dist_topn"))
+        cs.before_argtypes(decl("sst_senone_eval"))
 
 
 def test_entries_count_launches_at_their_shape():
