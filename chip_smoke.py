@@ -58,7 +58,9 @@ raises, so the exit code is non-zero and the last line is not printed:
    on a ring step over all rows of each (one launch of R = 4 and of R = 8
    rows) and on the 5-minute row's first chunk, K2's mxu form (graph
    scorer, full inventory), K8 with remove_dc and K1's float32 form on
-   the f32 wire's cepstra; K14 on austen.raw's frames at
+   the f32 wire's cepstra; K1 also on the long form's rows (4 of 6,656
+   frames, and the 5-minute row) and on the device FE's ``align`` (one
+   row, the frame axis bucketed to 128); K14 on austen.raw's frames at
    frame sizes 400, 200, 1024 and 4096, bit for bit; K2 also at a tile
    remainder and at top-N 1 and 8, K6 also through the mixed stack's
    K-slot lists and a forced cluster of 8, the large grammar's rows at
@@ -130,12 +132,16 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K3 and K13 from DIR,
+``python3 chip_smoke.py --before DIR`` also builds K1 and K14 from DIR,
 a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
 declares them as BEFORE_PARAMS lists (their C signatures before their
 redesign; any other declaration stops the run), checks them bit-equal to
-this tree's on every K3 and K13 entry's inputs and times both in turns
-(``ms_before``).  K3's entries print the columns a block, the frame tile
+this tree's on every K1 and K14 entry's inputs and times both in turns
+(``ms_before``).  K1's entries print the rows a fold block, the frames a
+pass, the frame tile (or the one-launch form) and the launches its
+launcher takes, K14's the lags a thread (R), the threads a slot, the
+slots a block, the lag tiles a frame and the launches.  K3's entries
+print the columns a block, the frame tile
 and the frames a pass of terms its launcher takes, K13's the segment
 length; K11's entries print the frame tile its launcher takes, K12's
 the senone group and frame tile; an entry timed at a shape a path
@@ -152,6 +158,7 @@ from __future__ import annotations
 import base64
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -298,6 +305,15 @@ VARIANTS = [
      "soundswallower_tpu/ops/senscore_jax.py:557", "backends"),
     ("feat_f32[wire f32]", "feat_f32", "soundswallower_tpu/fe/feat.py:372",
      "wire_f32"),
+    # K1 at the shapes the long form launches it on (its 4 rows on a ring
+    # of 8, and the 5-minute row) and the device FE's align (one row),
+    # counted on their paths at those rows and frames (``shape``)
+    ("feat[long form]", "feat", "soundswallower_tpu/fe/feat.py:372",
+     "longform"),
+    ("feat[long form, 5-minute row]", "feat",
+     "soundswallower_tpu/fe/feat.py:372", "longform"),
+    ("feat_f32[align]", "feat_f32", "soundswallower_tpu/fe/feat.py:372",
+     "device-FE"),
     # K14 at the frame sizes beside 400: 8 kHz (200), 1024 and 4096
     # (XLA's two tree levels and the scan's recursion)
     ("yin_cmnd[200]", "yin_cmnd", "soundswallower_tpu/yin.py:280", "api"),
@@ -755,23 +771,23 @@ def rows_bytes(v) -> int:
             + 8 * int(nin.sum()))
 
 
-# -- the parent's K3 and K13 (--before DIR) --------------------------------
+# -- the parent's K1 and K14 (--before DIR) --------------------------------
 
-# DIR's soundswallower_tpu_torch/csrc/senscore.cu and backtrace_chunk.cu
-# built into a library of their own: K3 and K13 before their redesign
-# (K3 a block of 16 frames, a thread a (frame, column); K13 a thread a
-# row), called below with the parameters their declarations in DIR's
-# sst_kernels.h must list
+# DIR's soundswallower_tpu_torch/csrc/feat.cu and yin.cu built into a
+# library of their own: K1 and K14 before their redesign (K1 a block a
+# row whose 13 threads walk the frames from global memory, K14 a block a
+# frame, a lag a thread), called below with the parameters their
+# declarations in DIR's sst_kernels.h must list
 BEFORE: dict = {}
-BEFORE_SOURCES = ("senscore", "backtrace_chunk")
+BEFORE_SOURCES = ("feat", "yin")
 BEFORE_PARAMS = {
-    "sst_senone_eval": "s cw mixw cb_pos table table_len out N Cu F D S "
-    "topn wrap_u8 stream",
-    "sst_backtrace_chunk": "tok tok_bytes start n_frames path out_state R C "
-    "S t0 stream",
+    "sst_feat": "planes n_frames out B T ncep inv_scale do_cmn stream",
+    "sst_feat_f32": "cep n_frames out B T ncep do_cmn stream",
+    "sst_yin_cmnd": "frames is_i16 cmnd period best N F ndiff thr stream",
 }
 # ctypes types of the declared scalar parameters
-BEFORE_SCALARS = {"int": ctypes.c_int, "double": ctypes.c_double}
+BEFORE_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float,
+                  "double": ctypes.c_double}
 
 
 def header_params(header: str, name: str) -> list:
@@ -789,10 +805,10 @@ def header_params(header: str, name: str) -> list:
 
 def before_argtypes(header: str) -> dict:
     """ctypes argument types of BEFORE_PARAMS's launchers as the header
-    declares them (pointers and the stream c_void_p, int c_int, double
-    c_double); ValueError where a declaration lists other parameters or
-    a scalar of another type (another signature: calling it would be
-    undefined)."""
+    declares them (pointers and the stream c_void_p, int c_int, float
+    c_float, double c_double); ValueError where a declaration lists
+    other parameters or a scalar of another type (another signature:
+    calling it would be undefined)."""
     sigs = {}
     for name, want in BEFORE_PARAMS.items():
         params = header_params(header, name)
@@ -832,7 +848,7 @@ def build_before(root: str) -> None:
              for o in objs]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     if any(p.returncode for p in procs):
-        raise RuntimeError("the parent's K3 and K13 did not build:\n"
+        raise RuntimeError("the parent's K1 and K14 did not build:\n"
                            + "".join(logs))
     so = os.path.join(out, "libsst_before.so")
     subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
@@ -842,46 +858,94 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's K3 and K13 from {root}: built in "
+    log(f"  the parent's K1 and K14 from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_senone_eval(s, cw, gs):
-    """K3 on the parent's kernel: int32 [N, S], or None without
+def before_feat(x, n, inv_scale, do_cmn: bool):
+    """K1 (byte planes, or its float32 form on float32 cepstra) on the
+    parent's kernel: float32 [B, T, 3, ncep], or None without
     --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        N, Cu, F, topn = s.shape
-        out = torch.empty((N, gs.S), dtype=torch.int32, device=s.device)
-        err = BEFORE["lib"].sst_senone_eval(
-            s.data_ptr(), cw.data_ptr(), gs.mixw.data_ptr(),
-            gs.cb_pos.data_ptr(), gs.logadd.data_ptr(), gs.logadd.shape[0],
-            out.data_ptr(), N, Cu, F, gs.mixw.shape[1], gs.S, topn,
-            int(gs.wrap_u8), cuda_build.stream(s))
-        cuda_build.check(err, "senone_eval (parent)")
+        planes = x.dtype == torch.uint8
+        B, T, ncep = x.shape[1:] if planes else x.shape
+        out = torch.empty((B, T, 3, ncep), dtype=torch.float32,
+                          device=x.device)
+        if planes:
+            err = BEFORE["lib"].sst_feat(
+                x.data_ptr(), n.data_ptr(), out.data_ptr(), B, T, ncep,
+                float(inv_scale), int(do_cmn), cuda_build.stream(x))
+        else:
+            err = BEFORE["lib"].sst_feat_f32(
+                x.data_ptr(), n.data_ptr(), out.data_ptr(), B, T, ncep,
+                int(do_cmn), cuda_build.stream(x))
+        cuda_build.check(err, "feat (parent)")
         return out
     return run
 
 
-def before_backtrace(tok, start, t0: int, n):
-    """K13 on the parent's kernel: (path [R, C], the state leaving the
-    chunk [R]), or None without --before."""
+def before_yin(fr, nd: int, thr: float):
+    """K14 on the parent's kernel: (cmnd [N, nd], period [N], best [N]),
+    or None without --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        R, C, S = tok.shape
-        path = torch.empty((R, C), dtype=torch.int32, device=tok.device)
-        out = torch.empty(R, dtype=torch.int32, device=tok.device)
-        err = BEFORE["lib"].sst_backtrace_chunk(
-            tok.data_ptr(), tok.element_size(), start.data_ptr(),
-            n.data_ptr(), path.data_ptr(), out.data_ptr(), R, C, S, int(t0),
-            cuda_build.stream(tok))
-        cuda_build.check(err, "backtrace_chunk (parent)")
-        return path, out
+        N, F = fr.shape
+        cmnd = torch.empty((N, nd), dtype=torch.float32, device=fr.device)
+        period = torch.empty(N, dtype=torch.int64, device=fr.device)
+        best = torch.empty(N, dtype=torch.float32, device=fr.device)
+        err = BEFORE["lib"].sst_yin_cmnd(
+            fr.data_ptr(), int(fr.dtype == torch.int16), cmnd.data_ptr(),
+            period.data_ptr(), best.data_ptr(), N, F, nd, float(thr),
+            cuda_build.stream(fr))
+        cuda_build.check(err, "yin_cmnd (parent)")
+        return cmnd, period, best
     return run
+
+
+def feat_bytes(x, n) -> int:
+    """K1's bytes in: each row's frames up to min(max(n, 1), T) (those
+    its features read; frame 0 for a row of none), from both byte planes
+    (x uint8 [2, B, T, ncep]) or the float32 cepstra (x [B, T, ncep]),
+    and the frame counts."""
+    T, ncep = x.shape[-2], x.shape[-1]
+    frames = int(torch.clamp(n.long(), min=1, max=T).sum())
+    per = 2 if x.dtype == torch.uint8 else x.element_size()
+    return frames * ncep * per + nbytes(n)
+
+
+def compare_feat(name, x, n, inv_scale, do_cmn: bool, results,
+                 plain_runs: int = 10):
+    """K1 on byte planes (x uint8 [2, B, T, ncep]) or its float32 form (x
+    float32 [B, T, ncep]) against its plain version and, under --before,
+    the parent's kernel, with the layout its launcher takes.  Bound:
+    feat_bytes in, the features out; 8 float32 operations an element on
+    planes (dequant, CMN, differences), 6 on float32."""
+    planes = x.dtype == torch.uint8
+    B, T, ncep = x.shape[1:] if planes else x.shape
+    lay = feat_mod.feat_layout(B, T, ncep, do_cmn)
+    log(f"  {name}: B={B} T={T} ncep={ncep}: {lay['rows']} rows a fold "
+        f"block, passes of {lay['pass_frames']} frames, "
+        + ("one launch (the fold block writes its rows)" if lay["tile"] == 0
+           else f"tiles of {lay['tile']} frames")
+        + f", {lay['launches']} launch{'es' if lay['launches'] > 1 else ''}")
+    if planes:
+        fn = functools.partial(feat_mod.feat, x, n, inv_scale, do_cmn)
+        plain = functools.partial(feat_mod.feat_plain, x, n, inv_scale,
+                                  do_cmn)
+    else:
+        fn = functools.partial(feat_mod.feat_f32, x, n, do_cmn)
+        plain = functools.partial(feat_mod.feats_plain, x, n, do_cmn)
+    out = compare(name, fn, plain, results, plain_runs=plain_runs,
+                  n_bytes=feat_bytes(x, n),
+                  ops=(8.0 if planes else 6.0) * B * T * ncep,
+                  before=before_feat(x, n, inv_scale, do_cmn))
+    results[name]["layout"] = lay
+    return out
 
 
 def phase_kernels(al: TorchAligner, audios: list, results: dict):
@@ -898,9 +962,7 @@ def phase_kernels(al: TorchAligner, audios: list, results: dict):
         Tn = Ts_d[i0:i0 + n]
         first = i0 == 0
         if first:
-            compare("feat", lambda: feat_mod.feat(pl, Tn, inv, al.do_cmn),
-                    lambda: feat_mod.feat_plain(pl, Tn, inv, al.do_cmn),
-                    results, ins=(pl, Tn), ops=8.0 * n * Tmax * 13)
+            compare_feat("feat", pl, Tn, inv, al.do_cmn, results)
         flat = feats.view(n * Tmax, 3, -1)
         if first:
             s, cw = compare_dist("dist_topn_norm", flat, c.gs, results,
@@ -953,8 +1015,8 @@ def k3_ops(N: int, S: int, F: int, topn: int, wrap_u8: bool) -> float:
 
 
 def compare_eval(name, s, cw, gs, results, plain_runs: int = 0):
-    """K3 against its plain version and, under --before, the parent's
-    kernel, with the layout its launcher takes.  Bound: the top-N scores
+    """K3 against its plain version, with the layout its launcher
+    takes.  Bound: the top-N scores
     and indices, the mixture weights, the column map and the table in;
     the int32 operations of its chains (k3_ops)."""
     N, Cu, F, topn = s.shape
@@ -968,8 +1030,7 @@ def compare_eval(name, s, cw, gs, results, plain_runs: int = 0):
                   lambda: senscore_torch.senone_eval_plain(s, cw, gs),
                   results, plain_runs=plain_runs,
                   ins=(s, cw, gs.mixw, gs.cb_pos, gs.logadd),
-                  ops=k3_ops(N, gs.S, F, topn, gs.wrap_u8), rate=I32_OPS,
-                  before=before_senone_eval(s, cw, gs))
+                  ops=k3_ops(N, gs.S, F, topn, gs.wrap_u8), rate=I32_OPS)
     results[name].update(cols=G, tile=tile, pass_frames=sub)
     return out
 
@@ -1153,9 +1214,7 @@ def phase_kernels_fe(al_dev: TorchAligner, al_host: TorchAligner,
     PROBES["fe_cep"] = (lambda: fe_mod.fe_cep(fe, den), "fe_cep")
     PROBES["fe_cep[logspec]"] = (lambda: fe_mod.fe_cep(fe, den, True),
                                  "fe_cep")
-    compare("feat_f32", lambda: feat_mod.feat_f32(cep, Ts_d, al_dev.do_cmn),
-            lambda: feat_mod.feats_plain(cep, Ts_d, al_dev.do_cmn), results,
-            ins=(cep, Ts_d), ops=6.0 * cep.numel())
+    compare_feat("feat_f32", cep, Ts_d, None, al_dev.do_cmn, results)
     dev_fe = sum(results[k]["ms"] for k in ("fe_spec", "fe_noise", "fe_cep",
                                              "feat_f32"))
     log(f"  device FE kernels on the B={B} batch, K8+K9+K10+K1: "
@@ -1306,7 +1365,7 @@ def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
     """K4's carry form at the stream's shape (the first 128-frame chunk
     from vit_carry0) and at the single-utterance path's (austen_audio(0)
     on the device FE, the frame axis bucketed to 128, with the final
-    select and backtrace)."""
+    select and backtrace); K1's float32 form on that path's cepstra."""
     dev = al_dev.device
     a = austen_audio(0)
     c = al_dev._graph_consts(al_dev.graph_for_text(TEXT))
@@ -1315,7 +1374,10 @@ def phase_kernels_vit_chunk(al_dev: TorchAligner, results: dict):
     Tpad = max(128, -(-T // 128) * 128)
     cep = al_dev.fe.mfcc(torch.from_numpy(a).to(dev)[None], n, Tpad)
     Tn = torch.tensor([T], dtype=torch.int32, device=dev)
-    feats = feat_mod.feat_f32(cep, Tn, al_dev.do_cmn)[0]
+    # K1's float32 form as align launches it: one row of Tpad frames
+    feats = compare_feat("feat_f32[align]", cep, Tn, None, al_dev.do_cmn,
+                         results)[0]
+    results["feat_f32[align]"]["shape"] = f"B=1, T={Tpad}"
     sen = senscore_torch.score_frames_graph(c.gs, feats)
     first = sen[:AlignStream.CHUNK]
     carry0 = align_torch.vit_carry0(c.vit)
@@ -2052,6 +2114,27 @@ def long_batch_sen(al: TorchAligner, audios: list, text: str, nseq: int):
     return al._graph_scores(c.gs, audios, Ts_d, Tmax, "fold"), Ts_d, c.vit
 
 
+def long_planes(al: TorchAligner, audios: list, nseq: int):
+    """The wire's byte planes and frame counts of long rows as
+    align_longform_batch uploads them (the frame axis rounded up to 64
+    per rank; one upload chunk)."""
+    Ts = np.array([al.fe.n_frames(len(a)) for a in audios])
+    gran = 64 * nseq
+    Tmax = -(-int(Ts.max()) // gran) * gran
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    _, pl, _ = next(iter(al._chunk_feats(audios, Ts_d, Tmax)))
+    return pl, Ts_d
+
+
+def compare_long_feat(name, al: TorchAligner, audios: list, results):
+    """K1 on long rows at the long form's shape (a ring of N_SEQ),
+    counted on its path at those rows and frames."""
+    pl, Ts_d = long_planes(al, audios, N_SEQ)
+    compare_feat(name, pl, Ts_d, 1.0 / al.wire_scale, al.do_cmn, results,
+                 plain_runs=0)
+    results[name]["shape"] = f"B={pl.shape[1]}, T={pl.shape[2]}"
+
+
 def first_chunk_tokens(sen, n, v, C: int) -> torch.Tensor:
     """Rank 0's token chunk [B, C, S] of a long-form batch: one launch of
     K4's carry form over every row's first C frames from vit_carry0."""
@@ -2102,8 +2185,8 @@ def gather_loop(tok, start, t0: int, n):
 
 
 def compare_backtrace(name, tok, start, t0: int, n, results, runs=10):
-    """K13 against its plain version and, under --before, the parent's
-    kernel, with the segment length its launcher takes; bound: the path
+    """K13 against its plain version, with the segment length its
+    launcher takes; bound: the path
     written, the tokens read (one per row and frame), the starts and
     counts."""
     R, C, S = tok.shape
@@ -2116,8 +2199,7 @@ def compare_backtrace(name, tok, start, t0: int, n, results, runs=10):
     compare(name, lambda: align_torch.backtrace_chunk(tok, start, t0, n),
             lambda: align_torch.backtrace_chunk_plain(tok, start, t0, n),
             res, plain_runs=0, ins=(start, n), runs=runs,
-            library=gather_loop(tok, start, t0, n),
-            before=before_backtrace(tok, start, t0, n))
+            library=gather_loop(tok, start, t0, n))
     r = res[name]
     b = bound(R * C * tok.element_size() + nbytes(start, n) + 4 * R * C
               + 4 * R, 0.0, I32_OPS)
@@ -2179,7 +2261,8 @@ def other_backtrace_form(name, tok, start, t0: int, n, L: int, ms: float,
 def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
                          al_f32: TorchAligner, big: list, results: dict):
     """The kernels and forms of the long form and the repairs against
-    their plain versions at their paths' shapes: K13 on rank 0's token
+    their plain versions at their paths' shapes: K1 on the long form's
+    rows (the 4-row batch and the 5-minute row), K13 on rank 0's token
     chunk of the long-form batch (int16) and of the large grammar's
     decode batch (int32, S >= 32,767), K4's carry form on one row's
     long-form chunk, on a ring step over each batch's rows and on the
@@ -2190,6 +2273,7 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     on the f32 wire's host cepstra."""
     dev = al.device
     rows = [longform_audio(i) for i in range(LONG_B)]
+    compare_long_feat("feat[long form]", al, rows, results)
     sen, n, v = long_batch_sen(al, rows, longform_text(), N_SEQ)
     C = sen.shape[1] // N_SEQ
     shape_log("long form", sen, v)
@@ -2205,6 +2289,8 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     results["viterbi_chunk[long form, 8 ranks]"]["shape"] = f"R=1, P={v.P}"
     compare_ring_step("viterbi_chunk[long form, ring step]", sen, n, v, C,
                       results)
+    compare_long_feat("feat[long form, 5-minute row]", al,
+                      [longform_audio(0, LONG_K5)], results)
     sen5, n5, v5 = long_batch_sen(al, [longform_audio(0, LONG_K5)],
                                   longform_text(LONG_K5), N_SEQ)
     shape_log("5-minute row", sen5, v5)
@@ -2261,10 +2347,8 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     _, cep, _ = next(iter(al_f32._chunk_feats(audios8, T8_d, Tm8)))
     if cep.dtype != torch.float32:
         raise AssertionError("the f32 wire did not ship float32 cepstra")
-    compare("feat_f32[wire f32]",
-            lambda: feat_mod.feat_f32(cep, T8_d, al_f32.do_cmn),
-            lambda: feat_mod.feats_plain(cep, T8_d, al_f32.do_cmn), results,
-            ins=(cep, T8_d), ops=6.0 * cep.numel())
+    compare_feat("feat_f32[wire f32]", cep, T8_d, None, al_f32.do_cmn,
+                 results)
 
 
 def carry_launches(k0: int, nseq: int, what: str) -> int:
@@ -2401,19 +2485,28 @@ def phase_repairs(al: TorchAligner, al_f32: TorchAligner,
 
 
 def phase_kernels_yin(results: dict):
-    """K14 against yin_cmnd_plain on the int16 frames of austen.raw
-    (FRAME_SHIFT apart) at frame sizes 400, 200, 1024 and 4096 with
-    pitch_batch's ndiff and threshold: the CMND and best bit for bit,
-    the period equal.  Bound: 3 float32 operations (a subtraction, a
-    square, an add) per lag and sample of each frame."""
+    """K14 against yin_cmnd_plain and, under --before, the parent's
+    kernel, on the int16 frames of austen.raw (FRAME_SHIFT apart) at
+    frame sizes 400, 200, 1024 and 4096 with pitch_batch's ndiff and
+    threshold: the CMND and best bit for bit, the period equal; each with
+    the layout its launcher takes.  Bound: 3 float32 operations (a
+    subtraction, a square, an add) per lag and sample of each frame."""
     thr = float(np.float32(0.1 * 32768.0))
     for F in (400, 200, 1024, 4096):
         fr = torch.from_numpy(austen_frames(F)).cuda()
         nd = F // 2
         name = "yin_cmnd" if F == 400 else f"yin_cmnd[{F}]"
+        lay = yin_mod.yin_layout(fr.shape[0], nd)
+        log(f"  {name}: N={fr.shape[0]} F={F} ndiff={nd}: R={lay['R']} lags "
+            f"a thread, blocks of {lay['tpf']} threads, {lay['tiles']} "
+            f"lag tile{'s' if lay['tiles'] > 1 else ''} a frame, "
+            f"{lay['blocks']} blocks, {lay['launches']} "
+            f"launch{'es' if lay['launches'] > 1 else ''} (no cluster)")
         got = compare(name, lambda: yin_mod.yin_cmnd(fr, nd, thr),
                       lambda: yin_mod.yin_cmnd_plain(fr, nd, thr), results,
-                      ins=(fr,), ops=3.0 * fr.shape[0] * nd * nd)
+                      ins=(fr,), ops=3.0 * fr.shape[0] * nd * nd,
+                      before=before_yin(fr, nd, thr))
+        results[name]["layout"] = lay
         want = yin_mod.yin_cmnd_plain(fr, nd, thr)
         for a, b in zip(got, want):
             if a.dtype == torch.float32:
@@ -2421,7 +2514,6 @@ def phase_kernels_yin(results: dict):
             if not torch.equal(a, b):
                 raise AssertionError(f"{name}: not bit-equal to its plain "
                                      "version")
-        log(f"  {name} shapes: N={fr.shape[0]} F={F} ndiff={nd}")
 
 
 def _json(x):
@@ -2582,7 +2674,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's K3 and K13)
+    # 2. build (and, with --before DIR, the parent's K1 and K14)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:
@@ -2721,7 +2813,8 @@ def main() -> int:
                                             if path in form_paths(ph)]))
         log(f"  {path} launches: " + ", ".join(
             f"{n} {counts[path].get(n, 0)}" for n in names
-            + sorted(k for k in counts[path] if ", R=" in k or "[N=" in k)))
+            + sorted(k for k in counts[path]
+                     if ", R=" in k or "[N=" in k or "[B=" in k)))
         log(f"  {path} K6 layouts and tables, K2 tiles: " + (", ".join(
             f"{k} {v}" for k, v in sorted(counts[path].items())
             if k.startswith(("viterbi_rows[", "dist_topn_norm["))

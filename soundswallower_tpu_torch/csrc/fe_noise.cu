@@ -333,10 +333,9 @@ fe_noise_kernel(const double* __restrict__ mfspec,
 // until the block's shared memory fits), -1 where none fits or the device
 // cannot be read.
 int noise_tile(int nf, size_t* smem) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
+  int optin = 0;
+  if (sst_device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin) !=
+      cudaSuccess)
     return -1;
   for (int F = kTile; F >= 1; F /= 2) {
     if (noise_smem(nf, F) <= (size_t)optin) {

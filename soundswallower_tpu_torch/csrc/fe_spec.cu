@@ -280,10 +280,9 @@ size_t spec_smem(int W, int shift, int size, int nfft, int nfilt, int maxw) {
 // card than the SMs they free gain.
 int spec_frames(int nfft, int shift, int size, int nfilt, int maxw,
                 size_t* smem) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
+  int optin = 0;
+  if (sst_device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin) !=
+      cudaSuccess)
     return -1;
   int W = kFftBytes / (nfft * (int)sizeof(double));
   W = W < 1 ? 1 : W > kMaxFrames ? kMaxFrames : W;

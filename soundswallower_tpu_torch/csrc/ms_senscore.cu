@@ -343,14 +343,6 @@ inline size_t k12_smem_bytes(int G, int row, int U, int Fn, int NT,
          round4(table_len + 1);
 }
 
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  const cudaError_t err = cudaGetDevice(&dev);
-  return err == cudaSuccess
-             ? cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)
-             : err;
-}
-
 // K12's frame tile: the most frames (128 down to 1, powers of two) whose
 // terms fit kTermBytes, halved (down to 16) while the grid of
 // ceil(N / tile) x groups blocks would give the sms SMs fewer than two
@@ -522,7 +514,9 @@ extern "C" int sst_ms_dist_topn(const float* feats, const float* means,
 extern "C" int sst_ms_senone_eval_tile(int N, int S, int G, int U, int F,
                                        int ne) {
   int sms = 0;
-  if (G < 1 || S < 1 || sm_count(&sms) != cudaSuccess) return -1;
+  if (G < 1 || S < 1 ||
+      sst_device_attr(cudaDevAttrMultiProcessorCount, &sms) != cudaSuccess)
+    return -1;
   return k12_tile(N, (S + G - 1) / G, U, F * ne, sms);
 }
 
@@ -542,7 +536,7 @@ extern "C" int sst_ms_senone_eval(const float* dval, const int32_t* cw,
     return (int)cudaErrorInvalidValue;
   if (N <= 0 || S <= 0) return (int)cudaSuccess;
   int sms = 0;
-  cudaError_t err = sm_count(&sms);
+  cudaError_t err = sst_device_attr(cudaDevAttrMultiProcessorCount, &sms);
   if (err != cudaSuccess) return (int)err;
   const int n_groups = (S + G - 1) / G;
   const int tile = k12_tile(N, n_groups, U, F * ne, sms);

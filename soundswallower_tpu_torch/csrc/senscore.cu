@@ -649,10 +649,8 @@ int k3_term_bytes(int Cu, int Fn, int G, int tile) {
 // halved (down to 16) while the grid of ceil(N / tile) x F blocks would
 // give an SM fewer than two blocks.
 cudaError_t k2_tile(int N, int F, int* tile) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sst_device_attr(cudaDevAttrMultiProcessorCount, &sms);
   *tile = 64;
   while (*tile > 16 && (long)((N + *tile - 1) / *tile) * F < 2L * sms)
     *tile /= 2;
@@ -706,10 +704,8 @@ extern "C" int sst_senone_eval_layout(int N, int S, int Cu, int F,
                                       int topn, int32_t* layout) {
   if (S < 1 || Cu < 1 || F < 1 || topn < 1 || topn > SST_MAX_TOPN)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = sst_device_attr(cudaDevAttrMultiProcessorCount, &sms);
   if (err != cudaSuccess) return (int)err;
   const int G = k3_cols(S);
   const int tile = k3_tile(N, S, G, sms);

@@ -22,10 +22,24 @@ extern "C" {
 
 // K1: wire dequant + batch CMN + 1s_c_d_dd dynamic features.
 // planes uint8 [2, B, T, ncep] (plane 0 = low byte), n_frames int32 [B]
-// -> out float32 [B, T, 3, ncep].
-int sst_feat(const uint8_t* planes, const int32_t* n_frames, float* out,
-             int B, int T, int ncep, float inv_scale, int do_cmn,
-             cudaStream_t stream);
+// -> out float32 [B, T, 3, ncep]; mean float32 [B, ncep] is scratch (the
+// CMN means; unused without do_cmn).  rows (fold rows a block, 1 or 2),
+// pass (frames a fold pass, a multiple of 32) and tile (output frames a
+// block, 1-256): 0 for the launcher's choice (sst_feat_layout).  One
+// launch for rows of one pass with CMN (the fold block writes its rows'
+// features); two for longer rows or a forced tile (the fold, then the
+// tiled output as its programmatic dependent); one without CMN (tiled).
+int sst_feat(const uint8_t* planes, const int32_t* n_frames, float* mean,
+             float* out, int B, int T, int ncep, float inv_scale, int do_cmn,
+             int rows, int pass, int tile, cudaStream_t stream);
+
+// K1's layout for B rows of T frames: layout[0..3] = rows a fold block,
+// frames a pass, frames a tile (0: the one-launch form), launches;
+// (rows, pass, tile) forced where not 0.  cudaErrorInvalidValue for a
+// layout the launcher cannot run (a fold past the device's shared memory
+// among them).
+int sst_feat_layout(int B, int T, int ncep, int do_cmn, int rows, int pass,
+                    int tile, int32_t* layout);
 
 // K2: Mahalanobis fold (or, mxu != 0, the expanded distance with the
 // per-table muv f32 [Cu, F, D, L] and c f32 [Cu, F, D]) + top-N +
@@ -135,9 +149,10 @@ int sst_frame_best_sub(const int32_t* in, int16_t* out, int N, int S,
                        int sub, cudaStream_t stream);
 
 // K1, float32 form: cep float32 [B, T, ncep], n_frames int32 [B]
-// -> out float32 [B, T, 3, ncep].
-int sst_feat_f32(const float* cep, const int32_t* n_frames, float* out,
-                 int B, int T, int ncep, int do_cmn, cudaStream_t stream);
+// -> out float32 [B, T, 3, ncep]; mean, rows, pass and tile as sst_feat's.
+int sst_feat_f32(const float* cep, const int32_t* n_frames, float* mean,
+                 float* out, int B, int T, int ncep, int do_cmn, int rows,
+                 int pass, int tile, cudaStream_t stream);
 
 // K4, carry form (frames t0 .. t0+C-1 of R utterance rows, one block a
 // row).  sen int32 [R, C, P*E]; each row's frame count n_rows int32 [R]
@@ -255,26 +270,43 @@ int sst_backtrace_chunk(const void* tok, int tok_bytes, const int32_t* start,
 // states (C: one segment, the one-chain walk).
 int sst_backtrace_segment_len(int R, int C, int S, int tok_bytes);
 
-// K14: YIN's float32 CMND and period pick, one block per frame.
-// frames int16 (is_i16 = 1) or float32 [N, F]; lags t < ndiff (samples
-// past F - 1 read sample F - 1); thr the float32 threshold on the x32768
-// scale -> cmnd float32 [N, ndiff], period int64 [N], best float32 [N].
+// K14: YIN's float32 CMND and period pick: blocks of tpf threads, R lags
+// a thread; one launch where a block holds a whole frame (it also scans,
+// writes the CMND and picks), else the differences d(t) of a frame's lag
+// tiles into cmnd, then a block a frame scans, writes and picks.
+// frames int16 (is_i16 = 1) or float32 [N, F]; lags t < ndiff <= F
+// (samples past F - 1 read sample F - 1); thr the float32 threshold on
+// the x32768 scale -> cmnd float32 [N, ndiff], period int64 [N], best
+// float32 [N].  R (4 or 8) and tpf (64 or 128): 0 for the launcher's
+// choice (sst_yin_layout).
 int sst_yin_cmnd(const void* frames, int is_i16, float* cmnd,
                  int64_t* period, float* best, int N, int F, int ndiff,
-                 float thr, cudaStream_t stream);
+                 float thr, int R, int tpf, cudaStream_t stream);
+
+// K14's layout for N frames of ndiff lags: layout[0..4] = R, threads a
+// block, lag tiles a frame, blocks of the first launch, launches (1 or
+// 2); (R, tpf) forced where not 0.
+int sst_yin_layout(int N, int ndiff, int R, int tpf, int32_t* layout);
 
 const char* sst_error_string(int err);
 
 }  // extern "C"
+
+// An attribute of the current device (its SM count, its shared memory a
+// block, ...) into *value.
+inline cudaError_t sst_device_attr(cudaDeviceAttr attr, int* value) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaDeviceGetAttribute(value, attr, dev) : err;
+}
 
 // Blocks of `kernel` (`threads` a block, no dynamic shared memory) that
 // fill every SM of the current device once: the grid of a grid-stride
 // kernel.
 template <typename Kernel>
 inline int sst_fill_blocks(Kernel kernel, int threads) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0, per_sm = 0;
+  sst_device_attr(cudaDevAttrMultiProcessorCount, &sms);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   return (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
 }

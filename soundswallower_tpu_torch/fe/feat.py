@@ -21,7 +21,13 @@ aligner): no dequant, the same CMN and Δ/ΔΔ.
 ``feat`` and ``feat_f32`` launch ``csrc/feat.cu`` for CUDA tensors and
 run ``feat_plain``/``feats_plain`` for CPU tensors.  The plain version keeps the float32
 order with an explicit frame loop: ``torch.sum`` would not (it
-accumulates float32 in another order and precision).
+accumulates float32 in another order and precision).  The kernel folds
+the CMN sums in passes of frames staged in shared memory; a row of one
+pass is then written by the same block (one launch), a longer row by a
+second launch in tiles of frames;
+``feat_layout`` says which layout the launcher takes, and
+``feat_at``/``feat_f32_at`` force one.  A frame count past T reads as
+T, as the JAX program's clamped gather does.
 
 The exact Decoder's host path is numpy, copied from the JAX package's
 module: ``cmn_batch_np``, ``feats_full_utt_np`` (batch CMN in frame
@@ -70,7 +76,7 @@ def feats_plain(cep: torch.Tensor, n_frames: torch.Tensor,
             cnt = cnt + v.to(torch.int32)
         mean = s / cnt.to(torch.float32)[:, None]
         cep = cep - mean[:, None, :]
-    last = torch.clamp(n - 1, min=0)
+    last = torch.clamp(n - 1, min=0, max=T - 1)
 
     def rows(k: int) -> torch.Tensor:
         t = torch.arange(T, device=cep.device)[None, :] + k
@@ -83,31 +89,83 @@ def feats_plain(cep: torch.Tensor, n_frames: torch.Tensor,
     return torch.stack([c[3], d, dd], dim=2)
 
 
+def feat_layout(B: int, T: int, ncep: int, do_cmn: bool,
+                rows: int = 0, pass_frames: int = 0,
+                tile: int = 0) -> dict:
+    """K1's layout on the current CUDA device for B rows of T frames:
+    rows a fold block, frames a fold pass, frames an output tile (0: the
+    one-launch form, where each fold block writes its rows) and
+    launches; ``rows``, ``pass_frames`` and ``tile`` force one where not
+    0 (a forced tile takes the two-launch form).  RuntimeError for a
+    layout the launcher cannot run."""
+    import ctypes
+
+    lay = (ctypes.c_int32 * 4)()
+    cuda_build.check(cuda_build.lib().sst_feat_layout(
+        B, T, ncep, int(bool(do_cmn)), rows, pass_frames, tile,
+        ctypes.addressof(lay)), "feat_layout")
+    return dict(rows=lay[0], pass_frames=lay[1], tile=lay[2],
+                launches=lay[3])
+
+
+def _launch(wrapper, x, n_frames, B: int, T: int, ncep: int, do_cmn: bool,
+            args: tuple, layout: tuple) -> torch.Tensor:
+    """One call of the launcher of ``wrapper`` (feat: sst_feat,
+    feat_f32: sst_feat_f32) on x, counted on the wrapper and on its
+    ``shapes`` by B and T."""
+    cuda_build.check_tensor(n_frames, torch.int32, "n_frames", x.device)
+    if n_frames.shape != (B,):
+        raise ValueError(f"n_frames shape {tuple(n_frames.shape)} != ({B},)")
+    out = torch.empty((B, T, 3, ncep), dtype=torch.float32, device=x.device)
+    mean = torch.empty((B, ncep) if do_cmn else (0,), dtype=torch.float32,
+                       device=x.device)
+    fn = getattr(cuda_build.lib(), "sst_" + wrapper.__name__)
+    err = fn(x.data_ptr(), n_frames.data_ptr(), mean.data_ptr(),
+             out.data_ptr(), B, T, ncep, *args, int(bool(do_cmn)), *layout,
+             cuda_build.stream(x))
+    cuda_build.check(err, wrapper.__name__)
+    wrapper.launches += 1
+    shape = f"B={B}, T={T}"
+    wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
+    return out
+
+
+def feat_at(planes: torch.Tensor, n_frames: torch.Tensor, inv_scale: float,
+            do_cmn: bool, rows: int = 0, pass_frames: int = 0,
+            tile: int = 0) -> torch.Tensor:
+    """K1 on CUDA tensors in a forced layout (``feat_layout``'s
+    parameters; 0 for the launcher's choice)."""
+    if planes.device.type != "cuda":
+        raise ValueError(f"feat: unsupported device {planes.device}")
+    _, B, T, ncep = planes.shape
+    cuda_build.check_tensor(planes, torch.uint8, "planes")
+    return _launch(feat, planes, n_frames, B, T, ncep, do_cmn,
+                   (float(inv_scale),), (rows, pass_frames, tile))
+
+
 def feat(planes: torch.Tensor, n_frames: torch.Tensor, inv_scale: float,
          do_cmn: bool) -> torch.Tensor:
     """K1: planes uint8 [2, B, T, ncep], n_frames int32 [B] -> features
     float32 [B, T, 3, ncep]."""
     if planes.device.type == "cpu":
         return feat_plain(planes, n_frames, inv_scale, do_cmn)
-    if planes.device.type != "cuda":
-        raise ValueError(f"feat: unsupported device {planes.device}")
-    _, B, T, ncep = planes.shape
-    cuda_build.check_tensor(planes, torch.uint8, "planes")
-    cuda_build.check_tensor(n_frames, torch.int32, "n_frames", planes.device)
-    if n_frames.shape != (B,):
-        raise ValueError(f"feat: n_frames shape {tuple(n_frames.shape)} != ({B},)")
-    out = torch.empty((B, T, 3, ncep), dtype=torch.float32,
-                      device=planes.device)
-    lib = cuda_build.lib()
-    err = lib.sst_feat(planes.data_ptr(), n_frames.data_ptr(), out.data_ptr(),
-                       B, T, ncep, float(inv_scale), int(bool(do_cmn)),
-                       cuda_build.stream(planes))
-    cuda_build.check(err, "feat")
-    feat.launches += 1
-    return out
+    return feat_at(planes, n_frames, inv_scale, do_cmn)
 
 
 feat.launches = 0
+feat.shapes = {}
+
+
+def feat_f32_at(cep: torch.Tensor, n_frames: torch.Tensor, do_cmn: bool,
+                rows: int = 0, pass_frames: int = 0,
+                tile: int = 0) -> torch.Tensor:
+    """K1's float32 form on CUDA tensors in a forced layout."""
+    if cep.device.type != "cuda":
+        raise ValueError(f"feat_f32: unsupported device {cep.device}")
+    B, T, ncep = cep.shape
+    cuda_build.check_tensor(cep, torch.float32, "cep")
+    return _launch(feat_f32, cep, n_frames, B, T, ncep, do_cmn, (),
+                   (rows, pass_frames, tile))
 
 
 def feat_f32(cep: torch.Tensor, n_frames: torch.Tensor,
@@ -116,24 +174,11 @@ def feat_f32(cep: torch.Tensor, n_frames: torch.Tensor,
     [B] -> features float32 [B, T, 3, ncep]."""
     if cep.device.type == "cpu":
         return feats_plain(cep, n_frames, do_cmn)
-    if cep.device.type != "cuda":
-        raise ValueError(f"feat_f32: unsupported device {cep.device}")
-    B, T, ncep = cep.shape
-    cuda_build.check_tensor(cep, torch.float32, "cep")
-    cuda_build.check_tensor(n_frames, torch.int32, "n_frames", cep.device)
-    if n_frames.shape != (B,):
-        raise ValueError(f"feat_f32: n_frames shape {tuple(n_frames.shape)} "
-                         f"!= ({B},)")
-    out = torch.empty((B, T, 3, ncep), dtype=torch.float32, device=cep.device)
-    lib = cuda_build.lib()
-    err = lib.sst_feat_f32(cep.data_ptr(), n_frames.data_ptr(), out.data_ptr(),
-                           B, T, ncep, int(bool(do_cmn)), cuda_build.stream(cep))
-    cuda_build.check(err, "feat_f32")
-    feat_f32.launches += 1
-    return out
+    return feat_f32_at(cep, n_frames, do_cmn)
 
 
 feat_f32.launches = 0
+feat_f32.shapes = {}
 
 
 # -- the exact host path (numpy) ------------------------------------------------

@@ -47,7 +47,8 @@ _D = ctypes.c_double
 # C signatures of the launchers (csrc/sst_kernels.h); every launcher
 # returns the cudaError_t of its launch
 _SIGS = {
-    "sst_feat": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    "sst_feat": [_P] * 4 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    "sst_feat_layout": [_I] * 7 + [_P],
     "sst_dist_topn_norm": [_P] * 8 + [_I] * 7 + [_P],
     "sst_dist_topn_tile": [_I, _I],
     "sst_senone_eval": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
@@ -61,7 +62,7 @@ _SIGS = {
     + [_I, _P],
     "sst_viterbi_rows_cluster": [_I] * 5 + [_P],
     "sst_frame_best_sub": [_P, _P, _I, _I, _I, _P],
-    "sst_feat_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "sst_feat_f32": [_P] * 4 + [_I] * 7 + [_P],
     "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 15 + [_I] * 5
     + [_P, _I, _P, _I, _P, _P, _P, _P],
     "sst_fe_spec": [_P, _I] + [_P] * 10 + [_I] * 8 + [_D, _I, _P],
@@ -75,7 +76,8 @@ _SIGS = {
     "sst_ms_senone_eval_tile": [_I] * 6,
     "sst_backtrace_chunk": [_P, _I] + [_P] * 5 + [_I] * 5 + [_P],
     "sst_backtrace_segment_len": [_I] * 4,
-    "sst_yin_cmnd": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sst_yin_cmnd": [_P, _I, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "sst_yin_layout": [_I] * 4 + [_P],
 }
 # launchers return the cudaError_t of their launch; these return sizes
 _RESTYPES = {"sst_viterbi_state_bytes": ctypes.c_int64}

@@ -13,8 +13,10 @@ Two paths:
 
 * **Batched path on the card** (`cmnd_batch`, `pitch_batch`): float32
   CMND over a whole ``[..., frame_size]`` frame tensor and the
-  threshold-then-argmin period pick, in one launch of kernel K14
-  (``csrc/yin.cu``) for CUDA tensors; ``yin_cmnd_plain`` is the same
+  threshold-then-argmin period pick, in one call of kernel K14
+  (``csrc/yin.cu``: the differences, then the scan and pick) for CUDA
+  tensors; ``yin_layout`` says which layout its launcher takes and
+  ``yin_cmnd_at`` forces one; ``yin_cmnd_plain`` is the same
   function in plain PyTorch, which only the CPU route and the tests
   run.  Both keep the float32 order of the JAX program as XLA's CPU
   backend compiles it (``soundswallower_tpu/yin.py`` cmnd_batch,
@@ -358,16 +360,24 @@ def yin_cmnd_plain(frames: torch.Tensor, ndiff: int, thr: float):
     return (cmnd,) + _pick(cmnd, thr)
 
 
-def yin_cmnd(frames: torch.Tensor, ndiff: int, thr: float):
-    """K14: frames [N, F] int16 or float32 -> (cmnd float32 [N, ndiff],
-    period int64 [N], best float32 [N]).  ``thr`` is the float32
-    threshold on the x32768 scale."""
+def yin_layout(N: int, ndiff: int, R: int = 0, tpf: int = 0) -> dict:
+    """K14's layout on the current CUDA device for N frames of ndiff
+    lags: R lags a thread, threads a block (tpf), lag tiles a frame,
+    blocks of the first launch, launches; R and tpf force one where not
+    0.  RuntimeError for a layout the launcher cannot run."""
+    lay = (ctypes.c_int32 * 5)()
+    cuda_build.check(cuda_build.lib().sst_yin_layout(
+        N, ndiff, R, tpf, ctypes.addressof(lay)), "yin_layout")
+    return dict(R=lay[0], tpf=lay[1], tiles=lay[2], blocks=lay[3],
+                launches=lay[4])
+
+
+def yin_cmnd_at(frames: torch.Tensor, ndiff: int, thr: float, R: int = 0,
+                tpf: int = 0):
+    """K14 on a CUDA tensor in a forced layout (``yin_layout``'s
+    parameters; 0 for the launcher's choice)."""
     if ndiff > frames.shape[-1]:
-        # the JAX program's x[..., :ndiff] has F values: it cannot
-        # broadcast against the [ndiff, ndiff] lag matrix either
         raise ValueError(f"ndiff {ndiff} > frame_size {frames.shape[-1]}")
-    if frames.device.type == "cpu":
-        return yin_cmnd_plain(frames, ndiff, thr)
     if frames.device.type != "cuda":
         raise ValueError(f"yin_cmnd: unsupported device {frames.device}")
     if frames.dtype not in (torch.int16, torch.float32):
@@ -384,10 +394,24 @@ def yin_cmnd(frames: torch.Tensor, ndiff: int, thr: float):
     lib = cuda_build.lib()
     err = lib.sst_yin_cmnd(frames.data_ptr(), int(frames.dtype == torch.int16),
                            cmnd.data_ptr(), period.data_ptr(), best.data_ptr(),
-                           N, F, ndiff, float(thr), cuda_build.stream(frames))
+                           N, F, ndiff, float(thr), R, tpf,
+                           cuda_build.stream(frames))
     cuda_build.check(err, "yin_cmnd")
     yin_cmnd.launches += 1
     return cmnd, period, best
+
+
+def yin_cmnd(frames: torch.Tensor, ndiff: int, thr: float):
+    """K14: frames [N, F] int16 or float32 -> (cmnd float32 [N, ndiff],
+    period int64 [N], best float32 [N]).  ``thr`` is the float32
+    threshold on the x32768 scale."""
+    if ndiff > frames.shape[-1]:
+        # the JAX program's x[..., :ndiff] has F values: it cannot
+        # broadcast against the [ndiff, ndiff] lag matrix either
+        raise ValueError(f"ndiff {ndiff} > frame_size {frames.shape[-1]}")
+    if frames.device.type == "cpu":
+        return yin_cmnd_plain(frames, ndiff, thr)
+    return yin_cmnd_at(frames, ndiff, thr)
 
 
 yin_cmnd.launches = 0

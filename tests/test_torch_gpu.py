@@ -866,6 +866,140 @@ def test_yin_kernel_equals_plain_on_card(F):
                                want[2].view(torch.int32))
 
 
+def _bits_equal(got, want) -> bool:
+    """Tensors or tuples of them equal bit for bit (float32 as int32)."""
+    if isinstance(got, tuple):
+        return all(_bits_equal(a, b) for a, b in zip(got, want))
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _feat_rows(rng, B: int, T: int, offset: int, ncep: int = 13):
+    """K1's inputs on the card: byte planes and float32 cepstra of the
+    same values, each starting ``offset`` elements into its buffer (1:
+    off every vector boundary, the scalar loads), and frame counts with
+    a full row, an all-negative c0 row, none, one, one past T and the
+    rest mid-row."""
+    c = rng.normal(0, 6, (B, T, ncep))
+    c[:, :, 0] = np.where(rng.random_sample((B, T)) < 0.3,
+                          -rng.random_sample((B, T)) * 5,
+                          5 + rng.random_sample((B, T)) * 20)
+    c[min(1, B - 1), :, 0] = -2.0
+    v = np.clip(np.round(c * 128), -32768, 32767).astype(np.int16)
+    u = v.view(np.uint16)
+    pl = np.stack([(u & 0xFF).astype(np.uint8), (u >> 8).astype(np.uint8)])
+    buf = torch.zeros(pl.size + offset, dtype=torch.uint8, device="cuda")
+    planes = buf[offset:].view(pl.shape)
+    planes.copy_(torch.from_numpy(pl))
+    fbuf = torch.zeros(v.size + offset, dtype=torch.float32, device="cuda")
+    cep = fbuf[offset:].view(B, T, ncep)
+    cep.copy_(torch.from_numpy(v.astype(np.float32) / 100))
+    n = rng.randint(T // 2, T + 1, B).astype(np.int32)
+    n[0] = T
+    for i, k in zip(range(2, B), (0, 1, T + 40)):
+        n[i] = k
+    return planes, cep, torch.from_numpy(n).cuda()
+
+
+@pytest.mark.parametrize("layout", [(0, 0, 0), (2, 0, 0), (1, 32, 16),
+                                    (1, 64, 128), (2, 1024, 32), (0, 0, 64),
+                                    (2, 1024, 0), (1, 96, 0), (1, 256, 0)])
+def test_feat_layouts_equal_plain_on_card(layout):
+    """K1's byte-plane and float32 forms in every layout (rows a fold
+    block, frames a pass, frames a tile; tile 0 the one-launch form where
+    the rows fit a pass, which 32 rows or more take by default) forced
+    where the launcher would not pick it, with CMN and without, on rows
+    of 320, 333 (no multiple of 4: no 16-byte loads or stores), 1,500
+    (passes) and 70 frames, at aligned and unaligned starts, against the
+    plain versions bit for bit; a layout the launcher cannot run
+    raises."""
+    _need_cuda()
+    rng = np.random.RandomState(14)
+    for B, T, offset in ((40, 320, 0), (8, 333, 0), (3, 1500, 0),
+                         (5, 70, 1), (40, 320, 1)):
+        planes, cep, n = _feat_rows(rng, B, T, offset)
+        for cmn in (True, False):
+            got = fm.feat_at(planes, n, 1 / 128, cmn, *layout)
+            assert _bits_equal(got, fm.feat_plain(planes, n, 1 / 128, cmn))
+            got = fm.feat_f32_at(cep, n, cmn, *layout)
+            assert _bits_equal(got, fm.feats_plain(cep, n, cmn))
+    assert fm.feat_layout(40, 320, 13, True)["tile"] == 0
+    assert fm.feat_layout(8, 320, 13, True)["launches"] == 2
+    assert fm.feat_layout(4, 6656, 13, True)["pass_frames"] == 1024
+    for bad in ((3, 0, 0), (0, 48, 0), (0, 0, 300), (2, 0, 0, 20)):
+        with pytest.raises(RuntimeError):
+            if len(bad) == 4:
+                fm.feat_layout(8, 320, bad[3], True, *bad[:3])
+            else:
+                fm.feat_at(planes, n, 1 / 128, True, *bad)
+
+
+@pytest.mark.parametrize("ncep,B,T,layout,launches", [
+    (16, 140, 1000, (0, 0, 0), 1), (16, 140, 1000, (2, 0, 0), 2),
+    (40, 8, 320, (0, 0, 0), 2), (40, 40, 320, (0, 0, 0), 1),
+    (128, 40, 300, (0, 0, 0), 2), (128, 3, 1500, (0, 0, 0), 2),
+    (128, 3, 1500, (1, 64, 0), 2)])
+def test_feat_wide_cepstra_on_card(ncep, B, T, layout, launches):
+    """K1 where the launcher's first choice would pass the card's shared
+    memory a block (two rows of 16 dimensions a fold block at 1,000
+    frames, 128 dimensions) and past 32 dimensions (a lane folds several
+    chains): it takes one row a block, the two-launch form or shorter
+    passes, bit-equal to the plain versions; a forced fold that does not
+    fit raises, from feat_layout as from the launch."""
+    _need_cuda()
+    rng = np.random.RandomState(ncep + B)
+    planes, cep, n = _feat_rows(rng, B, T, 0, ncep)
+    lay = fm.feat_layout(B, T, ncep, True, *layout)
+    assert lay["launches"] == launches
+    if layout == (0, 0, 0):
+        assert lay["rows"] == 1
+    for cmn in (True, False):
+        got = fm.feat_at(planes, n, 1 / 128, cmn, *layout)
+        assert _bits_equal(got, fm.feat_plain(planes, n, 1 / 128, cmn))
+        got = fm.feat_f32_at(cep, n, cmn, *layout)
+        assert _bits_equal(got, fm.feats_plain(cep, n, cmn))
+    if ncep == 128 and T > 1024:
+        with pytest.raises(RuntimeError):
+            fm.feat_layout(B, T, ncep, True, 1, 1024, 0)
+        with pytest.raises(RuntimeError):
+            fm.feat_at(planes, n, 1 / 128, True, 1, 1024, 0)
+
+
+@pytest.mark.parametrize("layout", [(0, 0), (4, 0), (8, 0), (4, 64),
+                                    (4, 128), (8, 64), (8, 128)])
+def test_yin_layouts_equal_plain_on_card(layout):
+    """K14 in every layout (R lags a thread, threads a block: a frame a
+    block, or lag tiles of a frame with the second launch) forced where
+    the launcher would not pick it, on
+    austen.raw's frames at frame sizes 32-4096 with ndiff F / 2, past it
+    (lags past the frame) and F, int16 and float32 input with a constant
+    frame (ties, the CMND under the threshold at lag 1) and an infinity
+    (NaN lags), against yin_cmnd_plain bit for bit; a layout the
+    launcher cannot run raises."""
+    _need_cuda()
+    from soundswallower_tpu_torch import yin
+
+    a = np.fromfile(os.path.join(REPO, "tests", "golden", "austen.raw"),
+                    np.int16)
+    thr = float(np.float32(0.1 * 32768))
+    for F in (32, 100, 200, 400, 1024, 4096):
+        fr = np.stack([a[p:p + F] for p in range(0, len(a) - F, 160)])[:9]
+        f32 = fr.astype(np.float32) * 0.5
+        f32[0] = 12.0
+        f32[1, F // 3] = np.inf
+        for x in (torch.from_numpy(fr).cuda(), torch.from_numpy(f32).cuda()):
+            for nd in sorted({F // 2, F // 2 + 37 if F > 74 else F, F}):
+                for t in (thr, 0.0):
+                    got = yin.yin_cmnd_at(x, nd, t, *layout)
+                    assert _bits_equal(got, yin.yin_cmnd_plain(x, nd, t))
+    assert yin.yin_layout(124, 2048)["launches"] == 2
+    assert yin.yin_layout(149, 100)["launches"] == 1
+    for bad in ((5, 0), (4, 96), (4, 32)):
+        with pytest.raises(RuntimeError):
+            yin.yin_layout(10, 200, *bad)
+
+
 def test_decoder_on_card_equals_cpu(tmp_path_factory):
     """The exact Decoder with its front end on the card (K8-K10) against
     device="cpu": the API golden's scenario (alignment JSON at levels

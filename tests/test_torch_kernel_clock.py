@@ -170,52 +170,99 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's K3 and K13 with the parameters
+    """--before DIR calls DIR's K1 and K14 with the parameters
     BEFORE_PARAMS lists (their signatures before the redesign), typed as
     DIR's header declares them; a header that declares them otherwise,
     or a scalar of a type the harness does not pass, is refused.  This
-    tree's header declares K3 so (its signature is unchanged) and K13
-    otherwise (it takes the segments' maps), so a later parent needs its
-    own list."""
+    tree's header declares all three otherwise (each takes its layout and
+    K1 its means' scratch), so a later parent needs its own list."""
     import ctypes
 
-    ints = {"table_len", "N", "Cu", "F", "D", "S", "topn", "wrap_u8",
-            "tok_bytes", "R", "C", "t0"}
+    ints = {"B", "T", "ncep", "do_cmn", "is_i16", "N", "F", "ndiff"}
+    floats = {"inv_scale", "thr"}
 
-    def decl(name, wrap_u8="int"):
+    def decl(name, do_cmn="int"):
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             f"{wrap_u8} " if p == "wrap_u8" else
-             "int " if p in ints else "const int32_t* ") + p
+             f"{do_cmn} " if p == "do_cmn" else
+             "int " if p in ints else "float " if p in floats else
+             "const void* ") + p
             for p in params) + ");\n")
 
-    header = ("// K3, K13\n" + decl("sst_senone_eval")
-              + decl("sst_backtrace_chunk"))
+    header = "".join(decl(n) for n in cs.BEFORE_PARAMS)
     sigs = cs.before_argtypes(header)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    assert sigs["sst_senone_eval"] == [P] * 5 + [I, P] + [I] * 7 + [P]
-    assert sigs["sst_backtrace_chunk"] == [P, I] + [P] * 4 + [I] * 4 + [P]
-    assert cs.BEFORE_SOURCES == ("senscore", "backtrace_chunk")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    assert sigs["sst_feat"] == [P] * 3 + [I] * 3 + [F, I, P]
+    assert sigs["sst_feat_f32"] == [P] * 3 + [I] * 4 + [P]
+    assert sigs["sst_yin_cmnd"] == [P, I, P, P, P, I, I, I, F, P]
+    assert cs.BEFORE_SOURCES == ("feat", "yin")
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
         here = f.read()
-    with pytest.raises(ValueError, match="sst_backtrace_chunk is declared"):
+    with pytest.raises(ValueError, match="sst_feat is declared"):
         cs.before_argtypes(here)
-    k3 = cs.header_params(here, "sst_senone_eval")
-    assert [nm for _, nm in k3] == cs.BEFORE_PARAMS[
-        "sst_senone_eval"].split()
-    # a parameter list that differs (K13 without t0), a scalar the
+    for name in cs.BEFORE_PARAMS:
+        assert ([nm for _, nm in cs.header_params(here, name)]
+                != cs.BEFORE_PARAMS[name].split())
+    # a parameter list that differs (K14 without thr), a scalar the
     # harness cannot type, a missing declaration
-    with pytest.raises(ValueError, match="sst_backtrace_chunk is declared"):
-        cs.before_argtypes(decl("sst_senone_eval")
-                           + decl("sst_backtrace_chunk")
-                           .replace(", int t0", ""))
-    with pytest.raises(ValueError, match="wrap_u8 of type float"):
-        cs.before_argtypes(decl("sst_senone_eval", "float")
-                           + decl("sst_backtrace_chunk"))
+    with pytest.raises(ValueError, match="sst_yin_cmnd is declared"):
+        cs.before_argtypes(header.replace(", float thr", ""))
+    with pytest.raises(ValueError, match="do_cmn of type char"):
+        cs.before_argtypes(decl("sst_feat", "char") + decl("sst_feat_f32")
+                           + decl("sst_yin_cmnd"))
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(decl("sst_senone_eval"))
+        cs.before_argtypes(decl("sst_feat") + decl("sst_yin_cmnd"))
+
+
+def test_feat_bytes_count_the_frames_read():
+    """K1's bound reads each row's frames up to min(max(n, 1), T) (frame
+    0 for a row of none, T for a count past it) from both byte planes or
+    the float32 cepstra, and the counts: not the padded [B, T] frames."""
+    import torch
+
+    n = torch.tensor([10, 4, 0, 25], dtype=torch.int32)
+    frames = 10 + 4 + 1 + 10
+    planes = torch.zeros((2, 4, 10, 13), dtype=torch.uint8)
+    assert cs.feat_bytes(planes, n) == frames * 13 * 2 + 16
+    cep = torch.zeros((4, 10, 13), dtype=torch.float32)
+    assert cs.feat_bytes(cep, n) == frames * 13 * 4 + 16
+    # the long form's 4 rows (62.5-62.8 s: 6,249-6,276 frames of 6,656)
+    n = torch.tensor([6249, 6276, 6260, 6270], dtype=torch.int32)
+    planes = torch.zeros((2, 4, 6656, 13), dtype=torch.uint8)
+    assert cs.feat_bytes(planes, n) == (6249 + 6276 + 6260 + 6270) * 26 + 16
+
+
+def test_k1_entries_count_launches_at_their_shape():
+    """K1's long-form and align entries read their kernel's launches at
+    the rows and frames they were timed at (``feat.shapes``,
+    ``feat_f32.shapes``) on their paths: the ring of 8's 4 rows, the
+    5-minute row, align's one row; the batch entries keep their path's
+    whole count."""
+    names, paths = _all_entries()
+    results = {n: dict(ms=1.0, bound_ms=0.1) for n in names}
+    results["feat[long form]"]["shape"] = "B=4, T=6656"
+    results["feat[long form, 5-minute row]"]["shape"] = "B=1, T=30208"
+    results["feat_f32[align]"]["shape"] = "B=1, T=384"
+    counts = {p: {} for p in paths}
+    counts["host-FE"] = {"feat": 17, "feat[B=128, T=320]": 4,
+                         "feat[B=8, T=320]": 13}
+    counts["longform"] = {"feat": 5, "feat[B=4, T=6656]": 1,
+                          "feat[B=4, T=6336]": 1, "feat[B=8, T=6336]": 1,
+                          "feat[B=1, T=30208]": 1, "feat[B=8, T=29952]": 1}
+    counts["device-FE"] = {"feat_f32": 11, "feat_f32[B=128, T=320]": 4,
+                           "feat_f32[B=1, T=384]": 1,
+                           "feat_f32[B=8, T=320]": 6}
+    got = {e["name"]: e["launches"]
+           for e in cs.kernel_entries(counts, results)}
+    assert got["feat[long form]"] == 1
+    assert got["feat[long form, 5-minute row]"] == 1
+    assert got["feat_f32[align]"] == 1
+    assert got["feat"] == 17 and got["feat_f32"] == 11
+    assert [v[3] for v in cs.VARIANTS if v[0] in (
+        "feat[long form]", "feat[long form, 5-minute row]",
+        "feat_f32[align]")] == ["longform", "longform", "device-FE"]
 
 
 def test_entries_count_launches_at_their_shape():
@@ -327,3 +374,43 @@ def test_vit_bytes_count_the_real_slots():
         entry=np.zeros(4, np.int32), fin=np.array([3], np.int32)))
     assert v.pred_n.tolist() == [0, 1, 2, 1]
     assert cs.vit_bytes(v) == 4 * (48 + 4 + 4 + 4 + 4 + 1) + 8 * 4
+
+
+def test_rule_two_takes_k5_next():
+    """Rule 2 on the entries of K1, K14 and K5 as the card measured them
+    after K1's and K14's redesign (chip_smoke.py, NVIDIA H100 80GB HBM3,
+    700.00 W; launches, ms, bound ms, library ms).  Leaving out the
+    wrappers of the kernels ROADMAP lists as redesigned (K1 and K14
+    among them), K5 is the next slice, by its `[int16 full inventory]`
+    entry alone (its base entry runs within twice its bound); with them,
+    K1 and K14 entries still come first."""
+    measured = [
+        ("feat", 18, 0.017216, 0.002202, None),
+        ("feat_f32", 11, 0.024005, 0.004993, None),
+        ("feat_f32[wire f32]", 3, 0.012736, 0.000156, None),
+        ("feat[long form]", 1, 0.040226, 0.001434, None),
+        ("feat[long form, 5-minute row]", 1, 0.125616, 0.001639, None),
+        ("feat_f32[align]", 1, 0.012544, 0.000023, None),
+        ("yin_cmnd", 4, 0.013648, 0.000265, None),
+        ("yin_cmnd[200]", 4, 0.011376, 0.000067, None),
+        ("yin_cmnd[1024]", 4, 0.021840, 0.001690, None),
+        ("yin_cmnd[4096]", 4, 0.085792, 0.023288, None),
+        ("gather_cols", 9, 0.035888, 0.018322, 0.072448),
+        ("gather_cols[int16 full inventory]", 9, 0.016112, 0.004056,
+         0.026880),
+        # a redesigned kernel, however large its gap
+        ("viterbi_chunk[long form, 5-minute row]", 8, 45.75, 0.1199, None),
+    ]
+    entries = [entry(n, ms, b, launches=k, library_ms=lib)
+               for n, k, ms, b, lib in measured]
+    redesigned = {"feat", "feat_f32", "yin_cmnd", "viterbi_chunk"}
+    order = cs.rank_kernels([e for e in entries
+                             if e["name"].split("[")[0] not in redesigned])
+    assert order == [("gather_cols[int16 full inventory]", "gap",
+                      pytest.approx(9 * (0.016112 - 0.004056)))]
+    before = cs.rank_kernels([e for e in entries
+                              if not e["name"].startswith("viterbi_chunk")])
+    assert [n for n, _, _ in before[:4]] == ["feat", "yin_cmnd[4096]",
+                                             "feat_f32",
+                                             "feat[long form, 5-minute row]"]
+    assert before[4][0] == "gather_cols[int16 full inventory]"

@@ -10,8 +10,8 @@ minutes, chunks of about 3,737 frames, S = 17,697).  For each: the
 median host wall of N calls (each ending in a synchronize, after one
 warm-up), and a torch.profiler trace of 3 calls: device time by kernel
 per call, the reverse pass's (K13, every kernel whose name holds
-``backtrace``) and the forward's (K4's carry form, ``viterbi_chunk``)
-apart.
+``backtrace``), the forward's (K4's carry form, ``viterbi_chunk``) and
+the features' (K1, ``feat_``) apart.
 
 Prints one JSON object.  Usage: ``python tools/profile_torch_longform.py
 [N]``.  To compare with an earlier commit, copy this tool into its
@@ -87,6 +87,8 @@ def measure(al: TorchAligner, rows: list, texts: list, N: int) -> dict:
                                       if "backtrace" in k),
         "forward_device_ms": sum(v for k, v in by_kernel.items()
                                  if "viterbi_chunk" in k),
+        "features_device_ms": sum(v for k, v in by_kernel.items()
+                                  if "feat_" in k),
         "device_ms_by_kernel": dict(sorted(by_kernel.items(),
                                            key=lambda kv: -kv[1])[:8]),
     }
