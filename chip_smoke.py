@@ -7,8 +7,10 @@ pipelined ``align_batch_begin``/``align_batch_end``, the HTTP service,
 and, on the device front end, ``align``, ``stream`` and
 ``spectrogram``, and grammar decode: ``set_grammar``, ``decode``,
 ``decode_batch``, ``decode_batch_scored``, ``decode_search``, ``lattice``
-and ``nbest``, and the sequence-parallel ``align_longform_batch`` on a
-local ring (parallel.seq_ring)), with ``dist_mode="mxu"``, under
+and ``nbest``, the sequence-parallel ``align_longform_batch`` on a
+local ring (parallel.seq_ring), and the data-parallel mesh
+(``use_mesh``, parallel.multihost on two processes, the dry run)), with
+``dist_mode="mxu"``, under
 ``SST_WIRE=f32`` and with ``remove_dc``, and the public API
 (``pitch_batch``, the exact ``Decoder``, the command line, ``update_mllr``),
 on synthetic models at the published en-us width
@@ -119,10 +121,21 @@ raises, so the exit code is non-zero and the last line is not printed:
    and n-best, a live decode in 1,600-sample pieces; the command line
    (``cli.main``) on two raw files, its fast path and ``--exact``;
    ``update_mllr`` with tools/make_mllr.py's transform, then a
-   same-transcript ``align_batch`` and ``align_batch_scored``.
+   same-transcript ``align_batch`` and ``align_batch_scored``;
+14. the data-parallel mesh (8-bit ptm) on cuda:0: ``use_mesh`` with 1
+   rank and with 2 virtual ranks in turns (1, 2, 2, 1), each: a
+   same-transcript and a mixed batch of 256 (fresh union),
+   ``align_batch_scored`` on the 32 mixed,
+   ``decode_batch`` of 256 (the last row failing) and
+   ``decode_batch_scored`` of 32, against the goldens; at 2 ranks every
+   K5 and K6 launch on a rank's half of the rows; then two processes on
+   gloo (parallel.multihost), a rank each on the card and 4 rows each,
+   against their one-process results, the golden and this process's;
+   then ``dryrun.dryrun_multichip`` on 2 ranks (data and sequence
+   parallel agree); the walls printed.
 
 Every row, score, segment list, spectrogram and checkpoint equals its
-golden.  The launch counts are reset before each of phases 5-13 and
+golden.  The launch counts are reset before each of phases 5-14 and
 read after it; a kernel of a path, or a form of a kernel (the Viterbi
 kernels' 5-state, int32, global and scores forms, K10's log spectra,
 K7's semi form, ...) on the path that drives it, launched no time there
@@ -132,12 +145,14 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K1 and K14 from DIR,
-a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
-declares them as BEFORE_PARAMS lists (their C signatures before their
-redesign; any other declaration stops the run), checks them bit-equal to
-this tree's on every K1 and K14 entry's inputs and times both in turns
-(``ms_before``).  K1's entries print the rows a fold block, the frames a
+``python3 chip_smoke.py --before DIR`` also builds K5 from DIR, a
+checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h`` declares
+it as BEFORE_PARAMS lists (its C signature; any other declaration stops
+the run), checks it bit-equal to this tree's on both K5 entries' inputs
+and times both in turns (``ms_before``).  K5's entries print their
+launch (threads and frames a block) and their sector floor beside the
+bound (``sector_floor_ms``: the 32-byte sectors the columns touch).
+K1's entries print the rows a fold block, the frames a
 pass, the frame tile (or the one-launch form) and the launches its
 launcher takes, K14's the lags a thread (R), the threads a slot, the
 slots a block, the lag tiles a frame and the launches.  K3's entries
@@ -163,6 +178,7 @@ import json
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -209,7 +225,8 @@ from soundswallower_tpu_torch.decoder import Decoder  # noqa: E402
 from soundswallower_tpu_torch.fe import feat as feat_mod  # noqa: E402
 from soundswallower_tpu_torch.fe import frontend as fe_mod  # noqa: E402
 from soundswallower_tpu_torch.ops import align_torch, senscore_torch  # noqa: E402
-from soundswallower_tpu_torch.parallel import seq_ring  # noqa: E402
+from soundswallower_tpu_torch.dryrun import dryrun_multichip  # noqa: E402
+from soundswallower_tpu_torch.parallel import data_mesh, seq_ring  # noqa: E402
 from soundswallower_tpu_torch.serve import make_server, segs_to_json  # noqa: E402
 from soundswallower_tpu_torch.streaming import AlignStream  # noqa: E402
 from soundswallower_tpu_torch.utils import cuda_build  # noqa: E402
@@ -456,6 +473,11 @@ REMOVE_DC_PATH = ["fe_spec", "fe_noise", "fe_cep", "feat_f32",
 API_PATH = ["yin_cmnd", "fe_spec", "fe_noise", "fe_cep", "feat",
             "dist_topn_norm", "senone_eval", "viterbi_batch", "gather_cols",
             "viterbi_rows", "frame_best_sub"]
+# the data-parallel mesh's path: both batch routes, K7 on the scored ones,
+# and the dry run's sequence-parallel half (the carry form, K13)
+MESH_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
+             "gather_cols", "viterbi_rows", "frame_best_sub", "viterbi_chunk",
+             "backtrace_chunk"]
 N_SEQ = 8               # ranks of the long form's local ring
 LONG_K5 = 100           # AUSTEN repeats of the informational long row
 REPEATS = 130           # transcript repeats of the int16 global-state graph
@@ -771,19 +793,16 @@ def rows_bytes(v) -> int:
             + 8 * int(nin.sum()))
 
 
-# -- the parent's K1 and K14 (--before DIR) --------------------------------
+# -- the parent's K5 (--before DIR) ----------------------------------------
 
-# DIR's soundswallower_tpu_torch/csrc/feat.cu and yin.cu built into a
-# library of their own: K1 and K14 before their redesign (K1 a block a
-# row whose 13 threads walk the frames from global memory, K14 a block a
-# frame, a lag a thread), called below with the parameters their
-# declarations in DIR's sst_kernels.h must list
+# DIR's soundswallower_tpu_torch/csrc/gather_cols.cu built into a library
+# of its own: K5 before its redesign (a block 8 frames of one row, a
+# column a thread over the frames), called below with the parameters its
+# declaration in DIR's sst_kernels.h must list
 BEFORE: dict = {}
-BEFORE_SOURCES = ("feat", "yin")
+BEFORE_SOURCES = ("gather_cols",)
 BEFORE_PARAMS = {
-    "sst_feat": "planes n_frames out B T ncep inv_scale do_cmn stream",
-    "sst_feat_f32": "cep n_frames out B T ncep do_cmn stream",
-    "sst_yin_cmnd": "frames is_i16 cmnd period best N F ndiff thr stream",
+    "sst_gather_cols": "src elem_bytes cols out B T Sx S stream",
 }
 # ctypes types of the declared scalar parameters
 BEFORE_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float,
@@ -848,8 +867,7 @@ def build_before(root: str) -> None:
              for o in objs]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     if any(p.returncode for p in procs):
-        raise RuntimeError("the parent's K1 and K14 did not build:\n"
-                           + "".join(logs))
+        raise RuntimeError("the parent's K5 did not build:\n" + "".join(logs))
     so = os.path.join(out, "libsst_before.so")
     subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
                    check=True, timeout=300)
@@ -858,52 +876,25 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's K1 and K14 from {root}: built in "
+    log(f"  the parent's K5 from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_feat(x, n, inv_scale, do_cmn: bool):
-    """K1 (byte planes, or its float32 form on float32 cepstra) on the
-    parent's kernel: float32 [B, T, 3, ncep], or None without
+def before_gather(src, cols):
+    """K5 on the parent's kernel: int32 [B, T, S], or None without
     --before."""
     if "lib" not in BEFORE:
         return None
 
     def run():
-        planes = x.dtype == torch.uint8
-        B, T, ncep = x.shape[1:] if planes else x.shape
-        out = torch.empty((B, T, 3, ncep), dtype=torch.float32,
-                          device=x.device)
-        if planes:
-            err = BEFORE["lib"].sst_feat(
-                x.data_ptr(), n.data_ptr(), out.data_ptr(), B, T, ncep,
-                float(inv_scale), int(do_cmn), cuda_build.stream(x))
-        else:
-            err = BEFORE["lib"].sst_feat_f32(
-                x.data_ptr(), n.data_ptr(), out.data_ptr(), B, T, ncep,
-                int(do_cmn), cuda_build.stream(x))
-        cuda_build.check(err, "feat (parent)")
+        B, T, Sx = src.shape
+        S = cols.shape[1]
+        out = torch.empty((B, T, S), dtype=torch.int32, device=src.device)
+        err = BEFORE["lib"].sst_gather_cols(
+            src.data_ptr(), src.element_size(), cols.data_ptr(),
+            out.data_ptr(), B, T, Sx, S, cuda_build.stream(src))
+        cuda_build.check(err, "gather_cols (parent)")
         return out
-    return run
-
-
-def before_yin(fr, nd: int, thr: float):
-    """K14 on the parent's kernel: (cmnd [N, nd], period [N], best [N]),
-    or None without --before."""
-    if "lib" not in BEFORE:
-        return None
-
-    def run():
-        N, F = fr.shape
-        cmnd = torch.empty((N, nd), dtype=torch.float32, device=fr.device)
-        period = torch.empty(N, dtype=torch.int64, device=fr.device)
-        best = torch.empty(N, dtype=torch.float32, device=fr.device)
-        err = BEFORE["lib"].sst_yin_cmnd(
-            fr.data_ptr(), int(fr.dtype == torch.int16), cmnd.data_ptr(),
-            period.data_ptr(), best.data_ptr(), N, F, nd, float(thr),
-            cuda_build.stream(fr))
-        cuda_build.check(err, "yin_cmnd (parent)")
-        return cmnd, period, best
     return run
 
 
@@ -942,8 +933,7 @@ def compare_feat(name, x, n, inv_scale, do_cmn: bool, results,
         plain = functools.partial(feat_mod.feats_plain, x, n, do_cmn)
     out = compare(name, fn, plain, results, plain_runs=plain_runs,
                   n_bytes=feat_bytes(x, n),
-                  ops=(8.0 if planes else 6.0) * B * T * ncep,
-                  before=before_feat(x, n, inv_scale, do_cmn))
+                  ops=(8.0 if planes else 6.0) * B * T * ncep)
     results[name]["layout"] = lay
     return out
 
@@ -1046,12 +1036,51 @@ def gather_bytes(src, cols) -> int:
     return used * T * src.element_size() + nbytes(cols)
 
 
+def sector_bytes(src, cols) -> int:
+    """The source bytes a gather of this run's columns cannot read less
+    than: the 32-byte sectors its in-range columns (wrapped) touch at
+    every frame, each sector once (two frames may share one)."""
+    B, T, Sx = src.shape
+    idx = cols.long()
+    idx = torch.where(idx < 0, idx + Sx, idx)
+    ok = (idx >= 0) & (idx < Sx)
+    frame = torch.arange(B * T, device=src.device).view(B, T, 1) * Sx
+    el = (frame + idx[:, None, :])[ok[:, None, :].expand(B, T, -1)]
+    first = src.data_ptr() % 32
+    return int(torch.unique((el * src.element_size() + first) // 32)
+               .numel()) * 32
+
+
 def gather_library(src, cols):
     """One PyTorch call for K5 on in-range columns: torch.gather (int64
     indices, expanded over the frames; the source's dtype out)."""
     idx = cols.long().clamp(0, src.shape[2] - 1)[:, None, :].expand(
         src.shape[0], src.shape[1], -1).contiguous()
     return lambda: torch.gather(src, 2, idx)
+
+
+def compare_gather(name, src, cols, results):
+    """K5 against its plain version and, under --before, the parent's
+    kernel, with its launch (threads and frames a block) and its sector
+    floor: sector_bytes and the columns in, the output out, at the memory
+    rate, what a gather can reach (the bound's rule stays)."""
+    B, T, Sx = src.shape
+    lay = senscore_torch.gather_cols_layout(B, T, cols.shape[1])
+    log(f"  {name}: B={B} T={T} Sx={Sx} S={cols.shape[1]}, "
+        f"{src.element_size()}-byte source: {lay['threads']} threads and "
+        f"{lay['frames']} frames a block, {lay['blocks']} blocks")
+    out = compare(name, lambda: senscore_torch.gather_cols(src, cols),
+                  lambda: senscore_torch.gather_cols_plain(src, cols),
+                  results, n_bytes=gather_bytes(src, cols),
+                  library=gather_library(src, cols),
+                  before=before_gather(src, cols))
+    floor = bound(sector_bytes(src, cols) + nbytes(cols, out), 0.0,
+                  1.0)["bound_ms"]
+    r = results[name]
+    r.update(layout=lay, sector_floor_ms=floor)
+    log(f"  {name}: sector floor {floor:.4f} ms (bound {r['bound_ms']:.4f} "
+        f"ms): the kernel at {floor / r['ms']:.1%} of it")
+    return out
 
 
 def fresh_union(al: TorchAligner) -> None:
@@ -1081,11 +1110,7 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
             uni["gs"], feats.view(n * Tmax, 3, -1)).view(n, Tmax, -1)
         cols = st.sencols[i0:i0 + n]
         if i0 == 0:
-            compare("gather_cols",
-                    lambda: senscore_torch.gather_cols(src, cols),
-                    lambda: senscore_torch.gather_cols_plain(src, cols),
-                    results, n_bytes=gather_bytes(src, cols),
-                    library=gather_library(src, cols))
+            compare_gather("gather_cols", src, cols, results)
         senscore_torch.gather_cols(src, cols, out=sen[i0:i0 + n])
     v = st.vit
     log(f"  union shapes: B={len(audios)} Tmax={Tmax} Spad={uni['Spad']} "
@@ -1140,11 +1165,8 @@ def phase_kernels_mixed(al: TorchAligner, texts: list, results: dict):
         PROBES["frame_best_sub"] = (lambda: senscore_torch.frame_best_sub(x),
                                     "frame_best_sub")
         src = senscore_torch.frame_best_sub(x).view(len(audios), Tmax, -1)
-        compare("gather_cols[int16 full inventory]",
-                lambda: senscore_torch.gather_cols(src, cols),
-                lambda: senscore_torch.gather_cols_plain(src, cols),
-                results, n_bytes=gather_bytes(src, cols),
-                library=gather_library(src, cols))
+        compare_gather("gather_cols[int16 full inventory]", src, cols,
+                       results)
 
 
 def wall_ms(fn, runs: int = 5) -> float:
@@ -2504,8 +2526,7 @@ def phase_kernels_yin(results: dict):
             f"launch{'es' if lay['launches'] > 1 else ''} (no cluster)")
         got = compare(name, lambda: yin_mod.yin_cmnd(fr, nd, thr),
                       lambda: yin_mod.yin_cmnd_plain(fr, nd, thr), results,
-                      ins=(fr,), ops=3.0 * fr.shape[0] * nd * nd,
-                      before=before_yin(fr, nd, thr))
+                      ins=(fr,), ops=3.0 * fr.shape[0] * nd * nd)
         results[name]["layout"] = lay
         want = yin_mod.yin_cmnd_plain(fr, nd, thr)
         for a, b in zip(got, want):
@@ -2566,9 +2587,186 @@ def phase_api(ag: dict):
         log("  update_mllr, then align_batch and align_batch_scored: equal")
 
 
+# -- the data-parallel mesh ---------------------------------------------------
+
+# the mesh phase's ranks, in turns (B=256 batches, B=32 scored ones)
+MESH_RANKS = (1, 2, 2, 1)
+# the two-process run: rows a process (its own utterances)
+MESH_PROC_ROWS = 4
+MESH_WORKER = """
+import json, sys
+rank, addr, model, out, repo = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                sys.argv[4], sys.argv[5])
+sys.path.insert(0, repo)
+sys.path.insert(0, repo + "/tools")
+import torch
+import torch.distributed as dist
+from make_torch_mixed_golden import load_mixed_golden, mixed_audio
+from make_torch_synth_golden import SAMPRATE, TEXT, austen_audio, segs_rep
+from soundswallower_tpu_torch.aligner import TorchAligner
+from soundswallower_tpu_torch.parallel.multihost import (
+    global_data_mesh, host_batch_to_global, initialize, local_results)
+initialize(addr, 2, rank)
+mesh = global_data_mesh(1, "cuda:0")
+k = int(sys.argv[6])
+rows = list(range(k * rank, k * rank + k))
+g = host_batch_to_global(mesh, torch.tensor(rows))
+texts = [load_mixed_golden()["texts"][i] for i in rows]
+al = TorchAligner(hmm=model, samprate=SAMPRATE, device="cuda:0")
+res = {}
+for name, m in (("one", None), ("mesh", mesh)):
+    al.use_mesh(m)
+    res[name] = dict(
+        same=[segs_rep(s) for s in al.align_batch(
+            [austen_audio(i) for i in rows], [TEXT] * k)],
+        mixed=[segs_rep(s) for s in al.align_batch(
+            [mixed_audio(i) for i in rows], texts)])
+torch.cuda.synchronize()
+json.dump(dict(offset=g.offset, total=g.total, rows=local_results(g).tolist(),
+               process=[mesh.process_index, mesh.process_count], **res),
+          open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+def rows_added(fn, before: dict) -> dict:
+    """Launches of a wrapper by rows (``fn.rows``) since ``before``."""
+    return {k: v - before.get(k, 0) for k, v in fn.rows.items()
+            if v > before.get(k, 0)}
+
+
+def mesh_procs(al: TorchAligner, model: str, golden: list) -> None:
+    """Two processes on gloo, one rank each on cuda:0, their own
+    MESH_PROC_ROWS rows each (the kernels already built by this one, so
+    that the two do not race to build): host_batch_to_global's offsets,
+    local_results' rows, and each one's align_batch (same transcript,
+    mixed) under the mesh equal to its one-process result, to the
+    golden (same) and to this process's single-device result (mixed)."""
+    k = MESH_PROC_ROWS
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "worker.py")
+        with open(script, "w") as f:
+            f.write(MESH_WORKER)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            addr = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
+        outs = [os.path.join(tmp, f"out{r}.json") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, script, str(r), addr, model, outs[r], REPO,
+             str(k)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=REPO), text=True)
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode for p in procs):
+            raise AssertionError("a mesh process failed:\n" + "".join(logs))
+        got = [json.load(open(o)) for o in outs]
+    wall = time.perf_counter() - t0
+    texts = load_mixed_golden()["texts"]
+    for r, out in enumerate(got):
+        rows = list(range(k * r, k * r + k))
+        if (out["offset"], out["total"], out["rows"], out["process"]) != (
+                k * r, 2 * k, rows, [r, 2]):
+            raise AssertionError(f"process {r}: offsets or rows differ: "
+                                 f"{out['offset']}, {out['rows']}")
+        fresh_union(al)
+        one = [segs_rep(x) for x in al.align_batch(
+            [mixed_audio(i) for i in rows], [texts[i] for i in rows])]
+        if out["mesh"] != out["one"] or out["mesh"]["mixed"] != one or \
+                out["mesh"]["same"] != [golden[i] for i in rows]:
+            raise AssertionError(f"process {r}: its mesh rows differ")
+    log(f"  two processes on gloo, a rank each on cuda:0, {k} rows each: "
+        f"offsets {[o['offset'] for o in got]}, every row equal to its "
+        f"one-process result, the golden and this process's ({wall:.1f} s "
+        "wall, start-up included)")
+
+
+def phase_mesh(al: TorchAligner, audios8: list, golden: list, mg: dict,
+               dg: dict) -> dict:
+    """The data-parallel mesh on cuda:0: use_mesh(data_mesh(n, "cuda:0"))
+    for n in MESH_RANKS (virtual ranks on the one card, in turns), each: a
+    same-transcript B=256 batch, a mixed B=256 batch on the fresh union,
+    align_batch_scored on the 32 mixed, decode_batch B=256 (the last row
+    failing) and decode_batch_scored B=32, every row equal to its golden
+    (the single-device results); at 2 ranks every K5 and K6 launch on a
+    rank's rows (half the batch's).  Then two processes on gloo
+    (mesh_procs) and dryrun_multichip on 2 ranks.  Returns the walls of
+    each turn (use_mesh clears the caches, so each turn builds its graph
+    tables and stacks anew)."""
+    big = [audios8[i % N_UTT] for i in range(BIG_B)]
+    texts = mg["texts"]
+    maud = [mixed_audio(i) for i in range(N_MIXED)]
+    mbig = [maud[i % N_MIXED] for i in range(BIG_B)]
+    drows = [decode_audio(i % N_UTT) for i in range(BIG_B - 1)] \
+        + [decode_audio(N_UTT)]
+    want = dg["decode"]
+    srows = [decode_audio(i % N_DECODE) for i in range(N_MIXED)]
+    al.set_grammar(jsgf_string=GRAMMAR)
+    walls = []
+    try:
+        for n in MESH_RANKS:
+            al.use_mesh(data_mesh(n, "cuda:0"))
+            before = {fn: dict(fn.rows) for fn in (senscore_torch.gather_cols,
+                                                   align_torch.viterbi_rows)}
+            t0 = time.perf_counter()
+            check_rows(al.align_batch(big, [TEXT] * BIG_B),
+                       [golden[i % N_UTT] for i in range(BIG_B)],
+                       f"mesh of {n}: same-transcript B={BIG_B}")
+            check_rows(al.align_batch(mbig, [texts[i % N_MIXED]
+                                             for i in range(BIG_B)]),
+                       [mg["union"][i % N_MIXED] for i in range(BIG_B)],
+                       f"mesh of {n}: mixed B={BIG_B}")
+            check_rows(al.align_batch_scored(maud, texts), mg["scored"],
+                       f"mesh of {n}: align_batch_scored B={N_MIXED}",
+                       rep=scored_rep)
+            check_rows(al.decode_batch(drows),
+                       [want["batch"][i % N_UTT] for i in range(BIG_B - 1)]
+                       + [want["batch"][N_UTT]],
+                       f"mesh of {n}: decode_batch B={BIG_B}", rep=decode_rep)
+            check_rows(al.decode_batch_scored(srows),
+                       [want["scored"][i % N_DECODE] for i in range(N_MIXED)],
+                       f"mesh of {n}: decode_batch_scored B={N_MIXED}",
+                       rep=decode_rep)
+            torch.cuda.synchronize()
+            walls.append((n, time.perf_counter() - t0))
+            added = {fn.__name__: rows_added(fn, b) for fn, b in before.items()}
+            log(f"  mesh of {n} rank(s) on cuda:0: same and mixed B={BIG_B}, "
+                f"scored B={N_MIXED}, decode B={BIG_B} and scored B={N_MIXED}"
+                f": every row equal to its golden ({walls[-1][1]:.3f} s "
+                "wall); "
+                f"K5 and K6 launches by rows: {added}")
+            if n > 1:
+                for name, got in added.items():
+                    ranks = {f"B={BIG_B // n}", f"B={N_MIXED // n}"}
+                    if not got or set(got) - ranks or any(v % n for v in
+                                                          got.values()):
+                        raise AssertionError(f"{name} ran on other rows than "
+                                             f"the {n} ranks': {got}")
+        al.use_mesh(None)
+        with tempfile.TemporaryDirectory() as model:
+            make_synth_model(model, seed=0, width="en-us")
+            mesh_procs(al, model, golden)
+            t0 = time.perf_counter()
+            segs = dryrun_multichip(2, model, os.path.join(
+                REPO, "tests", "golden", "austen.raw"), TEXT,
+                device="cuda:0", samprate=SAMPRATE)
+            log(f"  dryrun_multichip(2) on cuda:0: data and sequence "
+                f"parallel agree, {len(segs)} segments "
+                f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        al.use_mesh(None)
+    return walls
+
+
 # a wrapper's counters beside its launches: forms, the carry form's
-# shapes, K6's layouts and tables, K2's tiles
-COUNTERS = ("forms", "shapes", "layouts", "tables", "tiles")
+# shapes, K6's layouts and tables, K2's tiles, K5's and K6's rows
+COUNTERS = ("forms", "shapes", "layouts", "tables", "tiles", "rows")
 
 
 # the K6 layouts each path's launches take: one block a row, but on the
@@ -2674,7 +2872,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's K1 and K14)
+    # 2. build (and, with --before DIR, the parent's K5)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:
@@ -2799,15 +2997,22 @@ def main() -> int:
     # 13. the public API (YIN, the exact Decoder, the CLI, MLLR), counted
     log("public API paths (en-us width, 8-bit ptm):")
     api = count_path(wrappers, lambda: phase_api(ag))
+    # 14. the data-parallel mesh, counted (1 and 2 ranks in turns)
+    log("data-parallel mesh (8-bit ptm, cuda:0):")
+    t0 = time.perf_counter()
+    mesh = count_path(wrappers, lambda: phase_mesh(al, audios8, want, mg,
+                                                   dcg))
+    log(f"  mesh phase wall: {time.perf_counter() - t0:.3f} s")
     counts = {"host-FE": host, "device-FE": device, "backends": backends,
               "decode": decode, "5-state": five, "large": large,
-              "longform": longform, **repairs, "api": api}
+              "longform": longform, **repairs, "api": api, "mesh": mesh}
     for path, names in (("host-FE", HOST_PATH), ("device-FE", DEVICE_FE_PATH),
                         ("backends", BACKEND_PATH), ("decode", SLICE_PATH),
                         ("5-state", SLICE_PATH), ("large", SLICE_PATH),
                         ("longform", LONGFORM_PATH), ("mxu", MXU_PATH),
                         ("wire_f32", WIRE_F32_PATH),
-                        ("remove_dc", REMOVE_DC_PATH), ("api", API_PATH)):
+                        ("remove_dc", REMOVE_DC_PATH), ("api", API_PATH),
+                        ("mesh", MESH_PATH)):
         names = list(dict.fromkeys(names + [f"{k}[{f}]"
                                             for _, k, f, ph, _ in FORMS
                                             if path in form_paths(ph)]))
@@ -2819,7 +3024,7 @@ def main() -> int:
             f"{k} {v}" for k, v in sorted(counts[path].items())
             if k.startswith(("viterbi_rows[", "dist_topn_norm["))
             and not k.split("[", 1)[1].startswith(("3-state", "5-state",
-                                                   "fold", "mxu")))
+                                                   "fold", "mxu", "B=")))
             or "none"))
         missing = [n for n in names if counts[path].get(n, 0) == 0]
         if missing:

@@ -104,10 +104,15 @@ int sst_viterbi_smem_bytes(int P, int E);
 int64_t sst_viterbi_state_bytes(int P, int E);
 
 // K5: per-row column gather.  src int16 or int32 (elem_bytes 2 or 4)
-// [B, T, Sx]; cols int32 [B, S] -> out int32 [B, T, S].
+// [B, T, Sx]; cols int32 [B, S] -> out int32 [B, T, S]; a block a row's
+// 8 frames, a thread a column.
 int sst_gather_cols(const void* src, int elem_bytes, const int32_t* cols,
                     int32_t* out, int B, int T, int Sx, int S,
                     cudaStream_t stream);
+
+// K5's launch for S columns: layout[0] threads a block (S rounded up to
+// a warp, at most 1,024), layout[1] frames a block.
+int sst_gather_cols_layout(int S, int32_t* layout);
 
 // K6: per-row-graph lane Viterbi + masked final select + backtrace.
 // sen int32 [B, T, P*E]; n_frames int32 [B]; tp int32 [B, P, E, E+1];

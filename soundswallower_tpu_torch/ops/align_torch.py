@@ -922,7 +922,8 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
     0 chooses from the graph's size).  Each launch counts on
     ``viterbi_rows.forms`` (", global" where the row's state passes one
     block's shared memory), ``.layouts`` ("block", "cluster N", "global
-    memory") and ``.tables`` ("band", "K-slot")."""
+    memory"), ``.tables`` ("band", "K-slot") and ``.rows`` ("B=128": a
+    mesh rank's rows)."""
     _check_viterbi_shape("viterbi_rows", sen, c.P, c.E)
     B, T, S = sen.shape
     if c.tp.shape[0] != B:
@@ -967,7 +968,8 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
     layout = ("global memory" if cs == 0 else "block" if cs == 1
               else f"cluster {cs}")
     for counter, key in ((viterbi_rows.layouts, layout),
-                         (viterbi_rows.tables, table)):
+                         (viterbi_rows.tables, table),
+                         (viterbi_rows.rows, f"B={B}")):
         counter[key] = counter.get(key, 0) + 1
     return path, pscore, fscore
 
@@ -976,6 +978,7 @@ viterbi_rows.launches = 0
 viterbi_rows.forms = {}
 viterbi_rows.layouts = {}
 viterbi_rows.tables = {}
+viterbi_rows.rows = {}
 
 
 def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None):

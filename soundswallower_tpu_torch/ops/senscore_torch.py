@@ -902,11 +902,29 @@ def gather_cols_plain(src: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, g, fill)
 
 
+# K5's launch (csrc/gather_cols.cu, copied): frames a block, and the
+# most threads a block (a column a thread)
+GATHER_FRAMES = 8
+GATHER_MAX_THREADS = 1024
+
+
+def gather_cols_layout(B: int, T: int, S: int) -> dict:
+    """K5's launch for B rows of T frames and S gathered columns
+    (``sst_gather_cols_layout`` on the card gives the same): a block a
+    row's GATHER_FRAMES frames, a thread a column, the block the columns
+    rounded up to a warp (at most GATHER_MAX_THREADS, then columns in
+    passes)."""
+    threads = min(GATHER_MAX_THREADS, -(-S // 32) * 32)
+    return dict(threads=threads, frames=GATHER_FRAMES,
+                passes=-(-S // threads), blocks=B * -(-T // GATHER_FRAMES))
+
+
 def gather_cols(src: torch.Tensor, cols: torch.Tensor,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """K5: src int32/int16 [B, T, Sx], cols int32 [B, S] -> int32
     [B, T, S], written into ``out`` when given (a contiguous slice of
-    the batch buffer)."""
+    the batch buffer).  Each launch also counts on ``gather_cols.rows``
+    by B ("B=128": a mesh rank's rows)."""
     B, T, Sx = src.shape
     S = cols.shape[1]
     if cols.shape[0] != B:
@@ -936,7 +954,10 @@ def gather_cols(src: torch.Tensor, cols: torch.Tensor,
         B, T, Sx, S, cuda_build.stream(src))
     cuda_build.check(err, "gather_cols")
     gather_cols.launches += 1
+    key = f"B={B}"
+    gather_cols.rows[key] = gather_cols.rows.get(key, 0) + 1
     return out
 
 
 gather_cols.launches = 0
+gather_cols.rows = {}

@@ -58,6 +58,7 @@ _SIGS = {
     "sst_viterbi_smem_bytes": [_I, _I],
     "sst_viterbi_state_bytes": [_I, _I],
     "sst_gather_cols": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "sst_gather_cols_layout": [_I, _P],
     "sst_viterbi_rows": [_P] * 10 + [_I] * 5 + [_P, _I] + [_P] * 5
     + [_I, _P],
     "sst_viterbi_rows_cluster": [_I] * 5 + [_P],

@@ -102,19 +102,24 @@ def test_synth_model_bytes_pinned(tmp_path, width):
 
 
 def test_unported_surfaces_raise(small):
-    """What is still to be ported (use_mesh) raises NotImplementedError
-    naming its ROADMAP item; want_scores on a same-transcript batch,
-    decode, align_longform_batch, dist_mode="mxu" and update_mllr, which
-    once did, are ported (tests/test_torch_large_graph.py,
-    tests/test_torch_decode.py, tests/test_torch_longform.py,
-    tests/test_torch_mxu.py, tests/test_torch_mllr.py): a transform
-    file that does not exist fails as in the JAX aligner."""
+    """Nothing is left to port: use_mesh, the last surface that raised
+    NotImplementedError, is ported (tests/test_torch_mesh.py), and
+    use_mesh(None) keeps the single-device results; want_scores on a
+    same-transcript batch, decode, align_longform_batch, dist_mode="mxu"
+    and update_mllr, which once raised, are ported
+    (tests/test_torch_large_graph.py, tests/test_torch_decode.py,
+    tests/test_torch_longform.py, tests/test_torch_mxu.py,
+    tests/test_torch_mllr.py): a transform file that does not exist
+    fails as in the JAX aligner, decode without a grammar as there."""
     port, ref = small
     a = austen_audio(0)
     with pytest.raises(RuntimeError, match="set_grammar"):
         port.decode(a)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        port.use_mesh(None)
+    before = port.align_batch([a, a], [TEXT, TEXT])
+    port.use_mesh(None)
+    assert port.mesh is None and port._nd_local() == 1
+    assert [segs_rep(s) for s in port.align_batch([a, a], [TEXT, TEXT])] \
+        == [segs_rep(s) for s in before]
     for al in (port, ref):
         with pytest.raises(FileNotFoundError):
             al.update_mllr("no-such-mllr-file")

@@ -1528,3 +1528,60 @@ def test_ms_senone_eval_groups_equal_plain_on_card(C, S, D):
                 if N > 4 and aw == 1 and C > 1:
                     assert bool((want[4] == 32767).any())
     assert {16, 32, 64, 128} <= tiles or C == S
+
+
+# K5's edge shapes (B, T, Sx, S, dtype, source and output 4 bytes off a
+# 16-byte boundary): S not a multiple of 4 or of a warp, T not a multiple
+# of the block's 8 frames, the union route's 2 KB int32 frames, the dense
+# route's int16 frames, columns past one block's 1,024 threads, one column
+GATHER_CASES = [(3, 7, 50, 21, torch.int32, False),
+                (2, 70, 512, 288, torch.int32, False),
+                (2, 70, 512, 289, torch.int32, True),
+                (2, 33, 5126, 290, torch.int16, False),
+                (3, 41, 96, 37, torch.int16, True),
+                (1, 65, 64, 2053, torch.int16, False),
+                (2, 17, 8, 1, torch.int32, False)]
+
+
+def _gather_inputs(B, T, Sx, S, dtype, off, rng):
+    """A seeded source and columns with every wrap and past-the-end
+    case (-1, -Sx, Sx - 1, Sx, -Sx - 1, Sx + 5), on the card; with
+    ``off`` the source and the output a 4-byte element past an aligned
+    start."""
+    info = torch.iinfo(dtype)
+    k = 4 // torch.tensor([], dtype=dtype).element_size() if off else 0
+    buf = torch.from_numpy(rng.randint(info.min, info.max + 1,
+                                       B * T * Sx + k).astype(
+        np.int16 if dtype == torch.int16 else np.int32)).cuda()
+    src = buf[k:].view(B, T, Sx)
+    cols = rng.randint(-Sx, Sx, (B, S)).astype(np.int32)
+    edge = [-1, -Sx, Sx - 1, Sx, -Sx - 1, Sx + 5]
+    cols[:, :min(S, 6)] = edge[:min(S, 6)]
+    out = torch.empty(B * T * S + int(off), dtype=torch.int32,
+                      device="cuda")[int(off):].view(B, T, S)
+    return src, torch.from_numpy(cols).cuda(), out
+
+
+@pytest.mark.parametrize("case", GATHER_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}-S{c[3]}-"
+                         f"{str(c[4])[6:]}{'-off' if c[5] else ''}")
+def test_gather_cols_equals_plain_on_card(case):
+    """K5 on each edge shape is bit-equal to gather_cols_plain, in a
+    fresh and in a given output (4 bytes off a 16-byte boundary where
+    the case says), and its launch is gather_cols_layout's."""
+    import ctypes
+
+    _need_cuda()
+    B, T, Sx, S, dtype, off = case
+    rng = np.random.RandomState(B * T + S)
+    src, cols, out = _gather_inputs(B, T, Sx, S, dtype, off, rng)
+    want = st.gather_cols_plain(src, cols)
+    lay = (ctypes.c_int32 * 2)()
+    cuda_build.check(cuda_build.lib().sst_gather_cols_layout(
+        S, ctypes.addressof(lay)), "gather_cols_layout")
+    py = st.gather_cols_layout(B, T, S)
+    assert (lay[0], lay[1]) == (py["threads"], py["frames"])
+    assert torch.equal(st.gather_cols(src, cols), want)
+    out.fill_(7)
+    assert st.gather_cols(src, cols, out) is out
+    assert torch.equal(out, want)

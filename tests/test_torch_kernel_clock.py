@@ -103,6 +103,27 @@ def test_over_bound_names_entries_faster_than_the_card():
     assert cs.over_bound(entries, limit=20.0) == []
 
 
+def test_sector_bytes_count_the_touched_sectors():
+    """K5's sector floor reads each 32-byte sector its in-range columns
+    touch, once, whatever the frame they lie in: int16 frames of 20
+    bytes share sectors across frames."""
+    import torch
+    src = torch.zeros((1, 3, 10), dtype=torch.int16)
+    src_ptr = src.data_ptr() % 32
+    cols = torch.tensor([[0, 9, -1, 10]], dtype=torch.int32)  # 9 twice
+    el = [t * 10 + c for t in range(3) for c in (0, 9)]
+    want = len({(e * 2 + src_ptr) // 32 for e in el}) * 32
+    assert cs.sector_bytes(src, cols) == want
+    src = torch.zeros((2, 2, 64), dtype=torch.int32)
+    cols = torch.tensor([[0, 1, 8], [63, -64, 64]], dtype=torch.int32)
+    # row 0: columns 0, 1, 8 of each frame; row 1: 63 and 0 (-64 wraps)
+    off = src.data_ptr() % 32
+    el = [(b * 2 + t) * 64 + c for b, cs_ in ((0, (0, 1, 8)), (1, (63, 0)))
+          for t in range(2) for c in cs_]
+    assert cs.sector_bytes(src, cols) == len(
+        {(e * 4 + off) // 32 for e in el}) * 32
+
+
 def test_gather_bytes_count_the_selected_columns():
     import torch
     src = torch.zeros((2, 5, 10), dtype=torch.int16)
@@ -170,50 +191,41 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's K1 and K14 with the parameters
-    BEFORE_PARAMS lists (their signatures before the redesign), typed as
-    DIR's header declares them; a header that declares them otherwise,
-    or a scalar of a type the harness does not pass, is refused.  This
-    tree's header declares all three otherwise (each takes its layout and
-    K1 its means' scratch), so a later parent needs its own list."""
+    """--before DIR calls DIR's K5 with the parameters BEFORE_PARAMS
+    lists (its signature before its redesign, which this tree's
+    sst_gather_cols keeps: the forced forms take a launcher of their
+    own), typed as DIR's header declares them; a header that declares it
+    otherwise, or a scalar of a type the harness does not pass, is
+    refused."""
     import ctypes
 
-    ints = {"B", "T", "ncep", "do_cmn", "is_i16", "N", "F", "ndiff"}
-    floats = {"inv_scale", "thr"}
+    ints = {"elem_bytes", "B", "T", "Sx", "S"}
 
-    def decl(name, do_cmn="int"):
+    def decl(name, elem="int"):
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             f"{do_cmn} " if p == "do_cmn" else
-             "int " if p in ints else "float " if p in floats else
-             "const void* ") + p
+             f"{elem} " if p == "elem_bytes" else
+             "int " if p in ints else "const void* ") + p
             for p in params) + ");\n")
 
     header = "".join(decl(n) for n in cs.BEFORE_PARAMS)
     sigs = cs.before_argtypes(header)
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    assert sigs["sst_feat"] == [P] * 3 + [I] * 3 + [F, I, P]
-    assert sigs["sst_feat_f32"] == [P] * 3 + [I] * 4 + [P]
-    assert sigs["sst_yin_cmnd"] == [P, I, P, P, P, I, I, I, F, P]
-    assert cs.BEFORE_SOURCES == ("feat", "yin")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert sigs["sst_gather_cols"] == [P, I, P, P, I, I, I, I, P]
+    assert cs.BEFORE_SOURCES == ("gather_cols",)
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
         here = f.read()
-    with pytest.raises(ValueError, match="sst_feat is declared"):
-        cs.before_argtypes(here)
-    for name in cs.BEFORE_PARAMS:
-        assert ([nm for _, nm in cs.header_params(here, name)]
-                != cs.BEFORE_PARAMS[name].split())
-    # a parameter list that differs (K14 without thr), a scalar the
-    # harness cannot type, a missing declaration
-    with pytest.raises(ValueError, match="sst_yin_cmnd is declared"):
-        cs.before_argtypes(header.replace(", float thr", ""))
-    with pytest.raises(ValueError, match="do_cmn of type char"):
-        cs.before_argtypes(decl("sst_feat", "char") + decl("sst_feat_f32")
-                           + decl("sst_yin_cmnd"))
+    assert cs.before_argtypes(here) == sigs
+    # a parameter list that differs (no stream), a scalar the harness
+    # cannot type, a missing declaration
+    with pytest.raises(ValueError, match="sst_gather_cols is declared"):
+        cs.before_argtypes(header.replace(", cudaStream_t stream", ""))
+    with pytest.raises(ValueError, match="elem_bytes of type char"):
+        cs.before_argtypes(decl("sst_gather_cols", "char"))
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(decl("sst_feat") + decl("sst_yin_cmnd"))
+        cs.before_argtypes(header.replace("sst_gather_cols", "sst_gather"))
 
 
 def test_feat_bytes_count_the_frames_read():

@@ -106,16 +106,36 @@ def test_viterbi_rows_matches_jax(ref, form, with_scores, base):
         assert ps is None and ps_j is None
 
 
+# (B, T, Sx, S): the first shape; S not a multiple of 4; T not a multiple
+# of any of K5's tiles (16, 32, 64) and past one; one column; the union
+# route's Spad 512 and the dense route's 5,126 columns
+GATHER_SHAPES = [(3, 7, 50, 20), (2, 9, 50, 21), (2, 70, 40, 37),
+                 (1, 3, 8, 1), (2, 33, 512, 290), (1, 17, 5126, 291)]
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("dtype", [np.int32, np.int16])
-def test_gather_cols_matches_jax(dtype):
+def test_gather_cols_matches_jax(dtype, shape):
+    """K5's plain version against the JAX _gather_cols on every wrap and
+    past-the-end column (-1, -Sx, Sx - 1, Sx, -Sx - 1 (wraps once, still
+    out of range), Sx + 5) at each shape."""
     rng = np.random.RandomState(3)
-    B, T, Sx, S = 3, 7, 50, 20
-    src = rng.randint(-30000, 30000, (B, T, Sx)).astype(dtype)
+    B, T, Sx, S = shape
+    info = np.iinfo(dtype)
+    src = rng.randint(info.min, int(info.max) + 1, (B, T, Sx)).astype(dtype)
     cols = rng.randint(0, Sx, (B, S)).astype(np.int32)
-    cols[:, :4] = [-1, -Sx, Sx - 1, Sx]       # wrap once; one past the end
+    edge = [-1, -Sx, Sx - 1, Sx, -Sx - 1, Sx + 5]
+    cols[:, :min(S, 6)] = edge[:min(S, 6)]
+    if S > 6:
+        cols[-1, 6:] = rng.randint(-Sx - 3, Sx + 3, S - 6)
     want = np.asarray(_gather_cols(src, cols)).astype(np.int32)
     got = st.gather_cols(torch.from_numpy(src), torch.from_numpy(cols))
     assert got.dtype == torch.int32 and (got.numpy() == want).all()
+    out = torch.full((B, T, S), 7, dtype=torch.int32)
+    assert st.gather_cols(torch.from_numpy(src), torch.from_numpy(cols),
+                          out=out) is out
+    assert (out.numpy() == want).all()
 
 
 def test_frame_best_sub_matches_jax_tail():
@@ -250,8 +270,9 @@ def test_align_batch_scored_matches_reference(small_dir, want_states):
 
 
 def test_unported_surfaces_still_raise(small_dir, tmp_path):
-    """What is still to be ported (use_mesh) raises NotImplementedError
-    naming its ROADMAP item.  Ported since: want_scores on a
+    """Nothing raises as unported: use_mesh, the last surface that did,
+    is ported (tests/test_torch_mesh.py) and use_mesh(None) returns to
+    one device.  Ported before it: want_scores on a
     same-transcript batch, decode_batch(_scored) (they need set_grammar
     first, as in the JAX package), S >= 32767 (int32 token stacks),
     5-state models, align_longform_batch, dist_mode="mxu" and MLLR
@@ -269,8 +290,8 @@ def test_unported_surfaces_still_raise(small_dir, tmp_path):
                  lambda: port.decode_batch([a])):
         with pytest.raises(RuntimeError, match="set_grammar"):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A13"):
-        port.use_mesh(None)
+    port.use_mesh(None)                 # ported: back to one device
+    assert port.mesh is None and port._nd_local() == 1
     assert port.align_batch_scored([a], [TEXT], dist_mode="mxu")[0]
     S = 3 * 11000                                    # int32 token stacks
     with pytest.raises(ValueError, match="graphs for"):

@@ -118,8 +118,7 @@ def main(B: int = 256, N: int = 8, traffic: str = "same",
                                            al.wire_scale)
         fe_ms.append((time.perf_counter() - t0) * 1e3)
     h = begin()
-    h.done.synchronize()
-    paths = h.paths.numpy()
+    paths, _ = h.fetch()
     ex_ms = []
     for _ in range(5):
         t0 = time.perf_counter()
