@@ -85,6 +85,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import spans
 from .am import AcousticModel
 from .config import Config
 from .dict2pid import Dict2Pid
@@ -240,6 +241,7 @@ class _Batch:
     Ts: np.ndarray           # [realB] frame counts
     parts: list              # [_Part] of each rank, in row order
     realB: int
+    req: int | None = None   # its request (spans), while recording
 
     def fetch(self) -> tuple:
         """Wait for every rank's downloads: (paths [B, Tmax], path
@@ -523,16 +525,23 @@ class TorchAligner:
     def align_batch_begin(self, audios: list[np.ndarray], texts: list[str],
                           dist_mode: str = "fold"):
         """Dispatch one batch; returns a handle for align_batch_end.
-        Unknown words raise KeyError."""
-        if len(set(texts)) == 1:
-            return self._batch_begin(self.graph_for_text(texts[0]), audios,
-                                     dist_mode)
-        return self._batch_begin_mixed(
-            [self.graph_for_text(t) for t in texts], audios, dist_mode)
+        Unknown words raise KeyError.  A request of its own, under span
+        ``batch.begin`` (``spans``)."""
+        with spans.request() as req, spans.span("batch.begin"):
+            same = len(set(texts)) == 1
+            with spans.span("graphs"):
+                graphs = [self.graph_for_text(t)
+                          for t in (texts[:1] if same else texts)]
+            h = (self._batch_begin(graphs[0], audios, dist_mode) if same
+                 else self._batch_begin_mixed(graphs, audios, dist_mode))
+        h.req = req
+        return h
 
     def align_batch_end(self, handle) -> list[list[WordSeg]]:
-        """Fetch and extract the results of an align_batch_begin batch."""
-        return self._batch_end(handle)
+        """Fetch and extract the results of an align_batch_begin batch
+        (its request again, under span ``batch.end``)."""
+        with spans.resume(handle.req), spans.span("batch.end"):
+            return self._batch_end(handle)
 
     # -- pipelined batch -------------------------------------------------------
 
@@ -553,6 +562,8 @@ class TorchAligner:
         audios = list(audios) + [audios[-1]] * (B - realB)
         Ts = np.array([self.fe.n_frames(len(a)) for a in audios])
         Tmax = max(64, self.tmax_floor, -(-int(Ts.max()) // 64) * 64)
+        if spans.recording():
+            spans.count("frames.real", int(Ts[:realB].sum()))
         return audios, Ts, Tmax
 
     def _chunk_feats(self, audios, Ts_d: torch.Tensor, Tmax: int,
@@ -577,26 +588,35 @@ class TorchAligner:
             buf = np.zeros((len(audios), width), np.int16)
             for i, a in enumerate(audios):
                 buf[i, :len(a)] = a
-            futs = [(i0, self._fe_pool.submit(
-                self.native_fe.process_batch, buf[i0:i0 + chunk],
-                ns[i0:i0 + chunk], Tmax)) for i0 in starts]
+            fe = spans.task("fe.host", self.native_fe.process_batch)
+            futs = [(i0, self._fe_pool.submit(fe, buf[i0:i0 + chunk],
+                                              ns[i0:i0 + chunk], Tmax))
+                    for i0 in starts]
 
             def chunks_f32():
                 for i0, fut in futs:
-                    cep = self._upload(torch.from_numpy(fut.result()), dev)
-                    yield i0, cep, feat_f32(cep, Ts_d[i0:i0 + cep.shape[0]],
-                                            self.do_cmn)
+                    with spans.span("fe.wait"):
+                        host = fut.result()
+                    with spans.span("fe.device"):
+                        cep = self._upload(torch.from_numpy(host), dev)
+                        f = feat_f32(cep, Ts_d[i0:i0 + cep.shape[0]],
+                                     self.do_cmn)
+                    yield i0, cep, f
             return chunks_f32()
-        futs = [(i0, self._fe_pool.submit(self.native_fe.process_list_i16p,
-                                          audios[i0:i0 + chunk], Tmax,
+        fe = spans.task("fe.host", self.native_fe.process_list_i16p)
+        futs = [(i0, self._fe_pool.submit(fe, audios[i0:i0 + chunk], Tmax,
                                           self.wire_scale))
                 for i0 in starts]
 
         def chunks():
             for i0, fut in futs:
-                pl = self._upload(torch.from_numpy(fut.result()), dev)
-                yield i0, pl, feat(pl, Ts_d[i0:i0 + pl.shape[1]],
-                                   1.0 / self.wire_scale, self.do_cmn)
+                with spans.span("fe.wait"):
+                    host = fut.result()
+                with spans.span("fe.device"):
+                    pl = self._upload(torch.from_numpy(host), dev)
+                    f = feat(pl, Ts_d[i0:i0 + pl.shape[1]],
+                             1.0 / self.wire_scale, self.do_cmn)
+                yield i0, pl, f
         return chunks()
 
     def _chunk_feats_device(self, audios, Ts_d: torch.Tensor, Tmax: int,
@@ -616,10 +636,12 @@ class TorchAligner:
 
         def chunks():
             for i0 in range(0, len(audios), chunk):
-                sig = buf[i0:i0 + chunk].to(dev, non_blocking=True)
-                cep = self.fe.mfcc(sig, ns_d[i0:i0 + chunk], Tmax)
-                yield i0, sig, feat_f32(cep, Ts_d[i0:i0 + sig.shape[0]],
-                                        self.do_cmn)
+                with spans.span("fe.device"):
+                    sig = buf[i0:i0 + chunk].to(dev, non_blocking=True)
+                    cep = self.fe.mfcc(sig, ns_d[i0:i0 + chunk], Tmax)
+                    f = feat_f32(cep, Ts_d[i0:i0 + sig.shape[0]],
+                                 self.do_cmn)
+                yield i0, sig, f
         return chunks()
 
     def _rank_feeds(self, audios, Ts: np.ndarray, Tmax: int) -> list:
@@ -653,16 +675,21 @@ class TorchAligner:
         realB = len(audios)
         if realB == 0:
             return self._empty()
-        audios, Ts, Tmax = self._batch_shape(audios)
+        with spans.span("pack"):
+            audios, Ts, Tmax = self._batch_shape(audios)
+            feeds = self._rank_feeds(audios, Ts, Tmax)
         parts = []
-        for dev, i0, i1, Ts_d, chunks in self._rank_feeds(audios, Ts, Tmax):
+        for dev, i0, i1, Ts_d, chunks in feeds:
             with _on(dev):
-                c = self._graph_consts(g, dev)
+                with spans.span("consts"):
+                    c = self._graph_consts(g, dev)
                 sen = self._graph_scores(c.gs, audios[i0:i1], Ts_d, Tmax,
                                          dist_mode, chunks)
-                path, pscore, fscore = viterbi_batch(sen, Ts_d, c.vit,
-                                                     self.want_scores)
-                parts.append(self._download(path, fscore, pscore))
+                with spans.span("viterbi"):
+                    path, pscore, fscore = viterbi_batch(sen, Ts_d, c.vit,
+                                                         self.want_scores)
+                with spans.span("download"):
+                    parts.append(self._download(path, fscore, pscore))
         return _Batch([g] * realB, Ts[:realB], parts, realB)
 
     def _graph_scores(self, gs: GraphScorer, audios, Ts_d: torch.Tensor,
@@ -674,12 +701,15 @@ class TorchAligner:
         sen = torch.empty((len(audios), Tmax, gs.S), dtype=torch.int32,
                           device=Ts_d.device)
         if chunks is None:
-            chunks = self._chunk_feats(audios, Ts_d, Tmax)
+            with spans.span("pack"):
+                chunks = self._chunk_feats(audios, Ts_d, Tmax)
         for i0, _, feats in chunks:
             n = feats.shape[0]
-            score_frames_graph(gs, feats.view(n * Tmax, 3, -1),
-                               out=sen[i0:i0 + n].view(n * Tmax, -1),
-                               dist_mode=dist_mode)
+            spans.count("frames.scored", n * Tmax)
+            with spans.span("score"):
+                score_frames_graph(gs, feats.view(n * Tmax, 3, -1),
+                                   out=sen[i0:i0 + n].view(n * Tmax, -1),
+                                   dist_mode=dist_mode)
         return sen
 
     def _batch_begin_mixed(self, graphs: list, audios,
@@ -698,16 +728,21 @@ class TorchAligner:
         realB = len(audios)
         if realB == 0:
             return self._empty()
-        audios, Ts, Tmax = self._batch_shape(audios)
+        with spans.span("pack"):
+            audios, Ts, Tmax = self._batch_shape(audios)
         graphs = list(graphs) + [graphs[-1]] * (len(audios) - realB)
-        uni = None if self.want_scores else self._union_scorer(graphs)
-        if uni is None:
-            st = self._stacked_graphs(graphs)
-        else:
-            st = self._stacked_graphs(graphs, remap=uni["pos"],
-                                      remap_ver=uni["ver"])
+        with spans.span("union"):
+            uni = None if self.want_scores else self._union_scorer(graphs)
+        with spans.span("stack"):
+            if uni is None:
+                st = self._stacked_graphs(graphs)
+            else:
+                st = self._stacked_graphs(graphs, remap=uni["pos"],
+                                          remap_ver=uni["ver"])
+        with spans.span("pack"):
+            feeds = self._rank_feeds(audios, Ts, Tmax)
         parts = []
-        for dev, i0, i1, Ts_d, chunks in self._rank_feeds(audios, Ts, Tmax):
+        for dev, i0, i1, Ts_d, chunks in feeds:
             with _on(dev):
                 rst = st.rows(i0, i1, dev)
                 sc = (self._copy_on(self._dense_reps, self.dense, dev)
@@ -717,17 +752,23 @@ class TorchAligner:
                                   dtype=torch.int32, device=dev)
                 for j0, _, feats in chunks:
                     n = feats.shape[0]
+                    spans.count("frames.scored", n * Tmax)
                     flat = feats.view(n * Tmax, 3, -1)
-                    if uni is None:
-                        src = score_frames(sc, flat, dist_mode)     # int16
-                    else:
-                        src = score_frames_graph(sc, flat,
-                                                 dist_mode=dist_mode)  # int32
-                    gather_cols(src.view(n, Tmax, -1),
-                                rst.sencols[j0:j0 + n], out=sen[j0:j0 + n])
-                path, pscore, fscore = viterbi_rows(sen, Ts_d, rst.vit,
-                                                    self.want_scores)
-                parts.append(self._download(path, fscore, pscore))
+                    with spans.span("score"):
+                        if uni is None:
+                            src = score_frames(sc, flat, dist_mode)  # int16
+                        else:
+                            src = score_frames_graph(
+                                sc, flat, dist_mode=dist_mode)       # int32
+                    with spans.span("gather"):
+                        gather_cols(src.view(n, Tmax, -1),
+                                    rst.sencols[j0:j0 + n],
+                                    out=sen[j0:j0 + n])
+                with spans.span("viterbi"):
+                    path, pscore, fscore = viterbi_rows(sen, Ts_d, rst.vit,
+                                                        self.want_scores)
+                with spans.span("download"):
+                    parts.append(self._download(path, fscore, pscore))
         return _Batch(graphs[:realB], Ts[:realB], parts, realB)
 
     # mixed batches switch from the union scorer to the full inventory
@@ -824,7 +865,8 @@ class TorchAligner:
         """Wait for the downloads (every rank's, joined in row order);
         native extraction on the unscored path when the library loads,
         Python extraction (and scores, states) otherwise."""
-        paths, pscores = handle.fetch()
+        with spans.span("wait"):
+            paths, pscores = handle.fetch()
         if handle.realB == 0:
             return []
         if pscores is None and not self.want_states:
@@ -832,8 +874,10 @@ class TorchAligner:
                                              handle.Ts, handle.realB)
             if out is not None:
                 return out
-        return [self._extract_safe(g, paths[i], int(handle.Ts[i]),
-                                   None if pscores is None else pscores[i])
+        with spans.span("extract"):
+            return [self._extract_safe(
+                g, paths[i], int(handle.Ts[i]),
+                None if pscores is None else pscores[i])
                 for i, g in enumerate(handle.graphs)]
 
     # -- segment extraction ------------------------------------------------------
@@ -892,16 +936,17 @@ class TorchAligner:
         lib = self._seg_lib()
         if lib is None:
             return None
-        wo, vo, cp, offs = self._seg_tables(graphs)
-        paths = np.ascontiguousarray(paths[:realB], np.int16)
-        Ts64 = np.ascontiguousarray(Ts[:realB], np.int64)
-        cap = int(Ts64.sum()) + realB
-        nw = np.empty(realB, np.int32)
-        w = [np.empty(cap, np.int32) for _ in range(5)]
-        p = [np.empty(cap, np.int32) for _ in range(3)]
-        rc = lib.sst_extract_batch(
-            paths, realB, paths.shape[1], Ts64, graphs[0].senid.shape[1],
-            wo, vo, cp, offs, nw, *w, *p, cap, cap)
+        with spans.span("extract"):
+            wo, vo, cp, offs = self._seg_tables(graphs)
+            paths = np.ascontiguousarray(paths[:realB], np.int16)
+            Ts64 = np.ascontiguousarray(Ts[:realB], np.int64)
+            cap = int(Ts64.sum()) + realB
+            nw = np.empty(realB, np.int32)
+            w = [np.empty(cap, np.int32) for _ in range(5)]
+            p = [np.empty(cap, np.int32) for _ in range(3)]
+            rc = lib.sst_extract_batch(
+                paths, realB, paths.shape[1], Ts64, graphs[0].senid.shape[1],
+                wo, vo, cp, offs, nw, *w, *p, cap, cap)
         if rc != 0:
             raise RuntimeError(f"sst_extract_batch failed ({rc})")
         w_kind, w_var, w_start, w_dur, w_np = w
@@ -909,23 +954,24 @@ class TorchAligner:
         ci = self._ci_strs()
         out: list = []
         wi = pi = 0
-        for b in range(realB):
-            n = int(nw[b])
-            if n < 0:
-                out.append(None)
-                continue
-            segs = []
-            for _ in range(n):
-                k = int(w_np[wi])
-                phones = [(ci[p_ci[pi + j]], int(p_start[pi + j]),
-                           int(p_dur[pi + j]), 0) for j in range(k)]
-                word = "<sil>" if w_kind[wi] else self.dict.wordstr(
-                    int(w_var[wi]))
-                segs.append(WordSeg(word, int(w_start[wi]), int(w_dur[wi]),
-                                    phones=phones))
-                wi += 1
-                pi += k
-            out.append(segs)
+        with spans.span("segs"):
+            for b in range(realB):
+                n = int(nw[b])
+                if n < 0:
+                    out.append(None)
+                    continue
+                segs = []
+                for _ in range(n):
+                    k = int(w_np[wi])
+                    phones = [(ci[p_ci[pi + j]], int(p_start[pi + j]),
+                               int(p_dur[pi + j]), 0) for j in range(k)]
+                    word = "<sil>" if w_kind[wi] else self.dict.wordstr(
+                        int(w_var[wi]))
+                    segs.append(WordSeg(word, int(w_start[wi]),
+                                        int(w_dur[wi]), phones=phones))
+                    wi += 1
+                    pi += k
+                out.append(segs)
         return out
 
     def _ci_strs(self) -> list[str]:
@@ -1290,20 +1336,30 @@ class TorchAligner:
                              "transcript (one graph) per call")
         if ring is None:
             ring = seq_ring(1, self.device)
-        g = self.graph_for_text(texts[0])
-        Ts = np.array([self.fe.n_frames(len(a)) for a in audios])
-        gran = 64 * ring.nseq
-        Tmax = max(gran, -(-int(Ts.max()) // gran) * gran)
-        Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
-        sen = self._graph_scores(self._graph_consts(g).gs, audios, Ts_d,
-                                 Tmax, dist_mode)
-        P, E = g.senid.shape
-        pi, pp, pk = build_pred_table(g.edge_src, g.edge_dst, g.edge_pen, P)
-        paths, _ = align_longform(
-            ring, sen, np.arange(P * E).reshape(P, E),
-            self.am.tmat.astype(np.int32)[g.tmatid], pi, pp, pk, g.astart,
-            g.aend, Ts.astype(np.int32),
-            np.where(g.is_entry, g.entry_pen, WORST_SCORE), g.final_nodes)
-        paths = paths.cpu().numpy()
-        return [self._extract_safe(g, paths[i], int(Ts[i]))
-                for i in range(len(audios))]
+        with spans.request(), spans.span("longform"):
+            with spans.span("graphs"):
+                g = self.graph_for_text(texts[0])
+            Ts = np.array([self.fe.n_frames(len(a)) for a in audios])
+            if spans.recording():
+                spans.count("frames.real", int(Ts.sum()))
+            gran = 64 * ring.nseq
+            Tmax = max(gran, -(-int(Ts.max()) // gran) * gran)
+            Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
+            with spans.span("consts"):
+                gs = self._graph_consts(g).gs
+            sen = self._graph_scores(gs, audios, Ts_d, Tmax, dist_mode)
+            P, E = g.senid.shape
+            with spans.span("pred_table"):
+                pi, pp, pk = build_pred_table(g.edge_src, g.edge_dst,
+                                              g.edge_pen, P)
+            paths, _ = align_longform(
+                ring, sen, np.arange(P * E).reshape(P, E),
+                self.am.tmat.astype(np.int32)[g.tmatid], pi, pp, pk,
+                g.astart, g.aend, Ts.astype(np.int32),
+                np.where(g.is_entry, g.entry_pen, WORST_SCORE),
+                g.final_nodes)
+            with spans.span("wait"):
+                paths = paths.cpu().numpy()
+            with spans.span("extract"):
+                return [self._extract_safe(g, paths[i], int(Ts[i]))
+                        for i in range(len(audios))]

@@ -59,6 +59,7 @@ import torch
 from ..ops.align_torch import (_first_argmax, backtrace_chunk,
                                graph_consts_from_numpy, tok_dtype,
                                vit_carry0, viterbi_chunk_rows)
+from .. import spans
 from ..utils import resolve_device
 
 
@@ -138,79 +139,87 @@ def align_longform(ring: SeqRing, senscr, senid, tp, pred_idx, pred_pen,
     ring's size, frames >= n_frames padding), senid [P, E] its columns
     per graph state, tp [P, E, E+1], pred_* [P, K], astart/aend [P],
     n_frames [B], entry_score [P] int32, final_nodes [F].  Returns (path
-    [B, T] int32, final_score [B] int32) on the ring's device."""
+    [B, T] int32, final_score [B] int32) on the ring's device.  Spans
+    ``viterbi`` (the tables and the forward pass) and ``backtrace`` (the
+    final select and the reverse pass)."""
     nseq, dev = ring.nseq, ring.device
     senscr = torch.as_tensor(senscr)
     B, T, _ = senscr.shape
     if T % nseq:
         raise ValueError(f"the frame axis ({T}) must divide the ring "
                          f"({nseq})")
-    C = T // nseq
-    senid = np.asarray(senid)
-    Pn = senid.shape[0]
-    S = senid.size
-    vit = graph_consts_from_numpy(dict(
-        tp=tp, pi=pred_idx, pp=pred_pen, pk=pred_ok, ast=astart, aen=aend,
-        entry=entry_score, fin=final_nodes), dev)
-    nfr = np.asarray(n_frames, np.int64).reshape(B)
-    nfr_d = torch.from_numpy(nfr.astype(np.int32)).to(dev)
-    cols = None
-    if not np.array_equal(senid.reshape(-1), np.arange(S)):
-        cols = torch.from_numpy(senid.reshape(-1).astype(np.int64)).to(dev)
-    # each rank's chunk of the scores, on the ring's device
-    sen = {p: senscr[:, p * C:(p + 1) * C].to(dev) for p in ring.ranks()}
+    with spans.span("viterbi"):
+        C = T // nseq
+        senid = np.asarray(senid)
+        Pn = senid.shape[0]
+        S = senid.size
+        vit = graph_consts_from_numpy(dict(
+            tp=tp, pi=pred_idx, pp=pred_pen, pk=pred_ok, ast=astart,
+            aen=aend, entry=entry_score, fin=final_nodes), dev)
+        nfr = np.asarray(n_frames, np.int64).reshape(B)
+        nfr_d = torch.from_numpy(nfr.astype(np.int32)).to(dev)
+        cols = None
+        if not np.array_equal(senid.reshape(-1), np.arange(S)):
+            cols = torch.from_numpy(
+                senid.reshape(-1).astype(np.int64)).to(dev)
+        # each rank's chunk of the scores, on the ring's device
+        sen = {p: senscr[:, p * C:(p + 1) * C].to(dev)
+               for p in ring.ranks()}
 
-    def chunk_scores(p: int) -> torch.Tensor:
-        """Rank p's scores of all rows in graph-state order, int32 [B, C,
-        S]."""
-        x = sen[p]
-        if cols is not None:
-            x = x.index_select(2, cols)
-        return x.to(torch.int32).contiguous()
+        def chunk_scores(p: int) -> torch.Tensor:
+            """Rank p's scores of all rows in graph-state order, int32
+            [B, C, S]."""
+            x = sen[p]
+            if cols is not None:
+                x = x.index_select(2, cols)
+            return x.to(torch.int32).contiguous()
 
-    # forward, rank-major: rank p runs all B rows in one launch
-    carry0 = tuple(x.expand(B, *x.shape) for x in vit_carry0(vit, n_emit=3))
-    packed = torch.empty(sum(x.numel() for x in carry0), dtype=torch.int32,
-                         device=dev)
-    tok = {}
-    last = nseq - 1
-    fin_score = fin_hist = None
-    for p in ring.ranks():
-        carry = carry0 if p == 0 else _unpack(
-            ring.recv(("f", p), packed, p - 1), carry0)
-        tok[p] = torch.empty((B, C, S), dtype=tok_dtype(S), device=dev)
-        new, _ = viterbi_chunk_rows(chunk_scores(p), carry, p * C, nfr_d, vit,
-                                    out=tok[p])
-        if p == last:
-            fin_score, fin_hist = new[2], new[3]
-        else:
-            ring.send(("f", p + 1), _pack(new), p + 1)
+        # forward, rank-major: rank p runs all B rows in one launch
+        carry0 = tuple(x.expand(B, *x.shape)
+                       for x in vit_carry0(vit, n_emit=3))
+        packed = torch.empty(sum(x.numel() for x in carry0),
+                             dtype=torch.int32, device=dev)
+        tok = {}
+        last = nseq - 1
+        fin_score = fin_hist = None
+        for p in ring.ranks():
+            carry = carry0 if p == 0 else _unpack(
+                ring.recv(("f", p), packed, p - 1), carry0)
+            tok[p] = torch.empty((B, C, S), dtype=tok_dtype(S), device=dev)
+            new, _ = viterbi_chunk_rows(chunk_scores(p), carry, p * C,
+                                        nfr_d, vit, out=tok[p])
+            if p == last:
+                fin_score, fin_hist = new[2], new[3]
+            else:
+                ring.send(("f", p + 1), _pack(new), p + 1)
 
-    # the best final node per row, and the backtrace's start (last rank)
-    fstate = fscore = None
-    if last in ring.ranks():
-        rows = torch.arange(B, device=dev)
-        fin = vit.fin.long()
-        node = fin[_first_argmax(fin_score[:, fin])]
-        fstate = fin_hist[rows, node].contiguous()
-        fscore = fin_score[rows, node].contiguous()
+    with spans.span("backtrace"):
+        # the best final node per row, and the backtrace's start (last rank)
+        fstate = fscore = None
+        if last in ring.ranks():
+            rows = torch.arange(B, device=dev)
+            fin = vit.fin.long()
+            node = fin[_first_argmax(fin_score[:, fin])]
+            fstate = fin_hist[rows, node].contiguous()
+            fscore = fin_score[rows, node].contiguous()
 
-    # reverse pass: rank p from the states rank p + 1 hands it
-    like = torch.empty(B, dtype=torch.int32, device=dev)
-    path = {}
-    for p in sorted(ring.ranks(), reverse=True):
-        start = fstate if p == last else ring.recv(("b", p), like, p + 1)
-        path[p], out = backtrace_chunk(tok[p], start, p * C, nfr_d)
-        if p > 0:
-            ring.send(("b", p - 1), out, p - 1)
-    if not ring.distributed:
-        return torch.cat([path[p] for p in range(nseq)], dim=1), fscore
-    import torch.distributed as dist
+        # reverse pass: rank p from the states rank p + 1 hands it
+        like = torch.empty(B, dtype=torch.int32, device=dev)
+        path = {}
+        for p in sorted(ring.ranks(), reverse=True):
+            start = fstate if p == last else ring.recv(("b", p), like,
+                                                       p + 1)
+            path[p], out = backtrace_chunk(tok[p], start, p * C, nfr_d)
+            if p > 0:
+                ring.send(("b", p - 1), out, p - 1)
+        if not ring.distributed:
+            return torch.cat([path[p] for p in range(nseq)], dim=1), fscore
+        import torch.distributed as dist
 
-    parts = [torch.empty((B, C), dtype=torch.int32, device=dev)
-             for _ in range(nseq)]
-    dist.all_gather(parts, path[ring.rank])
-    if fscore is None:
-        fscore = torch.empty(B, dtype=torch.int32, device=dev)
-    dist.broadcast(fscore, last)
-    return torch.cat(parts, dim=1), fscore
+        parts = [torch.empty((B, C), dtype=torch.int32, device=dev)
+                 for _ in range(nseq)]
+        dist.all_gather(parts, path[ring.rank])
+        if fscore is None:
+            fscore = torch.empty(B, dtype=torch.int32, device=dev)
+        dist.broadcast(fscore, last)
+        return torch.cat(parts, dim=1), fscore
