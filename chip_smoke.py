@@ -145,11 +145,15 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K5 from DIR, a
-checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h`` declares
-it as BEFORE_PARAMS lists (its C signature; any other declaration stops
-the run), checks it bit-equal to this tree's on both K5 entries' inputs
-and times both in turns (``ms_before``).  K5's entries print their
+``python3 chip_smoke.py --before DIR`` also builds K4's carry form from
+DIR, a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
+declares it as BEFORE_PARAMS lists (its C signature; any other
+declaration stops the run), checks it bit-equal to this tree's on the
+inputs of every carry-form entry that runs a whole launch (the single
+utterance's, the long form's ring steps and its chapter row) and times
+both in turns (``ms_before``).  The carry form's entries print the
+layout its launcher takes (``chunk_layout``: one block, a cluster of N
+blocks a row, global memory).  K5's entries print their
 launch (threads and frames a block) and their sector floor beside the
 bound (``sector_floor_ms``: the 32-byte sectors the columns touch).
 K1's entries print the rows a fold block, the frames a
@@ -445,6 +449,11 @@ FORMS = [
     ("viterbi_chunk[3-state, int32, global, long form]", "viterbi_chunk",
      "3-state, int32, global", "longform",
      "soundswallower_tpu/parallel/seqpipe.py:118"),
+    # one chapter-sized row on a ring of 1 (R = 1, C = T: the launch a
+    # chapter of the benchmark's long-form cell makes), int32 tokens
+    ("viterbi_chunk[long form, chapter row]", "viterbi_chunk",
+     "3-state, int32, global", "longform",
+     "soundswallower_tpu/parallel/seqpipe.py:118"),
 ]
 # the form whose count is a kernel's own entry's launches, where its
 # other forms have entries of their own
@@ -480,6 +489,10 @@ MESH_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
              "backtrace_chunk"]
 N_SEQ = 8               # ranks of the long form's local ring
 LONG_K5 = 100           # AUSTEN repeats of the informational long row
+# AUSTEN repeats of the chapter row's transcript (about 12,570 phones,
+# the long-form cell's largest chapter graph) and of its audio (~36 s)
+LONG_CHAPTER = 213
+LONG_CHAPTER_AUDIO = 12
 REPEATS = 130           # transcript repeats of the int16 global-state graph
 BIG_B = 256
 N_BATCHES = 2
@@ -793,16 +806,18 @@ def rows_bytes(v) -> int:
             + 8 * int(nin.sum()))
 
 
-# -- the parent's K5 (--before DIR) ----------------------------------------
+# -- the parent's carry form (--before DIR) ---------------------------------
 
-# DIR's soundswallower_tpu_torch/csrc/gather_cols.cu built into a library
-# of its own: K5 before its redesign (a block 8 frames of one row, a
-# column a thread over the frames), called below with the parameters its
-# declaration in DIR's sst_kernels.h must list
+# DIR's soundswallower_tpu_torch/csrc/viterbi.cu and viterbi_e5.cu built
+# into a library of their own: K4's carry form before its cluster layout
+# (one block a row), called below with the parameters its declaration in
+# DIR's sst_kernels.h must list
 BEFORE: dict = {}
-BEFORE_SOURCES = ("gather_cols",)
+BEFORE_SOURCES = ("viterbi", "viterbi_e5")
 BEFORE_PARAMS = {
-    "sst_gather_cols": "src elem_bytes cols out B T Sx S stream",
+    "sst_viterbi_chunk": "sen t0 n n_rows tp pred_idx pred_pen tp_t "
+    "pred_idx_t pred_pen_t pred_n astart aend score hist osc ohi best_prev "
+    "R C P E K tok tok_bytes fin n_fin path fscore anext stream",
 }
 # ctypes types of the declared scalar parameters
 BEFORE_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float,
@@ -867,7 +882,8 @@ def build_before(root: str) -> None:
              for o in objs]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     if any(p.returncode for p in procs):
-        raise RuntimeError("the parent's K5 did not build:\n" + "".join(logs))
+        raise RuntimeError("the parent's kernels did not build:\n"
+                           + "".join(logs))
     so = os.path.join(out, "libsst_before.so")
     subprocess.run([nvcc, *cuda_build.LINK_FLAGS, "-o", so, *objs],
                    check=True, timeout=300)
@@ -876,25 +892,47 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's K5 from {root}: built in "
+    log(f"  the parent's carry form from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_gather(src, cols):
-    """K5 on the parent's kernel: int32 [B, T, S], or None without
-    --before."""
+def before_chunk(sen, carry, t0: int, n, v, fin=None):
+    """K4's carry form on the parent's kernel, or None without --before:
+    sen int32 [R, C, S], the stacked carry, n an int or int32 [R] ->
+    (carry, tok) as viterbi_chunk_rows returns them or, with fin, (path
+    [R, C], fscore [R]).  The parent keeps a row's state in global memory
+    where it passes one block's shared memory (an active_next scratch)."""
     if "lib" not in BEFORE:
         return None
 
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     def run():
-        B, T, Sx = src.shape
-        S = cols.shape[1]
-        out = torch.empty((B, T, S), dtype=torch.int32, device=src.device)
-        err = BEFORE["lib"].sst_gather_cols(
-            src.data_ptr(), src.element_size(), cols.data_ptr(),
-            out.data_ptr(), B, T, Sx, S, cuda_build.stream(src))
-        cuda_build.check(err, "gather_cols (parent)")
-        return out
+        R, C, S = sen.shape
+        dev = sen.device
+        new = tuple(torch.empty(x.shape, dtype=torch.int32, device=dev)
+                    .copy_(x) for x in carry)
+        tok = torch.empty((R, C, S), dtype=align_torch.tok_dtype(S),
+                          device=dev)
+        path = fscore = anext = None
+        if fin is not None:
+            path = torch.empty((R, C), dtype=torch.int32, device=dev)
+            fscore = torch.empty(R, dtype=torch.int32, device=dev)
+        if (cuda_build.lib().sst_viterbi_smem_bytes(v.P, v.E)
+                > align_torch.MAX_SMEM_BYTES):
+            anext = torch.empty((R, v.P), dtype=torch.uint8, device=dev)
+        rows = n if isinstance(n, torch.Tensor) else None
+        err = BEFORE["lib"].sst_viterbi_chunk(
+            sen.data_ptr(), int(t0), 0 if rows is not None else int(n),
+            ptr(rows), *v.kernel_tables(), v.pred_n.data_ptr(),
+            v.astart.data_ptr(), v.aend.data_ptr(),
+            *(x.data_ptr() for x in new), R, C, v.P, v.E,
+            v.pred_idx.shape[1], tok.data_ptr(), tok.element_size(),
+            ptr(fin), 0 if fin is None else fin.shape[0], ptr(path),
+            ptr(fscore), ptr(anext), cuda_build.stream(sen))
+        cuda_build.check(err, "viterbi_chunk (parent)")
+        return (path, fscore) if fin is not None else (new, tok)
     return run
 
 
@@ -1060,10 +1098,10 @@ def gather_library(src, cols):
 
 
 def compare_gather(name, src, cols, results):
-    """K5 against its plain version and, under --before, the parent's
-    kernel, with its launch (threads and frames a block) and its sector
-    floor: sector_bytes and the columns in, the output out, at the memory
-    rate, what a gather can reach (the bound's rule stays)."""
+    """K5 against its plain version, with its launch (threads and frames
+    a block) and its sector floor: sector_bytes and the columns in, the
+    output out, at the memory rate, what a gather can reach (the bound's
+    rule stays)."""
     B, T, Sx = src.shape
     lay = senscore_torch.gather_cols_layout(B, T, cols.shape[1])
     log(f"  {name}: B={B} T={T} Sx={Sx} S={cols.shape[1]}, "
@@ -1072,8 +1110,7 @@ def compare_gather(name, src, cols, results):
     out = compare(name, lambda: senscore_torch.gather_cols(src, cols),
                   lambda: senscore_torch.gather_cols_plain(src, cols),
                   results, n_bytes=gather_bytes(src, cols),
-                  library=gather_library(src, cols),
-                  before=before_gather(src, cols))
+                  library=gather_library(src, cols))
     floor = bound(sector_bytes(src, cols) + nbytes(cols, out), 0.0,
                   1.0)["bound_ms"]
     r = results[name]
@@ -1852,9 +1889,7 @@ def compare_vit(name, sen, n, v, results, ws=False, runs=10,
         cs = align_torch.rows_layout(v.P, v.E, sen.shape[2], ws, cluster)
         log(f"  {name}: {v.lists()[0]} lists of up to "
             f"{int(v.lists()[3].max())} of {v.lists()[1].shape[2]} slots, "
-            + ("one block, the state in global memory" if cs == 0 else
-               "one block" if cs == 1 else f"a cluster of {cs} blocks")
-            + " a row")
+            f"layout {align_torch.layout_name(cs)}")
 
         def fn():
             return align_torch.viterbi_rows(sen, n, v, ws, cluster)
@@ -1871,15 +1906,28 @@ def compare_vit(name, sen, n, v, results, ws=False, runs=10,
         results[name]["cluster"] = cs
 
 
+def chunk_layout_log(name, v, S: int) -> None:
+    cs_ = align_torch.chunk_layout(v.P, v.E, S)
+    log(f"  {name}: layout {align_torch.layout_name(cs_)}")
+
+
 def compare_single(name, sen, T, v, results, runs=10):
     """The single-utterance path (K4's carry form from vit_carry0 with
-    the final select and backtrace) against its plain version."""
+    the final select and backtrace) against its plain version and,
+    under --before, the parent's kernel."""
     shape_log(name, sen, v)
-    carry0 = tuple(x[None] for x in align_torch.vit_carry0(v))
+    chunk_layout_log(name, v, sen.shape[1])
+
+    def before():
+        # the carry built inside the call, as viterbi_single builds it
+        carry0 = tuple(x[None] for x in align_torch.vit_carry0(v))
+        return tuple(x[0] for x in before_chunk(sen[None], carry0, 0, T, v,
+                                                v.fin)())
     compare(name, lambda: align_torch.viterbi_single(sen, T, v),
             lambda: align_torch.viterbi_single_plain(sen, T, v), results,
             plain_runs=0, n_bytes=nbytes(sen) + vit_bytes(v),
-            ops=vit_ops(sen), rate=I32_OPS, runs=runs)
+            ops=vit_ops(sen), rate=I32_OPS, runs=runs,
+            before=before if "lib" in BEFORE else None)
 
 
 def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
@@ -2170,21 +2218,23 @@ def first_chunk_tokens(sen, n, v, C: int) -> torch.Tensor:
 def compare_ring_step(name, sen, n, v, C: int, results, runs=10):
     """One ring step of the long form: rank 0's launch over every row's
     first C frames from vit_carry0 (the R-row carry form), against its
-    plain version; bound over the R rows' scores, carries and tokens;
-    the parent ran it as one launch a row."""
+    plain version and, under --before, the parent's kernel; bound over
+    the R rows' scores, carries and tokens."""
     R = sen.shape[0]
     chunk = sen[:, :C].contiguous()
     carry = tuple(x.expand(R, *x.shape).contiguous()
                   for x in align_torch.vit_carry0(v, n_emit=3))
     log(f"  {name}: R={R} C={C} S={chunk.shape[2]} P={v.P} "
         f"K={v.pred_idx.shape[1]} tokens {align_torch.tok_dtype(v.P * 3)}")
+    chunk_layout_log(name, v, chunk.shape[2])
     compare(name, lambda: align_torch.viterbi_chunk_rows(chunk, carry, 0, n,
                                                          v),
             lambda: align_torch.viterbi_chunk_rows_plain(chunk, carry, 0, n,
                                                          v),
             results, plain_runs=0,
             n_bytes=nbytes(chunk, carry, n) + vit_bytes(v),
-            ops=vit_ops(chunk), rate=I32_OPS, runs=runs)
+            ops=vit_ops(chunk), rate=I32_OPS, runs=runs,
+            before=before_chunk(chunk, carry, 0, n, v))
     results[name]["shape"] = f"R={R}, P={v.P}"
 
 
@@ -2288,7 +2338,8 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     chunk of the long-form batch (int16) and of the large grammar's
     decode batch (int32, S >= 32,767), K4's carry form on one row's
     long-form chunk, on a ring step over each batch's rows and on the
-    5-minute row's (LONG_K5 repeats) first chunk, K2's mxu
+    5-minute row's (LONG_K5 repeats) first chunk and on a chapter-sized
+    row's whole launch on a ring of 1 (LONG_CHAPTER), K2's mxu
     form on the same-transcript B=256 batch's first
     chunk and on DENSE_SLICE frames of the full inventory, K8 with
     remove_dc on the remove_dc aligner's B=256 batch, K1's float32 form
@@ -2319,6 +2370,13 @@ def phase_kernels_slice6(al: TorchAligner, al_dc: TorchAligner,
     compare_ring_step("viterbi_chunk[long form, 5-minute row]", sen5, n5, v5,
                       sen5.shape[1] // N_SEQ, results)
     del sen5
+    senc, nc, vc = long_batch_sen(
+        al, [longform_audio(0, LONG_CHAPTER_AUDIO)],
+        longform_text(LONG_CHAPTER), 1)
+    shape_log("chapter row", senc, vc)
+    compare_ring_step("viterbi_chunk[long form, chapter row]", senc, nc, vc,
+                      senc.shape[1], results, runs=3)
+    del senc
     tok = first_chunk_tokens(sen, n, v, C)
     rng = np.random.RandomState(13)
     start = torch.from_numpy(rng.randint(-2, tok.shape[2], LONG_B)
@@ -2765,7 +2823,8 @@ def phase_mesh(al: TorchAligner, audios8: list, golden: list, mg: dict,
 
 
 # a wrapper's counters beside its launches: forms, the carry form's
-# shapes, K6's layouts and tables, K2's tiles, K5's and K6's rows
+# shapes, K6's and the carry form's layouts, K6's tables, K2's tiles,
+# K5's and K6's rows
 COUNTERS = ("forms", "shapes", "layouts", "tables", "tiles", "rows")
 
 
@@ -2774,19 +2833,34 @@ COUNTERS = ("forms", "shapes", "layouts", "tables", "tiles", "rows")
 # the large grammar (P=13,184, int32 tokens) one of 8; a row that falls
 # to the global-memory layout where a cluster should hold it fails
 K6_LAYOUTS = {"large": {"cluster 4", "cluster 8"}}
+# the carry form's: one block a row, but a cluster of 16 for one row of
+# the large grammar (P=13,159: its single utterance on the large path and
+# on the long form) and the 5-minute row (P=5,899), and on the long form
+# a cluster of 8 for the large grammar's 8 rows a launch (8 clusters of
+# 16 are not all resident), beside the 4-row batch's one block (P=1,238)
+K4C_LAYOUTS = {"large": {"cluster 16"},
+               "longform": {"block", "cluster 8", "cluster 16"}}
 
 
-def k6_layouts(counts: dict) -> set:
-    """The layouts of a path's K6 launches ("block", "cluster N",
-    "global memory") from its counts."""
+def layouts_of(kernel: str, counts: dict) -> set:
+    """The layouts of a path's launches of a kernel ("block", "cluster
+    N", "global memory") from its counts."""
     out = set()
     for key, k in counts.items():
-        if k and key.startswith("viterbi_rows["):
-            layout = key[len("viterbi_rows["):-1]
+        if k and key.startswith(kernel + "["):
+            layout = key[len(kernel) + 1:-1]
             if layout in ("block", "global memory") or layout.startswith(
                     "cluster "):
                 out.add(layout)
     return out
+
+
+def k6_layouts(counts: dict) -> set:
+    return layouts_of("viterbi_rows", counts)
+
+
+def k4c_layouts(counts: dict) -> set:
+    return layouts_of("viterbi_chunk", counts)
 
 
 def count_path(wrappers: dict, drive) -> dict:
@@ -2872,7 +2946,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's K5)
+    # 2. build (and, with --before DIR, the parent's carry form)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:
@@ -3030,11 +3104,20 @@ def main() -> int:
         if missing:
             raise AssertionError(f"kernels never launched on the {path} "
                                  f"paths: {missing}")
-        got = k6_layouts(counts[path])
-        want = K6_LAYOUTS.get(path, {"block"}) if got else set()
-        if got != want:
-            raise AssertionError(f"K6 on the {path} paths took the layouts "
-                                 f"{sorted(got)}, not {sorted(want)}")
+        log(f"  {path} carry-form layouts: " + (", ".join(
+            f"{k} {v}" for k, v in sorted(counts[path].items())
+            if k.startswith("viterbi_chunk[")
+            and k[len("viterbi_chunk["):-1] in k4c_layouts(counts[path]))
+            or "none"))
+        for what, layouts, want_of in (("K6", k6_layouts, K6_LAYOUTS),
+                                       ("the carry form", k4c_layouts,
+                                        K4C_LAYOUTS)):
+            got = layouts(counts[path])
+            want = want_of.get(path, {"block"}) if got else set()
+            if got != want:
+                raise AssertionError(f"{what} on the {path} paths took the "
+                                     f"layouts {sorted(got)}, not "
+                                     f"{sorted(want)}")
     entries = kernel_entries(counts, results)
     log("rule-2 order (slower than the one PyTorch call, by ms / library "
         "ms; then launches x (ms - bound) ms): " + ", ".join(

@@ -159,15 +159,17 @@ int sst_feat_f32(const float* cep, const int32_t* n_frames, float* mean,
                  float* out, int B, int T, int ncep, int do_cmn, int rows,
                  int pass, int tile, cudaStream_t stream);
 
-// K4, carry form (frames t0 .. t0+C-1 of R utterance rows, one block a
-// row).  sen int32 [R, C, P*E]; each row's frame count n_rows int32 [R]
-// or, n_rows NULL, n for every row; graph tables as K4's; carry
-// score/hist int32 [R, P, E], osc/ohi int32 [R, P], best_prev int32 [R],
-// read and written back -> tok [R, C, P*E] (int16 or int32 by
-// tok_bytes).  With fin != NULL (int32 [n_fin]), also the final-node
-// select and backtrace: path int32 [R, C] (-1 at and after n - t0),
-// fscore int32 [R].  anext: NULL for the state in shared memory, else a
-// uint8 [R, P] scratch, and the kernel works on the carries in place.
+// K4, carry form (frames t0 .. t0+C-1 of R utterance rows, one block or
+// one thread-block cluster a row).  sen int32 [R, C, P*E]; each row's
+// frame count n_rows int32 [R] or, n_rows NULL, n for every row; graph
+// tables as K4's; carry score/hist int32 [R, P, E], osc/ohi int32 [R, P],
+// best_prev int32 [R], read and written back -> tok [R, C, P*E] (int16
+// or int32 by tok_bytes).  With fin != NULL (int32 [n_fin]), also the
+// final-node select and backtrace: path int32 [R, C] (-1 at and after
+// n - t0), fscore int32 [R].  cluster: what sst_viterbi_chunk_cluster
+// returned for the same P, E, tok_bytes and asked size (> 0: blocks a
+// row, the state in shared memory, anext NULL; 0: one block working on
+// the carries in place, anext a uint8 [R, P] scratch).
 int sst_viterbi_chunk(const int32_t* sen, int t0, int n,
                       const int32_t* n_rows, const int32_t* tp,
                       const int32_t* pred_idx, const int32_t* pred_pen,
@@ -178,7 +180,19 @@ int sst_viterbi_chunk(const int32_t* sen, int t0, int n,
                       int32_t* osc, int32_t* ohi, int32_t* best_prev, int R,
                       int C, int P, int E, int K, void* tok, int tok_bytes,
                       const int32_t* fin, int n_fin, int32_t* path,
-                      int32_t* fscore, uint8_t* anext, cudaStream_t stream);
+                      int32_t* fscore, uint8_t* anext, int cluster,
+                      cudaStream_t stream);
+
+// The carry form's layout for R rows of P phones of E states, in
+// *layout, from K6's plan: blocks a row, 0 for one block with the state
+// in global memory, -1 where the asked size cannot run.  cluster 0 asks
+// for one block where it holds each thread's phones in registers (P <=
+// 2,048), else the smallest cluster whose ranks hold at most 512 phones
+// (or 16), or the next smaller that holds the row, of which R can be
+// resident at once; 1 for one block; 2-16 for a cluster of that size.
+// Returns the cudaError_t of the occupancy query.
+int sst_viterbi_chunk_cluster(int P, int E, int tok_bytes, int R,
+                              int cluster, int* layout);
 
 // K8: pre-emphasis, framing, the frame mean (remove_dc != 0), window,
 // FFT, power spectrum, mel fold; one block a tile of

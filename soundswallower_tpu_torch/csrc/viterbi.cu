@@ -64,18 +64,45 @@
 // backtrace when it is asked for a path, and each chunk of the long
 // form's ring (soundswallower_tpu/parallel/seqpipe.py).  One launch runs
 // frames t0 .. t0+C-1 of R utterance rows against absolute astart/aend,
-// one block a row (one row alone fills 1 of 132 SMs, so the long form
-// puts all of a rank's rows into one launch), each from the carry
-// (score, hist, out_score, out_hist, best_prev) it is given, and writes
-// the carries back; in the global layout it works on the carries in
-// place.  It shares the frame step with K4 (renormalization, hmm_update,
-// best over active phones, token record, the options above); the one
-// difference is make_vit_step's predecessor choice, jnp.argmax over the
-// K slots: the first slot's value is the start, so a slot at or below
-// WORST_SCORE can still win, where K4's strict `>` from WORST_SCORE takes
-// none; its bounded loop weighs the first padded slot after the real
-// ones (enter_argmax).  Padded frames (t >= n) renormalize the scores,
-// as the scan does.
+// each from the carry (score, hist, out_score, out_hist, best_prev) it
+// is given, and writes the carries back.  A row runs on K6's layouts,
+// chosen by K6's plan (viterbi_step.h, sst::plan_for) from P and E:
+//
+// - one block where it holds each thread's phones in registers (P <=
+//   2,048: a stream's graph, a single utterance of a story's size, the
+//   long form's rows of a minute), with the prefetch;
+// - past that, a thread-block cluster of 2-16 blocks: the smallest whose
+//   ranks hold at most kChunkRankPhones = 512 phones (or 16 blocks),
+//   where R clusters of it can be resident at once, else the next smaller
+//   that holds the row (a chapter of 3-10 minutes, 3,700-12,600 phones,
+//   takes 8 or 16 blocks; kChunkRankPhones below has the measurements):
+//   rank r owns phones [r*Pr, r*Pr + Pr), keeps their state in its
+//   shared memory, their constants in registers and the next frame's
+//   scores of its phones in a cp.async double buffer; it loads its
+//   phones' carry at the launch's start and stores it at its end; a
+//   predecessor of another rank is read through distributed
+//   shared memory; the frame's two barriers are cluster barriers and
+//   best_prev the cluster's max of the ranks' block maxima; a phone of
+//   more than 8 predecessors is weighed by a warp, which returns the
+//   lowest slot holding the maximum under the argmax rule below; with a
+//   final select, rank 0 reads the final nodes' out scores in fin's
+//   order through distributed shared memory and backtraces through the
+//   token stack in global memory;
+// - one block with the state in the carries themselves (global memory)
+//   only past a cluster of 16 (or where one block is asked for and its
+//   shared memory does not hold the row).
+//
+// One row alone fills 1 to 16 of the card's 132 SMs, so the long form
+// still puts all of a rank's rows into one launch.  It shares the frame
+// step with K4 (renormalization, hmm_update, best over active phones,
+// token record, the options above); the one difference is make_vit_step's
+// predecessor choice, jnp.argmax over the K slots: the first slot's value
+// is the start, so a slot at or below WORST_SCORE can still win, where
+// K4's strict `>` from WORST_SCORE takes none; its bounded loop weighs
+// the first padded slot after the real ones (enter_argmax).  Padded
+// frames (t >= n) renormalize the scores, as the scan does.  Every layout
+// is the same integer operations in the same order, so the bits never
+// depend on it.
 //
 // This file holds the 3-state forms and the entry points; viterbi_e5.cu
 // compiles it again with SST_VIT_E5 defined for the 5-state forms alone
@@ -88,9 +115,11 @@
 #ifdef SST_VIT_E5
 #define SST_VIT_BATCH sst_viterbi_batch_e5
 #define SST_VIT_CHUNK sst_viterbi_chunk_e5
+#define SST_VIT_CHUNK_CLUSTER sst_viterbi_chunk_cluster_e5
 #else
 #define SST_VIT_BATCH sst_viterbi_batch
 #define SST_VIT_CHUNK sst_viterbi_chunk
+#define SST_VIT_CHUNK_CLUSTER sst_viterbi_chunk_cluster
 #endif
 
 namespace {
@@ -110,35 +139,6 @@ using sst::kWorst;
 
 using Graph = sst::VitGraph;
 
-// One phone's constants: from registers (kPh > 0: the j-th phone of the
-// thread) or loaded now.
-template <int E, int kPh>
-struct Consts {
-  static constexpr int KR = kPh > 0 ? kRegSlots : 0;
-  using Phone = sst::PhoneConsts<E, KR>;
-  Phone reg[kPh > 0 ? kPh : 1];
-
-  __device__ __forceinline__ void init(const Graph& g, int P) {
-    if (kPh > 0)
-      sst::for_phones<kPh>(
-          P, [&](int p, int j) { reg[j] = sst::load_phone<E, KR>(g, p); });
-  }
-  __device__ __forceinline__ Phone get(const Graph& g, int p, int j) const {
-    if (kPh > 0) return reg[j];
-    return sst::load_phone<E, KR>(g, p);
-  }
-  // Where phone p's slots start and their stride: register-held phones
-  // always get the [P, K] tables (graph() below), so theirs stay K and 1
-  // without reading the Graph's strides in the frame loop.
-  __device__ __forceinline__ static size_t slots_at(const Graph& g, int K,
-                                                    int p) {
-    return (size_t)p * (kPh > 0 ? K : g.k_p);
-  }
-  __device__ __forceinline__ static int slot_stride(const Graph& g) {
-    return kPh > 0 ? 1 : g.k_k;
-  }
-};
-
 template <int E, typename Tok, bool kGlobal, bool kScores, int kPh,
           bool kPf>
 __global__ void __launch_bounds__(1024) viterbi_kernel(
@@ -148,8 +148,7 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
     Tok* __restrict__ tok, int32_t* __restrict__ tsc, Tok* __restrict__ path,
     int32_t* __restrict__ pscore, int32_t* __restrict__ fscore,
     uint8_t* gstate) {
-  extern __shared__ __align__(16) int32_t sm[];
-  int32_t* wmax = sm;  // [32]
+  extern __shared__ __align__(16) int32_t sm[];  // [32] warp maxima, state
   const int b = blockIdx.x;
   const sst::VitState v = sst::carve(
       kGlobal ? static_cast<void*>(gstate + (size_t)b * sst::state_bytes(P, E))
@@ -168,8 +167,9 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
   const int S = E * P;
   const int32_t* const sen_b = sen + (size_t)b * T * S;
 
-  Consts<E, kPh> kc;
-  kc.init(g, P);
+  using KC = sst::Consts<E, kPh>;
+  KC kc;
+  kc.init(g, 0, P);
   for (int p = tid; p < P; p += nthr) {
     score[E * p] = entry[p];
 #pragma unroll
@@ -206,7 +206,7 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
       anext[p] = act && t + 1 <= c.aen;
     });
     // block-wide best over active phones
-    const int32_t best = sst::block_max_warps(lbest, wmax);
+    const int32_t best = sst::row_block_max<sst::kBlock>(lbest, sm);
 
     // -- phone transitions, entries and token record --
     const int nf = t + 1;
@@ -214,7 +214,6 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
       const auto c = kc.get(g, p, j);
       int32_t es, eh;
       bool eok;
-      using KC = Consts<E, kPh>;
       const size_t at = KC::slots_at(g, K, p);
       sst::enter_strict_at<KC::KR>(c.np, c.src, c.pen, g.pred_idx + at,
                                    g.pred_pen + at, KC::slot_stride(g),
@@ -279,94 +278,144 @@ __global__ void __launch_bounds__(1024) viterbi_kernel(
   }
 }
 
-// The carry form over R rows, one block a row: row r's scores sen
-// [R, C, S], frame count n_rows[r] (or n for every row where n_rows is
-// NULL), carry score/hist [R, P, E], osc/ohi [R, P], best [R], tokens
-// [R, C, S]; in the global layout the carries are the state and g_anext
-// [R, P] the rows' active_next.
-template <int E, typename Tok, bool kGlobal, int kPh, bool kPf>
-__global__ void __launch_bounds__(1024) viterbi_chunk_kernel(
-    const int32_t* __restrict__ sen, int t0, int n_all,
-    const int32_t* __restrict__ n_rows, Graph g, int32_t* c_score,
-    int32_t* c_hist, int32_t* c_osc, int32_t* c_ohi, int32_t* c_best, int C,
-    int P, int K, Tok* __restrict__ tok, const int32_t* __restrict__ fin,
-    int n_fin, int32_t* __restrict__ path, int32_t* __restrict__ fscore,
-    uint8_t* g_anext) {
+// The carry form's arguments: row r's scores sen [R, C, S], frame count
+// n_rows[r] (or n_all for every row where n_rows is NULL), carry
+// score/hist [R, P, E], osc/ohi [R, P], best [R], tokens [R, C, S]; in
+// the global layout the carries are the state and anext [R, P] the rows'
+// active_next.
+struct ChunkArgs {
+  const int32_t* sen;
+  int t0, n_all;
+  const int32_t* n_rows;
+  Graph g;
+  int32_t *score, *hist, *osc, *ohi, *best;
+  int C, P, K, Pr;  // Pr: phones a rank (P outside a cluster)
+  int hcap;         // heavy phones a block holds (0: none)
+  void* tok;
+  const int32_t* fin;  // [n_fin] or NULL: no final select
+  int n_fin;
+  int32_t* path;    // [R, C]
+  int32_t* fscore;  // [R]
+  uint8_t* anext;
+};
+
+// The carry form over R rows, one block or one cluster of blocks a row
+// (kLay; rank r of a cluster owns phones [r*Pr, r*Pr + Pr)).
+template <int E, typename Tok, int kLay, int kPh, bool kPf>
+__global__ void __launch_bounds__(1024) viterbi_chunk_kernel(ChunkArgs a) {
   extern __shared__ __align__(16) int32_t sm[];
-  int32_t* wmax = sm;  // [32]
-  const int r = blockIdx.x;
+  constexpr bool kCl = kLay == sst::kCluster;
+  const int CS = kCl ? (int)cg::this_cluster().num_blocks() : 1;
+  const int rank = kCl ? (int)cg::this_cluster().block_rank() : 0;
+  const int r = blockIdx.x / CS;
+  const int P = a.P, K = a.K, C = a.C, Pr = a.Pr, t0 = a.t0;
   const int S = E * P;
-  c_score += (size_t)r * S;
-  c_hist += (size_t)r * S;
-  c_osc += (size_t)r * P;
-  c_ohi += (size_t)r * P;
-  const int32_t* const sen_r = sen + (size_t)r * C * S;
-  tok += (size_t)r * C * S;
+  const int lo = rank * Pr;
+  const int np = kCl ? max(0, min(P - lo, Pr)) : P;  // this rank's phones
+  const Graph& g = a.g;
+  int32_t* const c_score = a.score + (size_t)r * S;
+  int32_t* const c_hist = a.hist + (size_t)r * S;
+  int32_t* const c_osc = a.osc + (size_t)r * P;
+  int32_t* const c_ohi = a.ohi + (size_t)r * P;
+  const int32_t* __restrict__ const sen_r =
+      a.sen + (size_t)r * C * S + (size_t)E * lo;
+  Tok* __restrict__ const tok = static_cast<Tok*>(a.tok) + (size_t)r * C * S;
+  char* const sbase = reinterpret_cast<char*>(sm + sst::head_ints(kLay));
   // the global layout works on the carry in place
-  const sst::VitState v = kGlobal
-      ? sst::VitState{c_score, c_hist, c_osc, c_ohi, g_anext + (size_t)r * P}
-      : sst::carve(sm + 32, P, E);
+  const sst::VitState v = kLay == sst::kHbm
+      ? sst::VitState{c_score, c_hist, c_osc, c_ohi,
+                      a.anext + (size_t)r * P}
+      : sst::carve(sbase, Pr, E);
   int32_t* const score = v.score;
   int32_t* const hist = v.hist;
-  int32_t* const osc = v.osc;
-  int32_t* const ohi = v.ohi;
   uint8_t* const anext = v.anext;
-  int32_t* const sbuf = sm + 32 + sst::state_bytes(P, E) / sizeof(int32_t);
+  int32_t* const sbuf = reinterpret_cast<int32_t*>(
+      sbase + (kLay == sst::kHbm ? 0 : sst::state_bytes(Pr, E)));
+  const char* const* const rbase = sst::rank_bases<kLay>(sm);
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
-  const int n = n_rows != nullptr ? n_rows[r] : n_all;
+  const int n = a.n_rows != nullptr ? a.n_rows[r] : a.n_all;
 
-  Consts<E, kPh> kc;
-  kc.init(g, P);
-  if (!kGlobal) {
-    for (int p = tid; p < P; p += nthr) {
+  using KC = sst::Consts<E, kPh>;
+  KC kc;
+  kc.init(g, lo, np);
+  // in a cluster, phones of more than kHeavyN predecessors, each weighed
+  // by a warp: their slot in the block's table, or -1
+  constexpr bool kHeavy = kCl && kPh > 0;
+  int32_t* const heavy = sbuf + (kPf ? 2 * E * Pr : 0);
+  int hslot[kHeavy ? kPh : 1];
+#pragma unroll
+  for (int j = 0; j < (kHeavy ? kPh : 1); ++j) hslot[j] = -1;
+  if (kHeavy && a.hcap > 0)
+    sst::heavy_register<kPh>(kc, np, a.hcap, heavy, hslot);
+  if (kLay != sst::kHbm) {
+    for (int p = tid; p < np; p += nthr) {
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        score[E * p + e] = c_score[E * p + e];
-        hist[E * p + e] = c_hist[E * p + e];
+        score[E * p + e] = c_score[E * (lo + p) + e];
+        hist[E * p + e] = c_hist[E * (lo + p) + e];
       }
-      osc[p] = c_osc[p];
-      ohi[p] = c_ohi[p];
+      v.osc[p] = c_osc[lo + p];
+      v.ohi[p] = c_ohi[lo + p];
     }
   }
   if (kPf) {
-    sst::prefetch_row(sbuf, sen_r, S);
+    sst::prefetch_row(sbuf, sen_r, E * np);
     sst::cp_async_wait_all();
   }
-  int32_t best_prev = c_best[r];
-  __syncthreads();
+  const auto nodes = sst::row_nodes<kLay>(sm, v, lo, Pr, rbase);
+  int32_t best_prev = a.best[r];
+  // every block of the cluster runs (and its rbase is written) before a
+  // rank reads another's shared memory
+  sst::row_sync<kLay>();
+  const int n_heavy = kHeavy && a.hcap > 0 ? min(heavy[0], a.hcap) : 0;
+  int32_t* const hres = heavy + 4 + a.hcap;  // [hcap][3]
 
   for (int c = 0; c < C; ++c) {
     const int t = t0 + c;
-    const int32_t* sen_t = kPf ? sbuf + (c & 1) * S : sen_r + (size_t)c * S;
+    const int32_t* sen_t =
+        kPf ? sbuf + (c & 1) * E * Pr : sen_r + (size_t)c * S;
     if (kPf && c + 1 < C)
-      sst::prefetch_row(sbuf + ((c + 1) & 1) * S, sen_r + (size_t)(c + 1) * S,
-                        S);
+      sst::prefetch_row(sbuf + ((c + 1) & 1) * E * Pr,
+                        sen_r + (size_t)(c + 1) * S, E * np);
+    if (kCl && c > 0) best_prev = sst::cluster_best(rbase, CS);
     const bool valid = t < n;
     const bool renorm = sst::wsub(best_prev, 0x300000) < kWorst;
     int32_t lbest = kWorst;
-    sst::for_phones<kPh>(P, [&](int p, int j) {
-      const auto k = kc.get(g, p, j);
+    sst::for_phones<kPh>(np, [&](int p, int j) {
+      const auto k = kc.get(g, lo + p, j);
       const bool act = t >= k.ast && t <= k.aen && valid;
       lbest = max(lbest, sst::hmm_update<E>(score + E * p, hist + E * p,
-                                            osc + p, ohi + p, k.tq,
+                                            v.osc + p, v.ohi + p, k.tq,
                                             sen_t + E * p, act, renorm,
                                             best_prev));
       anext[p] = act && t + 1 <= k.aen;
     });
-    const int32_t best = sst::block_max_warps(lbest, wmax);
+    const int32_t best = sst::row_block_max<kLay>(lbest, sm);
+    // the heavy phones' predecessor max, a warp each (enter_argmax's
+    // result)
+    if (kHeavy && n_heavy > 0) {
+      sst::weigh_heavy<true>(n_heavy, heavy + 4, hres, lo, g, K, nodes);
+      __syncthreads();
+    }
 
     const int nf = t + 1;
-    sst::for_phones<kPh>(P, [&](int p, int j) {
-      const auto k = kc.get(g, p, j);
+    sst::for_phones<kPh>(np, [&](int p, int j) {
+      const int gp = lo + p;
+      const auto k = kc.get(g, gp, j);
       // jnp.argmax over the slots: the first maximum, starting at slot 0
       int32_t es, eh;
       bool eok;
-      using KC = Consts<E, kPh>;
-      const size_t at = KC::slots_at(g, K, p);
-      sst::enter_argmax<KC::KR>(k.np, K, k.src, k.pen, g.pred_idx + at,
-                                g.pred_pen + at, KC::slot_stride(g), osc,
-                                ohi, anext, &es, &eh, &eok);
+      if (kHeavy && hslot[j] >= 0) {
+        es = hres[3 * hslot[j]];
+        eh = hres[3 * hslot[j] + 1];
+        eok = hres[3 * hslot[j] + 2] != 0;
+      } else {
+        const size_t at = KC::slots_at(g, K, gp);
+        sst::enter_argmax<KC::KR>(k.np, K, k.src, k.pen, g.pred_idx + at,
+                                  g.pred_pen + at, KC::slot_stride(g), nodes,
+                                  &es, &eh, &eok);
+      }
       const bool act = t >= k.ast && t <= k.aen && valid;
       const bool enter = eok && nf >= k.ast && nf <= k.aen &&
                          (!act || es > score[E * p]);
@@ -374,55 +423,103 @@ __global__ void __launch_bounds__(1024) viterbi_chunk_kernel(
         score[E * p] = es;
         hist[E * p] = eh;
       }
-      Tok* tk = tok + (size_t)c * S + E * p;
+      Tok* tk = tok + (size_t)c * S + E * gp;
       if (act || enter) {
 #pragma unroll
         for (int e = 0; e < E; ++e) {
           tk[e] = (Tok)hist[E * p + e];
-          hist[E * p + e] = E * p + e;
+          hist[E * p + e] = E * gp + e;
         }
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) tk[e] = -1;
       }
     });
-    best_prev = best;
+    if (!kCl) best_prev = best;
     if (kPf) sst::cp_async_wait_all();
-    __syncthreads();
+    sst::row_sync<kLay>();
   }
 
-  if (!kGlobal) {
-    for (int p = tid; p < P; p += nthr) {
+  if (kLay != sst::kHbm) {
+    for (int p = tid; p < np; p += nthr) {
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        c_score[E * p + e] = score[E * p + e];
-        c_hist[E * p + e] = hist[E * p + e];
+        c_score[E * (lo + p) + e] = score[E * p + e];
+        c_hist[E * (lo + p) + e] = hist[E * p + e];
       }
-      c_osc[p] = osc[p];
-      c_ohi[p] = ohi[p];
+      c_osc[lo + p] = v.osc[p];
+      c_ohi[lo + p] = v.ohi[p];
     }
   }
-  if (tid == 0) c_best[r] = best_prev;
-  if (fin != nullptr && tid == 0) {
-    // _viterbi_graph: first max over the final nodes
-    int fnode = fin[0];
-    for (int i = 1; i < n_fin; ++i)
-      if (osc[fin[i]] > osc[fnode]) fnode = fin[i];
-    fscore[r] = osc[fnode];
-    // align_jax.py backtrace (frames counted from t0); the gather wraps a
-    // negative state and clamps one past the end, as jnp indexing does
-    int32_t cur = ohi[fnode];
-    const int nl = n - t0;
-    int32_t* const path_r = path + (size_t)r * C;
-    for (int c = C - 1; c >= 0; --c) {
-      path_r[c] = c < nl ? cur : -1;
-      if (c < nl - 1) {
-        const int at = min(max(cur < 0 ? cur + S : cur, 0), S - 1);
-        cur = (int32_t)tok[(size_t)c * S + at];
+  const bool select = a.fin != nullptr;
+  // in a cluster, every rank's tokens in global memory before rank 0
+  // backtraces through them
+  if (kCl && select) {
+    __threadfence();
+    sst::row_sync<kLay>();
+  }
+  if (rank == 0 && tid == 0) {
+    // the cluster's best of the last frame, posted before its barrier
+    a.best[r] = kCl ? sst::cluster_best(rbase, CS) : best_prev;
+    if (select) {
+      // _viterbi_graph: first max over the final nodes, in fin's order
+      int fnode = a.fin[0];
+      int32_t fbest = *nodes.ref(fnode).osc;
+      for (int i = 1; i < a.n_fin; ++i) {
+        const int32_t x = *nodes.ref(a.fin[i]).osc;
+        if (x > fbest) {
+          fbest = x;
+          fnode = a.fin[i];
+        }
+      }
+      a.fscore[r] = fbest;
+      // align_jax.py backtrace (frames counted from t0); the gather wraps
+      // a negative state and clamps one past the end, as jnp indexing
+      // does; another rank's tokens are read from L2 (__ldcg)
+      int32_t cur = *nodes.ref(fnode).ohi;
+      const int nl = n - t0;
+      int32_t* const path_r = a.path + (size_t)r * C;
+      for (int c = C - 1; c >= 0; --c) {
+        path_r[c] = c < nl ? cur : -1;
+        if (c < nl - 1) {
+          const Tok* at = tok + (size_t)c * S +
+                          min(max(cur < 0 ? cur + S : cur, 0), S - 1);
+          cur = (int32_t)(kCl ? __ldcg(at) : *at);
+        }
       }
     }
   }
+  // no rank leaves while rank 0 may still read its shared memory
+  if (kCl) sst::row_sync<kLay>();
 }
+
+// The phones a rank of the carry form's cluster takes by choice: past one
+// block, the smallest cluster whose ranks hold at most this many (one
+// phone a thread), or 16 blocks, where R rows of it can be resident at
+// once.  Measured on a chapter-like chain (tools/exp_chunk_clusters.py;
+// us a frame, one row): P = 3,731 8.49 (one block) -> 4.86, 3.74, 3.27,
+// 3.18 at 2, 4, 8, 16 blocks; P = 7,000 15.70 -> 5.03, 3.94, 3.65 at 4,
+// 8, 16; P = 12,586 46.12 (global memory) -> 4.93, 4.77 at 8, 16: the
+// time falls until a rank holds about 500 phones, then flattens.  8 rows
+// of P = 13,159 take 5.05 at 8 blocks and 9.62 at 16, whose 8 clusters
+// are not all resident.  The boundary of one block (2,048 phones of 3
+// states) is the register plan's, where a thread still holds its two
+// phones' constants, not a measured crossover: at P = 2,048 clusters of
+// 4-16 already ran 2.82-2.96 us a frame against one block's 3.10 (2 blocks
+// 3.59), while at P = 1,238 one block's 2.40 beat every cluster
+// (2.87-3.03).  The gain near 2,048 is under a tenth, and one block
+// leaves the other SMs to the launch's other rows.
+constexpr int kChunkRankPhones = 512;
+
+// The carry form's kernel instances, for sst::with_kernel and the plan
+template <int E, typename Tok>
+struct ChunkKernels {
+  static constexpr bool kWide = !std::is_same<Tok, int16_t>::value;
+  template <int kLay, int kPh, bool kPf>
+  static auto of() {
+    return viterbi_chunk_kernel<E, Tok, kLay, kPh, kPf>;
+  }
+};
 
 // Calls f(integral_constant<int, E>, Tok{}) for this file's E and 2- or
 // 4-byte tokens; cudaErrorInvalidValue for anything else.
@@ -447,12 +544,12 @@ Graph graph(const int32_t* const* tables, const int32_t* pred_n,
                sm ? P : 1};
 }
 
-// The layout and the frame step of one launch: f(global, phones in
-// registers, prefetch) as integral constants.  The shared layout holds
-// int16 tokens only (S >= 32767 never fits shared memory); in it, a
-// thread's phones sit in registers where it owns at most two, and then
-// the next frame's scores are prefetched where two rows fit beside the
-// state.  The global layout takes neither.
+// The layout and the frame step of one K4 launch: f(global, phones in
+// registers, prefetch) as integral constants (sst::one_block's choice).
+// The shared layout holds int16 tokens only (S >= 32767 never fits
+// shared memory); in it, a thread's phones sit in registers where it owns
+// at most two, and then the next frame's scores are prefetched where two
+// rows fit beside the state.  The global layout takes neither.
 template <typename Tok, typename F>
 int dispatch_layout(bool global, int P, int E, int threads, F&& f) {
   using F0 = std::false_type;
@@ -482,7 +579,7 @@ int dispatch_layout(bool global, int P, int E, int threads, F&& f) {
       int32_t *score, int32_t *hist, int32_t *osc, int32_t *ohi,              \
       int32_t *best_prev, int R, int C, int P, int E, int K, void *tok,       \
       int tok_bytes, const int32_t *fin, int n_fin, int32_t *path,            \
-      int32_t *fscore, uint8_t *anext, cudaStream_t stream
+      int32_t *fscore, uint8_t *anext, int cluster, cudaStream_t stream
 #define SST_VIT_BATCH_PARAMS                                                  \
   const int32_t *sen, const int32_t *n_frames, const int32_t *tp,             \
       const int32_t *pred_idx, const int32_t *pred_pen, const int32_t *tp_t,  \
@@ -494,9 +591,41 @@ int dispatch_layout(bool global, int P, int E, int threads, F&& f) {
 
 #ifndef SST_VIT_E5
 extern "C" int sst_viterbi_chunk_e5(SST_VIT_CHUNK_PARAMS);
+extern "C" int sst_viterbi_chunk_cluster_e5(int P, int E, int tok_bytes,
+                                            int R, int cluster, int* layout);
 extern "C" int sst_viterbi_batch_e5(SST_VIT_BATCH_PARAMS);
 #endif
 
+// The carry form's layout for R rows of P phones of E states, in
+// *layout: the cluster size (1 for one block with the state in shared
+// memory), 0 for one block with the state in the carries (global memory;
+// the launch then takes an active_next scratch of R * P bytes), -1 where
+// the asked cluster does not fit or cannot run.  cluster 0 chooses
+// (sst::plan_for with kChunkRankPhones and R rows resident).  Returns a
+// CUDA error of the query.
+extern "C" int SST_VIT_CHUNK_CLUSTER(int P, int E, int tok_bytes, int R,
+                                     int cluster, int* layout) {
+#ifndef SST_VIT_E5
+  if (E == 5)
+    return sst_viterbi_chunk_cluster_e5(P, E, tok_bytes, R, cluster, layout);
+#endif
+  *layout = -1;
+  if (P <= 0 || R <= 0 || cluster < 0 || E != kFormE ||
+      (tok_bytes != 2 && tok_bytes != 4))
+    return (int)cudaSuccess;
+  sst::Plan pl;
+  bool ok = false;
+  const int err = dispatch_form(E, tok_bytes, [&](auto e, auto tk) {
+    using Family = ChunkKernels<decltype(e)::value, decltype(tk)>;
+    return (int)sst::plan_for<Family>(P, E, cluster, &pl, &ok,
+                                      kChunkRankPhones, R);
+  });
+  if (err == 0 && ok) *layout = pl.layout == sst::kHbm ? 0 : pl.cs;
+  return err;
+}
+
+// cluster: the layout sst_viterbi_chunk_cluster returned (0: global
+// memory, with anext).
 extern "C" int SST_VIT_CHUNK(SST_VIT_CHUNK_PARAMS) {
 #ifndef SST_VIT_E5
   if (E == 5)
@@ -504,34 +633,38 @@ extern "C" int SST_VIT_CHUNK(SST_VIT_CHUNK_PARAMS) {
                                 tp_t, pred_idx_t, pred_pen_t, pred_n, astart,
                                 aend, score, hist, osc, ohi,
                                 best_prev, R, C, P, E, K, tok, tok_bytes, fin,
-                                n_fin, path, fscore, anext, stream);
+                                n_fin, path, fscore, anext, cluster, stream);
 #endif
-  if (P <= 0 || K <= 0 || (fin != nullptr && n_fin <= 0))
+  if (P <= 0 || K <= 0 || cluster < 0 || (fin != nullptr && n_fin <= 0))
     return (int)cudaErrorInvalidValue;
   if (C <= 0 || R <= 0) return (int)cudaSuccess;
-  const bool global = anext != nullptr;
-  const int threads = sst::vit_threads(P);
   const int32_t* const tables[6] = {tp,   pred_idx,   pred_pen,
                                      tp_t, pred_idx_t, pred_pen_t};
   return dispatch_form(E, tok_bytes, [&](auto e, auto tk) {
     constexpr int kE = decltype(e)::value;
-    using Tok = decltype(tk);
-    return dispatch_layout<Tok>(global, P, E, threads,
-                                [&](auto gl, auto ph, auto pf) {
-      constexpr bool kG = decltype(gl)::value;
-      constexpr bool kP = decltype(pf)::value;
-      constexpr int kPh = decltype(ph)::value;
-      auto kernel = viterbi_chunk_kernel<kE, Tok, kG, kPh, kP>;
-      const Graph g = graph(tables, pred_n, astart, aend, P, kE, K,
-                            kPh == 0);
-      const size_t smem = kP ? sst::smem_bytes_prefetch(P, kE)
-                             : sst::smem_bytes(P, kE, kG);
-      const cudaError_t err = sst::allow_smem(kernel, smem);
+    using Family = ChunkKernels<kE, decltype(tk)>;
+    sst::Plan pl;
+    if (cluster == 0) {
+      pl = sst::one_block(P, kE);
+      if (pl.layout != sst::kHbm) return (int)cudaErrorInvalidValue;
+    } else {
+      bool ok = false;
+      const cudaError_t err = sst::plan_for<Family>(P, kE, cluster, &pl, &ok);
       if (err != cudaSuccess) return (int)err;
-      kernel<<<R, threads, smem, stream>>>(
-          sen, t0, n, n_rows, g, score, hist, osc, ohi, best_prev, C, P, K,
-          static_cast<Tok*>(tok), fin, n_fin, path, fscore, anext);
-      return (int)cudaGetLastError();
+      if (!ok || pl.layout == sst::kHbm) return (int)cudaErrorInvalidValue;
+    }
+    if ((pl.layout == sst::kHbm) != (anext != nullptr))
+      return (int)cudaErrorInvalidValue;
+    // register-held phones read the [P, ...] tables, the others the
+    // slot-major copies
+    const Graph g = graph(tables, pred_n, astart, aend, P, kE, K,
+                          pl.ph == 0);
+    const ChunkArgs args{sen,   t0,    n,     n_rows, g,      score,
+                         hist,  osc,   ohi,   best_prev, C,   P,
+                         K,     pl.Pr, pl.hcap, tok,  fin,    n_fin,
+                         path,  fscore, anext};
+    return sst::with_kernel<Family>(pl, [&](auto kernel) {
+      return sst::launch(kernel, pl, R, stream, args);
     });
   });
 }

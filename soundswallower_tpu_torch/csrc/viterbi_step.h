@@ -1,14 +1,19 @@
 // The per-phone frame step shared by the Viterbi kernels K4
 // (viterbi.cu) and K6 (viterbi_rows.cu): XLA's wrapping int32 adds, the
-// two layouts of a block's Viterbi state, and hmm.c's 3- and 5-state
-// updates (align_jax.py _eval_3st_lanes, _eval_5st) with the
-// renormalization rule.
+// layouts of a row's Viterbi state (one block's shared memory, a
+// thread-block cluster's, or a global scratch) and the plan that picks
+// one, hmm.c's 3- and 5-state updates (align_jax.py _eval_3st_lanes,
+// _eval_5st) with the renormalization rule, and the predecessor max.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <climits>
 #include <type_traits>
 
 #include "sst_kernels.h"
+
+namespace cg = cooperative_groups;
 
 namespace sst {
 
@@ -214,33 +219,6 @@ __device__ __forceinline__ int32_t hmm_update<5>(
   return bst;
 }
 
-// Block-wide max of v, returned to every thread; wmax is 32 ints of
-// shared memory that no thread may write again before the next barrier.
-__device__ __forceinline__ int32_t block_max(int32_t v, int32_t* wmax) {
-  const int tid = threadIdx.x;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  v = __reduce_max_sync(0xffffffffu, v);
-  if ((tid & 31) == 0) wmax[tid >> 5] = v;
-  __syncthreads();
-  int32_t best = kWorst;
-  for (int w = 0; w < nwarps; ++w) best = max(best, wmax[w]);
-  return best;
-}
-
-// Block-wide max of v, returned to every thread, as block_max, but
-// each warp takes the max of the warp maxima with one shared load a
-// lane and one reduction (block_max walks all of them in every thread).
-// Needs a block of whole warps.
-__device__ __forceinline__ int32_t block_max_warps(int32_t v, int32_t* wmax) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  v = __reduce_max_sync(0xffffffffu, v);
-  if (lane == 0) wmax[tid >> 5] = v;
-  __syncthreads();
-  const int32_t w = lane < (int)(blockDim.x >> 5) ? wmax[lane] : kWorst;
-  return __reduce_max_sync(0xffffffffu, w);
-}
-
 // -- the bounded edge loop (K4, its carry form, K6) ---------------------------
 //
 // A phone's real predecessor slots are a prefix of its K slots (slots
@@ -255,8 +233,9 @@ __device__ __forceinline__ int32_t block_max_warps(int32_t v, int32_t* wmax) {
 
 // Where a predecessor's out_score, out_hist and active_next live: a
 // NodeRef of three pointers, from a Nodes policy's ref(src).  LocalNodes
-// are one block's arrays; K6's cluster form (viterbi_rows.cu) maps a
-// phone of another block of the cluster into that block's shared memory.
+// are one block's arrays (or the row's global scratch); ClusterNodes
+// (below) map a phone of another block of a cluster into that block's
+// shared memory.
 struct NodeRef {
   const int32_t* osc;
   const int32_t* ohi;
@@ -305,20 +284,20 @@ __device__ __forceinline__ void enter_strict_at(
 // the n real slots, the first padded slot (value WORST_SCORE, not ok)
 // is one more candidate when n < K: it wins where n == 0 or where every
 // real slot fell below WORST_SCORE, and later padded slots tie it.
-template <int KR>
+template <int KR, typename Nodes>
 __device__ __forceinline__ void enter_argmax(
     int n, int K, const int32_t* src_r, const int32_t* pen_r,
     const int32_t* __restrict__ pi, const int32_t* __restrict__ pp, int ks,
-    const int32_t* osc, const int32_t* ohi, const uint8_t* anext,
-    int32_t* es, int32_t* eh, bool* eok) {
+    const Nodes& nodes, int32_t* es, int32_t* eh, bool* eok) {
   int32_t s = kWorst, h = -1;
   bool o = false;
   auto slot = [&](int k, int src, int32_t pen) {
-    const bool ok = anext[src];
-    const int32_t val = ok ? wadd(osc[src], pen) : kWorst;
+    const NodeRef r = nodes.ref(src);
+    const bool ok = *r.anext;
+    const int32_t val = ok ? wadd(*r.osc, pen) : kWorst;
     if (k == 0 || val > s) {
       s = val;
-      h = ohi[src];
+      h = *r.ohi;
       o = ok;
     }
   };
@@ -442,5 +421,441 @@ inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
 }
 
 inline int vit_threads(int P) { return P < 1024 ? (P + 31) / 32 * 32 : 1024; }
+
+// The constants of this thread's phones lo + p (p < np): in registers
+// (kPh > 0: the j-th phone of the thread) or loaded at each use.
+template <int E, int kPh>
+struct Consts {
+  static constexpr int KR = kPh > 0 ? kRegSlots : 0;
+  using Phone = PhoneConsts<E, KR>;
+  Phone reg[kPh > 0 ? kPh : 1];
+
+  __device__ __forceinline__ void init(const VitGraph& g, int lo, int np) {
+    if (kPh > 0)
+      for_phones<kPh>(np, [&](int p, int j) {
+        reg[j] = load_phone<E, KR>(g, lo + p);
+      });
+  }
+  __device__ __forceinline__ Phone get(const VitGraph& g, int gp,
+                                       int j) const {
+    if (kPh > 0) return reg[j];
+    return load_phone<E, KR>(g, gp);
+  }
+  // Where phone gp's slots start and their stride: register-held phones
+  // always get phone-major [P, K] tables, so theirs stay K and 1 without
+  // reading the VitGraph's strides in the frame loop.
+  __device__ __forceinline__ static size_t slots_at(const VitGraph& g, int K,
+                                                    int gp) {
+    return (size_t)gp * (kPh > 0 ? K : g.k_p);
+  }
+  __device__ __forceinline__ static int slot_stride(const VitGraph& g) {
+    return kPh > 0 ? 1 : g.k_k;
+  }
+};
+
+// -- the row's layouts: one block, a thread-block cluster, global memory -----
+//
+// A row (one utterance's frame recurrence) runs on one block or, past
+// what one block holds at two phones a thread, on a cluster of 2-16
+// blocks: rank r owns phones [r*Pr, r*Pr + Pr), their state in its own
+// shared memory, and reads a predecessor of another rank through
+// distributed shared memory (ClusterNodes); the frame's two block
+// barriers become cluster barriers (row_sync) and the best score a
+// cluster max (each rank's block max at kBmax, read by every rank at the
+// next frame: cluster_best).  Only a graph past the largest cluster (or a
+// launch asked for one block whose state does not fit it) keeps its
+// state in a global scratch of state_bytes(P, E) a row.
+
+// the largest cluster (16 needs cudaFuncAttributeNonPortableClusterSizeAllowed)
+constexpr int kMaxCluster = 16;
+// in a cluster, a phone of more predecessors than this is weighed by a
+// whole warp (there its predecessors are mostly other ranks', a
+// distributed shared memory round trip each; one block reads its own
+// shared memory, where the serial loop measured faster, and keeps it)
+constexpr int kHeavyN = 8;
+// such phones a block holds (more are weighed by their thread)
+constexpr int kHeavyCap = 64;
+
+// Where the row's state lives: one block's shared memory, the shared
+// memories of a cluster's blocks, or a global scratch.
+enum Layout : int { kBlock = 0, kCluster = 1, kHbm = 2 };
+
+// The block's head of dynamic shared memory, in int32 slots: 32 warp
+// maxima (after K6's frame loop, the rank's final candidate: score,
+// node, out_hist) and, in a cluster, the block max and (8-byte aligned)
+// the generic address of every rank's shared memory.  The state follows
+// (16-byte aligned), then the two prefetch rows, then the heavy phones'
+// table.  One block's head is 128 bytes, so 7,040 phones of 3 states
+// (4,741 of 5) fit it.
+constexpr int kWmax = 0;
+constexpr int kFsel = 0;
+constexpr int kBmax = 32;
+constexpr int kRbase = 34;
+
+__host__ __device__ constexpr int head_ints(int layout) {
+  return layout == kCluster ? (kRbase + 2 * kMaxCluster + 3) / 4 * 4 : 32;
+}
+
+// The heavy phones' table after the prefetch rows, in int32 slots: the
+// count (then 3 of padding), the phones [hcap], their results (score,
+// out_hist, ok) [hcap][3].
+__host__ __device__ inline int heavy_ints(int hcap) {
+  return hcap > 0 ? 4 + 4 * hcap : 0;
+}
+
+__host__ __device__ inline size_t row_smem(int Pr, int E, int layout,
+                                           bool pf, int hcap) {
+  size_t b = head_ints(layout) * sizeof(int32_t);
+  if (layout != kHbm) b += state_bytes(Pr, E);
+  if (pf) b += 2 * (size_t)E * Pr * sizeof(int32_t);
+  return b + heavy_ints(hcap) * sizeof(int32_t);
+}
+
+template <int kLay>
+__device__ __forceinline__ void row_sync() {
+  if (kLay == kCluster)
+    cg::this_cluster().sync();
+  else
+    __syncthreads();
+}
+
+// In a cluster, each rank's shared memory as a generic address, kept at
+// sm + kRbase (read after the first row_sync); nullptr elsewhere.
+template <int kLay>
+__device__ __forceinline__ const char* const* rank_bases(int32_t* sm) {
+  if (kLay != kCluster) return nullptr;
+  const char** rb = reinterpret_cast<const char**>(sm + kRbase);
+  if (threadIdx.x < cg::this_cluster().num_blocks())
+    rb[threadIdx.x] = reinterpret_cast<const char*>(
+        cg::this_cluster().map_shared_rank(reinterpret_cast<char*>(sm),
+                                           threadIdx.x));
+  return rb;
+}
+
+// A predecessor of another rank through distributed shared memory: rank
+// src / Pr, at the same offsets in its state as this rank's arrays.
+struct ClusterNodes {
+  const int32_t* osc;
+  const int32_t* ohi;
+  const uint8_t* anext;
+  int lo, Pr;
+  const char* const* rbase;  // [cluster size]: each rank's shared memory
+  int off_osc, off_ohi, off_anext;  // bytes from its start
+  __device__ __forceinline__ NodeRef ref(int src) const {
+    const unsigned loc = (unsigned)(src - lo);
+    if (loc < (unsigned)Pr) return NodeRef{osc + loc, ohi + loc, anext + loc};
+    const int r = src / Pr;
+    const int l = src - r * Pr;
+    const char* base = rbase[r];
+    return NodeRef{reinterpret_cast<const int32_t*>(base + off_osc) + l,
+                   reinterpret_cast<const int32_t*>(base + off_ohi) + l,
+                   reinterpret_cast<const uint8_t*>(base + off_anext) + l};
+  }
+};
+
+// The Nodes policy of a layout: ClusterNodes over the ranks' shared
+// memories (sm each), or the state's own arrays.
+template <int kLay>
+__device__ __forceinline__ auto row_nodes(const int32_t* sm,
+                                          const VitState& v, int lo, int Pr,
+                                          const char* const* rbase) {
+  if constexpr (kLay == kCluster) {
+    const char* s0 = reinterpret_cast<const char*>(sm);
+    return ClusterNodes{v.osc,
+                        v.ohi,
+                        v.anext,
+                        lo,
+                        Pr,
+                        rbase,
+                        (int)(reinterpret_cast<const char*>(v.osc) - s0),
+                        (int)(reinterpret_cast<const char*>(v.ohi) - s0),
+                        (int)(reinterpret_cast<const char*>(v.anext) - s0)};
+  } else {
+    return LocalNodes{v.osc, v.ohi, v.anext};
+  }
+}
+
+// The block's max of v over its threads, returned to every thread: each
+// warp's max at sm[kWmax + warp], the layout's barrier, then one shared
+// load a lane and a reduction.  In a cluster thread 0 also posts it at
+// sm[kBmax] for cluster_best.  Needs a block of whole warps.
+template <int kLay>
+__device__ __forceinline__ int32_t row_block_max(int32_t v, int32_t* sm) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  v = __reduce_max_sync(0xffffffffu, v);
+  if (lane == 0) sm[kWmax + (tid >> 5)] = v;
+  row_sync<kLay>();
+  const int32_t best = __reduce_max_sync(
+      0xffffffffu, lane < (int)(blockDim.x >> 5) ? sm[kWmax + lane] : kWorst);
+  if (kLay == kCluster && tid == 0) sm[kBmax] = best;
+  return best;
+}
+
+// The cluster's best of the frame whose block maxima the ranks posted
+// (row_block_max) before the last row_sync.
+__device__ __forceinline__ int32_t cluster_best(const char* const* rbase,
+                                                int CS) {
+  int32_t m = kWorst;
+  for (int r = 0; r < CS; ++r)
+    m = max(m, reinterpret_cast<const int32_t*>(rbase[r])[kBmax]);
+  return m;
+}
+
+// In a cluster, the phones of this thread with more than kHeavyN
+// predecessors take a slot of the block's table at `heavy` (count, then
+// phones [hcap]), up to hcap of them: hslot[j] their slot, else -1.
+// The count is read after the next barrier.
+template <int kPh, typename KC>
+__device__ __forceinline__ void heavy_register(const KC& kc, int np,
+                                               int hcap, int32_t* heavy,
+                                               int* hslot) {
+  if (threadIdx.x == 0) heavy[0] = 0;
+  __syncthreads();
+  for_phones<kPh>(np, [&](int p, int j) {
+    if (kc.reg[j].np > kHeavyN) {
+      const int h = atomicAdd(heavy, 1);
+      if (h < hcap) {
+        heavy[4 + h] = p;
+        hslot[j] = h;
+      }
+    }
+  });
+}
+
+// The heavy phones' predecessor max (phones lo + hph[h], phone-major
+// [P, K] slots), a warp each: each lane the first max of its slots
+// (lane, lane + 32, ...), then the warp's max and the lowest slot
+// holding it, so the result is the serial loop's: enter_strict_at's
+// (kArgmax false: strict `>` from WORST_SCORE, no slot where none passes
+// it) or enter_argmax's (each lane's first slot taken whatever its
+// value, and the first padded slot one more candidate).  Writes (score,
+// out_hist, ok) [n_heavy][3] to hres; a __syncthreads makes them
+// visible to the block.
+template <bool kArgmax, typename Nodes>
+__device__ __forceinline__ void weigh_heavy(int n_heavy,
+                                            const int32_t* hph,
+                                            int32_t* hres, int lo,
+                                            const VitGraph& g, int K,
+                                            const Nodes& nodes) {
+  const int lane = threadIdx.x & 31;
+  for (int h = threadIdx.x >> 5; h < n_heavy; h += blockDim.x >> 5) {
+    const int gp = lo + hph[h];
+    const int nin = g.pred_n[gp];
+    const int32_t* const pi = g.pred_idx + (size_t)gp * K;
+    const int32_t* const pp = g.pred_pen + (size_t)gp * K;
+    int32_t lv = kArgmax ? INT_MIN : kWorst;
+    int lk = INT_MAX;
+    for (int k = lane; k < nin; k += 32) {
+      const NodeRef r = nodes.ref(pi[k]);
+      const bool ok = *r.anext;
+      const int32_t val = ok ? wadd(*r.osc, pp[k]) : kWorst;
+      if (val > lv || (kArgmax && lk == INT_MAX)) {
+        lv = val;
+        lk = k;
+      }
+    }
+    const int32_t m = __reduce_max_sync(0xffffffffu, lv);
+    const int kmin = __reduce_min_sync(0xffffffffu, lv == m ? lk : INT_MAX);
+    int32_t eh = -1;
+    int wok = 0;
+    if (kmin != INT_MAX && (kmin & 31) == lane) {
+      const NodeRef r = nodes.ref(pi[kmin]);
+      eh = *r.ohi;
+      if (kArgmax) wok = *r.anext;
+    }
+    eh = __shfl_sync(0xffffffffu, eh, kmin & 31);
+    // the strict rule's winner passed WORST_SCORE, so its slot was active
+    bool ok = kmin != INT_MAX;
+    int32_t s = m;
+    if (kArgmax) {
+      ok = ok && __shfl_sync(0xffffffffu, wok, kmin & 31) != 0;
+      if (nin < K && (nin == 0 || kWorst > m)) {
+        s = kWorst;
+        ok = false;
+      }
+    }
+    if (lane == 0) {
+      hres[3 * h] = s;
+      hres[3 * h + 1] = ok ? eh : -1;
+      hres[3 * h + 2] = ok;
+    }
+  }
+}
+
+// One launch's plan: the layout, the cluster size (1 outside the
+// cluster layout), phones a rank, threads a block, phones a thread in
+// registers (0: loaded at each use), the prefetch, the heavy phones a
+// block holds and the dynamic shared memory.
+struct Plan {
+  int layout, cs, Pr, threads, ph;
+  bool pf;
+  int hcap;
+  size_t smem;
+};
+
+// The plan of a cluster of cs blocks, or of one block (cs = 1): each
+// thread at most two phones in registers, the state and two prefetch
+// rows in the rank's shared memory; false where they do not fit.
+inline bool fits(int P, int E, int cs, Plan* pl) {
+  const int Pr = (P + cs - 1) / cs;
+  const int threads = vit_threads(Pr);
+  const int ph = vit_reg_phones(Pr, threads);
+  const int layout = cs > 1 ? kCluster : kBlock;
+  const int hcap = layout == kCluster ? kHeavyCap : 0;
+  const size_t smem = row_smem(Pr, E, layout, true, hcap);
+  if (ph == 0 || smem > kMaxSmemBytes) return false;
+  *pl = Plan{layout, cs, Pr, threads, ph, true, hcap, smem};
+  return true;
+}
+
+// One block a row: registers and prefetch where fits() allows, else the
+// state alone in shared memory where it fits, else in the global scratch.
+inline Plan one_block(int P, int E) {
+  Plan pl;
+  if (fits(P, E, 1, &pl)) return pl;
+  const int threads = vit_threads(P);
+  const int ph = vit_reg_phones(P, threads);
+  if (row_smem(P, E, kBlock, false, 0) <= kMaxSmemBytes)
+    return Plan{kBlock, 1, P, threads, ph, false, 0,
+                row_smem(P, E, kBlock, false, 0)};
+  return Plan{kHbm, 1, P, threads, 0, false, 0,
+              row_smem(P, E, kHbm, false, 0)};
+}
+
+// Calls f(kernel) with a kernel family's instance for a plan:
+// Family::template of<layout, phones in registers, prefetch>(), and
+// Family::kWide where its tokens are int32 (S >= 32767 never fits one
+// block's shared memory: cudaErrorInvalidValue there).
+template <typename Family, typename F>
+int with_kernel(const Plan& pl, F&& f) {
+  if (pl.layout == kHbm) return f(Family::template of<kHbm, 0, false>());
+  if (pl.layout == kCluster) {
+    if (pl.ph == 1) return f(Family::template of<kCluster, 1, true>());
+    return f(Family::template of<kCluster, 2, true>());
+  }
+  if constexpr (Family::kWide) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (pl.ph == 0) return f(Family::template of<kBlock, 0, false>());
+    if (pl.ph == 1) {
+      if (pl.pf) return f(Family::template of<kBlock, 1, true>());
+      return f(Family::template of<kBlock, 1, false>());
+    }
+    if (pl.pf) return f(Family::template of<kBlock, 2, true>());
+    return f(Family::template of<kBlock, 2, false>());
+  }
+}
+
+// The kernel's attributes for a plan: its shared memory and, for a
+// cluster of more than 8 blocks, the non-portable size.
+template <typename Kernel>
+inline cudaError_t prepare(Kernel kernel, const Plan& pl) {
+  cudaError_t err = allow_smem(kernel, pl.smem);
+  if (err == cudaSuccess && pl.cs > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+inline cudaLaunchConfig_t cluster_config(const Plan& pl, int rows,
+                                         cudaLaunchAttribute* attr,
+                                         cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(rows * pl.cs));
+  cfg.blockDim = dim3((unsigned)pl.threads);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)pl.cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Whether `rows` clusters of the plan can be resident on the card at
+// once (cudaOccupancyMaxActiveClusters reports that many or more), in
+// *ok; true outside the cluster layout.  A CUDA error of the kernel's
+// attributes or of the query is returned, not taken for a size that
+// cannot run.
+template <typename Family>
+cudaError_t launchable(const Plan& pl, int rows, bool* ok) {
+  *ok = true;
+  if (pl.layout != kCluster) return cudaSuccess;
+  int active = 0;
+  const int err = with_kernel<Family>(pl, [&](auto kernel) {
+    cudaError_t e = prepare(kernel, pl);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg = cluster_config(pl, 1, &attr, 0);
+    return (int)cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  });
+  *ok = err == cudaSuccess && active >= rows;
+  if (err != cudaSuccess) cudaGetLastError();  // reported here, not later
+  return (cudaError_t)err;
+}
+
+// The plan for P phones of E states: `cluster` blocks a row as asked (1:
+// one block, the state in shared or, where it does not fit, in global
+// memory), or, cluster 0, one block where it holds each thread's phones
+// in registers with the prefetch; else the cluster of 2-16 blocks whose
+// ranks take at most rank_phones phones (the smallest such, or 16), or
+// the next smaller one that holds the row, of which `rows` clusters can
+// be resident at once; else the smallest of 2-16 that holds the row and
+// of which one can be resident; past those, one block with the state in
+// global memory.  K6 asks for the smallest cluster that holds the row
+// (rank_phones 2,048: two phones a thread of 1,024) and one resident.
+// *ok false where the asked cluster does not fit or cannot run; a CUDA
+// error of launchable() is returned.
+template <typename Family>
+cudaError_t plan_for(int P, int E, int cluster, Plan* pl, bool* ok,
+                     int rank_phones = 2048, int rows = 1) {
+  *ok = true;
+  if (cluster == 1) {
+    *pl = one_block(P, E);
+    return cudaSuccess;
+  }
+  if (cluster > 1) {
+    *ok = cluster <= kMaxCluster && fits(P, E, cluster, pl);
+    return *ok ? launchable<Family>(*pl, 1, ok) : cudaSuccess;
+  }
+  if (fits(P, E, 1, pl)) return cudaSuccess;
+  int want = 2;
+  while (want < kMaxCluster && (P + want - 1) / want > rank_phones)
+    want *= 2;
+  for (int cs = want; cs > 1; cs /= 2) {
+    if (!fits(P, E, cs, pl)) continue;
+    const cudaError_t err = launchable<Family>(*pl, rows, ok);
+    if (err != cudaSuccess || *ok) return err;
+  }
+  for (int cs = 2; cs <= kMaxCluster; cs *= 2) {
+    if (!fits(P, E, cs, pl)) continue;
+    const cudaError_t err = launchable<Family>(*pl, 1, ok);
+    if (err != cudaSuccess || *ok) return err;
+  }
+  *ok = true;
+  *pl = one_block(P, E);
+  return cudaSuccess;
+}
+
+// The launch of `rows` rows on a plan's kernel: a cluster launch of
+// rows * cs blocks, or rows blocks.
+template <typename Kernel, typename Args>
+int launch(Kernel kernel, const Plan& pl, int rows, cudaStream_t stream,
+           const Args& args) {
+  const cudaError_t err = prepare(kernel, pl);
+  if (err != cudaSuccess) return (int)err;
+  if (pl.layout == kCluster) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(pl, rows, &attr, stream);
+    const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args);
+    if (e != cudaSuccess) return (int)e;
+  } else {
+    kernel<<<rows, pl.threads, pl.smem, stream>>>(args);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace sst

@@ -17,7 +17,9 @@ backtrace_batch, in its two graph forms:
   (``rows_layout``);
 
 and of the single-utterance programs (make_vit_step, vit_carry0,
-align_viterbi, backtrace), as K4's carry form, one launch over R rows:
+align_viterbi, backtrace), as K4's carry form, one launch over R rows,
+each row on one block or, past 2,048 phones, a thread-block cluster
+(``chunk_layout``):
 
 * ``viterbi_chunk_rows``: frames t0 .. t0+C-1 of R utterances, each
   from its carry (score, hist [R, P, E], out_score, out_hist [R, P],
@@ -49,22 +51,24 @@ values of the JAX program: its masked lookup yields -2^30, which int16
 holds as 0 and int32 as -2^30, and ``path[n-1] < 0`` is what extraction
 reads.
 
-K4 and its carry form keep a row's Viterbi state in shared memory while
-it fits a block's (``sst_viterbi_smem_bytes(P, E)`` <= 232,448 bytes:
-7,040 phones of 3 states, 4,741 of 5) and in a global scratch beyond
-that (``state_scratch``); K6 spreads it over a cluster's shared
-memories first, and keeps it in global memory only past a cluster of
-16 blocks or where one block is asked for.  Every layout gives the same
-bits.  K4 and its carry
-form loop over each phone's real predecessor slots only (``pred_n``, a
-prefix of the K padded ones: ``pred_count``); their launchers choose
-how a frame reads its constants and scores from the graph's size
-(viterbi.cu), which changes no bit.
+K4 keeps a row's Viterbi state in shared memory while it fits a
+block's (``sst_viterbi_smem_bytes(P, E)`` <= 232,448 bytes: 7,040
+phones of 3 states, 4,741 of 5) and in a global scratch beyond that
+(``state_scratch``); K6 and K4's carry form spread a row past what one
+block holds at two phones a thread over a thread-block cluster's
+shared memories (one plan, ``rows_layout``/``chunk_layout``), and keep
+it in global memory only past a cluster of 16 blocks or where one
+block is asked for.  Every layout gives the same bits.  K4 and its
+carry form loop over each phone's real predecessor slots only
+(``pred_n``, a prefix of the K padded ones: ``pred_count``); their
+launchers choose how a frame reads its constants and scores from the
+graph's size (viterbi.cu), which changes no bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -893,6 +897,43 @@ viterbi_batch.launches = 0
 viterbi_batch.forms = {}
 
 
+def layout_name(cs: int) -> str:
+    """A Viterbi layout as the launchers return it (blocks a row; 0: one
+    block with the state in global memory) under the name the
+    ``.layouts`` counters give it."""
+    return ("global memory" if cs == 0 else "block" if cs == 1
+            else f"cluster {cs}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(entry: str, P: int, E: int, tok_bytes: int, arg: int,
+          cluster: int, device: int) -> int:
+    """A Viterbi launcher's plan entry's answer (blocks a row, 0 for
+    global memory, -1 where the asked cluster cannot run), asked once a
+    shape and device: later launches of the shape skip the ctypes call
+    and, for a cluster, the occupancy query."""
+    cs = ctypes.c_int(-1)
+    err = getattr(cuda_build.lib(), entry)(P, E, tok_bytes, arg, cluster,
+                                           ctypes.byref(cs))
+    cuda_build.check(err, f"{entry} (layout)")
+    return cs.value
+
+
+def _layout(entry: str, what: str, P: int, E: int, S: int, arg: int,
+            cluster: int) -> int:
+    """The layout a Viterbi launcher's plan entry (P, E, token bytes,
+    ``arg``, ``cluster``) returns on the current device; ValueError
+    where the asked cluster cannot run, RuntimeError for a fault of the
+    occupancy query."""
+    dev = torch.cuda.current_device() if torch.cuda.is_available() else -1
+    cs = _plan(entry, int(P), int(E), tok_dtype(S).itemsize, int(arg),
+               int(cluster), dev)
+    if cs < 0:
+        raise ValueError(f"{what}: a cluster of {cluster} blocks cannot "
+                         f"hold P={P} phones of {E} states")
+    return cs
+
+
 def rows_layout(P: int, E: int, S: int, with_scores: bool,
                 cluster: int = 0) -> int:
     """K6's layout for a launch (sst_viterbi_rows_cluster): blocks a row
@@ -901,16 +942,8 @@ def rows_layout(P: int, E: int, S: int, with_scores: bool,
     ``cluster`` 0 lets the launcher choose; another value asks for that
     many blocks a row and raises ValueError where they cannot run.  A
     fault of the occupancy query raises RuntimeError."""
-    cs = ctypes.c_int(-1)
-    err = cuda_build.lib().sst_viterbi_rows_cluster(
-        P, E, tok_dtype(S).itemsize, int(with_scores), int(cluster),
-        ctypes.byref(cs))
-    cuda_build.check(err, "viterbi_rows (layout)")
-    cs = cs.value
-    if cs < 0:
-        raise ValueError(f"viterbi_rows: a cluster of {cluster} blocks "
-                         f"cannot hold P={P} phones of {E} states")
-    return cs
+    return _layout("sst_viterbi_rows_cluster", "viterbi_rows", P, E, S,
+                   with_scores, cluster)
 
 
 def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
@@ -965,9 +998,7 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
     cuda_build.check(err, "viterbi_rows")
     glob = lib.sst_viterbi_smem_bytes(c.P, c.E) > MAX_SMEM_BYTES
     _count(viterbi_rows, c.E, dt, True if glob else None, with_scores)
-    layout = ("global memory" if cs == 0 else "block" if cs == 1
-              else f"cluster {cs}")
-    for counter, key in ((viterbi_rows.layouts, layout),
+    for counter, key in ((viterbi_rows.layouts, layout_name(cs)),
                          (viterbi_rows.tables, table),
                          (viterbi_rows.rows, f"B={B}")):
         counter[key] = counter.get(key, 0) + 1
@@ -981,11 +1012,29 @@ viterbi_rows.tables = {}
 viterbi_rows.rows = {}
 
 
-def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None):
+def chunk_layout(P: int, E: int, S: int, cluster: int = 0,
+                 rows: int = 1) -> int:
+    """The layout of K4's carry form for a launch of ``rows`` rows
+    (sst_viterbi_chunk_cluster, K6's plan): blocks a row (1: one block,
+    the state in its shared memory; 2-16: a thread-block cluster), or 0:
+    one block working on the carries in global memory.  ``cluster`` 0
+    lets the launcher choose from P, E and the rows: one block up to
+    2,048 phones, else the smallest cluster whose ranks hold at most 512
+    phones (or 16 blocks), stepping down where ``rows`` of it cannot be
+    resident at once; another value asks for that many blocks a row and
+    raises ValueError where they cannot run.  A fault of the occupancy
+    query raises RuntimeError."""
+    return _layout("sst_viterbi_chunk_cluster", "viterbi_chunk", P, E, S,
+                   rows, cluster)
+
+
+def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None,
+                  cluster: int = 0):
     """One launch of K4's carry form over R rows (see sst_viterbi_chunk):
     sen int32 [R, C, S], the stacked carry, n an int (every row) or
     int32 [R] on the device; the carry tensors are copies, written in
-    place by the kernel; tokens into ``out`` [R, C, S] when given."""
+    place by the kernel; tokens into ``out`` [R, C, S] when given;
+    ``cluster`` as chunk_layout's."""
     _check_viterbi_shape("viterbi_chunk", sen, c.P, c.E)
     R, C, S = sen.shape
     lib = cuda_build.lib()
@@ -1001,6 +1050,7 @@ def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None):
             raise ValueError(f"viterbi_chunk: n {tuple(n.shape)} for {R} "
                              "rows")
         n_rows = n
+    cs = chunk_layout(c.P, c.E, S, cluster, R)
     new = tuple(torch.empty(x.shape, dtype=torch.int32, device=dev).copy_(x)
                 for x in carry)
     dt = tok_dtype(S)
@@ -1017,7 +1067,7 @@ def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None):
     # the global layout runs on the carries in place, with an active_next
     # a row
     anext = None
-    if lib.sst_viterbi_smem_bytes(c.P, c.E) > MAX_SMEM_BYTES:
+    if cs == 0:
         anext = torch.empty((R, c.P), dtype=torch.uint8, device=dev)
     err = lib.sst_viterbi_chunk(
         sen.data_ptr(), int(t0), 0 if n_rows is not None else int(n),
@@ -1026,12 +1076,16 @@ def _launch_chunk(sen, carry, t0: int, n, c: VitConsts, fin, out=None):
         *(x.data_ptr() for x in new), R, C, c.P, c.E, c.pred_idx.shape[1],
         out.data_ptr(), out.element_size(), _ptr(fin),
         0 if fin is None else fin.shape[0], _ptr(path), _ptr(fscore),
-        _ptr(anext), cuda_build.stream(sen))
+        _ptr(anext), cs, cuda_build.stream(sen))
     cuda_build.check(err, "viterbi_chunk")
-    # by form, and by form, rows and phones in viterbi_chunk.shapes
-    shape = (f"{_count(viterbi_chunk, c.E, dt, anext, False)}, R={R}, "
-             f"P={c.P}")
-    viterbi_chunk.shapes[shape] = viterbi_chunk.shapes.get(shape, 0) + 1
+    # by form (", global" where the row's state passes one block's shared
+    # memory), by form, rows and phones in .shapes, by layout in .layouts
+    glob = lib.sst_viterbi_smem_bytes(c.P, c.E) > MAX_SMEM_BYTES
+    form = _count(viterbi_chunk, c.E, dt, True if glob else None, False)
+    shape = f"{form}, R={R}, P={c.P}"
+    for counter, key in ((viterbi_chunk.shapes, shape),
+                         (viterbi_chunk.layouts, layout_name(cs))):
+        counter[key] = counter.get(key, 0) + 1
     return new, out, path, fscore
 
 
@@ -1050,14 +1104,20 @@ def viterbi_chunk_rows_plain(sen: torch.Tensor, carry: tuple, t0: int, n,
 
 
 def viterbi_chunk_rows(sen: torch.Tensor, carry: tuple, t0: int, n,
-                       c: VitConsts, out: torch.Tensor | None = None):
-    """K4's carry form over R rows in one launch, one block a row: sen
-    int32 [R, C, S], each row's carry before frame t0 (score, hist int32
-    [R, P, E], out_score, out_hist [R, P], best_prev [R]), n the rows'
-    frame counts (an int for every row, or int32 [R] on sen's device;
-    frames >= n are padding) -> (the carries after frame t0+C-1, tok [R,
-    C, S] int16, or int32 where S >= 32767, written into ``out`` when
-    given).  Launches and forms count on ``viterbi_chunk``."""
+                       c: VitConsts, out: torch.Tensor | None = None,
+                       cluster: int = 0):
+    """K4's carry form over R rows in one launch, one block or one
+    thread-block cluster a row (``chunk_layout``: one block up to what it
+    holds at two phones a thread, 2,048 phones; a cluster of up to 16
+    past that, its ranks at most 512 phones where the R clusters can be
+    resident at once; ``cluster`` forces one): sen int32 [R, C, S], each
+    row's carry before frame t0 (score, hist int32 [R, P, E], out_score,
+    out_hist [R, P], best_prev [R]), n the rows' frame counts (an int for
+    every row, or int32 [R] on sen's device; frames >= n are padding) ->
+    (the carries after frame t0+C-1, tok [R, C, S] int16, or int32 where
+    S >= 32767, written into ``out`` when given).  Launches count on
+    ``viterbi_chunk``: by form (``.forms``), rows and phones (``.shapes``)
+    and layout (``.layouts``: "block", "cluster N", "global memory")."""
     _check_carry(carry, c, sen.shape[0])
     if sen.device.type == "cpu":
         new, tok = viterbi_chunk_rows_plain(sen, carry, t0, n, c)
@@ -1067,7 +1127,7 @@ def viterbi_chunk_rows(sen: torch.Tensor, carry: tuple, t0: int, n,
         return new, out
     if sen.device.type != "cuda":
         raise ValueError(f"viterbi_chunk: unsupported device {sen.device}")
-    new, tok, _, _ = _launch_chunk(sen, carry, t0, n, c, None, out)
+    new, tok, _, _ = _launch_chunk(sen, carry, t0, n, c, None, out, cluster)
     return new, tok
 
 
@@ -1103,16 +1163,20 @@ def _check_carry(carry: tuple, c: VitConsts, rows: int | None = None) -> None:
 viterbi_chunk.launches = 0
 viterbi_chunk.forms = {}
 viterbi_chunk.shapes = {}
+viterbi_chunk.layouts = {}
 
 
-def viterbi_single(sen: torch.Tensor, n: int, c: VitConsts):
+def viterbi_single(sen: torch.Tensor, n: int, c: VitConsts,
+                   cluster: int = 0):
     """One utterance through K4's carry form from vit_carry0, with the
     final-node select and backtrace in the same launch: sen int32 [T, S]
-    -> (path int32 [T], final score int32 [])."""
+    -> (path int32 [T], final score int32 []); ``cluster`` as
+    chunk_layout's."""
     if sen.device.type == "cpu":
         return viterbi_single_plain(sen, n, c)
     if sen.device.type != "cuda":
         raise ValueError(f"viterbi_single: unsupported device {sen.device}")
     _, _, path, fscore = _launch_chunk(
-        sen[None], tuple(x[None] for x in vit_carry0(c)), 0, n, c, c.fin)
+        sen[None], tuple(x[None] for x in vit_carry0(c)), 0, n, c, c.fin,
+        cluster=cluster)
     return path[0], fscore[0]

@@ -9,8 +9,9 @@ token chunk [B, C, S], so the longest utterance grows with the ring.
 * Forward, rank-major: rank p receives the B rows' carries from rank
   p - 1 (one packed tensor), gathers and casts its scores of all rows
   at once, runs frames p*C .. p*C+C-1 of all B rows in one launch of K4's
-  carry form (``viterbi_chunk_rows``, one block a row, each row with its
-  own frame count) into its token chunk, and hands the B carries to rank
+  carry form (``viterbi_chunk_rows``, one block a row, or a thread-block
+  cluster of up to 16 a row past 2,048 phones, each row with its own
+  frame count) into its token chunk, and hands the B carries to rank
   p + 1.  Rank 0 starts every row from ``vit_carry0`` with the JAX
   function's 3-state default, so a 5-state model fails here as it does
   there.  A ring makes nseq launches, whatever B.  The rank's int32
@@ -28,8 +29,10 @@ token chunk [B, C, S], so the longest utterance grows with the ring.
 What differs from the JAX schedule: there the forward is a wavefront
 (at ring step k, rank p runs row k - p), which pipelines the rows so
 that the ring's separate TPU devices stay busy at once, at B + nseq - 1
-steps of one row each.  On this card one row's chunk fills 1 of 132
-SMs, so the rows go inside one launch instead of being pipelined: B
+steps of one row each.  On this card one row's chunk fills 1 to 16 of
+132 SMs (a cluster a row past 2,048 phones; a chapter of 3-10 minutes
+takes 8 or 16), so the rows go inside one launch instead of being
+pipelined: B
 rows cost about what one row did, and a ring of 8 makes 8 launches
 where the wavefront made 8 B.  Across cards (the distributed transport)
 a rank now waits for all rows of the rank before it, so the ranks no

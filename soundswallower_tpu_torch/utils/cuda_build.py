@@ -65,7 +65,8 @@ _SIGS = {
     "sst_frame_best_sub": [_P, _P, _I, _I, _I, _P],
     "sst_feat_f32": [_P] * 4 + [_I] * 7 + [_P],
     "sst_viterbi_chunk": [_P, _I, _I] + [_P] * 15 + [_I] * 5
-    + [_P, _I, _P, _I, _P, _P, _P, _P],
+    + [_P, _I, _P, _I, _P, _P, _P, _I, _P],
+    "sst_viterbi_chunk_cluster": [_I] * 5 + [_P],
     "sst_fe_spec": [_P, _I] + [_P] * 10 + [_I] * 8 + [_D, _I, _P],
     "sst_fe_spec_frames": [_I] * 5,
     "sst_fe_noise": [_P] * 8 + [_I] * 4 + [_P],

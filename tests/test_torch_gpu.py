@@ -1297,8 +1297,7 @@ def test_viterbi_rows_clusters_equal_plain_on_card(E, P):
                     continue
                 before = dict(at.viterbi_rows.layouts)
                 _equal(at.viterbi_rows(sen, n, rc, ws, cluster), want)
-                key = ("global memory" if cs == 0 else "block" if cs == 1
-                       else f"cluster {cs}")
+                key = at.layout_name(cs)
                 assert at.viterbi_rows.layouts[key] == before.get(key, 0) + 1
                 ran.add((cluster, cs))
     assert {c for c, _ in ran} >= {0, 1, 8}
@@ -1308,6 +1307,75 @@ def test_viterbi_rows_clusters_equal_plain_on_card(E, P):
     assert (auto == 1) == (P <= 2048)
     glob = cuda_build.lib().sst_viterbi_smem_bytes(P, E) > at.MAX_SMEM_BYTES
     assert (dict(ran)[1] == 0) == glob
+
+
+# -- K4's carry form on a thread-block cluster --------------------------------
+
+# (E, P): one block (up to 2,048 phones at two a thread), the smallest
+# clusters past it at 3 and 5 states, and int32 tokens (S >= 32,767)
+CHUNK_CLUSTER_FORMS = [(3, 1238), (5, 300), (3, 3000), (5, 2500),
+                       (3, 11000), (5, 6554)]
+
+
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("E,P", CHUNK_CLUSTER_FORMS)
+def test_viterbi_chunk_clusters_equal_plain_on_card(E, P, R):
+    """K4's carry form on random graphs with phones of no predecessor and
+    a few of 9 to 120 (weighed a warp each in a cluster), a tenth of the
+    scores at 0x30000000 (real slots fall below WORST_SCORE, so the
+    padded slot must win), at the launcher's choice, at one block and at
+    clusters of 2, 8 and 16 (where they hold the row; 16 where the card
+    can run it; one block past its shared memory is the global-memory
+    layout): a 16-frame chunk from a carried state at t0 = 16, rows'
+    frame counts past the chunk, inside it and before t0, then each
+    row's single-utterance path with its final select and backtrace;
+    the plain version's bits in every layout, each launch counted at
+    its layout."""
+    _need_cuda()
+    rng = np.random.RandomState(P + 10 * E + R)
+    C, t0, S = 16, 16, E * P
+    T = t0 + C
+    c = at.graph_consts_from_numpy(_heavy_graph(P, E, rng, T=T), "cuda")
+    assert int(c.pred_n.min()) == 0 and int(c.pred_n.max()) > 8
+    sen = rng.randint(0, 4000, (R, T, S))
+    sen[rng.random_sample(sen.shape) < 0.1] = 0x30000000   # below WORST
+    sen = torch.from_numpy(sen.astype(np.int32)).cuda()
+    ns = [t0 + 5] if R == 1 else [T + 3, t0 + 5, t0 - 4]
+    n = torch.tensor(ns, dtype=torch.int32, device="cuda")
+    carry0 = tuple(x.expand(R, *x.shape) for x in at.vit_carry0(c))
+    carry, _ = at.viterbi_chunk_rows_plain(sen[:, :t0].contiguous(), carry0,
+                                           0, n, c)
+    chunk = sen[:, t0:].contiguous()
+    want = at.viterbi_chunk_rows_plain(chunk, carry, t0, n, c)
+    singles = [at.viterbi_single_plain(sen[r], min(ns[r], T), c)
+               for r in range(R)]
+    ran = {}
+    for cluster in (0, 1, 2, 8, 16):
+        try:
+            cs = at.chunk_layout(P, E, S, cluster)
+        except ValueError:
+            assert cluster == 16 or -(-P // cluster) > 2048, cluster
+            continue
+        key = at.layout_name(cs)
+        before = at.viterbi_chunk.layouts.get(key, 0)
+        new, tok = at.viterbi_chunk_rows(chunk, carry, t0, n, c,
+                                         cluster=cluster)
+        _equal((tok,) + tuple(new), (want[1],) + tuple(want[0]))
+        for r in range(R):
+            _equal(at.viterbi_single(sen[r], min(ns[r], T), c, cluster),
+                   singles[r])
+        assert at.viterbi_chunk.layouts[key] == before + 1 + R
+        ran[cluster] = cs
+    assert {0, 1, 8} <= set(ran)
+    # one block where it holds the row at two phones a thread, else the
+    # smallest cluster whose ranks hold at most 512 phones, or 16 (R of
+    # them resident at once); one block asked for past its shared
+    # memory: global memory
+    want = 1 if P <= 2048 else next(
+        cs for cs in (2, 4, 8, 16) if cs == 16 or -(-P // cs) <= 512)
+    assert ran[0] == want
+    glob = cuda_build.lib().sst_viterbi_smem_bytes(P, E) > at.MAX_SMEM_BYTES
+    assert (ran[1] == 0) == glob
 
 
 def _random_scorer(Cu: int, F: int, D: int, L: int, topn: int, rng):

@@ -191,41 +191,45 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's K5 with the parameters BEFORE_PARAMS
-    lists (its signature before its redesign, which this tree's
-    sst_gather_cols keeps: the forced forms take a launcher of their
-    own), typed as DIR's header declares them; a header that declares it
-    otherwise, or a scalar of a type the harness does not pass, is
-    refused."""
+    """--before DIR calls DIR's carry form with the parameters
+    BEFORE_PARAMS lists (its signature before the cluster layout, which
+    this tree's sst_viterbi_chunk extends by the layout it is given),
+    typed as DIR's header declares them; a header that declares it
+    otherwise (this tree's among them), or a scalar of a type the harness
+    does not pass, is refused."""
     import ctypes
 
-    ints = {"elem_bytes", "B", "T", "Sx", "S"}
+    ints = {"t0", "n", "R", "C", "P", "E", "K", "tok_bytes", "n_fin"}
 
     def decl(name, elem="int"):
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             f"{elem} " if p == "elem_bytes" else
-             "int " if p in ints else "const void* ") + p
+             f"{elem} " if p == "tok_bytes" else
+             "int " if p in ints else "const int32_t* ") + p
             for p in params) + ");\n")
 
     header = "".join(decl(n) for n in cs.BEFORE_PARAMS)
     sigs = cs.before_argtypes(header)
     P, I = ctypes.c_void_p, ctypes.c_int
-    assert sigs["sst_gather_cols"] == [P, I, P, P, I, I, I, I, P]
-    assert cs.BEFORE_SOURCES == ("gather_cols",)
+    assert sigs["sst_viterbi_chunk"] == ([P, I, I] + [P] * 15 + [I] * 5
+                                         + [P, I, P, I, P, P, P, P])
+    assert cs.BEFORE_SOURCES == ("viterbi", "viterbi_e5")
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
         here = f.read()
-    assert cs.before_argtypes(here) == sigs
+    with pytest.raises(ValueError, match="sst_viterbi_chunk is declared"):
+        cs.before_argtypes(here)
+    assert cs.before_argtypes(here.replace(
+        "uint8_t* anext, int cluster,", "uint8_t* anext,")) == sigs
     # a parameter list that differs (no stream), a scalar the harness
     # cannot type, a missing declaration
-    with pytest.raises(ValueError, match="sst_gather_cols is declared"):
+    with pytest.raises(ValueError, match="sst_viterbi_chunk is declared"):
         cs.before_argtypes(header.replace(", cudaStream_t stream", ""))
-    with pytest.raises(ValueError, match="elem_bytes of type char"):
-        cs.before_argtypes(decl("sst_gather_cols", "char"))
+    with pytest.raises(ValueError, match="tok_bytes of type char"):
+        cs.before_argtypes(decl("sst_viterbi_chunk", "char"))
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(header.replace("sst_gather_cols", "sst_gather"))
+        cs.before_argtypes(header.replace("sst_viterbi_chunk", "sst_vit"))
 
 
 def test_feat_bytes_count_the_frames_read():
@@ -368,6 +372,26 @@ def test_k6_layouts_read_from_a_path_s_counts():
     assert cs.k6_layouts(counts) == {"block", "cluster 8"}
     assert cs.k6_layouts({"dist_topn_norm[16]": 2}) == set()
     assert cs.K6_LAYOUTS["large"] == {"cluster 4", "cluster 8"}
+
+
+def test_k4c_layouts_read_from_a_path_s_counts():
+    """The layouts of a path's carry-form launches from its counts, not
+    its forms or shapes, a layout counted 0 left out; none where the
+    path launched no carry form.  The long form must take one block for
+    its 4-row batch and clusters for its 5-minute row and the large
+    grammar (8 and 16 blocks), the large path a cluster of 16."""
+    counts = {"viterbi_chunk": 4, "viterbi_chunk[3-state]": 3,
+              "viterbi_chunk[3-state, int32, global]": 1,
+              "viterbi_chunk[3-state, R=4, P=1238]": 2,
+              "viterbi_chunk[block]": 3, "viterbi_chunk[cluster 8]": 1,
+              "viterbi_chunk[global memory]": 0,
+              "viterbi_rows[cluster 4]": 2}
+    assert cs.k4c_layouts(counts) == {"block", "cluster 8"}
+    assert cs.k6_layouts(counts) == {"cluster 4"}
+    assert cs.k4c_layouts({"viterbi_rows[block]": 2}) == set()
+    assert cs.K4C_LAYOUTS["longform"] == {"block", "cluster 8",
+                                          "cluster 16"}
+    assert cs.K4C_LAYOUTS["large"] == {"cluster 16"}
 
 
 def test_vit_bytes_count_the_real_slots():

@@ -27,7 +27,10 @@ object with ``program`` added:
 * ``bench_minus_root_ms``: per benchmark span (``begin``, ``end``,
   ``chapter``) the median over calls of its time less that of the
   program root it holds;
-* ``launches``: each kernel wrapper's launches in the window;
+* ``launches``: each kernel wrapper's launches in the window, and
+  ``layouts``: by layout, those of the Viterbi wrappers that count one
+  (``viterbi_rows``, ``viterbi_chunk``: "block", "cluster N", "global
+  memory");
 * with ``--trace 1``, ``idle_gaps``: the ten longest idle gaps, the
   benchmark's label then ``/`` and the innermost main-thread program
   span open at the gap's middle (the benchmark's label alone where none
@@ -75,11 +78,13 @@ def wrappers() -> dict:
 
 class _Recorded:
     """A traffic kind whose loop runs under ``rec``; keeps the loop's
-    record, the benchmark's spans and the launches it made."""
+    record, the benchmark's spans and the launches it made, by wrapper
+    and, where a wrapper counts them, by layout."""
 
     def __init__(self, kind, rec: spans.Recorder):
         self._kind, self.rec = kind, rec
         self.record = self.bench_spans = self.launches = None
+        self.layouts = None
 
     def __getattr__(self, name):
         return getattr(self._kind, name)
@@ -88,6 +93,8 @@ class _Recorded:
              start=0):
         fns = wrappers()
         before = {n: f.launches for n, f in fns.items()}
+        lay0 = {n: dict(f.layouts) for n, f in fns.items()
+                if hasattr(f, "layouts")}
         spans.install(self.rec)
         try:
             self.record = self._kind.loop(al, traffic, samprate, seconds,
@@ -97,6 +104,12 @@ class _Recorded:
         self.bench_spans = bench_spans
         self.launches = {n: f.launches - before[n] for n, f in fns.items()
                          if f.launches != before[n]}
+        self.layouts = {}
+        for n, b in lay0.items():
+            d = {k: v - b.get(k, 0) for k, v in fns[n].layouts.items()
+                 if v != b.get(k, 0)}
+            if d:
+                self.layouts[n] = d
         return self.record
 
 
@@ -244,7 +257,7 @@ def program(rec: spans.Recorder, kind: _Recorded, bench: Bench) -> dict:
             "metrics": {k: v for k, v in metrics.items() if v is not None},
             "counts": rec.counts, "roots": roots(rec),
             "bench_minus_root_ms": bench_minus_root(rec, kind.bench_spans),
-            "launches": kind.launches}
+            "launches": kind.launches, "layouts": kind.layouts}
 
 
 def main(argv=None) -> int:
