@@ -195,12 +195,13 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "tools"))
+sys.path.insert(0, os.path.join(REPO, "tests"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from make_synth_model import VARIANTS as MODEL_VARIANTS  # noqa: E402
-from make_synth_model import make_synth_model  # noqa: E402
+from make_synth_model import make_cont_model, make_synth_model  # noqa: E402
 from make_torch_api_golden import (API_FRAMES, austen_frames,  # noqa: E402
                                    cli_results, decoder_results,
                                    load_api_golden, mllr_file, mllr_results,
@@ -222,6 +223,8 @@ from make_torch_mixed_golden import (N_MIXED, load_mixed_golden,  # noqa: E402
                                      mixed_audio, scored_rep)
 from make_torch_synth_golden import (N_UTT, SAMPRATE, TEXT,  # noqa: E402
                                      austen_audio, load_golden, segs_rep)
+from plain_cont import PlainCont  # noqa: E402
+from portbench.reference.align import seg_rep  # noqa: E402
 from soundswallower_tpu_torch import cli  # noqa: E402
 from soundswallower_tpu_torch import yin as yin_mod  # noqa: E402
 from soundswallower_tpu_torch.aligner import TorchAligner, WordSeg  # noqa: E402
@@ -295,6 +298,10 @@ PATH_OF = {**{n: "device-FE" for n in DEVICE_FE_PATH},
            "ms_dist_topn": "backends", "ms_senone_eval": "backends",
            "backtrace_chunk": "longform", "yin_cmnd": "api"}
 BACKENDS = ("ms", "semi4b", "ptm4b", "semi")
+# the continuous model's batch routes (one 39-dim stream, a codebook a
+# senone) on both front ends
+CONT_PATH = ["feat", "fe_spec", "fe_noise", "fe_cep", "feat_f32",
+             "ms_dist_topn", "ms_senone_eval", "gather_cols", "viterbi_rows"]
 # further measured shapes of a kernel: (entry, kernel, TPU program[, path])
 VARIANTS = [
     ("gather_cols[int16 full inventory]", "gather_cols",
@@ -370,6 +377,16 @@ VARIANTS = [
      "soundswallower_tpu/ops/senscore_jax.py:323", "forced"),
     ("ms_senone_eval[aw 2]", "ms_senone_eval",
      "soundswallower_tpu/ops/senscore_jax.py:323", "forced"),
+    # the continuous model (one stream of 39 dims, 5,126 codebooks of 32):
+    # K11 and K12 on one frame block of score_frames_ms, and the blocked
+    # call over 2.5 blocks (its launches: K11's at the block's frames),
+    # counted on the continuous model's story batches
+    ("ms_dist_topn[one stream, 39 dims]", "ms_dist_topn",
+     "soundswallower_tpu/ops/senscore_jax.py:316", "cont"),
+    ("ms_senone_eval[one codebook a senone]", "ms_senone_eval",
+     "soundswallower_tpu/ops/senscore_jax.py:323", "cont"),
+    ("score_frames_ms[blocked]", "ms_dist_topn",
+     "soundswallower_tpu/ops/senscore_jax.py:316", "cont"),
 ]
 # entries that a card may not run (a cluster of 16 needs 16 free SMs of
 # one GPC): absent from the kernels line where they did not run
@@ -1660,19 +1677,24 @@ def phase_device_fe(al: TorchAligner, audios8: list, dg: dict):
 
 
 def compare_ms_dist(name, x, ms, results):
-    """K11 against its plain version, with the tile its launcher takes;
-    its launches count at its frames (``shape``)."""
+    """K11 against its plain version, with the tile, the codebooks'
+    parts and the form its launcher takes; its launches count at its
+    frames (``shape``)."""
     N, F, _ = x.shape
     C, _, D, L = ms.means.shape
-    tile = cuda_build.lib().sst_dist_topn_tile(N, F)
+    tile, parts, form = senscore_torch.ms_dist_topn_layout(N, C, F, L)
     log(f"  {name}: N={N} frames, C={C} F={F} D={D} L={L} "
         f"top-{ms.n_best}, tiles of {tile} frames ({-(-N // tile)} x {F} "
-        f"blocks, the last tile {N - (N - 1) // tile * tile} frames)")
+        f"x {parts} blocks, codebooks in {parts} part(s), the last tile "
+        f"{N - (N - 1) // tile * tile} frames), form "
+        f"{senscore_torch.MS_FORMS[form]}")
     out = compare(name, lambda: senscore_torch.ms_dist_topn(x, ms),
                   lambda: senscore_torch.ms_dist_topn_plain(x, ms), results,
                   plain_runs=0, ins=(x, ms.means, ms.var_t, ms.det),
                   ops=fold_ops(N, ms))
-    results[name].update(tile=tile, shape=f"N={N}, S={ms.S}")
+    results[name].update(tile=tile, parts=parts,
+                         form=senscore_torch.MS_FORMS[form],
+                         shape=f"N={N}, S={ms.S}")
     return out
 
 
@@ -1768,6 +1790,90 @@ def phase_kernels_backends(als: dict, results: dict):
                                  "from backends.npz")
     log(f"  full-inventory scores of {len(frames)} golden frames, "
         f"{', '.join(BACKENDS)}: equal to backends.npz")
+
+
+def cont_rows(n: int = BIG_B // 2) -> tuple:
+    """A story-sized batch for the continuous model: n rows of 4 to 12
+    austen utterances back to back (about 12-36 s), each row's
+    transcript the utterance's text as many times."""
+    audios, texts = [], []
+    for i in range(n):
+        k = 4 + i % 9
+        audios.append(np.concatenate([austen_audio((i + j) % N_UTT)
+                                      for j in range(k)]))
+        texts.append(" ".join([TEXT] * k))
+    return audios, texts
+
+
+def phase_kernels_cont(al: TorchAligner, results: dict):
+    """K11 and K12 on the continuous model (one stream of 39 dims, 5,126
+    codebooks of 32): on one frame block of score_frames_ms, the frames
+    the path launches them on; then the blocked call over 2.5 blocks
+    against one unblocked K11 and K12 over the same frames."""
+    ms = al.dense
+    block = senscore_torch.ms_block_frames(ms)
+    audios, texts = cont_rows()
+    aud, Ts, Tmax = al._batch_shape(audios)
+    Ts_d = torch.from_numpy(Ts.astype(np.int32)).to(al.device)
+    _, _, feats = next(iter(al._chunk_feats(aud, Ts_d, Tmax)))
+    flat = al._scorer_view(feats)
+    n = block * 5 // 2
+    log(f"  continuous shapes: chunk N={flat.shape[0]} frames ({len(aud)} "
+        f"rows x {Tmax}), block {block} frames, S={ms.S}, "
+        f"{tuple(ms.means.shape)} Gaussians")
+    dval, cw = compare_ms_dist("ms_dist_topn[one stream, 39 dims]",
+                               flat[:block], ms, results)
+    compare_ms_eval("ms_senone_eval[one codebook a senone]", dval, cw, ms,
+                    results)
+    del dval, cw
+    x = flat[:n]
+
+    def whole():
+        return senscore_torch.ms_senone_eval(
+            *senscore_torch.ms_dist_topn(x, ms), ms)
+
+    compare("score_frames_ms[blocked]",
+            lambda: senscore_torch.score_frames_ms(ms, x), whole, results,
+            plain_runs=0, ins=(x, ms.means, ms.var_t, ms.det),
+            ops=fold_ops(n, ms))
+    results["score_frames_ms[blocked]"].update(
+        blocks=-(-n // block), shape=f"N={block}, S={ms.S}")
+
+
+def phase_cont(al: TorchAligner, al_dev: TorchAligner, refs: dict):
+    """The continuous model's story-sized batches (BIG_B / 2 rows of
+    about 12-36 s, different transcripts) through align_batch_begin and
+    align_batch_end, two in flight, on the host and the device front
+    end: 4 rows of each batch (the longest first) equal to the plain
+    reference (tests/plain_cont.py) on the card; the card's peak memory
+    over the phase and each batch's wall (informational)."""
+    audios, texts = cont_rows()
+    order = sorted(range(len(audios)), key=lambda i: -len(audios[i]))
+    pick = order[:1] + order[len(order) // 3::len(order) // 3][:3]
+    audio_s = sum(len(a) for a in audios) / SAMPRATE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fe, a in (("host", al), ("device", al_dev)):
+        want = refs[fe].align_rows([audios[i] for i in pick],
+                                   [texts[i] for i in pick])
+        t0 = time.perf_counter()
+        h = [a.align_batch_begin(audios, texts) for _ in range(2)]
+        outs = [a.align_batch_end(x) for x in h]
+        wall = time.perf_counter() - t0
+        for k, out in enumerate(outs):
+            check_rows([out[i] for i in pick], [seg_rep(w) for w in want],
+                       f"continuous model, {fe} FE, batch {k}", rep=seg_rep)
+            if any(o is None for o in out):
+                raise AssertionError(f"continuous model, {fe} FE: a row "
+                                     "failed")
+        log(f"  continuous model, {fe} FE: 2 batches of {len(audios)} rows "
+            f"({audio_s:.1f} audio-s each) in flight, {wall * 1e3:.1f} ms "
+            f"wall, {2 * audio_s / wall:.1f} audio-s/s (informational); "
+            f"rows {pick} equal to the plain reference")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  continuous model: peak memory {peak} bytes "
+        f"({peak / torch.cuda.get_device_properties(0).total_memory:.1%} "
+        f"of the card)")
 
 
 def phase_backends(als: dict):
@@ -2973,6 +3079,13 @@ def main() -> int:
             make_synth_model(d, 0, "en-us", *MODEL_VARIANTS[variant])
             als[variant] = TorchAligner(hmm=d, samprate=SAMPRATE,
                                         device="cuda")
+        dc = os.path.join(model_dir, "cont")
+        make_cont_model(dc, 0, "en-us")
+        al_cont = TorchAligner(hmm=dc, samprate=SAMPRATE, device="cuda")
+        cont_refs = {"host": PlainCont(dc, SAMPRATE, host_fe=True,
+                                       device="cuda")}
+        cont_refs["device"] = PlainCont.of(cont_refs["host"])
+        cont_refs["device"].host_fe = False
         d5 = os.path.join(model_dir, "ptm5st")
         make_synth_model(d5, 0, "en-us", *MODEL_VARIANTS["ptm5st"])
         al5 = TorchAligner(hmm=d5, samprate=SAMPRATE, device="cuda")
@@ -2987,6 +3100,8 @@ def main() -> int:
             al_dev = TorchAligner(hmm=model_dir, samprate=SAMPRATE,
                                   device="cuda")
             al5_dev = TorchAligner(hmm=d5, samprate=SAMPRATE, device="cuda")
+            al_cont_dev = TorchAligner(hmm=dc, samprate=SAMPRATE,
+                                       device="cuda")
             del os.environ["SST_FE"]
             os.environ["SST_WIRE"] = "f32"
             al_f32 = TorchAligner(hmm=model_dir, samprate=SAMPRATE,
@@ -3000,7 +3115,8 @@ def main() -> int:
     if (al.native_fe is None or al_dev.native_fe is not None
             or al5.native_fe is None or al5_dev.native_fe is not None
             or al_dc.native_fe is not None or al_f32.native_fe is None
-            or al_f32.wire != "f32"):
+            or al_f32.wire != "f32" or al_cont.native_fe is None
+            or al_cont_dev.native_fe is not None):
         raise AssertionError("expected host-FE, device-FE, remove_dc and "
                              "f32-wire aligners")
     if al5.am.mdef.n_emit_state != 5:
@@ -3020,6 +3136,7 @@ def main() -> int:
     phase_kernels_fe(al_dev, al, big, results)
     phase_kernels_vit_chunk(al_dev, results)
     phase_kernels_backends(als, results)
+    phase_kernels_cont(al_cont, results)
     phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results)
     phase_kernels_slice6(al, al_dc, al_f32, big, results)
     phase_kernels_yin(results)
@@ -3049,6 +3166,10 @@ def main() -> int:
     # 7. the other backends' paths, counted
     log("backend paths (4-bit ptm, semi, 4-bit semi, ms):")
     backends = count_path(wrappers, lambda: phase_backends(als))
+    # 7b. the continuous model's story batches, counted
+    log("continuous model paths (one 39-dim stream, a codebook a senone):")
+    cont = count_path(wrappers, lambda: phase_cont(al_cont, al_cont_dev,
+                                                   cont_refs))
     # 8. grammar decode, counted
     log("decode paths (8-bit ptm):")
     decode = count_path(wrappers, lambda: phase_decode(al, al_dev, dcg))
@@ -3079,14 +3200,15 @@ def main() -> int:
     log(f"  mesh phase wall: {time.perf_counter() - t0:.3f} s")
     counts = {"host-FE": host, "device-FE": device, "backends": backends,
               "decode": decode, "5-state": five, "large": large,
-              "longform": longform, **repairs, "api": api, "mesh": mesh}
+              "longform": longform, **repairs, "api": api, "mesh": mesh,
+              "cont": cont}
     for path, names in (("host-FE", HOST_PATH), ("device-FE", DEVICE_FE_PATH),
                         ("backends", BACKEND_PATH), ("decode", SLICE_PATH),
                         ("5-state", SLICE_PATH), ("large", SLICE_PATH),
                         ("longform", LONGFORM_PATH), ("mxu", MXU_PATH),
                         ("wire_f32", WIRE_F32_PATH),
                         ("remove_dc", REMOVE_DC_PATH), ("api", API_PATH),
-                        ("mesh", MESH_PATH)):
+                        ("mesh", MESH_PATH), ("cont", CONT_PATH)):
         names = list(dict.fromkeys(names + [f"{k}[{f}]"
                                             for _, k, f, ph, _ in FORMS
                                             if path in form_paths(ph)]))

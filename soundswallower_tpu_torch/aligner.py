@@ -19,7 +19,10 @@ Port of ``soundswallower_tpu/aligner.py`` (TpuAligner):
   scores are not 0-normalized: K7's semi form); ms (a senmgau map, or
   the 1:1 fallback) has no graph-restricted scorer, so every batch of an
   ms model takes the multi-graph route on its full-inventory scorer
-  (K11, K12), as TpuAligner routes it;
+  (K11, K12 in frame blocks of bounded size), as TpuAligner routes it;
+* the model's feature layout: three streams of 13 dims, or one stream
+  of 39 (a fully continuous model's 1s_c_d_dd without subvectors), both
+  read from K1's [.., 3, 13] output (``fe.feat.scorer_streams``);
 * the device front end, where TpuAligner takes it (``SST_FE=device``, or
   no host FE library): pinned int16 upload -> K8/K9/K10 MFCC -> K1's
   float32 form, on both batch routes; ``align`` then runs the
@@ -90,7 +93,7 @@ from .am import AcousticModel
 from .config import Config
 from .dict2pid import Dict2Pid
 from .dictionary import Dictionary
-from .fe.feat import feat, feat_f32
+from .fe.feat import feat, feat_f32, scorer_streams
 from .fe.frontend import Frontend
 from .fe.native_fe import NativeFrontend
 from .logmath import LogMath
@@ -292,6 +295,14 @@ class TorchAligner:
             "SST_WIRE_SCALE",
             "256" if config["transform"] == "legacy" else "128"))
         self.do_cmn = config["cmn"] in ("batch", "current")
+        # how the scorer reads K1's [.., 3, ncep] features: the model's
+        # streams (or the error a route raises where it cannot)
+        try:
+            self.streams = scorer_streams(
+                self.am.n_feat, self.am.veclen, self.fe.num_cepstra,
+                config["feat"], config["svspec"], config["lda"])
+        except ValueError as e:
+            self.streams = e
         # serving size-class floors (AlignService.prewarm sets them)
         self.tmax_floor = 0
         self.graph_p_floor = 0
@@ -370,6 +381,13 @@ class TorchAligner:
             reps[dev] = _replica(obj, dev)
         return reps[dev]
 
+    def _scorer_view(self, feats: torch.Tensor) -> torch.Tensor:
+        """K1's features [..., 3, ncep] as the model's streams [N, F, L]
+        (``scorer_streams``); ValueError for a layout no route scores."""
+        if isinstance(self.streams, ValueError):
+            raise self.streams
+        return feats.view(-1, *self.streams)
+
     # -- graph -------------------------------------------------------------
 
     def graph_for_text(self, text: str) -> AlignGraph:
@@ -437,7 +455,7 @@ class TorchAligner:
         sig = self._upload(torch.from_numpy(audio.astype(np.int16)))
         cep = self.fe.mfcc(sig[None], n, Tpad)
         Ts = self._upload(torch.tensor([T], dtype=torch.int32))
-        feats = feat_f32(cep, Ts, self.do_cmn)[0]
+        feats = self._scorer_view(feat_f32(cep, Ts, self.do_cmn)[0])
         sen = score_frames_graph(c.gs, feats, dist_mode=dist_mode)
         path, _ = viterbi_single(sen, T, c.vit)
         return self._extract(g, path.cpu().numpy(), T)
@@ -570,7 +588,9 @@ class TorchAligner:
                      width: int | None = None):
         """Start the host FE of every upload chunk on the worker thread
         now; return an iterator of (first row, wire, K1 features
-        [n, Tmax, 3, 13]) per chunk on Ts_d's device, uploading each as
+        [n, Tmax, 3, ncep], which the scorers read in the model's layout
+        ``streams``: [n * Tmax, 3, 13] or [n * Tmax, 1, 39],
+        _scorer_view) per chunk on Ts_d's device, uploading each as
         it is reached: on the i16p wire the byte planes and K1, on the
         float32 wire (``SST_WIRE=f32``) the cepstra [n, Tmax, ncep] and
         K1's float32 form.  Without the host FE: (first row, int16 audio
@@ -707,7 +727,7 @@ class TorchAligner:
             n = feats.shape[0]
             spans.count("frames.scored", n * Tmax)
             with spans.span("score"):
-                score_frames_graph(gs, feats.view(n * Tmax, 3, -1),
+                score_frames_graph(gs, self._scorer_view(feats),
                                    out=sen[i0:i0 + n].view(n * Tmax, -1),
                                    dist_mode=dist_mode)
         return sen
@@ -753,7 +773,7 @@ class TorchAligner:
                 for j0, _, feats in chunks:
                     n = feats.shape[0]
                     spans.count("frames.scored", n * Tmax)
-                    flat = feats.view(n * Tmax, 3, -1)
+                    flat = self._scorer_view(feats)
                     with spans.span("score"):
                         if uni is None:
                             src = score_frames(sc, flat, dist_mode)  # int16
@@ -1152,7 +1172,7 @@ class TorchAligner:
         sig = self._upload(torch.from_numpy(audio.astype(np.int16)))
         cep = self.fe.mfcc(sig[None], n, Tpad)
         Ts = self._upload(torch.tensor([T], dtype=torch.int32))
-        feats = feat_f32(cep, Ts, self.do_cmn)[0]
+        feats = self._scorer_view(feat_f32(cep, Ts, self.do_cmn)[0])
         path, _ = viterbi_single(
             score_frames_graph(c.gs, feats, dist_mode=dist_mode), T, c.vit)
         segs = self._extract_decode(g, path.cpu().numpy(), T)
@@ -1269,7 +1289,7 @@ class TorchAligner:
             sig = self._upload(torch.from_numpy(audio.astype(np.int16)))
             cep = self.fe.mfcc(sig[None], n, Tpad)
         Ts = self._upload(torch.tensor([T], dtype=torch.int32))
-        feats = feat_f32(cep, Ts, self.do_cmn)[0]
+        feats = self._scorer_view(feat_f32(cep, Ts, self.do_cmn)[0])
         return score_frames(self.dense, feats, dist_mode).cpu().numpy()[:T]
 
     def decode_search(self, audio: np.ndarray, dist_mode: str = "fold"):

@@ -18,16 +18,27 @@
 // only the N winners of each (frame, codebook, stream) leave the SM.
 // Bound: operations, 4*L float ops per density and frame (the fold).
 // Design: K2's (senscore.cu).  A block takes a tile of NT frames (16-64,
-// K2's sst_dist_topn_tile) of one stream and loops over the C codebooks;
+// K2's sst_dist_topn_tile) of one stream and loops over the C codebooks
+// (or over one part of them: k11_layout below);
 // each codebook's slice of the model (means, var [D, L], det [D]) is
 // copied into shared memory once a tile with cp.async, the next slice's
 // copy in flight while this one computes.  A thread owns a density: it
-// holds the density's L means and vars (at L = 13) in registers across
-// the tile's frames and folds four frames at a time; the float distances
+// holds the density's L means and vars in registers across the tile's
+// frames at L = 13 (three streams of 13 dims), else reads them from the
+// shared slice (the runtime-L form: at the one 39-dim stream of a
+// continuous model it ran 2.5-2.8% faster than a form with the 78
+// values in registers), and folds four frames at a time; the float distances
 // go to a shared [NT][DG] table, from which each warp takes the top N of
 // two frames at a time (each lane sorts its four densities once, then a
 // pick is two warp reductions: the highest order key among the lanes'
-// heads, then the highest index holding it, i.e. the later density).
+// heads, then the highest index holding it, i.e. the later density;
+// where the densities fit a warp, D <= 32, a lane holds one and nothing
+// is sorted).
+// A model of one codebook a senone (5,126 codebooks) loops long over its
+// codebooks while a bounded frame block gives few tiles: there the grid
+// also splits the codebooks into parts of at least kPartCodebooks, so
+// that the card holds many short blocks, the tile staying at 64 frames
+// (each codebook's slice is still staged once a tile).
 //
 // K12 replaces the rest of _ms_stage (ms_senone.c senone_eval,
 // ms_mgau.c's best subtraction).  Per senone and stream: fden = the
@@ -58,6 +69,7 @@
 // its scores' per-frame minimum into a per-frame buffer (atomicMin); the
 // second pass subtracts and clamps.  The launcher sets the buffer and
 // makes both launches: one K12 call.
+#include <algorithm>
 #include <climits>
 
 #include "sst_kernels.h"
@@ -67,7 +79,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPerLane = SST_MAX_DENSITIES / 32;  // K11: densities a lane ranks
 constexpr int kFold = 4;     // K11: frames a thread folds at once
-constexpr int kRegL = 13;    // K11: the dims whose model rows sit in registers
+constexpr int kPartCodebooks = 64;  // K11: codebooks a part holds at least
+constexpr int kPartWaves = 16;      // K11: blocks an SM, split past this
 constexpr float kWorstDist = -2147483648.0f;
 constexpr int kGroupMax = 128;            // K12: senones a group holds at most
 constexpr int kTermBytes = 64 * 1024;     // K12: a tile's staged terms at most
@@ -135,7 +148,7 @@ __device__ __forceinline__ unsigned order_key(float d) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-template <int kL>
+template <int kL, int kPer>
 __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
     const float* __restrict__ feats, const float* __restrict__ means,
     const float* __restrict__ var_t, const float* __restrict__ det,
@@ -146,6 +159,11 @@ __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
   const int L = kReg ? kL : L_rt;
   const int f = blockIdx.y;
   const int n0 = blockIdx.x * NT;
+  // this block's part of the codebooks
+  const int cpp = (C + (int)gridDim.z - 1) / (int)gridDim.z;
+  const int c0 = (int)blockIdx.z * cpp;
+  const int c1 = min(C, c0 + cpp);
+  if (c0 >= c1) return;  // the whole block: no barrier reached
   const int nq = min(NT, N - n0);  // frames of this tile
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -167,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
 
-  stage_slice(0, prm);
+  stage_slice(c0, prm);
   // the tile's features of stream f, transposed; frames past N read 0
   for (int i = tid; i < L * NT; i += blockDim.x) {
     const int l = i / NT, q = i - l * NT;
@@ -179,9 +197,9 @@ __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
 
   const int d = tid % DG;
   const int grp = tid / DG;
-  for (int c = 0; c < C; ++c) {
-    const float* const pm = prm + (c & 1) * slice;
-    if (c + 1 < C) stage_slice(c + 1, prm + ((c + 1) & 1) * slice);
+  for (int c = c0; c < c1; ++c) {
+    const float* const pm = prm + ((c - c0) & 1) * slice;
+    if (c + 1 < c1) stage_slice(c + 1, prm + ((c + 1 - c0) & 1) * slice);
     // -- the distances of this thread's density, kFold frames at a time --
     if (d < D && grp < G) {
       const float* const mu_s = pm + d * L;
@@ -238,13 +256,13 @@ __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
         // each frame: this lane's densities lane + 32 k, sorted once by
         // order key, then index, both highest first; absent densities
         // (key 0) last, never picked while a density is left
-        unsigned key[2][kPerLane];
-        int ix[2][kPerLane];
+        unsigned key[2][kPer];
+        int ix[2][kPer];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int q = u && two ? q1 : q0;
 #pragma unroll
-          for (int k = 0; k < kPerLane; ++k) {
+          for (int k = 0; k < kPer; ++k) {
             const int dd = lane + 32 * k;
             key[u][k] = dd < D ? order_key(dist[q * DG + dd]) : 0u;
             ix[u][k] = dd < D ? dd : -1;
@@ -260,14 +278,16 @@ __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
           key[u][j] = sw ? ki : key[u][j];
           ix[u][j] = sw ? ii : ix[u][j];
         };
-        static_assert(kPerLane == 4, "the sorting network sorts 4");
+        static_assert(kPer == 1 || kPer == 4, "the sorting network sorts 4");
+        if constexpr (kPer == 4) {
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          cswap(u, 0, 1);
-          cswap(u, 2, 3);
-          cswap(u, 0, 2);
-          cswap(u, 1, 3);
-          cswap(u, 1, 2);
+          for (int u = 0; u < 2; ++u) {
+            cswap(u, 0, 1);
+            cswap(u, 2, 3);
+            cswap(u, 0, 2);
+            cswap(u, 1, 3);
+            cswap(u, 1, 2);
+          }
         }
         // pick j is held by lane j % 32: its density, -1 at the floor;
         // every 32 picks (and after the last) the lanes write theirs
@@ -280,12 +300,12 @@ __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
                 0xffffffffu, key[u][0] == m ? ix[u][0] : -1);
             if (ix[u][0] == idx) {  // this lane's head was taken: shift
 #pragma unroll
-              for (int k = 0; k + 1 < kPerLane; ++k) {
+              for (int k = 0; k + 1 < kPer; ++k) {
                 key[u][k] = key[u][k + 1];
                 ix[u][k] = ix[u][k + 1];
               }
-              key[u][kPerLane - 1] = 0u;
-              ix[u][kPerLane - 1] = -1;
+              key[u][kPer - 1] = 0u;
+              ix[u][kPer - 1] = -1;
             }
             if (lane == (j & 31)) mine[u] = m == 1u ? -1 : idx;
           }
@@ -481,20 +501,54 @@ __global__ void __launch_bounds__(kThreads) ms_best_sub_kernel(
   }
 }
 
-}  // namespace
+// K11's launch for N frames of F streams over C codebooks of L dims:
+// the frame tile, the parts the codebooks are split into, and the form
+// (13: L compiled in, the model rows in registers; 0: runtime L).
+// One part: K2's tile (sst_dist_topn_tile).  Where the tiles of 64
+// frames give fewer than kPartWaves blocks an SM and the codebooks make
+// at least two parts of kPartCodebooks, the tile stays 64 and the
+// codebooks split into as many parts as reach kPartWaves blocks an SM.
+// ``form`` >= 0 forces a form (13 only at L = 13),
+// ``split`` > 0 the parts (then the tile is 64 where they are more than
+// one).
+int k11_layout(int N, int C, int F, int L, int form, int split, int* tile,
+               int* parts, int* kl) {
+  int sms = 0;
+  if (sst_device_attr(cudaDevAttrMultiProcessorCount, &sms) != cudaSuccess)
+    return (int)cudaErrorInvalidDevice;
+  const long base = std::max(1L, (long)((N + 63) / 64) * F);
+  const long want = (long)kPartWaves * sms;
+  *parts = 1;
+  if (split > 0) {
+    *parts = std::min(split, C);
+  } else if (base < want && C >= 2 * kPartCodebooks) {
+    *parts = (int)std::min<long>(C / kPartCodebooks, (want + base - 1) / base);
+  }
+  if (*parts > 1) {
+    *tile = 64;
+  } else {
+    *tile = sst_dist_topn_tile(N, F);
+    if (*tile < 0) return (int)cudaErrorInvalidDevice;
+  }
+  if (form < 0) form = L == 13 ? 13 : 0;
+  if (form != 0 && !(form == 13 && L == 13)) return (int)cudaErrorInvalidValue;
+  *kl = form;
+  return (int)cudaSuccess;
+}
 
-extern "C" int sst_ms_dist_topn(const float* feats, const float* means,
-                                const float* var_t, const float* det,
-                                float* dval, int32_t* cw, int N, int C, int F,
-                                int D, int L, int ne, cudaStream_t stream) {
+int ms_dist_topn(const float* feats, const float* means, const float* var_t,
+                 const float* det, float* dval, int32_t* cw, int N, int C,
+                 int F, int D, int L, int ne, int form, int split,
+                 cudaStream_t stream) {
   if (D > SST_MAX_DENSITIES || D < 1 || L < 1 || F < 1 || ne < 1 || ne > D)
     return (int)cudaErrorInvalidValue;
   if (N <= 0 || C <= 0) return (int)cudaSuccess;
-  // K2's frame tile (16-64 by N and the SM count): the same staging
-  const int tile = sst_dist_topn_tile(N, F);
-  if (tile < 0) return (int)cudaErrorInvalidDevice;
+  int tile = 0, parts = 1, kl = 0;
+  const int lerr = k11_layout(N, C, F, L, form, split, &tile, &parts, &kl);
+  if (lerr != (int)cudaSuccess) return lerr;
   const size_t smem = k11_smem_bytes(D, L, tile);
-  const dim3 grid((unsigned)((N + tile - 1) / tile), (unsigned)F);
+  const dim3 grid((unsigned)((N + tile - 1) / tile), (unsigned)F,
+                  (unsigned)parts);
   const int DG = (D + 31) & ~31;
   const int threads = kThreads / DG * DG;
   auto go = [&](auto kernel) {
@@ -507,8 +561,43 @@ extern "C" int sst_ms_dist_topn(const float* feats, const float* means,
                                             N, C, F, D, L, ne, tile);
     return (int)cudaGetLastError();
   };
-  return L == kRegL ? go(ms_dist_topn_kernel<kRegL>)
-                    : go(ms_dist_topn_kernel<0>);
+  // a lane ranks one density where D fits a warp, else four
+  if (D <= 32)
+    return kl == 13 ? go(ms_dist_topn_kernel<13, 1>)
+                    : go(ms_dist_topn_kernel<0, 1>);
+  return kl == 13 ? go(ms_dist_topn_kernel<13, kPerLane>)
+                  : go(ms_dist_topn_kernel<0, kPerLane>);
+}
+
+}  // namespace
+
+extern "C" int sst_ms_dist_topn(const float* feats, const float* means,
+                                const float* var_t, const float* det,
+                                float* dval, int32_t* cw, int N, int C, int F,
+                                int D, int L, int ne, cudaStream_t stream) {
+  return ms_dist_topn(feats, means, var_t, det, dval, cw, N, C, F, D, L, ne,
+                      -1, 0, stream);
+}
+
+extern "C" int sst_ms_dist_topn_at(const float* feats, const float* means,
+                                   const float* var_t, const float* det,
+                                   float* dval, int32_t* cw, int N, int C,
+                                   int F, int D, int L, int ne, int form,
+                                   int parts, cudaStream_t stream) {
+  if (form < 0 || parts < 0) return (int)cudaErrorInvalidValue;
+  return ms_dist_topn(feats, means, var_t, det, dval, cw, N, C, F, D, L, ne,
+                      form, parts, stream);
+}
+
+extern "C" int sst_ms_dist_topn_layout(int N, int C, int F, int L,
+                                       int32_t* out) {
+  int tile = 0, parts = 1, kl = 0;
+  const int err = k11_layout(N, C, F, L, -1, 0, &tile, &parts, &kl);
+  if (err != (int)cudaSuccess) return err;
+  out[0] = tile;
+  out[1] = parts;
+  out[2] = kl;
+  return (int)cudaSuccess;
 }
 
 extern "C" int sst_ms_senone_eval_tile(int N, int S, int G, int U, int F,

@@ -183,6 +183,32 @@ feat_f32.shapes = {}
 
 # -- the exact host path (numpy) ------------------------------------------------
 
+def scorer_streams(n_feat: int, veclen, ncep: int, feat_type: str,
+                   svspec: str | None, lda: str | None) -> tuple[int, int]:
+    """How a scorer reads K1's 1s_c_d_dd features [..., 3, ncep]
+    (cepstra, delta, delta-delta): (streams, dims a stream) of the
+    model.  Three streams of ncep dims (the svspec 0-12/13-25/26-38 of
+    the repository's models) read them as they are; one stream of
+    3 * ncep dims (1s_c_d_dd without subvectors, as a fully continuous
+    model is trained) reads each frame's three parts in that order, the
+    feature registry's ``np.concatenate([c, d, dd], 1)``.  Any other
+    layout raises ValueError naming it, as does a single stream whose
+    features another type orders, subvectors split or a transform
+    changes, which K1's output cannot stand for."""
+    veclen = [int(v) for v in veclen]
+    if n_feat == 3 and veclen == [ncep] * 3:
+        return 3, ncep
+    one = n_feat == 1 and veclen == [3 * ncep]
+    if one and feat_type == "1s_c_d_dd" and not lda and (
+            not svspec or parse_subvecs(svspec) == [list(range(3 * ncep))]):
+        return 1, 3 * ncep
+    raise ValueError(
+        f"a model of {n_feat} stream(s) of {veclen} dims (feat "
+        f"{feat_type!r}, svspec {svspec!r}, lda {lda!r}): the batch routes "
+        f"score K1's 1s_c_d_dd features as 3 streams of {ncep} dims or as "
+        f"one stream of {3 * ncep} without subvectors or a transform")
+
+
 def cmn_batch_np(cep: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Batch CMN, exact float32 (cmn(), src/cmn.c:159-225)."""
     s = np.zeros(cep.shape[1], np.float32)

@@ -83,6 +83,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import spans
 from ..logmath import SENSCR_SHIFT
 from ..utils import cuda_build, to_device
 
@@ -756,10 +757,32 @@ def _ms_dist_topn_block(feats: torch.Tensor, ms: MsScorer):
     return dval, cw
 
 
-def ms_dist_topn(feats: torch.Tensor, ms: MsScorer):
+# K11's forms by the dims its launcher compiles in (ms_dist_topn_layout)
+MS_FORMS = {13: "registers 13", 0: "runtime L"}
+
+
+def ms_dist_topn_layout(N: int, C: int, F: int, L: int) -> tuple:
+    """K11's launch on the current CUDA device for N frames, C codebooks
+    and F streams of L dims: (frames a tile, parts the codebooks split
+    into, form: MS_FORMS' key)."""
+    import ctypes
+
+    lay = (ctypes.c_int32 * 3)()
+    cuda_build.check(cuda_build.lib().sst_ms_dist_topn_layout(
+        N, C, F, L, ctypes.addressof(lay)), "ms_dist_topn_layout")
+    return lay[0], lay[1], lay[2]
+
+
+def ms_dist_topn(feats: torch.Tensor, ms: MsScorer, form: int | None = None,
+                 parts: int = 0):
     """K11: feats f32 [N, F, L] -> (dval f32, cw int32) [N, C, F,
-    n_best].  Each launch also counts on ``ms_dist_topn.shapes`` by its
-    frames and the scorer's senones."""
+    n_best]; ``form`` (MS_FORMS' key) forces a form, else the launcher
+    takes 13 at L = 13, the runtime-L form otherwise;
+    ``parts`` > 0 forces the codebooks' split (with ``form``), else the
+    launcher's (ms_dist_topn_layout).
+    Each launch also counts on ``ms_dist_topn.shapes`` by its frames and
+    the scorer's senones, on ``ms_dist_topn.forms`` by form, and on the
+    span recorder's ``ms_dist_topn.forms[<form>]``."""
     if feats.device.type == "cpu":
         return ms_dist_topn_plain(feats, ms)
     if feats.device.type != "cuda":
@@ -774,17 +797,29 @@ def ms_dist_topn(feats: torch.Tensor, ms: MsScorer):
     ne = ms.n_best
     dval = torch.empty((N, C, F, ne), dtype=torch.float32, device=dev)
     cw = torch.empty((N, C, F, ne), dtype=torch.int32, device=dev)
-    err = cuda_build.lib().sst_ms_dist_topn(
-        feats.data_ptr(), ms.means.data_ptr(), ms.var_t.data_ptr(),
-        ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D, L,
-        ne, cuda_build.stream(feats))
+    lib = cuda_build.lib()
+    args = (feats.data_ptr(), ms.means.data_ptr(), ms.var_t.data_ptr(),
+            ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D,
+            L, ne)
+    if form is None and not parts:
+        err = lib.sst_ms_dist_topn(*args, cuda_build.stream(feats))
+        form = ms_dist_topn_layout(N, C, F, L)[2] if N > 0 and C > 0 else 0
+    else:
+        if form is None:
+            form = 13 if L == 13 else 0
+        err = lib.sst_ms_dist_topn_at(*args, int(form), int(parts),
+                                      cuda_build.stream(feats))
     cuda_build.check(err, "ms_dist_topn")
     _count(ms_dist_topn, f"N={N}, S={ms.S}")
+    name = MS_FORMS[form]
+    ms_dist_topn.forms[name] = ms_dist_topn.forms.get(name, 0) + 1
+    spans.count(f"ms_dist_topn.forms[{name}]", 1)
     return dval, cw
 
 
 ms_dist_topn.launches = 0
 ms_dist_topn.shapes = {}
+ms_dist_topn.forms = {}
 
 
 # -- K12 ---------------------------------------------------------------------
@@ -838,13 +873,18 @@ def _ms_senone_eval_block(dval, cw, ms: MsScorer) -> torch.Tensor:
     return (scr - best).clamp(-32768, 32767).to(torch.int16)
 
 
-def ms_senone_eval(dval: torch.Tensor, cw: torch.Tensor,
-                   ms: MsScorer) -> torch.Tensor:
-    """K12: (dval f32, cw int32) [N, C, F, n] -> int16 [N, S].  Each
-    launch also counts on ``ms_senone_eval.shapes`` by frames and
-    senones."""
+def ms_senone_eval(dval: torch.Tensor, cw: torch.Tensor, ms: MsScorer,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """K12: (dval f32, cw int32) [N, C, F, n] -> int16 [N, S], written
+    into ``out`` when given (a contiguous [N, S] block of the caller's
+    scores).  Each launch also counts on ``ms_senone_eval.shapes`` by
+    frames and senones."""
     if dval.device.type == "cpu":
-        return ms_senone_eval_plain(dval, cw, ms)
+        r = ms_senone_eval_plain(dval, cw, ms)
+        if out is None:
+            return r
+        out.copy_(r)
+        return out
     if dval.device.type != "cuda":
         raise ValueError(f"ms_senone_eval: unsupported device {dval.device}")
     dev = dval.device
@@ -862,7 +902,11 @@ def ms_senone_eval(dval: torch.Tensor, cw: torch.Tensor,
     for name in ("order", "slot", "gcb"):
         ck(getattr(grp, name), torch.int32, name, dev)
     ck(grp.wts, torch.uint8, "wts", dev)
-    out = torch.empty((N, ms.S), dtype=torch.int16, device=dev)
+    if out is None:
+        out = torch.empty((N, ms.S), dtype=torch.int16, device=dev)
+    ck(out, torch.int16, "out", dev)
+    if tuple(out.shape) != (N, ms.S):
+        raise ValueError(f"ms_senone_eval: out shape {tuple(out.shape)}")
     fmin = torch.empty(N, dtype=torch.int32, device=dev)
     err = cuda_build.lib().sst_ms_senone_eval(
         dval.data_ptr(), cw.data_ptr(), grp.wts.data_ptr(), grp.wts.shape[1],
@@ -879,11 +923,43 @@ ms_senone_eval.launches = 0
 ms_senone_eval.shapes = {}
 
 
-def score_frames_ms(ms: MsScorer, feats: torch.Tensor) -> torch.Tensor:
+# K11's intermediate (dval and cw, [n, C, F, n_best]) of one frame block
+# of score_frames_ms at most
+MS_BLOCK_BYTES = 2 << 30
+
+
+def ms_block_frames(ms: MsScorer) -> int:
+    """Frames of one block of score_frames_ms: the most whose K11
+    intermediate stays within MS_BLOCK_BYTES, a multiple of 64 (K11's
+    largest tile), at least 64."""
+    C, F = ms.means.shape[0], ms.means.shape[1]
+    per = 8 * C * F * ms.n_best
+    return max(64, MS_BLOCK_BYTES // per // 64 * 64)
+
+
+def score_frames_ms(ms: MsScorer, feats: torch.Tensor,
+                    block: int | None = None) -> torch.Tensor:
     """ms scores: feats f32 [N, F, L] -> int16 [N, S] in senone order,
-    0 = best per frame (K11, K12)."""
-    dval, cw = ms_dist_topn(feats, ms)
-    return ms_senone_eval(dval, cw, ms)
+    0 = best per frame: K11 then K12 on each block of ``block`` frames
+    (ms_block_frames by default), K12 writing its block's rows of the
+    output, so that no more than one block's intermediate is held.
+    Counts the blocks (``ms.blocks``) and the largest
+    (``ms.block_frames``, a high-water mark) on the span recorder."""
+    N = feats.shape[0]
+    step = ms_block_frames(ms) if block is None else int(block)
+    if step < 1:
+        raise ValueError(f"score_frames_ms: block of {step} frames")
+    out = torch.empty((N, ms.S), dtype=torch.int16, device=feats.device)
+    n_blocks = 0
+    for i0 in range(0, N, step):
+        i1 = min(N, i0 + step)
+        dval, cw = ms_dist_topn(feats[i0:i1], ms)
+        ms_senone_eval(dval, cw, ms, out=out[i0:i1])
+        del dval, cw        # the next block's allocation reuses them
+        n_blocks += 1
+    spans.count("ms.blocks", n_blocks)
+    spans.high("ms.block_frames", min(step, N))
+    return out
 
 
 # -- K5 ----------------------------------------------------------------------

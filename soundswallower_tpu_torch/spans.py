@@ -11,7 +11,9 @@ turns them on for the whole process until ``uninstall()``:
   times its enqueue, the device side of the same work is a device
   trace's), its parent (the innermost span its thread had open), its
   thread and its request;
-* each ``count(name, n)`` adds ``n`` to the counter ``name``.
+* each ``count(name, n)`` adds ``n`` to the counter ``name``;
+  ``high(name, n)`` raises it to ``n`` where ``n`` is larger (a
+  high-water mark).
 
 A request is one call of an entry point (``request()``: a new id for
 the calling thread while it is open; ``resume(i)`` takes request ``i``
@@ -34,7 +36,12 @@ the recording ends.  The port's spans (``aligner.py``,
 
 Counters: ``frames.scored`` (rows times the frame axis of every chunk
 the scorer is launched on, pad rows and frames included) and
-``frames.real`` (the real rows' frames of every shaped batch).
+``frames.real`` (the real rows' frames of every shaped batch); of the
+fully continuous scorer (``ops/senscore_torch.py``), ``ms.blocks`` (its
+frame blocks, a K11 and a K12 call each, summed over the ``score``
+spans), ``ms.block_frames`` (the largest block, a high-water mark) and
+``ms_dist_topn.forms[<form>]`` (K11's launches by form: "registers 13",
+"runtime L").
 """
 
 from __future__ import annotations
@@ -133,6 +140,10 @@ class Recorder:
         with self._lock:
             self.counts[name] = self.counts.get(name, 0) + int(n)
 
+    def top(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counts[name] = max(self.counts.get(name, int(n)), int(n))
+
     def new_request(self) -> int:
         with self._lock:
             return next(self._ids)
@@ -225,6 +236,14 @@ def count(name: str, n: int) -> None:
     rec = _rec
     if rec is not None:
         rec.add(name, n)
+
+
+def high(name: str, n: int) -> None:
+    """Raise counter ``name`` to ``n`` where ``n`` is larger (nothing
+    while nothing is installed)."""
+    rec = _rec
+    if rec is not None:
+        rec.top(name, n)
 
 
 def request():

@@ -1653,3 +1653,121 @@ def test_gather_cols_equals_plain_on_card(case):
     out.fill_(7)
     assert st.gather_cols(src, cols, out) is out
     assert torch.equal(out, want)
+
+
+# -- the fully continuous model of one 39-dim stream -----------------------
+
+@pytest.mark.parametrize("L,form", [(39, 0), (13, 13), (13, 0)],
+                         ids=["39 dims", "13 dims, registers 13",
+                              "13 dims, runtime L"])
+@pytest.mark.parametrize("D", [32, 7, 100])
+def test_ms_dist_topn_parts_equal_plain_on_card(L, form, D):
+    """K11 at one stream of 39 dims (the runtime-L form) and of 13 (in
+    both forms) against its plain version: frame counts with tile
+    remainders, C = 1, 42 and a codebook a senone (C = S = 300), the
+    codebooks in 1, 3 and 7 forced parts and the launcher's, top-N 1, 4,
+    8 and D (a lane ranking one density up to D = 32, four past it); the
+    floor (frame 0).  The register form is refused at 39 dims."""
+    _need_cuda()
+    rng = np.random.RandomState(D + L + form)
+    for N in (1, 37, 1001):
+        x = _k11_frames(N, 1, L, rng)
+        for C in (1, 42, 300):
+            for topn in sorted({1, 4, 8, D}):
+                ms = _random_ms(C, 1, D, L, C if C == 300 else 200, topn,
+                                rng)
+                want = st.ms_dist_topn_plain(x, ms)
+                for parts in (1, 3, 7):
+                    before = st.ms_dist_topn.forms.get(st.MS_FORMS[form], 0)
+                    got = st.ms_dist_topn(x, ms, form=form, parts=parts)
+                    assert st.ms_dist_topn.forms[st.MS_FORMS[form]] \
+                        == before + 1
+                    assert all(torch.equal(a, b) for a, b in
+                               zip(got, want)), (N, C, topn, parts)
+                got = st.ms_dist_topn(x, ms)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+                if topn < D:
+                    assert bool((got[0][0] == st.WORST_DIST).all())
+    if L == 39:
+        with pytest.raises(RuntimeError):
+            st.ms_dist_topn(x, ms, form=13)
+
+
+def test_ms_dist_topn_layout_splits_codebooks_on_card():
+    """The launcher keeps K2's tile and one part for the 3-stream models
+    (42 codebooks) and at large N; a codebook a senone on a bounded
+    block splits into parts of at least 64 codebooks, tiles of 64, and
+    takes the runtime-L form at 39 dims; the split launch equals the
+    plain version at 5,126 codebooks."""
+    _need_cuda()
+    lib = cuda_build.lib()
+    assert st.ms_dist_topn_layout(40960, 42, 3, 13) == (
+        lib.sst_dist_topn_tile(40960, 3), 1, 13)
+    tile, parts, form = st.ms_dist_topn_layout(2048, 5126, 1, 39)
+    assert (tile, form) == (64, 0) and 1 < parts <= 5126 // 64
+    assert st.ms_dist_topn_layout(2048, 5126, 1, 7)[2] == 0
+    assert st.ms_dist_topn_layout(1 << 22, 5126, 1, 39)[1] == 1
+    rng = np.random.RandomState(5)
+    ms = _random_ms(5126, 1, 32, 39, 5126, 4, rng)
+    x = _k11_frames(70, 1, 39, rng)
+    got = st.ms_dist_topn(x, ms)
+    want = st.ms_dist_topn_plain(x, ms)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ms_senone_eval_one_codebook_a_senone_on_card():
+    """K12 at the continuous model's shape: a codebook a senone (groups
+    of 8), S = 5,126, one stream, D = 32, top-N 4, against its plain
+    version, written into a given block of an output."""
+    _need_cuda()
+    rng = np.random.RandomState(12)
+    ms = _random_ms(5126, 1, 32, 39, 5126, 4, rng)
+    g = st.ms_groups(ms)
+    assert (g.G, g.U) == (8, 8)
+    for N in (1, 37, 700):
+        dval, cw = _k12_inputs(N, 5126, 1, 4, 32, rng)
+        want = st.ms_senone_eval_plain(dval, cw, ms)
+        out = torch.full((N + 5, 5126), 7, dtype=torch.int16, device="cuda")
+        st.ms_senone_eval(dval, cw, ms, out=out[3:3 + N])
+        assert torch.equal(out[3:3 + N], want)
+        assert bool((out[:3] == 7).all() and (out[3 + N:] == 7).all())
+
+
+@pytest.mark.parametrize("L", [39, 7])
+def test_score_frames_ms_blocks_equal_one_call_on_card(L):
+    """score_frames_ms in blocks of 1, 64, 100 and 333 frames (blocks
+    that split a 128-frame row) and its default block equal one K11 and
+    one K12 call over all the frames."""
+    _need_cuda()
+    rng = np.random.RandomState(L)
+    ms = _random_ms(300, 1, 32, L, 300, 4, rng)
+    x = _k11_frames(1000, 1, L, rng)
+    dval, cw = st.ms_dist_topn(x, ms)
+    want = st.ms_senone_eval(dval, cw, ms)
+    for block in (1, 64, 100, 333, None):
+        assert torch.equal(st.score_frames_ms(ms, x, block=block), want)
+
+
+@pytest.mark.parametrize("fe", ["host", "device"])
+def test_cont_aligner_equals_plain_reference_on_card(tmp_path_factory, fe,
+                                                     monkeypatch):
+    """A continuous model of one 39-dim stream through align_batch on
+    the card (same and different transcripts) equals the plain reference
+    (tests/plain_cont.py, on the card) in segments."""
+    _need_cuda()
+    from make_synth_model import make_cont_model
+    from plain_cont import PlainCont
+    from portbench.reference.align import seg_rep
+
+    monkeypatch.setenv("SST_FE", fe)
+    d = make_cont_model(str(tmp_path_factory.mktemp("cont")), 0, "small")
+    al = TorchAligner(hmm=d, samprate=SAMPRATE, device="cuda")
+    assert al.streams == (1, 39) and (al.native_fe is None) == (fe ==
+                                                                 "device")
+    ref = PlainCont(d, SAMPRATE, host_fe=fe == "host", device="cuda")
+    audios = [austen_audio(i) for i in range(6)]
+    texts = [TEXT, " ".join(TEXT.split()[:5])] * 3
+    for tx in ([TEXT] * 6, texts):
+        got = al.align_batch(audios, tx)
+        want = ref.align_rows(audios, tx)
+        assert [seg_rep(s) for s in got] == [seg_rep(s) for s in want]

@@ -40,6 +40,13 @@ in what its writer adds:
   columns duplicated to match, and a left-to-right [n_tmat, 5, 6]
   transition matrix with self, next and +2 skip transitions.
 
+``make_cont_model`` writes a fully continuous model of the other
+published layout, one stream of 39 dims (``1s_c_d_dd`` without
+subvectors): the ms1to1 model's structure, then a codebook per senone
+of ``n_density`` Gaussians over 39 dims (32 at en-us width, 8 small)
+and float mixture weights, drawn from their own seed, and feat params
+without ``svspec``.
+
 Only numpy's MT19937 (``RandomState``) bits, IEEE arithmetic and
 ``math.fsum``/``sqrt`` are used, so the files are the same bytes on any
 machine.  Usage: ``python tools/make_synth_model.py OUTDIR [en-us|small]
@@ -322,6 +329,42 @@ def make_synth_model(outdir: str, seed: int = 0, width: str = "en-us",
     with open(os.path.join(outdir, "noisedict.txt"), "w") as fh:
         fh.writelines(f"{wd} {pron}\n" for wd, pron in NOISE
                       if pron.split()[0] in pid)
+    return outdir
+
+
+CONT_DENSITY = {"en-us": 32, "small": 8}
+
+
+def make_cont_model(outdir: str, seed: int = 0,
+                    width: str = "small") -> str:
+    """A fully continuous model of one 39-dim stream: the ms1to1 model's
+    mdef, dictionary and transition matrices, then means and variances
+    [n_sen, 1, CONT_DENSITY[width], 39] around the austen features'
+    statistics (cepstra, delta, delta-delta in that order), float
+    mixture weights [n_sen, 1, D], and feat params without svspec, all
+    drawn from ``seed`` (a stream of its own)."""
+    make_synth_model(outdir, seed, width, "ms1to1", 8)
+    mdef_sen = None
+    with open(os.path.join(outdir, "mdef")) as fh:
+        for ln in fh:
+            if ln.strip().endswith("n_tied_state"):
+                mdef_sen = int(ln.split()[0])
+    D = CONT_DENSITY[width]
+    rng = np.random.RandomState([seed, 39])
+    mean, sd = (x.reshape(1, 1, 1, 39) for x in _feat_stats())
+    shape = (mdef_sen, 1, D, 39)
+    means = mean + 0.8 * sd * _normal(rng, shape)
+    scale = sd * (0.35 + 0.5 * rng.random_sample(shape))
+    s3.write_gauden_params(os.path.join(outdir, "means"),
+                           means.astype(np.float32), [39])
+    s3.write_gauden_params(os.path.join(outdir, "variances"),
+                           (scale * scale).astype(np.float32), [39])
+    u = rng.random_sample((mdef_sen, 1, D))
+    s3.write_mixw_float(os.path.join(outdir, "mixture_weights"),
+                        (u * u * u * u + 1e-3).astype(np.float32))
+    feat = {k: v for k, v in FEAT_PARAMS.items() if k != "svspec"}
+    with open(os.path.join(outdir, "feat_params.json"), "w") as fh:
+        json.dump(feat, fh, indent=1, sort_keys=True)
     return outdir
 
 

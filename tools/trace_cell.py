@@ -30,7 +30,13 @@ object with ``program`` added:
 * ``launches``: each kernel wrapper's launches in the window, and
   ``layouts``: by layout, those of the Viterbi wrappers that count one
   (``viterbi_rows``, ``viterbi_chunk``: "block", "cluster N", "global
-  memory");
+  memory"), and ``forms``: by form, those of the wrappers that count
+  one (``ms_dist_topn``: "registers 13", "runtime L";
+  ``dist_topn_norm``: "fold", "mxu"; ...);
+* ``ms``, where the continuous scorer ran: the recorder's
+  ``ms_dist_topn.forms`` (K11's launches by form), ``ms.blocks`` (its
+  frame blocks) and ``ms.blocks_per_score`` (over the ``score`` spans),
+  and ``ms.block_frames`` (the largest block);
 * with ``--trace 1``, ``idle_gaps``: the ten longest idle gaps, the
   benchmark's label then ``/`` and the innermost main-thread program
   span open at the gap's middle (the benchmark's label alone where none
@@ -84,7 +90,7 @@ class _Recorded:
     def __init__(self, kind, rec: spans.Recorder):
         self._kind, self.rec = kind, rec
         self.record = self.bench_spans = self.launches = None
-        self.layouts = None
+        self.layouts = self.forms = None
 
     def __getattr__(self, name):
         return getattr(self._kind, name)
@@ -95,6 +101,8 @@ class _Recorded:
         before = {n: f.launches for n, f in fns.items()}
         lay0 = {n: dict(f.layouts) for n, f in fns.items()
                 if hasattr(f, "layouts")}
+        form0 = {n: dict(f.forms) for n, f in fns.items()
+                 if hasattr(f, "forms")}
         spans.install(self.rec)
         try:
             self.record = self._kind.loop(al, traffic, samprate, seconds,
@@ -104,13 +112,20 @@ class _Recorded:
         self.bench_spans = bench_spans
         self.launches = {n: f.launches - before[n] for n, f in fns.items()
                          if f.launches != before[n]}
-        self.layouts = {}
-        for n, b in lay0.items():
-            d = {k: v - b.get(k, 0) for k, v in fns[n].layouts.items()
-                 if v != b.get(k, 0)}
-            if d:
-                self.layouts[n] = d
+        self.layouts = _diff(fns, lay0, "layouts")
+        self.forms = _diff(fns, form0, "forms")
         return self.record
+
+
+def _diff(fns: dict, before: dict, counter: str) -> dict:
+    """Per wrapper, its ``counter``'s counts added since ``before``."""
+    out = {}
+    for n, b in before.items():
+        d = {k: v - b.get(k, 0) for k, v in getattr(fns[n], counter).items()
+             if v != b.get(k, 0)}
+        if d:
+            out[n] = d
+    return out
 
 
 class _Bench(Bench):
@@ -243,6 +258,23 @@ def bench_minus_root(rec: spans.Recorder, bench_spans) -> dict:
     return out
 
 
+def ms_counts(rec: spans.Recorder) -> dict:
+    """The continuous scorer's counters: K11's forms, the frame blocks
+    (in all and per ``score`` span) and the largest block; empty where
+    it did not run."""
+    pre = "ms_dist_topn.forms["
+    forms = {k[len(pre):-1]: v for k, v in rec.counts.items()
+             if k.startswith(pre)}
+    if "ms.blocks" not in rec.counts:
+        return {}
+    scores = len(rec.closed("score"))
+    return {"ms_dist_topn.forms": forms,
+            "ms.blocks": rec.counts["ms.blocks"],
+            "ms.blocks_per_score": (rec.counts["ms.blocks"] / scores
+                                    if scores else None),
+            "ms.block_frames": rec.counts.get("ms.block_frames")}
+
+
 def program(rec: spans.Recorder, kind: _Recorded, bench: Bench) -> dict:
     ctx = reduce.Context(kind.record, kind.bench_spans, 0.0)
     e2e = {m: bench.reader(m)(ctx) for m in ("audio_s_per_s",
@@ -257,7 +289,8 @@ def program(rec: spans.Recorder, kind: _Recorded, bench: Bench) -> dict:
             "metrics": {k: v for k, v in metrics.items() if v is not None},
             "counts": rec.counts, "roots": roots(rec),
             "bench_minus_root_ms": bench_minus_root(rec, kind.bench_spans),
-            "launches": kind.launches, "layouts": kind.layouts}
+            "launches": kind.launches, "layouts": kind.layouts,
+            "forms": kind.forms, "ms": ms_counts(rec)}
 
 
 def main(argv=None) -> int:
