@@ -145,16 +145,14 @@ JSON object of per-kernel results, the card's name and power limit
 reads faster than 105% of its bound allows fails the run.
 
 Usage: ``python3 chip_smoke.py`` (one GPU, no arguments, no network).
-``python3 chip_smoke.py --before DIR`` also builds K4's carry form from
-DIR, a checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h``
-declares it as BEFORE_PARAMS lists (its C signature; any other
-declaration stops the run), checks it bit-equal to this tree's on the
-inputs of every carry-form entry that runs a whole launch (the single
-utterance's, the long form's ring steps and its chapter row) and times
-both in turns (``ms_before``).  The carry form's entries print the
-layout its launcher takes (``chunk_layout``: one block, a cluster of N
-blocks a row, global memory).  K5's entries print their
-launch (threads and frames a block) and their sector floor beside the
+``python3 chip_smoke.py --before DIR`` also builds K11 from DIR, a
+checkout whose ``soundswallower_tpu_torch/csrc/sst_kernels.h`` declares
+it as BEFORE_PARAMS lists (its C signature; any other declaration stops
+the run), checks it bit-equal to this tree's on the inputs of every K11
+entry and times both in turns (``ms_before``).  The carry form's
+entries print the layout its launcher takes (``chunk_layout``: one
+block, a cluster of N blocks a row, global memory).  K5's entries print
+their launch (threads and frames a block) and their sector floor beside the
 bound (``sector_floor_ms``: the 32-byte sectors the columns touch).
 K1's entries print the rows a fold block, the frames a
 pass, the frame tile (or the one-launch form) and the launches its
@@ -162,7 +160,9 @@ launcher takes, K14's the lags a thread (R), the threads a slot, the
 slots a block, the lag tiles a frame and the launches.  K3's entries
 print the columns a block, the frame tile
 and the frames a pass of terms its launcher takes, K13's the segment
-length; K11's entries print the frame tile its launcher takes, K12's
+length; K11's entries print the form, frame tile and codebook parts
+its launcher takes (or the form forced) and the fold's FP32 issue floor
+(3 instructions a density, dim and frame at 33.5 T a second), K12's
 the senone group and frame tile; an entry timed at a shape a path
 launches counts that path's launches at that shape (``shape``), so rule
 2's order reads the path's own shapes.  K8's and K9's entries print the
@@ -385,6 +385,9 @@ VARIANTS = [
      "soundswallower_tpu/ops/senscore_jax.py:316", "cont"),
     ("ms_senone_eval[one codebook a senone]", "ms_senone_eval",
      "soundswallower_tpu/ops/senscore_jax.py:323", "cont"),
+    # K11's runtime-L form forced at the same block
+    ("ms_dist_topn[one stream, 39 dims, runtime L]", "ms_dist_topn",
+     "soundswallower_tpu/ops/senscore_jax.py:316", "forced"),
     ("score_frames_ms[blocked]", "ms_dist_topn",
      "soundswallower_tpu/ops/senscore_jax.py:316", "cont"),
 ]
@@ -700,6 +703,7 @@ def max_abs_err(a, b) -> float:
 HBM_BPS = 3.35e12
 F32_OPS = 67e12
 I32_OPS = 33.5e12
+F32_INSTR = 33.5e12     # FP32 lane-instructions a second (one a lane a clock)
 F64_OPS = 34e12
 
 
@@ -823,18 +827,16 @@ def rows_bytes(v) -> int:
             + 8 * int(nin.sum()))
 
 
-# -- the parent's carry form (--before DIR) ---------------------------------
+# -- the parent's K11 (--before DIR) ----------------------------------------
 
-# DIR's soundswallower_tpu_torch/csrc/viterbi.cu and viterbi_e5.cu built
-# into a library of their own: K4's carry form before its cluster layout
-# (one block a row), called below with the parameters its declaration in
-# DIR's sst_kernels.h must list
+# DIR's soundswallower_tpu_torch/csrc/senscore.cu and ms_senscore.cu
+# built into a library of their own: K11 (senscore.cu for K2's tile,
+# which K11's launcher reads), called below with the parameters its
+# declaration in DIR's sst_kernels.h must list
 BEFORE: dict = {}
-BEFORE_SOURCES = ("viterbi", "viterbi_e5")
+BEFORE_SOURCES = ("senscore", "ms_senscore")
 BEFORE_PARAMS = {
-    "sst_viterbi_chunk": "sen t0 n n_rows tp pred_idx pred_pen tp_t "
-    "pred_idx_t pred_pen_t pred_n astart aend score hist osc ohi best_prev "
-    "R C P E K tok tok_bytes fin n_fin path fscore anext stream",
+    "sst_ms_dist_topn": "feats means var_t det dval cw N C F D L ne stream",
 }
 # ctypes types of the declared scalar parameters
 BEFORE_SCALARS = {"int": ctypes.c_int, "float": ctypes.c_float,
@@ -909,47 +911,29 @@ def build_before(root: str) -> None:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     BEFORE["lib"] = lib
-    log(f"  the parent's carry form from {root}: built in "
+    log(f"  the parent's K11 from {root}: built in "
         f"{time.perf_counter() - t0:.2f} s")
 
 
-def before_chunk(sen, carry, t0: int, n, v, fin=None):
-    """K4's carry form on the parent's kernel, or None without --before:
-    sen int32 [R, C, S], the stacked carry, n an int or int32 [R] ->
-    (carry, tok) as viterbi_chunk_rows returns them or, with fin, (path
-    [R, C], fscore [R]).  The parent keeps a row's state in global memory
-    where it passes one block's shared memory (an active_next scratch)."""
+def before_ms_dist(x, ms):
+    """K11 on the parent's kernel at the parent launcher's choice, or
+    None without --before: feats f32 [N, F, L] -> (dval, cw)."""
     if "lib" not in BEFORE:
         return None
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     def run():
-        R, C, S = sen.shape
-        dev = sen.device
-        new = tuple(torch.empty(x.shape, dtype=torch.int32, device=dev)
-                    .copy_(x) for x in carry)
-        tok = torch.empty((R, C, S), dtype=align_torch.tok_dtype(S),
-                          device=dev)
-        path = fscore = anext = None
-        if fin is not None:
-            path = torch.empty((R, C), dtype=torch.int32, device=dev)
-            fscore = torch.empty(R, dtype=torch.int32, device=dev)
-        if (cuda_build.lib().sst_viterbi_smem_bytes(v.P, v.E)
-                > align_torch.MAX_SMEM_BYTES):
-            anext = torch.empty((R, v.P), dtype=torch.uint8, device=dev)
-        rows = n if isinstance(n, torch.Tensor) else None
-        err = BEFORE["lib"].sst_viterbi_chunk(
-            sen.data_ptr(), int(t0), 0 if rows is not None else int(n),
-            ptr(rows), *v.kernel_tables(), v.pred_n.data_ptr(),
-            v.astart.data_ptr(), v.aend.data_ptr(),
-            *(x.data_ptr() for x in new), R, C, v.P, v.E,
-            v.pred_idx.shape[1], tok.data_ptr(), tok.element_size(),
-            ptr(fin), 0 if fin is None else fin.shape[0], ptr(path),
-            ptr(fscore), ptr(anext), cuda_build.stream(sen))
-        cuda_build.check(err, "viterbi_chunk (parent)")
-        return (path, fscore) if fin is not None else (new, tok)
+        N, F, L = x.shape
+        C, _, D, _ = ms.means.shape
+        ne = ms.n_best
+        dval = torch.empty((N, C, F, ne), dtype=torch.float32,
+                           device=x.device)
+        cw = torch.empty((N, C, F, ne), dtype=torch.int32, device=x.device)
+        err = BEFORE["lib"].sst_ms_dist_topn(
+            x.data_ptr(), ms.means.data_ptr(), ms.var_t.data_ptr(),
+            ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D, L,
+            ne, cuda_build.stream(x))
+        cuda_build.check(err, "ms_dist_topn (parent)")
+        return dval, cw
     return run
 
 
@@ -1676,24 +1660,36 @@ def phase_device_fe(al: TorchAligner, audios8: list, dg: dict):
         f"after {pushed} samples: equal to the golden")
 
 
-def compare_ms_dist(name, x, ms, results):
-    """K11 against its plain version, with the tile, the codebooks'
-    parts and the form its launcher takes; its launches count at its
-    frames (``shape``)."""
+def compare_ms_dist(name, x, ms, results, form=None):
+    """K11 against its plain version (and, under --before, the parent's
+    K11), with the tile, the codebooks' parts and the form its launcher
+    takes, or in ``form`` forced at the launcher's split for that form
+    (its tile and parts then not printed); its launches count at its
+    frames (``shape``).  The log gives the fold's FP32 issue floor: its
+    instructions, 3 a density, dim and frame, at 33.5 T a second."""
     N, F, _ = x.shape
     C, _, D, L = ms.means.shape
-    tile, parts, form = senscore_torch.ms_dist_topn_layout(N, C, F, L)
-    log(f"  {name}: N={N} frames, C={C} F={F} D={D} L={L} "
-        f"top-{ms.n_best}, tiles of {tile} frames ({-(-N // tile)} x {F} "
-        f"x {parts} blocks, codebooks in {parts} part(s), the last tile "
-        f"{N - (N - 1) // tile * tile} frames), form "
-        f"{senscore_torch.MS_FORMS[form]}")
-    out = compare(name, lambda: senscore_torch.ms_dist_topn(x, ms),
+    floor_ms = 0.75 * fold_ops(N, ms) / F32_INSTR * 1e3
+    head = f"  {name}: N={N} frames, C={C} F={F} D={D} L={L} top-{ms.n_best}"
+    launch = {}
+    if form is None:
+        tile, parts, taken = senscore_torch.ms_dist_topn_layout(
+            N, C, F, L, D, ms.n_best)
+        launch = dict(tile=tile, parts=parts)
+        head += (f", tiles of {tile} frames ({-(-N // tile)} x {F} x "
+                 f"{parts} blocks, codebooks in {parts} part(s), the last "
+                 f"tile {N - (N - 1) // tile * tile} frames), form "
+                 f"{senscore_torch.MS_FORMS[taken]}")
+    else:
+        taken = form
+        head += (f", form {senscore_torch.MS_FORMS[form]} (forced, at the "
+                 f"launcher's split for it)")
+    log(head + f", FP32 issue floor {floor_ms:.4f} ms")
+    out = compare(name, lambda: senscore_torch.ms_dist_topn(x, ms, form),
                   lambda: senscore_torch.ms_dist_topn_plain(x, ms), results,
                   plain_runs=0, ins=(x, ms.means, ms.var_t, ms.det),
-                  ops=fold_ops(N, ms))
-    results[name].update(tile=tile, parts=parts,
-                         form=senscore_torch.MS_FORMS[form],
+                  ops=fold_ops(N, ms), before=before_ms_dist(x, ms))
+    results[name].update(launch, form=senscore_torch.MS_FORMS[taken],
                          shape=f"N={N}, S={ms.S}")
     return out
 
@@ -1823,6 +1819,8 @@ def phase_kernels_cont(al: TorchAligner, results: dict):
         f"{tuple(ms.means.shape)} Gaussians")
     dval, cw = compare_ms_dist("ms_dist_topn[one stream, 39 dims]",
                                flat[:block], ms, results)
+    compare_ms_dist("ms_dist_topn[one stream, 39 dims, runtime L]",
+                    flat[:block], ms, results, form=0)
     compare_ms_eval("ms_senone_eval[one codebook a senone]", dval, cw, ms,
                     results)
     del dval, cw
@@ -2019,21 +2017,13 @@ def chunk_layout_log(name, v, S: int) -> None:
 
 def compare_single(name, sen, T, v, results, runs=10):
     """The single-utterance path (K4's carry form from vit_carry0 with
-    the final select and backtrace) against its plain version and,
-    under --before, the parent's kernel."""
+    the final select and backtrace) against its plain version."""
     shape_log(name, sen, v)
     chunk_layout_log(name, v, sen.shape[1])
-
-    def before():
-        # the carry built inside the call, as viterbi_single builds it
-        carry0 = tuple(x[None] for x in align_torch.vit_carry0(v))
-        return tuple(x[0] for x in before_chunk(sen[None], carry0, 0, T, v,
-                                                v.fin)())
     compare(name, lambda: align_torch.viterbi_single(sen, T, v),
             lambda: align_torch.viterbi_single_plain(sen, T, v), results,
             plain_runs=0, n_bytes=nbytes(sen) + vit_bytes(v),
-            ops=vit_ops(sen), rate=I32_OPS, runs=runs,
-            before=before if "lib" in BEFORE else None)
+            ops=vit_ops(sen), rate=I32_OPS, runs=runs)
 
 
 def phase_kernels_vit_forms(al, al_dev, al5, al5_dev, mg, results):
@@ -2324,8 +2314,7 @@ def first_chunk_tokens(sen, n, v, C: int) -> torch.Tensor:
 def compare_ring_step(name, sen, n, v, C: int, results, runs=10):
     """One ring step of the long form: rank 0's launch over every row's
     first C frames from vit_carry0 (the R-row carry form), against its
-    plain version and, under --before, the parent's kernel; bound over
-    the R rows' scores, carries and tokens."""
+    plain version; bound over the R rows' scores, carries and tokens."""
     R = sen.shape[0]
     chunk = sen[:, :C].contiguous()
     carry = tuple(x.expand(R, *x.shape).contiguous()
@@ -2339,8 +2328,7 @@ def compare_ring_step(name, sen, n, v, C: int, results, runs=10):
                                                          v),
             results, plain_runs=0,
             n_bytes=nbytes(chunk, carry, n) + vit_bytes(v),
-            ops=vit_ops(chunk), rate=I32_OPS, runs=runs,
-            before=before_chunk(chunk, carry, 0, n, v))
+            ops=vit_ops(chunk), rate=I32_OPS, runs=runs)
     results[name]["shape"] = f"R={R}, P={v.P}"
 
 
@@ -3052,7 +3040,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    # 2. build (and, with --before DIR, the parent's carry form)
+    # 2. build (and, with --before DIR, the parent's K11)
     t0 = time.perf_counter()
     if "--before" in sys.argv[1:]:
         with ThreadPoolExecutor(1) as ex:

@@ -17,7 +17,14 @@
 // float tensor to HBM (2.6 GB per 128-row chunk at en-us width); here
 // only the N winners of each (frame, codebook, stream) leave the SM.
 // Bound: operations, 4*L float ops per density and frame (the fold).
-// Design: K2's (senscore.cu).  A block takes a tile of NT frames (16-64,
+// The fold issues 3 FP32 instructions a density, dim and frame
+// (__fsub_rn, __fmul_rn, __fmaf_rn with -fmad=false: contracting them
+// would change the bits), so at the card's 33.5 T FP32 lane-instructions
+// a second the issue floor is 1.5x the bound: the roofline share stops
+// near 67%.
+// Two forms, chosen by the launcher from the shapes (k11_layout).
+// Density form (registers 13, runtime L): K2's design (senscore.cu).
+// A block takes a tile of NT frames (16-64,
 // K2's sst_dist_topn_tile) of one stream and loops over the C codebooks
 // (or over one part of them: k11_layout below);
 // each codebook's slice of the model (means, var [D, L], det [D]) is
@@ -39,6 +46,24 @@
 // also splits the codebooks into parts of at least kPartCodebooks, so
 // that the card holds many short blocks, the tile staying at 64 frames
 // (each codebook's slice is still staged once a tile).
+// Frame form (L = 39, the one stream of a continuous model; top-N up to
+// kFrameTopN, or every density): a thread owns kFrameRows adjacent
+// frames of a tile of kFrameTile and holds their 39 features in
+// registers (a warp past the frames only stages).  For
+// each codebook of its part it folds the densities in index order, the
+// density's means and vars read from shared memory four dims at a time
+// (the whole warp reads one address: a broadcast), and inserts each
+// distance into its frame's running top N in registers.  Insertion in
+// density order with an equal newcomer placed above the incumbent is C's
+// compute_dist insertion: ties go to the later density, by the same
+// order key; the floor's key (1) sits below every other.  No distance
+// goes to shared memory and nothing is picked across a warp: a codebook
+// costs one barrier, behind which the next codebook's slice is restaged
+// into rows of 40 floats (cp.async) while this one computes.  A frame's
+// N winners of a codebook leave as a float4 and an int4 where N is 4
+// (the next codebook's fill the rest of the 32-byte sectors).  The
+// codebooks split into parts so that the grid holds kFrameWaves waves
+// of resident blocks.
 //
 // K12 replaces the rest of _ms_stage (ms_senone.c senone_eval,
 // ms_mgau.c's best subtraction).  Per senone and stream: fden = the
@@ -81,6 +106,15 @@ constexpr int kPerLane = SST_MAX_DENSITIES / 32;  // K11: densities a lane ranks
 constexpr int kFold = 4;     // K11: frames a thread folds at once
 constexpr int kPartCodebooks = 64;  // K11: codebooks a part holds at least
 constexpr int kPartWaves = 16;      // K11: blocks an SM, split past this
+constexpr int kFrameForm = 1;       // K11: the frame form's code
+constexpr int kFrameL = 39;         // K11 frame form: the dims compiled in
+constexpr int kFrameLP = 40;        //   a density's row in shared memory
+constexpr int kFrameThreads = 256;  //   threads a block
+constexpr int kFrameRows = 2;       //   frames a thread
+constexpr int kFrameTile = kFrameThreads * kFrameRows;  // frames a block
+constexpr int kFrameTopN = 8;       //   top N held in registers at most
+constexpr int kFrameWaves = 8;      //   waves of resident blocks a grid
+constexpr int kFrameMinCodebooks = 8;  // codebooks a part at least
 constexpr float kWorstDist = -2147483648.0f;
 constexpr int kGroupMax = 128;            // K12: senones a group holds at most
 constexpr int kTermBytes = 64 * 1024;     // K12: a tile's staged terms at most
@@ -148,8 +182,10 @@ __device__ __forceinline__ unsigned order_key(float d) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// K11's density form: kL the dims compiled in (13) or 0 (runtime L),
+// kPer the densities a lane ranks
 template <int kL, int kPer>
-__global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
+__device__ __forceinline__ void k11_densities(
     const float* __restrict__ feats, const float* __restrict__ means,
     const float* __restrict__ var_t, const float* __restrict__ det,
     float* __restrict__ dval_out, int32_t* __restrict__ cw_out, int N, int C,
@@ -331,6 +367,203 @@ __global__ void __launch_bounds__(kThreads) ms_dist_topn_kernel(
   }
 }
 
+// Floats of one model slice of the frame form in shared memory: means
+// and var [D, kFrameLP], then det [D] rounded up to 4.
+__host__ __device__ inline int k11f_slice_floats(int D) {
+  return 2 * D * kFrameLP + round4(D);
+}
+
+// The frame form's dynamic shared memory: two slices.
+inline size_t k11f_smem_bytes(int D) {
+  return sizeof(float) * 2 * (size_t)k11f_slice_floats(D);
+}
+
+// The float whose order_key is k (k > 1).
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Insert (v, d) into a top N sorted by key, then index, highest first;
+// d is above every index held, so it goes above each key it equals.
+template <int kN>
+__device__ __forceinline__ void topn_insert(unsigned (&key)[kN],
+                                            int (&ix)[kN], unsigned v,
+                                            int d) {
+  bool above[kN];  // v at or above slot j: true from some j down
+#pragma unroll
+  for (int j = 0; j < kN; ++j) above[j] = v >= key[j];
+#pragma unroll
+  for (int j = kN - 1; j > 0; --j) {
+    key[j] = above[j - 1] ? key[j - 1] : (above[j] ? v : key[j]);
+    ix[j] = above[j - 1] ? ix[j - 1] : (above[j] ? d : ix[j]);
+  }
+  key[0] = above[0] ? v : key[0];
+  ix[0] = above[0] ? d : ix[0];
+}
+
+// K11's frame form: kN slots of the top N a frame (ne <= kN), or 0:
+// every density written in index order (ne == D).
+template <int kN>
+__device__ __forceinline__ void k11_frames(
+    const float* __restrict__ feats, const float* __restrict__ means,
+    const float* __restrict__ var_t, const float* __restrict__ det,
+    float* __restrict__ dval_out, int32_t* __restrict__ cw_out, int N, int C,
+    int F, int D, int ne) {
+  extern __shared__ __align__(16) float smk[];
+  constexpr int R = kFrameRows;
+  const int f = blockIdx.y;
+  const int n0 = blockIdx.x * kFrameTile;
+  const int cpp = (C + (int)gridDim.z - 1) / (int)gridDim.z;
+  const int c0 = (int)blockIdx.z * cpp;
+  const int c1 = min(C, c0 + cpp);
+  if (c0 >= c1) return;  // the whole block: no barrier reached
+  const int tid = threadIdx.x;
+  const int slice = k11f_slice_floats(D);
+  const int dl = D * kFrameLP;
+
+  // codebook c's slice into dst: row d of means and var at d * kFrameLP
+  auto stage_slice = [&](int c, float* dst) {
+    const size_t cf = (size_t)c * F + f;
+    const float* const mu = means + cf * D * kFrameL;
+    const float* const vr = var_t + cf * D * kFrameL;
+    for (int i = tid; i < D * kFrameL; i += kFrameThreads) {
+      const int o = i + i / kFrameL;  // d * kFrameLP + (i - d * kFrameL)
+      cp_async4(dst + o, mu + i);
+      cp_async4(dst + dl + o, vr + i);
+    }
+    for (int i = tid; i < D; i += kFrameThreads)
+      cp_async4(dst + 2 * dl + i, det + cf * D + i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage_slice(c0, smk);
+
+  // this thread's frames n0 + R * tid + r; past N, the last frame's
+  // features (computed, never written)
+  int n[R];
+  float x[R][kFrameL];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    n[r] = n0 + R * tid + r;
+    const float* const src =
+        feats + ((size_t)min(n[r], N - 1) * F + f) * kFrameL;
+#pragma unroll
+    for (int l = 0; l < kFrameL; ++l) x[r][l] = src[l];
+  }
+  // a warp with no frame below N only stages
+  const bool busy = n0 + R * (tid & ~31) < N;
+
+  for (int c = c0; c < c1; ++c) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // slice c landed; slice c - 1's buffer is free
+    const float* const pm = smk + ((c - c0) & 1) * slice;
+    if (c + 1 < c1) stage_slice(c + 1, smk + ((c + 1 - c0) & 1) * slice);
+    if (!busy) continue;
+    size_t o[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) o[r] = (((size_t)n[r] * C + c) * F + f) * ne;
+    unsigned key[R][kN > 0 ? kN : 1];
+    int ix[R][kN > 0 ? kN : 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < (kN > 0 ? kN : 1); ++j) {
+        key[r][j] = 0u;  // below every density's key
+        ix[r][j] = 0;
+      }
+    for (int d = 0; d < D; ++d) {
+      const float* const mu = pm + d * kFrameLP;
+      const float* const vr = pm + dl + d * kFrameLP;
+      float acc[R];
+      const float dt = pm[2 * dl + d];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = dt;
+#pragma unroll
+      for (int l4 = 0; l4 < kFrameLP; l4 += 4) {
+        const float4 m4 = *reinterpret_cast<const float4*>(mu + l4);
+        const float4 v4 = *reinterpret_cast<const float4*>(vr + l4);
+        const float m[4] = {m4.x, m4.y, m4.z, m4.w};
+        const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (l4 + k < kFrameL) {  // the row's padding word unread
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float diff = __fsub_rn(x[r][l4 + k], m[k]);
+              acc[r] = __fmaf_rn(-__fmul_rn(diff, diff), v[k], acc[r]);
+            }
+          }
+        }
+      }
+      if constexpr (kN == 0) {
+        // compute_dist_all: every density in index order, unsorted
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (n[r] < N) {
+            dval_out[o[r] + d] = acc[r];
+            cw_out[o[r] + d] = d;
+          }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          topn_insert<kN>(key[r], ix[r], order_key(acc[r]), d);
+      }
+    }
+    if constexpr (kN > 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (n[r] >= N) continue;
+        float dv[kN];
+        int cv[kN];
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          const bool floor = key[r][j] == 1u;
+          dv[j] = floor ? kWorstDist : key_float(key[r][j]);
+          cv[j] = floor ? 0 : ix[r][j];
+        }
+        if constexpr (kN % 4 == 0) {
+          if (ne == kN) {  // 16-byte aligned: o is a multiple of 4
+#pragma unroll
+            for (int j = 0; j < kN; j += 4) {
+              *reinterpret_cast<float4*>(dval_out + o[r] + j) =
+                  make_float4(dv[j], dv[j + 1], dv[j + 2], dv[j + 3]);
+              *reinterpret_cast<int4*>(cw_out + o[r] + j) =
+                  make_int4(cv[j], cv[j + 1], cv[j + 2], cv[j + 3]);
+            }
+            continue;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kN; ++j)
+          if (j < ne) {
+            dval_out[o[r] + j] = dv[j];
+            cw_out[o[r] + j] = cv[j];
+          }
+      }
+    }
+  }
+}
+
+// K11: the frame form (kFrames; kA the top N's slots, 0 for every
+// density) or the density form (kA its compiled dims or 0, kB the
+// densities a lane ranks).  One name for both: the device trace sums K11
+// by it.
+template <bool kFrames, int kA, int kB>
+__global__ void __launch_bounds__(kFrames ? kFrameThreads : kThreads)
+    ms_dist_topn_kernel(const float* __restrict__ feats,
+                        const float* __restrict__ means,
+                        const float* __restrict__ var_t,
+                        const float* __restrict__ det,
+                        float* __restrict__ dval_out,
+                        int32_t* __restrict__ cw_out, int N, int C, int F,
+                        int D, int L, int ne, int NT) {
+  if constexpr (kFrames)
+    k11_frames<kA>(feats, means, var_t, det, dval_out, cw_out, N, C, F, D,
+                   ne);
+  else
+    k11_densities<kA, kB>(feats, means, var_t, det, dval_out, cw_out, N, C,
+                          F, D, L, ne, NT);
+}
+
 // -- K12 ----------------------------------------------------------------------
 
 // logmath_add with the JAX program's guards (senscore_jax.py:373-383) on
@@ -501,24 +734,77 @@ __global__ void __launch_bounds__(kThreads) ms_best_sub_kernel(
   }
 }
 
-// K11's launch for N frames of F streams over C codebooks of L dims:
-// the frame tile, the parts the codebooks are split into, and the form
-// (13: L compiled in, the model rows in registers; 0: runtime L).
-// One part: K2's tile (sst_dist_topn_tile).  Where the tiles of 64
-// frames give fewer than kPartWaves blocks an SM and the codebooks make
-// at least two parts of kPartCodebooks, the tile stays 64 and the
-// codebooks split into as many parts as reach kPartWaves blocks an SM.
-// ``form`` >= 0 forces a form (13 only at L = 13),
-// ``split`` > 0 the parts (then the tile is 64 where they are more than
-// one).
-int k11_layout(int N, int C, int F, int L, int form, int split, int* tile,
-               int* parts, int* kl) {
+// Whether K11's frame form takes a shape: L = kFrameL, and a top N that
+// its registers hold or every density (D <= SST_MAX_DENSITIES and
+// 1 <= ne <= D checked by the launcher).
+bool k11_frames_take(int D, int L, int ne) {
+  return L == kFrameL && (ne <= kFrameTopN || ne == D);
+}
+
+using K11Kernel = void (*)(const float*, const float*, const float*,
+                           const float*, float*, int32_t*, int, int, int,
+                           int, int, int, int);
+// The frame form's kernel for a top N of ne of D densities: 4 slots up
+// to a top 4, kFrameTopN past it, none for every density.
+K11Kernel k11_frame_kernel(int D, int ne) {
+  if (ne == D) return ms_dist_topn_kernel<true, 0, 0>;
+  if (ne <= 4) return ms_dist_topn_kernel<true, 4, 0>;
+  return ms_dist_topn_kernel<true, kFrameTopN, 0>;
+}
+
+// K11's launch for N frames of F streams over C codebooks of D densities
+// and L dims, top ne: the frame tile, the parts the codebooks are split
+// into, and the form (kFrameForm; 13: the density form with L compiled
+// in, the model rows in registers; 0: its runtime-L form).  The frame
+// form wherever it takes the shape; its tile is kFrameTile, and where
+// the tiles give fewer than kFrameWaves waves of the blocks the card
+// holds at once, the codebooks split into as many parts as reach that,
+// of at least kFrameMinCodebooks.  The density form with one part: K2's
+// tile (sst_dist_topn_tile); where the tiles of 64 frames give fewer
+// than kPartWaves blocks an SM and the codebooks make at least two parts
+// of kPartCodebooks, the tile stays 64 and the codebooks split into as
+// many parts as reach kPartWaves blocks an SM.  ``form`` >= 0 forces a
+// form (13 only at L = 13, kFrameForm where it takes the shape),
+// ``split`` > 0 the parts (then the density form's tile is 64 where
+// they are more than one).
+int k11_layout(int N, int C, int F, int D, int L, int ne, int form,
+               int split, int* tile, int* parts, int* kl) {
   int sms = 0;
   if (sst_device_attr(cudaDevAttrMultiProcessorCount, &sms) != cudaSuccess)
     return (int)cudaErrorInvalidDevice;
+  const bool frames = k11_frames_take(D, L, ne);
+  if (form < 0) form = frames ? kFrameForm : (L == 13 ? 13 : 0);
+  if (form == kFrameForm ? !frames
+                         : form != 0 && !(form == 13 && L == 13))
+    return (int)cudaErrorInvalidValue;
+  *kl = form;
+  *parts = 1;
+  if (form == kFrameForm) {
+    *tile = kFrameTile;
+    const K11Kernel kernel = k11_frame_kernel(D, ne);
+    const size_t smem = k11f_smem_bytes(D);
+    int per_sm = 0;
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kFrameThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    const long base =
+        std::max(1L, (long)((N + kFrameTile - 1) / kFrameTile) * F);
+    const long want = (long)kFrameWaves * std::max(per_sm, 1) * sms;
+    if (split > 0) {
+      *parts = std::min(split, C);
+    } else if (base < want) {
+      *parts = (int)std::min<long>(
+          std::max(1, C / kFrameMinCodebooks), (want + base - 1) / base);
+    }
+    return (int)cudaSuccess;
+  }
   const long base = std::max(1L, (long)((N + 63) / 64) * F);
   const long want = (long)kPartWaves * sms;
-  *parts = 1;
   if (split > 0) {
     *parts = std::min(split, C);
   } else if (base < want && C >= 2 * kPartCodebooks) {
@@ -530,9 +816,6 @@ int k11_layout(int N, int C, int F, int L, int form, int split, int* tile,
     *tile = sst_dist_topn_tile(N, F);
     if (*tile < 0) return (int)cudaErrorInvalidDevice;
   }
-  if (form < 0) form = L == 13 ? 13 : 0;
-  if (form != 0 && !(form == 13 && L == 13)) return (int)cudaErrorInvalidValue;
-  *kl = form;
   return (int)cudaSuccess;
 }
 
@@ -544,14 +827,12 @@ int ms_dist_topn(const float* feats, const float* means, const float* var_t,
     return (int)cudaErrorInvalidValue;
   if (N <= 0 || C <= 0) return (int)cudaSuccess;
   int tile = 0, parts = 1, kl = 0;
-  const int lerr = k11_layout(N, C, F, L, form, split, &tile, &parts, &kl);
+  const int lerr =
+      k11_layout(N, C, F, D, L, ne, form, split, &tile, &parts, &kl);
   if (lerr != (int)cudaSuccess) return lerr;
-  const size_t smem = k11_smem_bytes(D, L, tile);
   const dim3 grid((unsigned)((N + tile - 1) / tile), (unsigned)F,
                   (unsigned)parts);
-  const int DG = (D + 31) & ~31;
-  const int threads = kThreads / DG * DG;
-  auto go = [&](auto kernel) {
+  auto go = [&](K11Kernel kernel, int threads, size_t smem) {
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -561,12 +842,18 @@ int ms_dist_topn(const float* feats, const float* means, const float* var_t,
                                             N, C, F, D, L, ne, tile);
     return (int)cudaGetLastError();
   };
+  if (kl == kFrameForm)
+    return go(k11_frame_kernel(D, ne), kFrameThreads, k11f_smem_bytes(D));
+  const size_t smem = k11_smem_bytes(D, L, tile);
+  const int DG = (D + 31) & ~31;
+  const int threads = kThreads / DG * DG;
   // a lane ranks one density where D fits a warp, else four
   if (D <= 32)
-    return kl == 13 ? go(ms_dist_topn_kernel<13, 1>)
-                    : go(ms_dist_topn_kernel<0, 1>);
-  return kl == 13 ? go(ms_dist_topn_kernel<13, kPerLane>)
-                  : go(ms_dist_topn_kernel<0, kPerLane>);
+    return kl == 13 ? go(ms_dist_topn_kernel<false, 13, 1>, threads, smem)
+                    : go(ms_dist_topn_kernel<false, 0, 1>, threads, smem);
+  return kl == 13
+             ? go(ms_dist_topn_kernel<false, 13, kPerLane>, threads, smem)
+             : go(ms_dist_topn_kernel<false, 0, kPerLane>, threads, smem);
 }
 
 }  // namespace
@@ -589,10 +876,13 @@ extern "C" int sst_ms_dist_topn_at(const float* feats, const float* means,
                       form, parts, stream);
 }
 
-extern "C" int sst_ms_dist_topn_layout(int N, int C, int F, int L,
-                                       int32_t* out) {
+extern "C" int sst_ms_dist_topn_layout(int N, int C, int F, int D, int L,
+                                       int ne, int32_t* out) {
+  if (D > SST_MAX_DENSITIES || D < 1 || L < 1 || F < 1 || ne < 1 || ne > D)
+    return (int)cudaErrorInvalidValue;
   int tile = 0, parts = 1, kl = 0;
-  const int err = k11_layout(N, C, F, L, -1, 0, &tile, &parts, &kl);
+  const int err =
+      k11_layout(N, C, F, D, L, ne, -1, 0, &tile, &parts, &kl);
   if (err != (int)cudaSuccess) return err;
   out[0] = tile;
   out[1] = parts;

@@ -242,7 +242,8 @@ int sst_fe_cep(const double* mfspec, const float* mel_cosine,
 // K11: ms fold + float top-N (ties to the later density, the
 // WORST_DIST floor) or, with ne == D, every density in index order; one
 // block a tile of frames of one stream and a part of the codebooks
-// (sst_ms_dist_topn_layout).
+// (sst_ms_dist_topn_layout), in the frame form (a thread a frame's top N)
+// or the density form (a thread a density).
 // feats f32 [N, F, L]; means/var_t f32 [C, F, D, L]; det f32 [C, F, D]
 // -> dval f32 [N, C, F, ne], cw int32 [N, C, F, ne].
 int sst_ms_dist_topn(const float* feats, const float* means,
@@ -250,18 +251,21 @@ int sst_ms_dist_topn(const float* feats, const float* means,
                      int32_t* cw, int N, int C, int F, int D, int L, int ne,
                      cudaStream_t stream);
 
-// K11 in a forced form (0 the runtime-L form, 13 at L = 13 the form
-// that holds the model rows in registers) and, where parts > 0, with
-// the codebooks split into that many parts (0: the launcher's choice).
+// K11 in a forced form (1 the frame form, at L = 39 with ne <= 8 or
+// ne == D; 0 the density form's runtime-L form; 13 at L = 13 the density
+// form that holds the model rows in registers) and, where parts > 0,
+// with the codebooks split into that many parts (0: the launcher's
+// choice).
 int sst_ms_dist_topn_at(const float* feats, const float* means,
                         const float* var_t, const float* det, float* dval,
                         int32_t* cw, int N, int C, int F, int D, int L,
                         int ne, int form, int parts, cudaStream_t stream);
 
-// K11's launch for N frames, C codebooks, F streams of L dims: out[0]
-// the frame tile, out[1] the parts the codebooks split into, out[2] the
-// form sst_ms_dist_topn takes (13 or 0).
-int sst_ms_dist_topn_layout(int N, int C, int F, int L, int32_t* out);
+// K11's launch for N frames, C codebooks, F streams of D densities and
+// L dims, top ne: out[0] the frame tile, out[1] the parts the codebooks
+// split into, out[2] the form sst_ms_dist_topn takes (1, 13 or 0).
+int sst_ms_dist_topn_layout(int N, int C, int F, int D, int L, int ne,
+                            int32_t* out);
 
 // K12: ms senone eval, in groups of G senones (a power of two up to
 // 128) in codebook order that span at most U codebooks

@@ -757,19 +757,40 @@ def _ms_dist_topn_block(feats: torch.Tensor, ms: MsScorer):
     return dval, cw
 
 
-# K11's forms by the dims its launcher compiles in (ms_dist_topn_layout)
-MS_FORMS = {13: "registers 13", 0: "runtime L"}
+# K11's forms (csrc/ms_senscore.cu): the frame form (a thread a frame's
+# top N, at MS_FRAME_DIMS dims with a top N of at most MS_FRAME_TOPN or
+# every density) and the density form with its dims compiled in (13) or
+# at runtime (0)
+MS_FRAME_FORM = 1
+MS_FRAME_DIMS = 39
+MS_FRAME_TOPN = 8
+MS_FORMS = {MS_FRAME_FORM: "frame top-N", 13: "registers 13",
+            0: "runtime L"}
 
 
-def ms_dist_topn_layout(N: int, C: int, F: int, L: int) -> tuple:
+def ms_dist_topn_forms(D: int, L: int, ne: int) -> set:
+    """The forms K11's launcher accepts for D densities of L dims and a
+    top N of ne (1 <= ne <= D), so that a forced form is refused on the
+    CPU as on the card; which one it takes unforced, the launcher says
+    (ms_dist_topn_layout)."""
+    forms = {0}
+    if L == 13:
+        forms.add(13)
+    if L == MS_FRAME_DIMS and (ne <= MS_FRAME_TOPN or ne == D):
+        forms.add(MS_FRAME_FORM)
+    return forms
+
+
+def ms_dist_topn_layout(N: int, C: int, F: int, L: int, D: int,
+                        ne: int) -> tuple:
     """K11's launch on the current CUDA device for N frames, C codebooks
-    and F streams of L dims: (frames a tile, parts the codebooks split
-    into, form: MS_FORMS' key)."""
+    and F streams of D densities and L dims, top ne: (frames a tile,
+    parts the codebooks split into, form: MS_FORMS' key)."""
     import ctypes
 
     lay = (ctypes.c_int32 * 3)()
     cuda_build.check(cuda_build.lib().sst_ms_dist_topn_layout(
-        N, C, F, L, ctypes.addressof(lay)), "ms_dist_topn_layout")
+        N, C, F, D, L, ne, ctypes.addressof(lay)), "ms_dist_topn_layout")
     return lay[0], lay[1], lay[2]
 
 
@@ -777,41 +798,44 @@ def ms_dist_topn(feats: torch.Tensor, ms: MsScorer, form: int | None = None,
                  parts: int = 0):
     """K11: feats f32 [N, F, L] -> (dval f32, cw int32) [N, C, F,
     n_best]; ``form`` (MS_FORMS' key) forces a form, else the launcher
-    takes 13 at L = 13, the runtime-L form otherwise;
-    ``parts`` > 0 forces the codebooks' split (with ``form``), else the
-    launcher's (ms_dist_topn_layout).
+    takes its own; ``parts`` > 0 forces the codebooks' split, else the
+    launcher's (ms_dist_topn_layout).  A forced form the launcher does not
+    accept (ms_dist_topn_forms) raises RuntimeError, on the CPU too
+    (where the plain version runs whatever the form).
     Each launch also counts on ``ms_dist_topn.shapes`` by its frames and
     the scorer's senones, on ``ms_dist_topn.forms`` by form, and on the
     span recorder's ``ms_dist_topn.forms[<form>]``."""
+    N, F, L = feats.shape
+    C, _, D, _ = ms.means.shape
+    ne = ms.n_best
+    if form is not None and form not in ms_dist_topn_forms(D, L, ne):
+        raise RuntimeError(f"ms_dist_topn: form {form} not taken at D={D}, "
+                           f"L={L}, top {ne}")
     if feats.device.type == "cpu":
         return ms_dist_topn_plain(feats, ms)
     if feats.device.type != "cuda":
         raise ValueError(f"ms_dist_topn: unsupported device {feats.device}")
     dev = feats.device
-    N, F, L = feats.shape
-    C, _, D, _ = ms.means.shape
     ck = cuda_build.check_tensor
     ck(feats, torch.float32, "feats")
     for name in ("means", "var_t", "det"):
         ck(getattr(ms, name), torch.float32, name, dev)
-    ne = ms.n_best
     dval = torch.empty((N, C, F, ne), dtype=torch.float32, device=dev)
     cw = torch.empty((N, C, F, ne), dtype=torch.int32, device=dev)
     lib = cuda_build.lib()
     args = (feats.data_ptr(), ms.means.data_ptr(), ms.var_t.data_ptr(),
             ms.det.data_ptr(), dval.data_ptr(), cw.data_ptr(), N, C, F, D,
             L, ne)
+    taken = (ms_dist_topn_layout(N, C, F, L, D, ne)[2] if form is None
+             else int(form))
     if form is None and not parts:
         err = lib.sst_ms_dist_topn(*args, cuda_build.stream(feats))
-        form = ms_dist_topn_layout(N, C, F, L)[2] if N > 0 and C > 0 else 0
     else:
-        if form is None:
-            form = 13 if L == 13 else 0
-        err = lib.sst_ms_dist_topn_at(*args, int(form), int(parts),
+        err = lib.sst_ms_dist_topn_at(*args, taken, int(parts),
                                       cuda_build.stream(feats))
     cuda_build.check(err, "ms_dist_topn")
     _count(ms_dist_topn, f"N={N}, S={ms.S}")
-    name = MS_FORMS[form]
+    name = MS_FORMS[taken]
     ms_dist_topn.forms[name] = ms_dist_topn.forms.get(name, 0) + 1
     spans.count(f"ms_dist_topn.forms[{name}]", 1)
     return dval, cw
@@ -930,8 +954,8 @@ MS_BLOCK_BYTES = 2 << 30
 
 def ms_block_frames(ms: MsScorer) -> int:
     """Frames of one block of score_frames_ms: the most whose K11
-    intermediate stays within MS_BLOCK_BYTES, a multiple of 64 (K11's
-    largest tile), at least 64."""
+    intermediate stays within MS_BLOCK_BYTES, a multiple of 64 (the
+    density form's largest tile), at least 64."""
     C, F = ms.means.shape[0], ms.means.shape[1]
     per = 8 * C * F * ms.n_best
     return max(64, MS_BLOCK_BYTES // per // 64 * 64)

@@ -40,8 +40,8 @@ the scorer is launched on, pad rows and frames included) and
 fully continuous scorer (``ops/senscore_torch.py``), ``ms.blocks`` (its
 frame blocks, a K11 and a K12 call each, summed over the ``score``
 spans), ``ms.block_frames`` (the largest block, a high-water mark) and
-``ms_dist_topn.forms[<form>]`` (K11's launches by form: "registers 13",
-"runtime L").
+``ms_dist_topn.forms[<form>]`` (K11's launches by form: "frame top-N",
+"registers 13", "runtime L").
 """
 
 from __future__ import annotations

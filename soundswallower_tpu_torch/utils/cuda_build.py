@@ -74,7 +74,7 @@ _SIGS = {
     "sst_fe_cep": [_P] * 5 + [_I] * 4 + [_F, _F, _P],
     "sst_ms_dist_topn": [_P] * 6 + [_I] * 6 + [_P],
     "sst_ms_dist_topn_at": [_P] * 6 + [_I] * 8 + [_P],
-    "sst_ms_dist_topn_layout": [_I] * 4 + [_P],
+    "sst_ms_dist_topn_layout": [_I] * 6 + [_P],
     "sst_ms_senone_eval": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P,
                            _P] + [_I] * 8 + [_P],
     "sst_ms_senone_eval_tile": [_I] * 6,

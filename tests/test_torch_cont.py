@@ -6,6 +6,7 @@ against the plain reference (``tests/plain_cont.py``) in int16 scores
 and segments, the reference's bfloat16 control, the layouts the routes
 refuse, and a 3-stream model on its old path."""
 
+import dataclasses
 import json
 import os
 
@@ -145,6 +146,35 @@ def test_blocked_scorer_equals_one_call(L, block):
     assert torch.equal(got, want)
     assert rec.counts["ms.blocks"] == -(-300 // block)
     assert rec.counts["ms.block_frames"] == block
+
+
+def test_k11_names_the_frame_form_for_one_stream():
+    """K11's wrapper names the frame form "frame top-N" and accepts it
+    for the continuous model's one stream (39 dims, 32 densities, top 4),
+    its every top N up to 8 and every density, and only the density
+    forms elsewhere (which form the launcher takes and counts, a card
+    test pins); a forced form the launcher does not accept raises, on
+    the CPU too, while an accepted one runs the plain version there."""
+    frame = st.MS_FORMS[st.MS_FRAME_FORM]
+    assert frame == "frame top-N"
+    for D, ne in ((32, 4), (32, 1), (32, 8), (32, 32), (20, 20), (100, 3)):
+        assert st.ms_dist_topn_forms(D, 39, ne) == {st.MS_FRAME_FORM, 0}
+    assert st.ms_dist_topn_forms(32, 39, 9) == {0}
+    assert st.ms_dist_topn_forms(128, 13, 4) == {13, 0}
+    assert st.ms_dist_topn_forms(32, 7, 4) == {0}
+    ms, x = _tables(39)
+    want = st.ms_dist_topn_plain(x, ms)
+    for form in (st.MS_FRAME_FORM, 0):
+        got = st.ms_dist_topn(x, ms, form=form, parts=3)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(RuntimeError, match="form 13"):
+        st.ms_dist_topn(x, ms, form=13)
+    ms7, x7 = _tables(7)
+    with pytest.raises(RuntimeError, match="form 1 "):
+        st.ms_dist_topn(x7, ms7, form=st.MS_FRAME_FORM)
+    ms9 = dataclasses.replace(_tables(39, D=12)[0], topn=9)
+    with pytest.raises(RuntimeError, match="top 9"):
+        st.ms_dist_topn(x, ms9, form=st.MS_FRAME_FORM)
 
 
 def test_block_frames_bound_the_intermediate():

@@ -1697,22 +1697,139 @@ def test_ms_dist_topn_layout_splits_codebooks_on_card():
     """The launcher keeps K2's tile and one part for the 3-stream models
     (42 codebooks) and at large N; a codebook a senone on a bounded
     block splits into parts of at least 64 codebooks, tiles of 64, and
-    takes the runtime-L form at 39 dims; the split launch equals the
-    plain version at 5,126 codebooks."""
+    takes the runtime-L form at 39 dims where the frame form does not
+    (a top 9); the runtime-L form's split launch equals the plain version
+    at 5,126 codebooks."""
     _need_cuda()
     lib = cuda_build.lib()
-    assert st.ms_dist_topn_layout(40960, 42, 3, 13) == (
+    assert st.ms_dist_topn_layout(40960, 42, 3, 13, 128, 4) == (
         lib.sst_dist_topn_tile(40960, 3), 1, 13)
-    tile, parts, form = st.ms_dist_topn_layout(2048, 5126, 1, 39)
+    tile, parts, form = st.ms_dist_topn_layout(2048, 5126, 1, 39, 32, 9)
     assert (tile, form) == (64, 0) and 1 < parts <= 5126 // 64
-    assert st.ms_dist_topn_layout(2048, 5126, 1, 7)[2] == 0
-    assert st.ms_dist_topn_layout(1 << 22, 5126, 1, 39)[1] == 1
+    assert st.ms_dist_topn_layout(2048, 5126, 1, 7, 32, 4)[2] == 0
+    assert st.ms_dist_topn_layout(1 << 22, 5126, 1, 39, 32, 4)[1] == 1
     rng = np.random.RandomState(5)
     ms = _random_ms(5126, 1, 32, 39, 5126, 4, rng)
     x = _k11_frames(70, 1, 39, rng)
-    got = st.ms_dist_topn(x, ms)
+    got = st.ms_dist_topn(x, ms, form=0)
     want = st.ms_dist_topn_plain(x, ms)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _floor_from(ms, d0: int):
+    """ms with every density from d0 on below WORST_DIST at any frame
+    (det -3e9)."""
+    det = ms.det.clone()
+    det[:, :, d0:] = -3e9
+    return dataclasses.replace(ms, det=det)
+
+
+@pytest.mark.parametrize("D", [32, 20])
+def test_ms_dist_topn_frame_form_equals_plain_on_card(D):
+    """K11's frame form at one stream of 39 dims, forced (the launcher's
+    split and 1, 3 and 7 parts) and by the launcher's choice, equals its
+    plain version and the runtime-L form bit for bit (dval's bits and
+    cw): N of 1, 63, 65 and 13,057 (off every tile), C = 300 (a codebook
+    a senone) and 42, top-N 1, 4, 8 and D (every density in index
+    order); densities 1 and 2 copies of density 0 (ties to the later),
+    -0.0 below +0.0, frame 0 and, at top 8, the densities from 5 on
+    below WORST_DIST ((WORST_DIST, 0) past the five)."""
+    _need_cuda()
+    rng = np.random.RandomState(100 + D)
+    frame = st.MS_FORMS[st.MS_FRAME_FORM]
+    for N, C in ((1, 300), (63, 300), (65, 300), (13057, 42)):
+        x = _k11_frames(N, 1, 39, rng)
+        for topn in sorted({1, 4, 8, D}):
+            ms = _random_ms(C, 1, D, 39, C if C == 300 else 200, topn, rng)
+            cases = [ms, _floor_from(ms, 5)] if topn == 8 else [ms]
+            for sc in cases:
+                want = st.ms_dist_topn_plain(x, sc)
+                assert _bits_equal(st.ms_dist_topn(x, sc, form=0), want)
+                before = st.ms_dist_topn.forms.get(frame, 0)
+                for parts in (0, 1, 3, 7):
+                    got = st.ms_dist_topn(x, sc, form=st.MS_FRAME_FORM,
+                                          parts=parts)
+                    assert _bits_equal(got, want), (N, C, topn, parts)
+                got = st.ms_dist_topn(x, sc)
+                assert st.ms_dist_topn.forms[frame] == before + 5
+                assert _bits_equal(got, want), (N, C, topn)
+                dval, cw = got
+                if topn == D:
+                    assert bool((cw == torch.arange(
+                        D, dtype=torch.int32, device="cuda")).all())
+                    continue
+                assert bool((dval[0] == st.WORST_DIST).all()
+                            and (cw[0] == 0).all())
+                if sc is not ms:
+                    assert bool((dval[:, :, :, 5:] == st.WORST_DIST).all()
+                                and (cw[:, :, :, 5:] == 0).all()
+                                and (cw[1:, :, :, :5] < 5).all())
+                    continue
+                if N > 2:
+                    assert bool((cw[2, :, :, 0] == 4).all())
+                for a, b in ((0, 1), (1, 2), (0, 2)):
+                    assert not bool(((cw[..., :-1] == a)
+                                     & (cw[..., 1:] == b)).any())
+
+
+def test_ms_dist_topn_frame_layout_on_card():
+    """The launcher takes the frame form at 39 dims with a top N of at
+    most 8 or every density, else 13 at 13 dims, else runtime L, and the
+    wrapper counts the form it took; the frame form's tile is 512
+    frames, and a story block of 13,056 frames splits the 5,126
+    codebooks into parts of at least 8; no frames (and no codebooks)
+    give a layout and an empty launch; a forced frame form at 13 dims
+    and at a top 9 raises."""
+    _need_cuda()
+    frame = st.MS_FRAME_FORM
+    for D, L, ne, want in ((32, 39, 4, frame), (32, 39, 1, frame),
+                           (32, 39, 2, frame), (32, 39, 8, frame),
+                           (32, 39, 32, frame), (20, 39, 20, frame),
+                           (32, 39, 9, 0), (100, 39, 4, frame),
+                           (128, 13, 4, 13), (32, 7, 4, 0)):
+        form = st.ms_dist_topn_layout(13056, 5126, 1, L, D, ne)[2]
+        assert form == want, (D, L, ne)
+        assert want in st.ms_dist_topn_forms(D, L, ne)
+    tile, parts, form = st.ms_dist_topn_layout(13056, 5126, 1, 39, 32, 4)
+    assert (tile, form) == (512, frame)
+    assert 1 < parts <= 5126 // 8
+    assert st.ms_dist_topn_layout(1 << 22, 5126, 1, 39, 32, 4)[1] == 1
+    for N, C in ((0, 5126), (0, 0), (70, 0)):
+        assert st.ms_dist_topn_layout(N, C, 1, 39, 32, 4)[2] == frame
+    rng = np.random.RandomState(9)
+    ms = _random_ms(42, 1, 32, 39, 200, 4, rng)
+    for form in (None, frame, 0):
+        counted = dict(st.ms_dist_topn.forms)
+        x = torch.zeros((0, 1, 39), dtype=torch.float32, device="cuda")
+        dval, cw = st.ms_dist_topn(x, ms, form)
+        assert dval.shape == cw.shape == (0, 42, 1, 4)
+        name = st.MS_FORMS[frame if form is None else form]
+        assert st.ms_dist_topn.forms[name] == counted.get(name, 0) + 1
+    rng = np.random.RandomState(7)
+    x = _k11_frames(70, 1, 13, rng)
+    with pytest.raises(RuntimeError):
+        st.ms_dist_topn(x, _random_ms(42, 1, 32, 13, 200, 4, rng),
+                        form=st.MS_FRAME_FORM)
+    x = _k11_frames(70, 1, 39, rng)
+    with pytest.raises(RuntimeError):
+        st.ms_dist_topn(x, _random_ms(42, 1, 32, 39, 200, 9, rng),
+                        form=st.MS_FRAME_FORM)
+
+
+@pytest.mark.parametrize("D", [100, 7])
+def test_ms_dist_topn_frame_form_other_widths_on_card(D):
+    """The frame form past a warp of densities (D = 100) and at an odd
+    one (D = 7), top 1, 2, 3, 4 and D, forced in 1 and 5 parts, equals
+    its plain version bit for bit."""
+    _need_cuda()
+    rng = np.random.RandomState(200 + D)
+    x = _k11_frames(300, 1, 39, rng)
+    for topn in sorted({1, 2, 3, 4, D}):
+        ms = _random_ms(42, 1, D, 39, 200, topn, rng)
+        want = st.ms_dist_topn_plain(x, ms)
+        for parts in (1, 5):
+            got = st.ms_dist_topn(x, ms, form=st.MS_FRAME_FORM, parts=parts)
+            assert _bits_equal(got, want), (topn, parts)
 
 
 def test_ms_senone_eval_one_codebook_a_senone_on_card():

@@ -191,45 +191,38 @@ def test_two_forms_of_one_kernel_on_one_path_give_two_counts():
 
 
 def test_before_takes_only_the_declarations_it_calls():
-    """--before DIR calls DIR's carry form with the parameters
-    BEFORE_PARAMS lists (its signature before the cluster layout, which
-    this tree's sst_viterbi_chunk extends by the layout it is given),
-    typed as DIR's header declares them; a header that declares it
-    otherwise (this tree's among them), or a scalar of a type the harness
-    does not pass, is refused."""
+    """--before DIR calls DIR's K11 with the parameters BEFORE_PARAMS
+    lists (its launcher's C signature, this tree's too), typed as DIR's
+    header declares them; a header that declares it otherwise, or a
+    scalar of a type the harness does not pass, is refused."""
     import ctypes
 
-    ints = {"t0", "n", "R", "C", "P", "E", "K", "tok_bytes", "n_fin"}
+    ints = {"N", "C", "F", "D", "L", "ne"}
 
     def decl(name, elem="int"):
         params = cs.BEFORE_PARAMS[name].split()
         return (f"int {name}(" + ", ".join(
             ("cudaStream_t " if p == "stream" else
-             f"{elem} " if p == "tok_bytes" else
-             "int " if p in ints else "const int32_t* ") + p
+             f"{elem} " if p == "ne" else
+             "int " if p in ints else "const float* ") + p
             for p in params) + ");\n")
 
     header = "".join(decl(n) for n in cs.BEFORE_PARAMS)
     sigs = cs.before_argtypes(header)
     P, I = ctypes.c_void_p, ctypes.c_int
-    assert sigs["sst_viterbi_chunk"] == ([P, I, I] + [P] * 15 + [I] * 5
-                                         + [P, I, P, I, P, P, P, P])
-    assert cs.BEFORE_SOURCES == ("viterbi", "viterbi_e5")
+    assert sigs == {"sst_ms_dist_topn": [P] * 6 + [I] * 6 + [P]}
+    assert cs.BEFORE_SOURCES == ("senscore", "ms_senscore")
     with open(os.path.join(REPO, "soundswallower_tpu_torch", "csrc",
                            "sst_kernels.h")) as f:
-        here = f.read()
-    with pytest.raises(ValueError, match="sst_viterbi_chunk is declared"):
-        cs.before_argtypes(here)
-    assert cs.before_argtypes(here.replace(
-        "uint8_t* anext, int cluster,", "uint8_t* anext,")) == sigs
+        assert cs.before_argtypes(f.read()) == sigs
     # a parameter list that differs (no stream), a scalar the harness
     # cannot type, a missing declaration
-    with pytest.raises(ValueError, match="sst_viterbi_chunk is declared"):
+    with pytest.raises(ValueError, match="sst_ms_dist_topn is declared"):
         cs.before_argtypes(header.replace(", cudaStream_t stream", ""))
-    with pytest.raises(ValueError, match="tok_bytes of type char"):
-        cs.before_argtypes(decl("sst_viterbi_chunk", "char"))
+    with pytest.raises(ValueError, match="ne of type char"):
+        cs.before_argtypes(decl("sst_ms_dist_topn", "char"))
     with pytest.raises(ValueError, match="no declaration"):
-        cs.before_argtypes(header.replace("sst_viterbi_chunk", "sst_vit"))
+        cs.before_argtypes(header.replace("sst_ms_dist_topn", "sst_ms"))
 
 
 def test_feat_bytes_count_the_frames_read():

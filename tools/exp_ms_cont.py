@@ -6,8 +6,9 @@ card.
     python tools/exp_ms_cont.py [FRAMES ...]
 
 For each frame count (default: one block of ``score_frames_ms``, 2,048
-and 40,960) K11 is timed with the launcher's split of the codebooks and
-with none, every variant checked bit-equal to the launcher's own; then K12 at one block, and
+and 40,960) K11 is timed in the frame form and in the runtime-L form,
+each with the launcher's split of the codebooks and with none, every
+variant checked bit-equal to the launcher's own; then K12 at one block, and
 ``score_frames_ms`` over a story chunk (128 rows of 3,648 frames) with
 the card's peak memory.  Device times are CUDA events around the
 launches, the median of 5 after one warm-up.  One JSON line.
@@ -77,15 +78,19 @@ def main() -> int:
     for N in Ns:
         x = frames(al, N)
         ref = st.ms_dist_topn(x, ms)
-        tile, parts, form = st.ms_dist_topn_layout(N, 5126, 1, 39)
+        tile, parts, form = st.ms_dist_topn_layout(N, 5126, 1, 39, 32, 4)
         row = {"N": N, "layout": [tile, parts, form]}
-        for p in (parts, 1):
-            got = st.ms_dist_topn(x, ms, parts=p)
-            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-                raise AssertionError(f"K11 in {p} parts differs")
-            del got
-            row[f"parts {p}"] = dev_ms(
-                lambda: st.ms_dist_topn(x, ms, parts=p))
+        for f in (st.MS_FRAME_FORM, 0):
+            for p in (0, 1):        # the launcher's split, and none
+                what = f"{st.MS_FORMS[f]}, {p or 'launcher'} part(s)"
+                got = st.ms_dist_topn(x, ms, form=f, parts=p)
+                if not all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(got, ref)):
+                    raise AssertionError(f"K11, {what}, differs")
+                del got
+                row[what] = dev_ms(
+                    lambda: st.ms_dist_topn(x, ms, form=f, parts=p))
         row["k12_ms"] = dev_ms(lambda: st.ms_senone_eval(*ref, ms))
         out["k11"].append(row)
         print(json.dumps(row), flush=True)

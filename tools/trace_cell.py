@@ -31,7 +31,7 @@ object with ``program`` added:
   ``layouts``: by layout, those of the Viterbi wrappers that count one
   (``viterbi_rows``, ``viterbi_chunk``: "block", "cluster N", "global
   memory"), and ``forms``: by form, those of the wrappers that count
-  one (``ms_dist_topn``: "registers 13", "runtime L";
+  one (``ms_dist_topn``: "frame top-N", "registers 13", "runtime L";
   ``dist_topn_norm``: "fold", "mxu"; ...);
 * ``ms``, where the continuous scorer ran: the recorder's
   ``ms_dist_topn.forms`` (K11's launches by form), ``ms.blocks`` (its
