@@ -7,9 +7,8 @@ pipelined ``align_batch_begin``/``align_batch_end``, the HTTP service,
 and, on the device front end, ``align``, ``stream`` and
 ``spectrogram``, and grammar decode: ``set_grammar``, ``decode``,
 ``decode_batch``, ``decode_batch_scored``, ``decode_search``, ``lattice``
-and ``nbest``, the sequence-parallel ``align_longform_batch`` on a
-local ring (parallel.seq_ring), and the data-parallel mesh
-(``use_mesh``, parallel.multihost on two processes, the dry run)), with
+and ``nbest``, and the sequence-parallel ``align_longform_batch`` on a
+local ring (parallel.seq_ring)), with
 ``dist_mode="mxu"``, under
 ``SST_WIRE=f32`` and with ``remove_dc``, and the public API
 (``pitch_batch``, the exact ``Decoder``, the command line, ``update_mllr``),
@@ -121,21 +120,10 @@ raises, so the exit code is non-zero and the last line is not printed:
    and n-best, a live decode in 1,600-sample pieces; the command line
    (``cli.main``) on two raw files, its fast path and ``--exact``;
    ``update_mllr`` with tools/make_mllr.py's transform, then a
-   same-transcript ``align_batch`` and ``align_batch_scored``;
-14. the data-parallel mesh (8-bit ptm) on cuda:0: ``use_mesh`` with 1
-   rank and with 2 virtual ranks in turns (1, 2, 2, 1), each: a
-   same-transcript and a mixed batch of 256 (fresh union),
-   ``align_batch_scored`` on the 32 mixed,
-   ``decode_batch`` of 256 (the last row failing) and
-   ``decode_batch_scored`` of 32, against the goldens; at 2 ranks every
-   K5 and K6 launch on a rank's half of the rows; then two processes on
-   gloo (parallel.multihost), a rank each on the card and 4 rows each,
-   against their one-process results, the golden and this process's;
-   then ``dryrun.dryrun_multichip`` on 2 ranks (data and sequence
-   parallel agree); the walls printed.
+   same-transcript ``align_batch`` and ``align_batch_scored``.
 
 Every row, score, segment list, spectrogram and checkpoint equals its
-golden.  The launch counts are reset before each of phases 5-14 and
+golden.  The launch counts are reset before each of phases 5-13 and
 read after it; a kernel of a path, or a form of a kernel (the Viterbi
 kernels' 5-state, int32, global and scores forms, K10's log spectra,
 K7's semi form, ...) on the path that drives it, launched no time there
@@ -182,7 +170,6 @@ import json
 import math
 import os
 import re
-import socket
 import statistics
 import subprocess
 import sys
@@ -232,8 +219,7 @@ from soundswallower_tpu_torch.decoder import Decoder  # noqa: E402
 from soundswallower_tpu_torch.fe import feat as feat_mod  # noqa: E402
 from soundswallower_tpu_torch.fe import frontend as fe_mod  # noqa: E402
 from soundswallower_tpu_torch.ops import align_torch, senscore_torch  # noqa: E402
-from soundswallower_tpu_torch.dryrun import dryrun_multichip  # noqa: E402
-from soundswallower_tpu_torch.parallel import data_mesh, seq_ring  # noqa: E402
+from soundswallower_tpu_torch.parallel import align_longform, seq_ring  # noqa: E402
 from soundswallower_tpu_torch.serve import make_server, segs_to_json  # noqa: E402
 from soundswallower_tpu_torch.streaming import AlignStream  # noqa: E402
 from soundswallower_tpu_torch.utils import cuda_build  # noqa: E402
@@ -502,11 +488,6 @@ REMOVE_DC_PATH = ["fe_spec", "fe_noise", "fe_cep", "feat_f32",
 API_PATH = ["yin_cmnd", "fe_spec", "fe_noise", "fe_cep", "feat",
             "dist_topn_norm", "senone_eval", "viterbi_batch", "gather_cols",
             "viterbi_rows", "frame_best_sub"]
-# the data-parallel mesh's path: both batch routes, K7 on the scored ones,
-# and the dry run's sequence-parallel half (the carry form, K13)
-MESH_PATH = ["feat", "dist_topn_norm", "senone_eval", "viterbi_batch",
-             "gather_cols", "viterbi_rows", "frame_best_sub", "viterbi_chunk",
-             "backtrace_chunk"]
 N_SEQ = 8               # ranks of the long form's local ring
 LONG_K5 = 100           # AUSTEN repeats of the informational long row
 # AUSTEN repeats of the chapter row's transcript (about 12,570 phones,
@@ -2570,16 +2551,10 @@ def phase_longform(al: TorchAligner, lg: dict, smi: str):
     sen, n, v = graph_batch_sen(al, g, eight)
     T = sen.shape[1] - sen.shape[1] % N_SEQ
     P, E = g.senid.shape
-    pi, pp, pk = align_torch.build_pred_table(g.edge_src, g.edge_dst,
-                                              g.edge_pen, P)
-    from soundswallower_tpu_torch.parallel import align_longform
     t0 = time.perf_counter()
     k0 = align_torch.viterbi_chunk.launches
-    path, score = align_longform(
-        seq_ring(N_SEQ, "cuda"), sen[:, :T], np.arange(P * E).reshape(P, E),
-        al.am.tmat.astype(np.int32)[g.tmatid], pi, pp, pk, g.astart, g.aend,
-        n.cpu().numpy(), np.where(g.is_entry, g.entry_pen,
-                                  align_torch.WORST_SCORE), g.final_nodes)
+    path, score = align_longform(seq_ring(N_SEQ, "cuda"), sen[:, :T], v,
+                                 n.cpu().numpy())
     torch.cuda.synchronize()
     k = carry_launches(k0, N_SEQ, "align_longform (large grammar)")
     t1 = time.perf_counter()
@@ -2739,187 +2714,9 @@ def phase_api(ag: dict):
         log("  update_mllr, then align_batch and align_batch_scored: equal")
 
 
-# -- the data-parallel mesh ---------------------------------------------------
-
-# the mesh phase's ranks, in turns (B=256 batches, B=32 scored ones)
-MESH_RANKS = (1, 2, 2, 1)
-# the two-process run: rows a process (its own utterances)
-MESH_PROC_ROWS = 4
-MESH_WORKER = """
-import json, sys
-rank, addr, model, out, repo = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
-                                sys.argv[4], sys.argv[5])
-sys.path.insert(0, repo)
-sys.path.insert(0, repo + "/tools")
-import torch
-import torch.distributed as dist
-from make_torch_mixed_golden import load_mixed_golden, mixed_audio
-from make_torch_synth_golden import SAMPRATE, TEXT, austen_audio, segs_rep
-from soundswallower_tpu_torch.aligner import TorchAligner
-from soundswallower_tpu_torch.parallel.multihost import (
-    global_data_mesh, host_batch_to_global, initialize, local_results)
-initialize(addr, 2, rank)
-mesh = global_data_mesh(1, "cuda:0")
-k = int(sys.argv[6])
-rows = list(range(k * rank, k * rank + k))
-g = host_batch_to_global(mesh, torch.tensor(rows))
-texts = [load_mixed_golden()["texts"][i] for i in rows]
-al = TorchAligner(hmm=model, samprate=SAMPRATE, device="cuda:0")
-res = {}
-for name, m in (("one", None), ("mesh", mesh)):
-    al.use_mesh(m)
-    res[name] = dict(
-        same=[segs_rep(s) for s in al.align_batch(
-            [austen_audio(i) for i in rows], [TEXT] * k)],
-        mixed=[segs_rep(s) for s in al.align_batch(
-            [mixed_audio(i) for i in rows], texts)])
-torch.cuda.synchronize()
-json.dump(dict(offset=g.offset, total=g.total, rows=local_results(g).tolist(),
-               process=[mesh.process_index, mesh.process_count], **res),
-          open(out, "w"))
-dist.destroy_process_group()
-"""
-
-
-def rows_added(fn, before: dict) -> dict:
-    """Launches of a wrapper by rows (``fn.rows``) since ``before``."""
-    return {k: v - before.get(k, 0) for k, v in fn.rows.items()
-            if v > before.get(k, 0)}
-
-
-def mesh_procs(al: TorchAligner, model: str, golden: list) -> None:
-    """Two processes on gloo, one rank each on cuda:0, their own
-    MESH_PROC_ROWS rows each (the kernels already built by this one, so
-    that the two do not race to build): host_batch_to_global's offsets,
-    local_results' rows, and each one's align_batch (same transcript,
-    mixed) under the mesh equal to its one-process result, to the
-    golden (same) and to this process's single-device result (mixed)."""
-    k = MESH_PROC_ROWS
-    with tempfile.TemporaryDirectory() as tmp:
-        script = os.path.join(tmp, "worker.py")
-        with open(script, "w") as f:
-            f.write(MESH_WORKER)
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            addr = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
-        outs = [os.path.join(tmp, f"out{r}.json") for r in range(2)]
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, script, str(r), addr, model, outs[r], REPO,
-             str(k)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=REPO), text=True)
-            for r in range(2)]
-        try:
-            logs = [p.communicate(timeout=300)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        if any(p.returncode for p in procs):
-            raise AssertionError("a mesh process failed:\n" + "".join(logs))
-        got = [json.load(open(o)) for o in outs]
-    wall = time.perf_counter() - t0
-    texts = load_mixed_golden()["texts"]
-    for r, out in enumerate(got):
-        rows = list(range(k * r, k * r + k))
-        if (out["offset"], out["total"], out["rows"], out["process"]) != (
-                k * r, 2 * k, rows, [r, 2]):
-            raise AssertionError(f"process {r}: offsets or rows differ: "
-                                 f"{out['offset']}, {out['rows']}")
-        fresh_union(al)
-        one = [segs_rep(x) for x in al.align_batch(
-            [mixed_audio(i) for i in rows], [texts[i] for i in rows])]
-        if out["mesh"] != out["one"] or out["mesh"]["mixed"] != one or \
-                out["mesh"]["same"] != [golden[i] for i in rows]:
-            raise AssertionError(f"process {r}: its mesh rows differ")
-    log(f"  two processes on gloo, a rank each on cuda:0, {k} rows each: "
-        f"offsets {[o['offset'] for o in got]}, every row equal to its "
-        f"one-process result, the golden and this process's ({wall:.1f} s "
-        "wall, start-up included)")
-
-
-def phase_mesh(al: TorchAligner, audios8: list, golden: list, mg: dict,
-               dg: dict) -> dict:
-    """The data-parallel mesh on cuda:0: use_mesh(data_mesh(n, "cuda:0"))
-    for n in MESH_RANKS (virtual ranks on the one card, in turns), each: a
-    same-transcript B=256 batch, a mixed B=256 batch on the fresh union,
-    align_batch_scored on the 32 mixed, decode_batch B=256 (the last row
-    failing) and decode_batch_scored B=32, every row equal to its golden
-    (the single-device results); at 2 ranks every K5 and K6 launch on a
-    rank's rows (half the batch's).  Then two processes on gloo
-    (mesh_procs) and dryrun_multichip on 2 ranks.  Returns the walls of
-    each turn (use_mesh clears the caches, so each turn builds its graph
-    tables and stacks anew)."""
-    big = [audios8[i % N_UTT] for i in range(BIG_B)]
-    texts = mg["texts"]
-    maud = [mixed_audio(i) for i in range(N_MIXED)]
-    mbig = [maud[i % N_MIXED] for i in range(BIG_B)]
-    drows = [decode_audio(i % N_UTT) for i in range(BIG_B - 1)] \
-        + [decode_audio(N_UTT)]
-    want = dg["decode"]
-    srows = [decode_audio(i % N_DECODE) for i in range(N_MIXED)]
-    al.set_grammar(jsgf_string=GRAMMAR)
-    walls = []
-    try:
-        for n in MESH_RANKS:
-            al.use_mesh(data_mesh(n, "cuda:0"))
-            before = {fn: dict(fn.rows) for fn in (senscore_torch.gather_cols,
-                                                   align_torch.viterbi_rows)}
-            t0 = time.perf_counter()
-            check_rows(al.align_batch(big, [TEXT] * BIG_B),
-                       [golden[i % N_UTT] for i in range(BIG_B)],
-                       f"mesh of {n}: same-transcript B={BIG_B}")
-            check_rows(al.align_batch(mbig, [texts[i % N_MIXED]
-                                             for i in range(BIG_B)]),
-                       [mg["union"][i % N_MIXED] for i in range(BIG_B)],
-                       f"mesh of {n}: mixed B={BIG_B}")
-            check_rows(al.align_batch_scored(maud, texts), mg["scored"],
-                       f"mesh of {n}: align_batch_scored B={N_MIXED}",
-                       rep=scored_rep)
-            check_rows(al.decode_batch(drows),
-                       [want["batch"][i % N_UTT] for i in range(BIG_B - 1)]
-                       + [want["batch"][N_UTT]],
-                       f"mesh of {n}: decode_batch B={BIG_B}", rep=decode_rep)
-            check_rows(al.decode_batch_scored(srows),
-                       [want["scored"][i % N_DECODE] for i in range(N_MIXED)],
-                       f"mesh of {n}: decode_batch_scored B={N_MIXED}",
-                       rep=decode_rep)
-            torch.cuda.synchronize()
-            walls.append((n, time.perf_counter() - t0))
-            added = {fn.__name__: rows_added(fn, b) for fn, b in before.items()}
-            log(f"  mesh of {n} rank(s) on cuda:0: same and mixed B={BIG_B}, "
-                f"scored B={N_MIXED}, decode B={BIG_B} and scored B={N_MIXED}"
-                f": every row equal to its golden ({walls[-1][1]:.3f} s "
-                "wall); "
-                f"K5 and K6 launches by rows: {added}")
-            if n > 1:
-                for name, got in added.items():
-                    ranks = {f"B={BIG_B // n}", f"B={N_MIXED // n}"}
-                    if not got or set(got) - ranks or any(v % n for v in
-                                                          got.values()):
-                        raise AssertionError(f"{name} ran on other rows than "
-                                             f"the {n} ranks': {got}")
-        al.use_mesh(None)
-        with tempfile.TemporaryDirectory() as model:
-            make_synth_model(model, seed=0, width="en-us")
-            mesh_procs(al, model, golden)
-            t0 = time.perf_counter()
-            segs = dryrun_multichip(2, model, os.path.join(
-                REPO, "tests", "golden", "austen.raw"), TEXT,
-                device="cuda:0", samprate=SAMPRATE)
-            log(f"  dryrun_multichip(2) on cuda:0: data and sequence "
-                f"parallel agree, {len(segs)} segments "
-                f"({time.perf_counter() - t0:.1f} s)")
-    finally:
-        al.use_mesh(None)
-    return walls
-
-
 # a wrapper's counters beside its launches: forms, the carry form's
-# shapes, K6's and the carry form's layouts, K6's tables, K2's tiles,
-# K5's and K6's rows
-COUNTERS = ("forms", "shapes", "layouts", "tables", "tiles", "rows")
+# shapes, K6's and the carry form's layouts, K6's tables, K2's tiles
+COUNTERS = ("forms", "shapes", "layouts", "tables", "tiles")
 
 
 # the K6 layouts each path's launches take: one block a row, but on the
@@ -3180,35 +2977,28 @@ def main() -> int:
     # 13. the public API (YIN, the exact Decoder, the CLI, MLLR), counted
     log("public API paths (en-us width, 8-bit ptm):")
     api = count_path(wrappers, lambda: phase_api(ag))
-    # 14. the data-parallel mesh, counted (1 and 2 ranks in turns)
-    log("data-parallel mesh (8-bit ptm, cuda:0):")
-    t0 = time.perf_counter()
-    mesh = count_path(wrappers, lambda: phase_mesh(al, audios8, want, mg,
-                                                   dcg))
-    log(f"  mesh phase wall: {time.perf_counter() - t0:.3f} s")
     counts = {"host-FE": host, "device-FE": device, "backends": backends,
               "decode": decode, "5-state": five, "large": large,
-              "longform": longform, **repairs, "api": api, "mesh": mesh,
-              "cont": cont}
+              "longform": longform, **repairs, "api": api, "cont": cont}
     for path, names in (("host-FE", HOST_PATH), ("device-FE", DEVICE_FE_PATH),
                         ("backends", BACKEND_PATH), ("decode", SLICE_PATH),
                         ("5-state", SLICE_PATH), ("large", SLICE_PATH),
                         ("longform", LONGFORM_PATH), ("mxu", MXU_PATH),
                         ("wire_f32", WIRE_F32_PATH),
                         ("remove_dc", REMOVE_DC_PATH), ("api", API_PATH),
-                        ("mesh", MESH_PATH), ("cont", CONT_PATH)):
+                        ("cont", CONT_PATH)):
         names = list(dict.fromkeys(names + [f"{k}[{f}]"
                                             for _, k, f, ph, _ in FORMS
                                             if path in form_paths(ph)]))
         log(f"  {path} launches: " + ", ".join(
             f"{n} {counts[path].get(n, 0)}" for n in names
             + sorted(k for k in counts[path]
-                     if ", R=" in k or "[N=" in k or "[B=" in k)))
+                     if ", R=" in k or "[N=" in k)))
         log(f"  {path} K6 layouts and tables, K2 tiles: " + (", ".join(
             f"{k} {v}" for k, v in sorted(counts[path].items())
             if k.startswith(("viterbi_rows[", "dist_topn_norm["))
             and not k.split("[", 1)[1].startswith(("3-state", "5-state",
-                                                   "fold", "mxu", "B=")))
+                                                   "fold", "mxu")))
             or "none"))
         missing = [n for n in names if counts[path].get(n, 0) == 0]
         if missing:

@@ -50,14 +50,10 @@ Port of ``soundswallower_tpu/aligner.py`` (TpuAligner):
   point that takes it;
 * ``align_longform_batch``: the same-transcript route's scores, then
   the sequence-parallel Viterbi on a ``parallel.SeqRing`` (K4's carry
-  form per chunk, K13 ``backtrace_chunk`` on the way back);
-* ``use_mesh`` (TpuAligner.use_mesh): the batch routes' rows split over
-  the ranks of a ``parallel.DataMesh`` (one device each, or virtual
-  ranks on one device; under several processes this process's ranks,
-  ``parallel.multihost``), B rounded up to a multiple of the ranks; each
-  rank runs its rows' front end, K1-K7 and downloads on its device with
-  replicas of the graph and scorer tables, its rows of the one stack of
-  the whole batch, and its own chunks and event; no collective.
+  form per chunk, K13 ``backtrace_chunk`` on the way back) over the
+  graph's cached Viterbi tables.
+
+One aligner runs on one device; several cards take an aligner each.
 
 Host modules (config, model, dictionary, phone and decode graphs,
 grammars, history search, lattice, native FE loader, live CMN) are the
@@ -79,8 +75,6 @@ do (their carry starts with 3 states).
 
 from __future__ import annotations
 
-import contextlib
-import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -99,12 +93,11 @@ from .fe.native_fe import NativeFrontend
 from .logmath import LogMath
 from .ops.align_graph import AlignGraph, build_chain_graph
 from .ops.align_torch import (WORST_SCORE, RowVitConsts, VitConsts,
-                              build_pred_table, pred_count,
+                              build_pred_table, graph_consts_from_numpy,
                               row_consts_from_numpy, stack_graphs,
                               viterbi_batch, viterbi_rows, viterbi_single)
 from .ops.senscore_torch import (GraphScorer, dense_scorer, gather_cols,
                                  score_frames, score_frames_graph)
-from .parallel.mesh import DataMesh, replicate
 from .utils import native_build, resolve_device, to_device
 
 
@@ -172,67 +165,22 @@ class GraphConsts:
     gs: GraphScorer
 
 
-def _canon(device) -> torch.device:
-    """A device with its index (a CUDA device without one is the current
-    one), so that equal devices compare equal."""
-    d = torch.device(device)
-    if d.type == "cuda" and d.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return d
-
-
-def _on(device):
-    """The current CUDA device set to ``device`` while a rank's work is
-    enqueued (its kernels, copies and events go to that device's current
-    stream); nothing on the CPU."""
-    d = torch.device(device)
-    return torch.cuda.device(d) if d.type == "cuda" else \
-        contextlib.nullcontext()
-
-
-def _replica(obj, device):
-    """Tables built on one device, on ``device``: obj itself where it
-    lies there, else its copy (parallel.mesh.replicate)."""
-    return replicate(DataMesh((_canon(device),)), obj)[0]
-
-
 @dataclass(eq=False)
 class _Stack:
     """A stacked batch of graphs on the device (_stacked_graphs)."""
 
     vit: RowVitConsts
     sencols: torch.Tensor    # int32 [B, P*3] scorer columns
-    parts: dict = dataclasses.field(default_factory=dict)
-
-    def rows(self, i0: int, i1: int, device) -> "_Stack":
-        """Rows i0:i1 of the stack on ``device`` (a rank's rows of the
-        batch's one stack: its P, K and W pads are the whole batch's),
-        cached; the stack itself where that is all of it."""
-        dev = _canon(device)
-        if (i0, i1) == (0, self.sencols.shape[0]) and \
-                dev == _canon(self.sencols.device):
-            return self
-        part = self.parts.get((i0, i1, dev))
-        if part is None:
-            def cut(x):
-                return None if x is None else x[i0:i1].to(dev)
-
-            part = self.parts[(i0, i1, dev)] = _Stack(
-                dataclasses.replace(self.vit, **{
-                    f.name: cut(getattr(self.vit, f.name))
-                    for f in dataclasses.fields(self.vit)}),
-                cut(self.sencols))
-        return part
 
 
 @dataclass(eq=False)
 class _Part:
-    """One rank's rows of a dispatched batch; on CUDA in pinned host
-    buffers, with an event recorded after their copies."""
+    """A dispatched batch's results; on CUDA in pinned host buffers,
+    with an event recorded after their copies."""
 
-    paths: torch.Tensor      # int16 (int32 at S >= 32767) [n, Tmax]
-    fscore: torch.Tensor     # int32 [n]
-    pscore: torch.Tensor | None = None   # int32 [n, Tmax] path scores
+    paths: torch.Tensor      # int16 (int32 at S >= 32767) [B, Tmax]
+    fscore: torch.Tensor     # int32 [B]
+    pscore: torch.Tensor | None = None   # int32 [B, Tmax] path scores
     done: torch.cuda.Event | None = None
 
 
@@ -242,26 +190,20 @@ class _Batch:
 
     graphs: list             # [realB] AlignGraph of each row
     Ts: np.ndarray           # [realB] frame counts
-    parts: list              # [_Part] of each rank, in row order
+    part: _Part | None       # its results; None for an empty batch
     realB: int
     req: int | None = None   # its request (spans), while recording
 
     def fetch(self) -> tuple:
-        """Wait for every rank's downloads: (paths [B, Tmax], path
-        scores or None) as numpy, the ranks' rows joined in order."""
-        for p in self.parts:
-            if p.done is not None:
-                p.done.synchronize()
-        if not self.parts:
+        """Wait for the downloads: (paths [B, Tmax], path scores or
+        None) as numpy."""
+        p = self.part
+        if p is None:
             return np.zeros((0, 0), np.int16), None
-
-        def join(ts):
-            return ts[0].numpy() if len(ts) == 1 else np.concatenate(
-                [t.numpy() for t in ts])
-
-        pscore = None if self.parts[0].pscore is None else \
-            join([p.pscore for p in self.parts])
-        return join([p.paths for p in self.parts]), pscore
+        if p.done is not None:
+            p.done.synchronize()
+        return p.paths.numpy(), None if p.pscore is None else \
+            p.pscore.numpy()
 
 
 class TorchAligner:
@@ -315,9 +257,6 @@ class TorchAligner:
         self._graph_const_cache: dict[int, GraphConsts] = {}
         self._uni: dict | None = None
         self._stack_cache: dict[tuple, _Stack] = {}
-        self._dense_reps: dict = {}
-        # the data-parallel mesh (use_mesh); None: the aligner's device
-        self.mesh: DataMesh | None = None
         self._seg_tab_cache: dict[tuple, tuple] = {}
         self._fe_pool = ThreadPoolExecutor(max_workers=1)
         if config["mllr"]:
@@ -336,50 +275,7 @@ class TorchAligner:
         self.dense = dense_scorer(self.am, self.device)
         self._graph_const_cache.clear()
         self._stack_cache.clear()
-        self._dense_reps.clear()
         self._uni = None
-
-    # -- data-parallel mesh ------------------------------------------------
-
-    def use_mesh(self, mesh: DataMesh | None) -> None:
-        """Split subsequent batch calls' rows over the ranks of ``mesh``
-        (parallel.mesh.data_mesh; under several processes
-        parallel.multihost.global_data_mesh, each process passing only
-        its own rows and getting its own results back), as
-        TpuAligner.use_mesh shards them over ('data',): each rank runs
-        its rows on its device, the model and graph tables replicated,
-        with no collective.  None returns to the aligner's device.  The
-        per-device caches (graph constants, stacks, the union scorer,
-        the dense scorer's replicas) are cleared, as TpuAligner's are."""
-        self.mesh = mesh
-        self._graph_const_cache.clear()
-        self._stack_cache.clear()
-        self._dense_reps.clear()
-        self._uni = None
-
-    def _nd_local(self) -> int:
-        """This process's ranks of the mesh (they divide the batch)."""
-        return 1 if self.mesh is None else self.mesh.size
-
-    def _ranks(self, B: int) -> list:
-        """(device, first row, end row) of each rank of a padded batch of
-        B rows: the mesh's ranks, B / nd rows each in rank order, or the
-        aligner's device for every row."""
-        if self.mesh is None:
-            return [(self.device, 0, B)]
-        k = B // self.mesh.size
-        return [(d, r * k, (r + 1) * k)
-                for r, d in enumerate(self.mesh.devices)]
-
-    def _copy_on(self, reps: dict, obj, device):
-        """Tables built on the aligner's device (a scorer) on ``device``:
-        obj itself there, else its replica, kept in ``reps``."""
-        dev = _canon(device)
-        if dev == _canon(self.device):
-            return obj
-        if dev not in reps:
-            reps[dev] = _replica(obj, dev)
-        return reps[dev]
 
     def _scorer_view(self, feats: torch.Tensor) -> torch.Tensor:
         """K1's features [..., 3, ncep] as the model's streams [N, F, L]
@@ -404,32 +300,21 @@ class TorchAligner:
             self._graph_cache[text] = g
         return g
 
-    def _graph_consts(self, g: AlignGraph, device=None) -> GraphConsts:
-        """Per-graph Viterbi and scorer tables on the aligner's device or
-        on ``device`` (a replica there), cached per device."""
-        dev = _canon(self.device if device is None else device)
-        key = (g.serial, dev)
-        c = self._graph_const_cache.get(key)
-        if c is None and dev != _canon(self.device):
-            c = self._graph_const_cache[key] = _replica(
-                self._graph_consts(g), dev)
+    def _graph_consts(self, g: AlignGraph) -> GraphConsts:
+        """Per-graph Viterbi and scorer tables on the aligner's device,
+        cached by graph: the only place the port builds a single graph's
+        VitConsts."""
+        c = self._graph_const_cache.get(g.serial)
         if c is None:
             pi, pp, pk = build_pred_table(g.edge_src, g.edge_dst,
                                           g.edge_pen, len(g.senid))
-
-            def dev(a, dtype=np.int32):
-                return to_device(a, dtype, self.device)
-
-            vit = VitConsts(
-                tp=dev(self.am.tmat.astype(np.int32)[g.tmatid]),
-                pred_idx=dev(pi), pred_pen=dev(pp),
-                pred_ok=dev(pk, np.uint8), pred_n=dev(pred_count(pk)),
-                astart=dev(g.astart),
-                aend=dev(g.aend),
-                entry=dev(np.where(g.is_entry, g.entry_pen, WORST_SCORE)),
-                fin=dev(g.final_nodes))
+            vit = graph_consts_from_numpy(dict(
+                tp=self.am.tmat.astype(np.int32)[g.tmatid], pi=pi, pp=pp,
+                pk=pk, ast=g.astart, aen=g.aend,
+                entry=np.where(g.is_entry, g.entry_pen, WORST_SCORE),
+                fin=g.final_nodes), self.device)
             gs = GraphScorer.build(self.am, g.senid.reshape(-1), self.device)
-            c = self._graph_const_cache[key] = GraphConsts(vit, gs)
+            c = self._graph_const_cache[g.serial] = GraphConsts(vit, gs)
         return c
 
     # -- single utterance and batch ------------------------------------------
@@ -570,13 +455,10 @@ class TorchAligner:
     def _batch_shape(self, audios) -> tuple[list, np.ndarray, int]:
         """Batch-size bucket and frame-axis rounding as TpuAligner
         (aligner.py:798-805): the padded audio list (pad rows repeat the
-        last utterance; B a multiple of the mesh's ranks), frames per
-        row, and Tmax."""
+        last utterance), frames per row, and Tmax."""
         realB = len(audios)
         B = (max(8, 1 << (realB - 1).bit_length()) if realB <= 64
              else -(-realB // 64) * 64)
-        nd = self._nd_local()
-        B = -(-B // nd) * nd
         audios = list(audios) + [audios[-1]] * (B - realB)
         Ts = np.array([self.fe.n_frames(len(a)) for a in audios])
         Tmax = max(64, self.tmax_floor, -(-int(Ts.max()) // 64) * 64)
@@ -584,28 +466,23 @@ class TorchAligner:
             spans.count("frames.real", int(Ts[:realB].sum()))
         return audios, Ts, Tmax
 
-    def _chunk_feats(self, audios, Ts_d: torch.Tensor, Tmax: int,
-                     width: int | None = None):
+    def _chunk_feats(self, audios, Ts_d: torch.Tensor, Tmax: int):
         """Start the host FE of every upload chunk on the worker thread
         now; return an iterator of (first row, wire, K1 features
         [n, Tmax, 3, ncep], which the scorers read in the model's layout
         ``streams``: [n * Tmax, 3, 13] or [n * Tmax, 1, 39],
-        _scorer_view) per chunk on Ts_d's device, uploading each as
-        it is reached: on the i16p wire the byte planes and K1, on the
-        float32 wire (``SST_WIRE=f32``) the cepstra [n, Tmax, ncep] and
-        K1's float32 form.  Without the host FE: (first row, int16 audio
-        [n, N], features) from the device FE.  ``width``: the samples of
-        the audio buffer (a mesh rank's rows take the batch's), else its
-        longest row's."""
+        _scorer_view) per chunk on the aligner's device, uploading each
+        as it is reached: on the i16p wire the byte planes and K1, on
+        the float32 wire (``SST_WIRE=f32``) the cepstra [n, Tmax, ncep]
+        and K1's float32 form.  Without the host FE: (first row, int16
+        audio [n, N], features) from the device FE."""
         chunk = self._chunk_size(len(audios))
-        dev = Ts_d.device
         ns = np.array([len(a) for a in audios], np.int32)
-        width = int(ns.max()) if width is None else width
         if self.native_fe is None:
-            return self._chunk_feats_device(audios, Ts_d, Tmax, chunk, width)
+            return self._chunk_feats_device(audios, Ts_d, Tmax, chunk)
         starts = range(0, len(audios), chunk)
         if self.wire != "i16p":
-            buf = np.zeros((len(audios), width), np.int16)
+            buf = np.zeros((len(audios), int(ns.max())), np.int16)
             for i, a in enumerate(audios):
                 buf[i, :len(a)] = a
             fe = spans.task("fe.host", self.native_fe.process_batch)
@@ -618,7 +495,7 @@ class TorchAligner:
                     with spans.span("fe.wait"):
                         host = fut.result()
                     with spans.span("fe.device"):
-                        cep = self._upload(torch.from_numpy(host), dev)
+                        cep = self._upload(torch.from_numpy(host))
                         f = feat_f32(cep, Ts_d[i0:i0 + cep.shape[0]],
                                      self.do_cmn)
                     yield i0, cep, f
@@ -633,26 +510,26 @@ class TorchAligner:
                 with spans.span("fe.wait"):
                     host = fut.result()
                 with spans.span("fe.device"):
-                    pl = self._upload(torch.from_numpy(host), dev)
+                    pl = self._upload(torch.from_numpy(host))
                     f = feat(pl, Ts_d[i0:i0 + pl.shape[1]],
                              1.0 / self.wire_scale, self.do_cmn)
                 yield i0, pl, f
         return chunks()
 
     def _chunk_feats_device(self, audios, Ts_d: torch.Tensor, Tmax: int,
-                            chunk: int, width: int):
+                            chunk: int):
         """The device-FE route (TpuAligner._feats_chunk_raw): the batch's
-        int16 audio zero-padded to ``width`` samples in one (pinned)
-        buffer; per chunk an upload to Ts_d's device, K8/K9/K10 from a
-        fresh state and K1's float32 form."""
-        dev = Ts_d.device
+        int16 audio zero-padded to its longest row in one (pinned)
+        buffer; per chunk an upload, K8/K9/K10 from a fresh state and
+        K1's float32 form."""
+        dev = self.device
         ns = np.array([len(a) for a in audios], np.int32)
-        buf = torch.zeros((len(audios), width), dtype=torch.int16,
+        buf = torch.zeros((len(audios), int(ns.max())), dtype=torch.int16,
                           pin_memory=dev.type == "cuda")
         host = buf.numpy()
         for i, a in enumerate(audios):
             host[i, :len(a)] = a
-        ns_d = self._upload(torch.from_numpy(ns), dev)
+        ns_d = self._upload(torch.from_numpy(ns))
 
         def chunks():
             for i0 in range(0, len(audios), chunk):
@@ -664,28 +541,13 @@ class TorchAligner:
                 yield i0, sig, f
         return chunks()
 
-    def _rank_feeds(self, audios, Ts: np.ndarray, Tmax: int) -> list:
-        """(device, first row, end row, frame counts on the device, the
-        chunks' features: _chunk_feats) of each rank of a padded batch,
-        every rank's host FE submitted before any rank is dispatched."""
-        width = max(len(a) for a in audios)
-        feeds = []
-        for dev, i0, i1 in self._ranks(len(audios)):
-            with _on(dev):
-                Ts_d = self._upload(torch.from_numpy(
-                    Ts[i0:i1].astype(np.int32)), dev)
-                feeds.append((dev, i0, i1, Ts_d, self._chunk_feats(
-                    audios[i0:i1], Ts_d, Tmax, width)))
-        return feeds
-
     def _batch_begin(self, g: AlignGraph, audios,
                      dist_mode: str = "fold") -> _Batch:
         """Host FE (prefetched on a worker thread, chunk by chunk) ->
         pinned upload -> K1, K2, K3 per chunk into one [B, Tmax, S]
         score buffer -> K4 over the whole batch (with token and path
         scores under ``want_scores``) -> download into pinned host
-        buffers, with an event recorded after the copies; under a mesh
-        each rank does so for its rows on its device."""
+        buffers, with an event recorded after the copies."""
         if self.am.backend == "ms":
             # no graph-restricted ms scorer: the full-inventory scores
             # and the per-row gather of the multi-graph route
@@ -697,29 +559,25 @@ class TorchAligner:
             return self._empty()
         with spans.span("pack"):
             audios, Ts, Tmax = self._batch_shape(audios)
-            feeds = self._rank_feeds(audios, Ts, Tmax)
-        parts = []
-        for dev, i0, i1, Ts_d, chunks in feeds:
-            with _on(dev):
-                with spans.span("consts"):
-                    c = self._graph_consts(g, dev)
-                sen = self._graph_scores(c.gs, audios[i0:i1], Ts_d, Tmax,
-                                         dist_mode, chunks)
-                with spans.span("viterbi"):
-                    path, pscore, fscore = viterbi_batch(sen, Ts_d, c.vit,
-                                                         self.want_scores)
-                with spans.span("download"):
-                    parts.append(self._download(path, fscore, pscore))
-        return _Batch([g] * realB, Ts[:realB], parts, realB)
+            Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
+            chunks = self._chunk_feats(audios, Ts_d, Tmax)
+        with spans.span("consts"):
+            c = self._graph_consts(g)
+        sen = self._graph_scores(c.gs, audios, Ts_d, Tmax, dist_mode, chunks)
+        with spans.span("viterbi"):
+            path, pscore, fscore = viterbi_batch(sen, Ts_d, c.vit,
+                                                 self.want_scores)
+        with spans.span("download"):
+            part = self._download(path, fscore, pscore)
+        return _Batch([g] * realB, Ts[:realB], part, realB)
 
     def _graph_scores(self, gs: GraphScorer, audios, Ts_d: torch.Tensor,
                       Tmax: int, dist_mode: str, chunks=None) -> torch.Tensor:
-        """The same-transcript route's scores on Ts_d's device: per
-        upload chunk (``chunks``, else _chunk_feats') the front end and
-        K1, then K2/K3 on the graph's scorer into one [B, Tmax, S] int32
-        buffer."""
+        """The same-transcript route's scores: per upload chunk
+        (``chunks``, else _chunk_feats') the front end and K1, then K2/K3
+        on the graph's scorer into one [B, Tmax, S] int32 buffer."""
         sen = torch.empty((len(audios), Tmax, gs.S), dtype=torch.int32,
-                          device=Ts_d.device)
+                          device=self.device)
         if chunks is None:
             with spans.span("pack"):
                 chunks = self._chunk_feats(audios, Ts_d, Tmax)
@@ -742,9 +600,7 @@ class TorchAligner:
         then K5 into one
         [B, Tmax, S] buffer in each row's graph-state order; then K6
         over the stacked per-row graphs, with token scores under
-        ``want_scores``; pinned downloads with an event after them.
-        Under a mesh each rank does so for its rows on its device, with
-        its rows of the batch's one stack."""
+        ``want_scores``; pinned downloads with an event after them."""
         realB = len(audios)
         if realB == 0:
             return self._empty()
@@ -760,36 +616,29 @@ class TorchAligner:
                 st = self._stacked_graphs(graphs, remap=uni["pos"],
                                           remap_ver=uni["ver"])
         with spans.span("pack"):
-            feeds = self._rank_feeds(audios, Ts, Tmax)
-        parts = []
-        for dev, i0, i1, Ts_d, chunks in feeds:
-            with _on(dev):
-                rst = st.rows(i0, i1, dev)
-                sc = (self._copy_on(self._dense_reps, self.dense, dev)
-                      if uni is None else
-                      self._copy_on(uni["reps"], uni["gs"], dev))
-                sen = torch.empty((i1 - i0, Tmax, rst.sencols.shape[1]),
-                                  dtype=torch.int32, device=dev)
-                for j0, _, feats in chunks:
-                    n = feats.shape[0]
-                    spans.count("frames.scored", n * Tmax)
-                    flat = self._scorer_view(feats)
-                    with spans.span("score"):
-                        if uni is None:
-                            src = score_frames(sc, flat, dist_mode)  # int16
-                        else:
-                            src = score_frames_graph(
-                                sc, flat, dist_mode=dist_mode)       # int32
-                    with spans.span("gather"):
-                        gather_cols(src.view(n, Tmax, -1),
-                                    rst.sencols[j0:j0 + n],
-                                    out=sen[j0:j0 + n])
-                with spans.span("viterbi"):
-                    path, pscore, fscore = viterbi_rows(sen, Ts_d, rst.vit,
-                                                        self.want_scores)
-                with spans.span("download"):
-                    parts.append(self._download(path, fscore, pscore))
-        return _Batch(graphs[:realB], Ts[:realB], parts, realB)
+            Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
+            chunks = self._chunk_feats(audios, Ts_d, Tmax)
+        sen = torch.empty((len(audios), Tmax, st.sencols.shape[1]),
+                          dtype=torch.int32, device=self.device)
+        for i0, _, feats in chunks:
+            n = feats.shape[0]
+            spans.count("frames.scored", n * Tmax)
+            flat = self._scorer_view(feats)
+            with spans.span("score"):
+                if uni is None:
+                    src = score_frames(self.dense, flat, dist_mode)  # int16
+                else:
+                    src = score_frames_graph(uni["gs"], flat,
+                                             dist_mode=dist_mode)    # int32
+            with spans.span("gather"):
+                gather_cols(src.view(n, Tmax, -1), st.sencols[i0:i0 + n],
+                            out=sen[i0:i0 + n])
+        with spans.span("viterbi"):
+            path, pscore, fscore = viterbi_rows(sen, Ts_d, st.vit,
+                                                self.want_scores)
+        with spans.span("download"):
+            part = self._download(path, fscore, pscore)
+        return _Batch(graphs[:realB], Ts[:realB], part, realB)
 
     # mixed batches switch from the union scorer to the full inventory
     # once the working set covers this share of the senones
@@ -809,7 +658,7 @@ class TorchAligner:
         u = self._uni
         if u is None:
             u = self._uni = dict(ver=0, senset=np.zeros(0, np.int64),
-                                 gs=None, reps={}, Spad=0,
+                                 gs=None, Spad=0,
                                  dense=self.am.backend == "ms",
                                  pos=np.full(self.am.n_sen, -1, np.int32))
         if u["dense"]:
@@ -828,7 +677,7 @@ class TorchAligner:
             pos[senset] = np.arange(len(senset), dtype=np.int32)
             gs = GraphScorer.build(self.am, senid_flat, self.device)
             u.update(ver=u["ver"] + 1, senset=senset, Spad=Spad, pos=pos,
-                     gs=gs, reps={})
+                     gs=gs)
         return u
 
     def _stacked_graphs(self, graphs: list, remap: np.ndarray | None = None,
@@ -855,12 +704,11 @@ class TorchAligner:
         return st
 
     def _empty(self) -> _Batch:
-        return _Batch([], np.zeros(0, np.int64), [], 0)
+        return _Batch([], np.zeros(0, np.int64), None, 0)
 
     def _download(self, path, fscore, pscore=None) -> _Part:
-        """A rank's results; on CUDA copied into pinned host buffers,
-        with an event recorded after the copies on the current device's
-        stream."""
+        """A batch's results; on CUDA copied into pinned host buffers,
+        with an event recorded after the copies on the current stream."""
         done = None
         if path.device.type == "cuda":
             def host(t):
@@ -875,15 +723,13 @@ class TorchAligner:
             done.record()
         return _Part(path, fscore, pscore, done)
 
-    def _upload(self, t: torch.Tensor, device=None) -> torch.Tensor:
-        device = self.device if device is None else torch.device(device)
-        if device.type == "cpu":
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type == "cpu":
             return t
-        return t.pin_memory().to(device, non_blocking=True)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _batch_end(self, handle: _Batch) -> list:
-        """Wait for the downloads (every rank's, joined in row order);
-        native extraction on the unscored path when the library loads,
+        """Wait for the downloads; native extraction on the unscored path when the library loads,
         Python extraction (and scores, states) otherwise."""
         with spans.span("wait"):
             paths, pscores = handle.fetch()
@@ -1347,8 +1193,9 @@ class TorchAligner:
         ``dist_mode``), the frame axis rounded up to 64 per rank of
         ``ring`` (a parallel.SeqRing; one local rank on the aligner's
         device when None), then the ring-carried Viterbi and chunk
-        backtrace (parallel/seqpipe.py) and segment extraction per row.
-        Segments equal align_batch's on the same audio."""
+        backtrace (parallel/seqpipe.py) over the graph's cached Viterbi
+        tables (_graph_consts), and segment extraction per row.  Segments
+        equal align_batch's on the same audio."""
         from .parallel.seqpipe import align_longform, seq_ring
 
         if len(set(texts)) != 1:
@@ -1366,18 +1213,9 @@ class TorchAligner:
             Tmax = max(gran, -(-int(Ts.max()) // gran) * gran)
             Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
             with spans.span("consts"):
-                gs = self._graph_consts(g).gs
-            sen = self._graph_scores(gs, audios, Ts_d, Tmax, dist_mode)
-            P, E = g.senid.shape
-            with spans.span("pred_table"):
-                pi, pp, pk = build_pred_table(g.edge_src, g.edge_dst,
-                                              g.edge_pen, P)
-            paths, _ = align_longform(
-                ring, sen, np.arange(P * E).reshape(P, E),
-                self.am.tmat.astype(np.int32)[g.tmatid], pi, pp, pk,
-                g.astart, g.aend, Ts.astype(np.int32),
-                np.where(g.is_entry, g.entry_pen, WORST_SCORE),
-                g.final_nodes)
+                c = self._graph_consts(g)
+            sen = self._graph_scores(c.gs, audios, Ts_d, Tmax, dist_mode)
+            paths, _ = align_longform(ring, sen, c.vit, Ts.astype(np.int32))
             with spans.span("wait"):
                 paths = paths.cpu().numpy()
             with spans.span("extract"):

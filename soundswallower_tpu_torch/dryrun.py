@@ -1,12 +1,11 @@
-"""The multi-device dry run: the data-parallel and the sequence-parallel
-paths on one input, whose segments must agree.
+"""The dry run: the batch and the sequence-parallel paths on one
+input, on one device, whose segments must agree.
 
-Port of ``__graft_entry__.dryrun_multichip``:
+Port of ``__graft_entry__.dryrun_multichip``, on one device (an
+aligner runs on one; several cards take an aligner each):
 
-1. data parallel: ``TorchAligner.use_mesh(data_mesh(n, device))`` and
-   ``align_batch`` of n copies of the audio, one row a rank, each rank's
-   rows through the whole pipeline (front end, K1-K4, backtrace) on its
-   device with replicas of the tables;
+1. ``align_batch`` of n copies of the audio, through the whole
+   same-transcript pipeline (front end, K1-K4, backtrace);
 2. sequence parallel: ``align_longform_batch`` of two copies on a local
    ring of n ranks (``seq_ring``: the frame axis cut into n chunks, the
    Viterbi carried along the ring, K13 on the way back).
@@ -16,9 +15,7 @@ segments.  The model directory and the audio are arguments (the JAX
 entry point reads a mounted model and goforward.raw).
 
 Usage: ``python -m soundswallower_tpu_torch.dryrun N MODEL_DIR AUDIO.raw
-"TEXT" [--device cuda] [--samprate HZ]``; ``device`` ``"cuda"`` puts a
-rank on each card (as many as N), one device (``cuda:0``, ``cpu``) N
-virtual ranks on it.
+"TEXT" [--device cuda] [--samprate HZ]``.
 """
 
 from __future__ import annotations
@@ -30,7 +27,7 @@ import sys
 import numpy as np
 
 from .aligner import TorchAligner
-from .parallel import data_mesh, seq_ring
+from .parallel import seq_ring
 
 
 def _key(segs) -> list:
@@ -39,33 +36,31 @@ def _key(segs) -> list:
 
 def dryrun_multichip(n_devices: int, model_dir: str, audio, text: str,
                      device="cuda", **config) -> list:
-    """Both paths of an n-rank mesh on ``audio`` (an int16 array or the
-    path of a raw int16 file) against ``text``; AssertionError where a
-    row fails, lacks the transcript's words or differs from another.
+    """Both paths at n on ``audio`` (an int16 array or the path of a raw
+    int16 file) against ``text``, on ``device``: align_batch of n rows
+    and the long form on a ring of n ranks; AssertionError where a row
+    fails, lacks the transcript's words or differs from another.
     ``config``: the aligner's other settings (``samprate``, ...).
     Returns the segments as (word, start, duration)."""
     raw = (np.fromfile(audio, np.int16) if isinstance(audio, str)
            else np.asarray(audio, np.int16))
-    mesh = data_mesh(n_devices, device)
-    al = TorchAligner(hmm=model_dir, device=mesh.devices[0], **config)
-    al.use_mesh(mesh)
+    al = TorchAligner(hmm=model_dir, device=device, **config)
     out = al.align_batch([raw] * n_devices, [text] * n_devices)
-    assert all(o is not None for o in out), "DP alignment failed"
+    assert all(o is not None for o in out), "batch alignment failed"
     words = [[re.sub(r"\(\d+\)$", "", s.word) for s in segs
               if s.word != "<sil>"] for segs in out]
     assert words == [text.split()] * n_devices, words
     segs0 = _key(out[0])
     for segs in out[1:]:
         assert _key(segs) == segs0, (_key(segs), segs0)
-    print(f"dryrun_multichip({n_devices}): DP OK, segs={segs0}")
+    print(f"dryrun_multichip({n_devices}): batch OK, segs={segs0}")
 
-    al.use_mesh(None)
     sp = al.align_longform_batch([raw, raw], [text, text],
-                                 ring=seq_ring(n_devices, mesh.devices[0]))
+                                 ring=seq_ring(n_devices, al.device))
     for segs in sp:
         assert segs is not None, "SP alignment failed"
         assert _key(segs) == segs0, (_key(segs), segs0)
-    print(f"dryrun_multichip({n_devices}): SP OK (matches DP)")
+    print(f"dryrun_multichip({n_devices}): SP OK (matches the batch)")
     return segs0
 
 

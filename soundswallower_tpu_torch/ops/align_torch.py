@@ -955,8 +955,7 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
     0 chooses from the graph's size).  Each launch counts on
     ``viterbi_rows.forms`` (", global" where the row's state passes one
     block's shared memory), ``.layouts`` ("block", "cluster N", "global
-    memory"), ``.tables`` ("band", "K-slot") and ``.rows`` ("B=128": a
-    mesh rank's rows)."""
+    memory") and ``.tables`` ("band", "K-slot")."""
     _check_viterbi_shape("viterbi_rows", sen, c.P, c.E)
     B, T, S = sen.shape
     if c.tp.shape[0] != B:
@@ -999,8 +998,7 @@ def viterbi_rows(sen: torch.Tensor, n_frames: torch.Tensor,
     glob = lib.sst_viterbi_smem_bytes(c.P, c.E) > MAX_SMEM_BYTES
     _count(viterbi_rows, c.E, dt, True if glob else None, with_scores)
     for counter, key in ((viterbi_rows.layouts, layout_name(cs)),
-                         (viterbi_rows.tables, table),
-                         (viterbi_rows.rows, f"B={B}")):
+                         (viterbi_rows.tables, table)):
         counter[key] = counter.get(key, 0) + 1
     return path, pscore, fscore
 
@@ -1009,7 +1007,6 @@ viterbi_rows.launches = 0
 viterbi_rows.forms = {}
 viterbi_rows.layouts = {}
 viterbi_rows.tables = {}
-viterbi_rows.rows = {}
 
 
 def chunk_layout(P: int, E: int, S: int, cluster: int = 0,

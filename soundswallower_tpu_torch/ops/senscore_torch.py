@@ -1023,8 +1023,7 @@ def gather_cols(src: torch.Tensor, cols: torch.Tensor,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """K5: src int32/int16 [B, T, Sx], cols int32 [B, S] -> int32
     [B, T, S], written into ``out`` when given (a contiguous slice of
-    the batch buffer).  Each launch also counts on ``gather_cols.rows``
-    by B ("B=128": a mesh rank's rows)."""
+    the batch buffer)."""
     B, T, Sx = src.shape
     S = cols.shape[1]
     if cols.shape[0] != B:
@@ -1054,10 +1053,7 @@ def gather_cols(src: torch.Tensor, cols: torch.Tensor,
         B, T, Sx, S, cuda_build.stream(src))
     cuda_build.check(err, "gather_cols")
     gather_cols.launches += 1
-    key = f"B={B}"
-    gather_cols.rows[key] = gather_cols.rows.get(key, 0) + 1
     return out
 
 
 gather_cols.launches = 0
-gather_cols.rows = {}

@@ -59,9 +59,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.align_torch import (_first_argmax, backtrace_chunk,
-                               graph_consts_from_numpy, tok_dtype,
-                               vit_carry0, viterbi_chunk_rows)
+from ..ops.align_torch import (VitConsts, _first_argmax, backtrace_chunk,
+                               tok_dtype, vit_carry0, viterbi_chunk_rows)
 from .. import spans
 from ..utils import resolve_device
 
@@ -133,18 +132,17 @@ def _unpack(flat: torch.Tensor, like) -> tuple:
     return tuple(out)
 
 
-def align_longform(ring: SeqRing, senscr, senid, tp, pred_idx, pred_pen,
-                   pred_ok, astart, aend, n_frames, entry_score,
-                   final_nodes):
+def align_longform(ring: SeqRing, senscr, vit: VitConsts, n_frames,
+                   cols=None):
     """Sequence-parallel Viterbi and backtrace over ``ring``.
 
     senscr [B, T, G] int16 or int32 (numpy or tensor; T divisible by the
-    ring's size, frames >= n_frames padding), senid [P, E] its columns
-    per graph state, tp [P, E, E+1], pred_* [P, K], astart/aend [P],
-    n_frames [B], entry_score [P] int32, final_nodes [F].  Returns (path
-    [B, T] int32, final_score [B] int32) on the ring's device.  Spans
-    ``viterbi`` (the tables and the forward pass) and ``backtrace`` (the
-    final select and the reverse pass)."""
+    ring's size, frames >= n_frames padding), vit the graph's Viterbi
+    tables on the ring's device (``graph_consts_from_numpy``), n_frames
+    [B], cols [P, E] the column of senscr each graph state reads (None:
+    the identity, G = P * E).  Returns (path [B, T] int32, final_score
+    [B] int32) on the ring's device.  Spans ``viterbi`` (the forward
+    pass) and ``backtrace`` (the final select and the reverse pass)."""
     nseq, dev = ring.nseq, ring.device
     senscr = torch.as_tensor(senscr)
     B, T, _ = senscr.shape
@@ -153,18 +151,11 @@ def align_longform(ring: SeqRing, senscr, senid, tp, pred_idx, pred_pen,
                          f"({nseq})")
     with spans.span("viterbi"):
         C = T // nseq
-        senid = np.asarray(senid)
-        Pn = senid.shape[0]
-        S = senid.size
-        vit = graph_consts_from_numpy(dict(
-            tp=tp, pi=pred_idx, pp=pred_pen, pk=pred_ok, ast=astart,
-            aen=aend, entry=entry_score, fin=final_nodes), dev)
+        S = vit.P * vit.E
         nfr = np.asarray(n_frames, np.int64).reshape(B)
         nfr_d = torch.from_numpy(nfr.astype(np.int32)).to(dev)
-        cols = None
-        if not np.array_equal(senid.reshape(-1), np.arange(S)):
-            cols = torch.from_numpy(
-                senid.reshape(-1).astype(np.int64)).to(dev)
+        if cols is not None:
+            cols = torch.as_tensor(cols).reshape(-1).to(dev, torch.int64)
         # each rank's chunk of the scores, on the ring's device
         sen = {p: senscr[:, p * C:(p + 1) * C].to(dev)
                for p in ring.ranks()}

@@ -30,8 +30,8 @@ the recording ends.  The port's spans (``aligner.py``,
   upload chunk), ``score``, ``gather``, ``viterbi``, ``download``;
 * ``batch.end`` (``align_batch_end``): ``wait``, ``extract``, ``segs``;
 * ``longform`` (``align_longform_batch``): ``graphs``, ``consts``,
-  ``pack``, ``fe.wait``, ``fe.device``, ``score``, ``pred_table``,
-  ``viterbi``, ``backtrace``, ``wait``, ``extract``;
+  ``pack``, ``fe.wait``, ``fe.device``, ``score``, ``viterbi``,
+  ``backtrace``, ``wait``, ``extract``;
 * ``fe.host`` on the host front end's worker thread, a call each.
 
 Counters: ``frames.scored`` (rows times the frame axis of every chunk

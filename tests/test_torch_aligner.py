@@ -102,11 +102,11 @@ def test_synth_model_bytes_pinned(tmp_path, width):
 
 
 def test_unported_surfaces_raise(small):
-    """Nothing is left to port: use_mesh, the last surface that raised
-    NotImplementedError, is ported (tests/test_torch_mesh.py), and
-    use_mesh(None) keeps the single-device results; want_scores on a
-    same-transcript batch, decode, align_longform_batch, dist_mode="mxu"
-    and update_mllr, which once raised, are ported
+    """Nothing is left to port, and an aligner keeps one device: it has
+    no use_mesh (several cards take an aligner each), and a second call
+    keeps the first's results; want_scores on a same-transcript batch,
+    decode, align_longform_batch, dist_mode="mxu" and update_mllr, which
+    once raised, are ported
     (tests/test_torch_large_graph.py, tests/test_torch_decode.py,
     tests/test_torch_longform.py, tests/test_torch_mxu.py,
     tests/test_torch_mllr.py): a transform file that does not exist
@@ -116,8 +116,7 @@ def test_unported_surfaces_raise(small):
     with pytest.raises(RuntimeError, match="set_grammar"):
         port.decode(a)
     before = port.align_batch([a, a], [TEXT, TEXT])
-    port.use_mesh(None)
-    assert port.mesh is None and port._nd_local() == 1
+    assert not hasattr(port, "use_mesh") and not hasattr(port, "mesh")
     assert [segs_rep(s) for s in port.align_batch([a, a], [TEXT, TEXT])] \
         == [segs_rep(s) for s in before]
     for al in (port, ref):

@@ -6,8 +6,9 @@ single-device Viterbi; ``TorchAligner.align_longform_batch`` against
 ``TpuAligner.align_longform_batch`` and the port's ``align_batch`` on
 the default wire and under SST_WIRE=f32; K13's plain version against
 the single-utterance backtrace rule on random token chunks; a 5-state
-model failing as the JAX package's does; and a two-rank gloo ring, in
-processes of its own, equal to the local ring."""
+model failing as the JAX package's does; the dry run (dryrun.py) on one
+device; and a two-rank gloo ring, in processes of its own, equal to the
+local ring."""
 
 import os
 import socket
@@ -25,9 +26,11 @@ from _torch_synth import (SAMPRATE, TEXT, austen_audio, model_dir, segs_rep,
 from soundswallower_tpu.aligner import TpuAligner
 from soundswallower_tpu.parallel.seqpipe import align_longform as jax_longform
 from soundswallower_tpu.parallel.seqpipe import seq_mesh
+from soundswallower_tpu_torch import aligner as port_aligner, dryrun
 from soundswallower_tpu_torch.aligner import TorchAligner
 from soundswallower_tpu_torch.ops import align_torch as at
-from soundswallower_tpu_torch.parallel import SeqRing, align_longform, seq_ring
+from soundswallower_tpu_torch.parallel import (SeqRing, align_longform,
+                                               seq_ring, seqpipe)
 
 torch.set_num_threads(1)
 
@@ -72,12 +75,23 @@ def ring_inputs(pair):
                 np.int32), g.final_nodes)
 
 
+def port_args(ring_inputs) -> tuple:
+    """ring_inputs as align_longform takes them: the scores, the graph's
+    VitConsts (graph_consts_from_numpy), the frame counts and senid as
+    the column map."""
+    sen, senid, tp, pi, pp, pk, ast, aen, nfr, entry, fin = ring_inputs
+    vit = at.graph_consts_from_numpy(dict(
+        tp=tp, pi=pi, pp=pp, pk=pk, ast=ast, aen=aen, entry=entry,
+        fin=fin), "cpu")
+    return sen, vit, nfr, senid
+
+
 @pytest.mark.parametrize("nseq", [1, 2, 8])
 def test_align_longform_matches_jax(ring_inputs, nseq):
     want_p, want_s = jax_longform(seq_mesh(nseq), *ring_inputs)
     ring = seq_ring(nseq, "cpu")
     assert isinstance(ring, SeqRing) and ring.ranks() == list(range(nseq))
-    path, score = align_longform(ring, *ring_inputs)
+    path, score = align_longform(ring, *port_args(ring_inputs))
     assert path.dtype == torch.int32 and score.dtype == torch.int32
     assert np.array_equal(path.numpy(), np.asarray(want_p))
     assert np.array_equal(score.numpy(), np.asarray(want_s))
@@ -87,11 +101,8 @@ def test_align_longform_matches_single_device(ring_inputs):
     """Each row through K4's carry form over the whole utterance, its
     final select and backtrace (viterbi_single), and through K4
     (viterbi_batch): the same paths and scores as a ring of 8."""
-    sen, senid, tp, pi, pp, pk, ast, aen, nfr, entry, fin = ring_inputs
-    path, score = align_longform(seq_ring(8, "cpu"), *ring_inputs)
-    vit = at.graph_consts_from_numpy(dict(
-        tp=tp, pi=pi, pp=pp, pk=pk, ast=ast, aen=aen, entry=entry,
-        fin=fin), "cpu")
+    sen, vit, nfr, senid = port_args(ring_inputs)
+    path, score = align_longform(seq_ring(8, "cpu"), sen, vit, nfr, senid)
     cols = torch.from_numpy(senid.reshape(-1).astype(np.int64))
     gathered = torch.from_numpy(sen).index_select(2, cols).to(torch.int32)
     for b, n in enumerate(nfr):
@@ -133,6 +144,44 @@ def test_align_longform_batch_matches_reference(small_dir, monkeypatch,
         port.align_longform_batch(audios, [text, TEXT])
 
 
+def test_longform_builds_graph_tables_once(small_dir, pair, monkeypatch):
+    """align_longform_batch builds a graph's Viterbi tables once, in its
+    one _graph_const_cache entry (build_pred_table a new graph), and the
+    ring runs on that entry's VitConsts; again on the same transcript
+    nothing is built.  Segments equal TpuAligner's align_batch."""
+    _, ref = pair
+    port = TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu")
+    built, used = [], []
+    real_pred, real_lf = port_aligner.build_pred_table, seqpipe.align_longform
+
+    def pred(src, dst, pen, n, *a, **k):
+        built.append(n)
+        return real_pred(src, dst, pen, n, *a, **k)
+
+    def lf(ring, senscr, vit, n_frames, cols=None):
+        used.append(vit)
+        return real_lf(ring, senscr, vit, n_frames, cols)
+
+    monkeypatch.setattr(port_aligner, "build_pred_table", pred)
+    monkeypatch.setattr(seqpipe, "align_longform", lf)
+    long_text = " ".join([TEXT] * 2)
+    calls = [(TEXT, [austen_audio(0), austen_audio(1)], None),
+             (TEXT, [austen_audio(2)], seq_ring(2, "cpu")),
+             (long_text, [np.tile(austen_audio(3), 2)], seq_ring(2, "cpu"))]
+    for text, audios, ring in calls:
+        got = port.align_longform_batch(audios, [text] * len(audios),
+                                        ring=ring)
+        want = ref.align_batch(audios, [text] * len(audios))
+        assert all(s is not None for s in got)
+        assert [segs_rep(s) for s in got] == [segs_rep(s) for s in want]
+    g, g2 = port.graph_for_text(TEXT), port.graph_for_text(long_text)
+    cache = port._graph_const_cache
+    assert set(cache) == {g.serial, g2.serial}
+    assert built == [len(g.senid), len(g2.senid)]
+    assert [id(v) for v in used] == [id(cache[g.serial].vit)] * 2 + [
+        id(cache[g2.serial].vit)]
+
+
 @pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
 def test_backtrace_chunk_plain_matches_single(dtype):
     """Random token stacks (states and -1, S >= 32,767 for int32), cut
@@ -171,21 +220,46 @@ def test_five_states_fail_as_reference(tmp_path_factory):
         port.align_longform_batch(a, [TEXT], ring=seq_ring(2, "cpu"))
 
 
+def test_dryrun_on_synthetic_model(small_dir, capsys):
+    """dryrun.py's batch and sequence-parallel paths agree on one device
+    on tests/golden/austen.raw and the synthetic model, at 2 and 3 rows
+    and ranks, through its function and its command line; a row that
+    fails fails the run."""
+    raw = os.path.join(REPO, "tests", "golden", "austen.raw")
+    segs = dryrun.dryrun_multichip(2, small_dir, raw, TEXT, device="cpu",
+                                   samprate=SAMPRATE)
+    assert [w for w, _, _ in segs if w != "<sil>"] == TEXT.split()
+    assert dryrun.main(["3", small_dir, raw, TEXT, "--device", "cpu",
+                        "--samprate", str(SAMPRATE)]) == 0
+    out = capsys.readouterr().out
+    assert "dryrun_multichip(3): batch OK" in out
+    assert "dryrun_multichip(3): SP OK (matches the batch)" in out
+    # 400 samples cannot reach the transcript's final state
+    short = np.fromfile(raw, np.int16)[:400]
+    with pytest.raises(AssertionError, match="batch alignment failed"):
+        dryrun.dryrun_multichip(2, small_dir, short, TEXT, device="cpu",
+                                samprate=SAMPRATE)
+
+
 GLOO_WORKER = """
 import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from soundswallower_tpu_torch.ops.align_torch import graph_consts_from_numpy
 from soundswallower_tpu_torch.parallel import align_longform, seq_ring
 
 rank, addr, path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=addr, world_size=2, rank=rank)
 z = np.load(path + "/in.npz")
-args = [z[f"a{i}"] for i in range(11)]
+sen, senid, tp, pi, pp, pk, ast, aen, nfr, entry, fin = [z[f"a{i}"]
+                                                         for i in range(11)]
+vit = graph_consts_from_numpy(dict(tp=tp, pi=pi, pp=pp, pk=pk, ast=ast,
+                                   aen=aen, entry=entry, fin=fin), "cpu")
 ring = seq_ring(device="cpu", distributed=True)
 assert ring.nseq == 2 and ring.ranks() == [rank]
-p, s = align_longform(ring, *args)
+p, s = align_longform(ring, sen, vit, nfr, senid)
 np.savez(path + f"/out{rank}.npz", path=p.numpy(), score=s.numpy())
 dist.destroy_process_group()
 """
@@ -215,7 +289,8 @@ def test_gloo_ring_equals_local_ring(ring_inputs, tmp_path):
                 p.kill()
                 p.wait()
     assert [p.returncode for p in procs] == [0, 0], logs
-    want_p, want_s = align_longform(seq_ring(2, "cpu"), *ring_inputs)
+    want_p, want_s = align_longform(seq_ring(2, "cpu"),
+                                    *port_args(ring_inputs))
     for r in range(2):
         out = np.load(tmp_path / f"out{r}.npz")
         assert np.array_equal(out["path"], want_p.numpy())

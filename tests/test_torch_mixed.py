@@ -270,9 +270,7 @@ def test_align_batch_scored_matches_reference(small_dir, want_states):
 
 
 def test_unported_surfaces_still_raise(small_dir, tmp_path):
-    """Nothing raises as unported: use_mesh, the last surface that did,
-    is ported (tests/test_torch_mesh.py) and use_mesh(None) returns to
-    one device.  Ported before it: want_scores on a
+    """Nothing raises as unported.  Ported: want_scores on a
     same-transcript batch, decode_batch(_scored) (they need set_grammar
     first, as in the JAX package), S >= 32767 (int32 token stacks),
     5-state models, align_longform_batch, dist_mode="mxu" and MLLR
@@ -290,8 +288,6 @@ def test_unported_surfaces_still_raise(small_dir, tmp_path):
                  lambda: port.decode_batch([a])):
         with pytest.raises(RuntimeError, match="set_grammar"):
             call()
-    port.use_mesh(None)                 # ported: back to one device
-    assert port.mesh is None and port._nd_local() == 1
     assert port.align_batch_scored([a], [TEXT], dist_mode="mxu")[0]
     S = 3 * 11000                                    # int32 token stacks
     with pytest.raises(ValueError, match="graphs for"):

@@ -36,9 +36,9 @@ def test_port_imports_without_jax(tmp_path):
     both front ends, decode_batch, nbest over the history search and
     lattice), YIN (pitch_batch, the exact Yin), the exact Decoder (an
     alignment, a live decode), MLLR on the aligner and the Decoder, the
-    CLI on both paths, Vad and Endpointer, the data-parallel mesh
-    (parallel.mesh, parallel.multihost, use_mesh) and the dry run
-    (dryrun.py), leaves jax unloaded and reads
+    CLI on both paths, Vad and Endpointer, and the dry run (dryrun.py:
+    align_batch and the long form on a ring), leaves jax unloaded and
+    reads
     no module of the JAX package: none is in sys.modules, by name or by
     file."""
     code = f"""
@@ -127,13 +127,6 @@ assert v.classify(audios[0][:v.frame_size]) in (True, False)
 ep = endpointer.Endpointer(sample_rate=SAMPRATE)
 ep.process(audios[0][:ep.frame_size])
 from soundswallower_tpu_torch import dryrun
-from soundswallower_tpu_torch.parallel import mesh as pmesh, multihost
-multihost.initialize(None)
-al.use_mesh(multihost.global_data_mesh(2, "cpu"))
-assert all(s is not None for s in al.align_batch(audios, texts))
-al.use_mesh(pmesh.data_mesh(3, "cpu"))
-assert all(s is not None for s in al.align_batch_scored(audios, texts))
-al.use_mesh(None)
 assert dryrun.dryrun_multichip(2, d, audios[0][:9600], "he was not",
                                device="cpu", samprate=SAMPRATE)
 assert 'jax' not in sys.modules, 'jax was imported'
@@ -182,8 +175,8 @@ def test_port_modules_are_files_of_the_port():
 
     names = ["aligner", "streaming", "fe.feat", "fe.frontend",
              "ops.align_torch", "ops.senscore_torch", "utils",
-             "utils.cuda_build", "parallel.seqpipe", "parallel.mesh",
-             "parallel.multihost", "dryrun", *HOST_MODULES,
+             "utils.cuda_build", "parallel", "parallel.seqpipe", "dryrun",
+             *HOST_MODULES,
              *GRAMMAR_MODULES, *API_MODULES]
     for name in names:
         mod = importlib.import_module(f"soundswallower_tpu_torch.{name}")

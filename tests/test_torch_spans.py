@@ -26,7 +26,7 @@ BEGIN = {"graphs", "union", "stack", "consts", "pack", "fe.wait",
          "fe.device", "score", "gather", "viterbi", "download"}
 END = {"wait", "extract", "segs"}
 LONGFORM = {"graphs", "consts", "pack", "fe.wait", "fe.device", "score",
-            "pred_table", "viterbi", "backtrace", "wait", "extract"}
+            "viterbi", "backtrace", "wait", "extract"}
 
 
 @pytest.fixture(scope="module")

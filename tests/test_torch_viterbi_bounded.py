@@ -337,13 +337,11 @@ def test_longform_forward_one_launch_per_rank(monkeypatch, nseq):
         return real(sen_p, carry, t0, n, c, out=out)
 
     monkeypatch.setattr(seqpipe, "viterbi_chunk_rows", counted)
-    path, score = seqpipe.align_longform(
-        seqpipe.seq_ring(nseq, "cpu"), sen, np.arange(P * E).reshape(P, E),
-        g["tp"], g["pi"], g["pp"], g["pk"], g["ast"], g["aen"], ns,
-        g["entry"], g["fin"])
+    c = at.graph_consts_from_numpy(g)
+    path, score = seqpipe.align_longform(seqpipe.seq_ring(nseq, "cpu"),
+                                         sen, c, ns)
     C = T // nseq
     assert calls == [((B, C, E * P), p * C) for p in range(nseq)]
-    c = at.graph_consts_from_numpy(g)
     for b in range(B):
         p1, s1 = at.viterbi_single(torch.from_numpy(sen[b]), int(ns[b]), c)
         assert torch.equal(path[b], p1) and int(score[b]) == int(s1)

@@ -102,7 +102,7 @@ print(json.dumps([out["correct"], trace_cell.program(rec, bench.kind,
                                     "padded_frame_share"}
     root = prog["roots"]["longform"]
     assert root["children_cover_min"] >= 0.95
-    assert {"graphs", "consts", "fe.wait", "score", "pred_table", "viterbi",
-            "backtrace", "wait", "extract"} <= set(root["children_ms_p50"])
+    assert {"graphs", "consts", "fe.wait", "score", "viterbi", "backtrace",
+            "wait", "extract"} <= set(root["children_ms_p50"])
     assert prog["bench_minus_root_ms"]["chapter"]["calls"] >= 1
     assert prog["counts"]["frames.scored"] >= prog["counts"]["frames.real"]

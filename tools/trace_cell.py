@@ -16,10 +16,10 @@ object with ``program`` added:
   window (read by the benchmark's readers from its record; a traced
   run_cell reports its per-layer metrics only);
 * ``metrics``: ``wait_ms.p50`` (the ``wait`` span), ``extract_ms.p50``
-  (``extract`` + ``segs``), ``graph_ms.p50`` (``graphs`` + ``consts``
-  + ``pred_table``), ``host_fe_ms.p50`` (``fe.host``), each a median
-  over calls of the call's spans summed, and ``padded_frame_share``
-  (100 x (1 - frames.real / frames.scored));
+  (``extract`` + ``segs``), ``graph_ms.p50`` (``graphs`` + ``consts``:
+  the graph and its device tables), ``host_fe_ms.p50`` (``fe.host``),
+  each a median over calls of the call's spans summed, and
+  ``padded_frame_share`` (100 x (1 - frames.real / frames.scored));
 * ``roots``: per program root (``batch.begin``, ``batch.end``,
   ``longform``) its calls, median ms, the share of its time its direct
   children cover (lowest and median over calls) and each child's median
@@ -281,8 +281,7 @@ def program(rec: spans.Recorder, kind: _Recorded, bench: Bench) -> dict:
                                              "latency_p95_ms")}
     metrics = {"wait_ms.p50": rec.median_ms("wait"),
                "extract_ms.p50": rec.median_ms("extract", "segs"),
-               "graph_ms.p50": rec.median_ms("graphs", "consts",
-                                             "pred_table"),
+               "graph_ms.p50": rec.median_ms("graphs", "consts"),
                "host_fe_ms.p50": rec.median_ms("fe.host"),
                "padded_frame_share": rec.share_padded()}
     return {"end_to_end": e2e,
