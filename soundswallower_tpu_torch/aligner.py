@@ -286,17 +286,22 @@ class TorchAligner:
 
     # -- graph -------------------------------------------------------------
 
+    def _word_ids(self, text: str) -> list[int]:
+        """The dictionary ids of ``text``'s words; KeyError for an
+        unknown one."""
+        wids = []
+        for w in text.split():
+            wid = self.dict.wordid(w)
+            if wid < 0:
+                raise KeyError(f"Unknown word {w}")
+            wids.append(wid)
+        return wids
+
     def graph_for_text(self, text: str) -> AlignGraph:
         g = self._graph_cache.get(text)
         if g is None:
-            wids = []
-            for w in text.split():
-                wid = self.dict.wordid(w)
-                if wid < 0:
-                    raise KeyError(f"Unknown word {w}")
-                wids.append(wid)
-            g = build_chain_graph(wids, self.dict, self.d2p, self.am,
-                                  self.lmath, self.config)
+            g = build_chain_graph(self._word_ids(text), self.dict, self.d2p,
+                                  self.am, self.lmath, self.config)
             self._graph_cache[text] = g
         return g
 
@@ -1195,7 +1200,14 @@ class TorchAligner:
         device when None), then the ring-carried Viterbi and chunk
         backtrace (parallel/seqpipe.py) over the graph's cached Viterbi
         tables (_graph_consts), and segment extraction per row.  Segments
-        equal align_batch's on the same audio."""
+        equal align_batch's on the same audio.
+
+        The host FE needs only the audio and ``Tmax``, so it is submitted
+        to the worker thread before the graph is built: it runs while
+        this thread builds the graph and its tables.  Counters
+        ``longform.fe_early`` (calls whose host FE was submitted before
+        ``graphs``) and ``longform.fe_ready`` (calls whose host FE had
+        finished when ``consts`` ended)."""
         from .parallel.seqpipe import align_longform, seq_ring
 
         if len(set(texts)) != 1:
@@ -1204,17 +1216,36 @@ class TorchAligner:
         if ring is None:
             ring = seq_ring(1, self.device)
         with spans.request(), spans.span("longform"):
-            with spans.span("graphs"):
-                g = self.graph_for_text(texts[0])
-            Ts = np.array([self.fe.n_frames(len(a)) for a in audios])
-            if spans.recording():
-                spans.count("frames.real", int(Ts.sum()))
-            gran = 64 * ring.nseq
-            Tmax = max(gran, -(-int(Ts.max()) // gran) * gran)
-            Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
-            with spans.span("consts"):
-                c = self._graph_consts(g)
-            sen = self._graph_scores(c.gs, audios, Ts_d, Tmax, dist_mode)
+            if texts[0] not in self._graph_cache:
+                self._word_ids(texts[0])    # an unknown word: no FE work
+            with spans.span("pack"):
+                Ts = np.array([self.fe.n_frames(len(a)) for a in audios])
+                if spans.recording():
+                    spans.count("frames.real", int(Ts.sum()))
+                gran = 64 * ring.nseq
+                Tmax = max(gran, -(-int(Ts.max()) // gran) * gran)
+                Ts_d = self._upload(torch.from_numpy(Ts.astype(np.int32)))
+                chunks = self._chunk_feats(audios, Ts_d, Tmax)
+            fence = None
+            if self.native_fe is not None:
+                # one worker: a no-op queued behind the chunks is done
+                # when they are
+                fence = self._fe_pool.submit(lambda: None)
+                spans.count("longform.fe_early", 1)
+            try:
+                with spans.span("graphs"):
+                    g = self.graph_for_text(texts[0])
+                with spans.span("consts"):
+                    c = self._graph_consts(g)
+                if fence is not None and fence.done():
+                    spans.count("longform.fe_ready", 1)
+                sen = self._graph_scores(c.gs, audios, Ts_d, Tmax, dist_mode,
+                                         chunks)
+            except BaseException:
+                # leave no chunk of this call on the worker for the next
+                if fence is not None:
+                    fence.result()
+                raise
             paths, _ = align_longform(ring, sen, c.vit, Ts.astype(np.int32))
             with spans.span("wait"):
                 paths = paths.cpu().numpy()

@@ -29,9 +29,10 @@ the recording ends.  The port's spans (``aligner.py``,
   ``stack`` or ``consts``, ``pack``, ``fe.wait`` and ``fe.device`` (per
   upload chunk), ``score``, ``gather``, ``viterbi``, ``download``;
 * ``batch.end`` (``align_batch_end``): ``wait``, ``extract``, ``segs``;
-* ``longform`` (``align_longform_batch``): ``graphs``, ``consts``,
-  ``pack``, ``fe.wait``, ``fe.device``, ``score``, ``viterbi``,
-  ``backtrace``, ``wait``, ``extract``;
+* ``longform`` (``align_longform_batch``): ``pack`` (the host front
+  end submitted there), ``graphs``, ``consts``, ``fe.wait``,
+  ``fe.device``, ``score``, ``viterbi``, ``backtrace``, ``wait``,
+  ``extract``;
 * ``fe.host`` on the host front end's worker thread, a call each.
 
 Counters: ``frames.scored`` (rows times the frame axis of every chunk
@@ -41,7 +42,10 @@ fully continuous scorer (``ops/senscore_torch.py``), ``ms.blocks`` (its
 frame blocks, a K11 and a K12 call each, summed over the ``score``
 spans), ``ms.block_frames`` (the largest block, a high-water mark) and
 ``ms_dist_topn.forms[<form>]`` (K11's launches by form: "frame top-N",
-"registers 13", "runtime L").
+"registers 13", "runtime L"); of the long form on the host front end,
+``longform.fe_early`` (calls whose front end was submitted before
+``graphs``) and ``longform.fe_ready`` (calls whose front end had
+finished when ``consts`` ended).
 """
 
 from __future__ import annotations

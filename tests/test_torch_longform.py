@@ -4,7 +4,9 @@ ranks against the JAX function on as many virtual devices (ragged frame
 counts, senone columns gathered by senid) and against the
 single-device Viterbi; ``TorchAligner.align_longform_batch`` against
 ``TpuAligner.align_longform_batch`` and the port's ``align_batch`` on
-the default wire and under SST_WIRE=f32; K13's plain version against
+the default wire and under SST_WIRE=f32; the host FE submitted before
+the graph is built, and no FE work left behind by a call that fails;
+K13's plain version against
 the single-utterance backtrace rule on random token chunks; a 5-state
 model failing as the JAX package's does; the dry run (dryrun.py) on one
 device; and a two-rank gloo ring, in processes of its own, equal to the
@@ -14,6 +16,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -180,6 +183,83 @@ def test_longform_builds_graph_tables_once(small_dir, pair, monkeypatch):
     assert built == [len(g.senid), len(g2.senid)]
     assert [id(v) for v in used] == [id(cache[g.serial].vit)] * 2 + [
         id(cache[g2.serial].vit)]
+
+
+@pytest.mark.parametrize("nseq", [1, 2])
+def test_longform_submits_fe_before_graph(small_dir, pair, monkeypatch,
+                                          nseq):
+    """On the host FE the chapter's FE is submitted to the worker thread
+    before the graph is asked for (the order of the calls, not their
+    timing), and the graph once; segments equal TpuAligner's
+    align_batch on rings of 1 and 2."""
+    _, ref = pair
+    port = TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu")
+    assert port.native_fe is not None
+    calls = []
+    submit, graph = port._fe_pool.submit, port.graph_for_text
+
+    def sub(fn, *a, **k):
+        calls.append(("submit", fn))
+        return submit(fn, *a, **k)
+
+    def gft(text):
+        calls.append(("graph", text))
+        return graph(text)
+
+    monkeypatch.setattr(port._fe_pool, "submit", sub)
+    monkeypatch.setattr(port, "graph_for_text", gft)
+    audios = [austen_audio(0), austen_audio(1)]
+    got = port.align_longform_batch(audios, [TEXT] * 2,
+                                    ring=seq_ring(nseq, "cpu"))
+    assert calls[0] == ("submit", port.native_fe.process_list_i16p)
+    assert [c for c in calls if c[0] == "graph"] == [("graph", TEXT)]
+    want = ref.align_batch(audios, [TEXT] * 2)
+    assert all(s is not None for s in got)
+    assert [segs_rep(s) for s in got] == [segs_rep(s) for s in want]
+
+
+def test_longform_errors_leave_no_fe_work(small_dir, pair, monkeypatch):
+    """An unknown word raises KeyError, and more than one transcript
+    ValueError, with nothing submitted to the FE's worker; a failure
+    after the submission (the graph's tables, while a slowed FE still
+    runs) propagates only once every job the call submitted is done.
+    The next call's segments equal TpuAligner's align_batch."""
+    _, ref = pair
+    port = TorchAligner(hmm=small_dir, samprate=SAMPRATE, device="cpu")
+    futs = []
+    submit = port._fe_pool.submit
+
+    def sub(fn, *a, **k):
+        futs.append(submit(fn, *a, **k))
+        return futs[-1]
+
+    monkeypatch.setattr(port._fe_pool, "submit", sub)
+    audios = [austen_audio(2)]
+    assert port.dict.wordid("qqqzzz") < 0
+    with pytest.raises(KeyError, match="Unknown word qqqzzz"):
+        port.align_longform_batch(audios, [TEXT + " qqqzzz"])
+    with pytest.raises(ValueError, match="one shared"):
+        port.align_longform_batch(audios * 2, [TEXT, "young man"])
+    assert futs == []
+    fe = port.native_fe.process_list_i16p
+
+    def slow(*a, **k):
+        time.sleep(0.5)
+        return fe(*a, **k)
+
+    def fail(g):
+        raise RuntimeError("graph tables failed")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(port.native_fe, "process_list_i16p", slow)
+        mp.setattr(port, "_graph_consts", fail)
+        with pytest.raises(RuntimeError, match="graph tables failed"):
+            port.align_longform_batch(audios, [TEXT])
+    assert futs and all(f.done() for f in futs)
+    got = port.align_longform_batch(audios, [TEXT])
+    assert got[0] is not None
+    assert [segs_rep(s) for s in got] == [
+        segs_rep(s) for s in ref.align_batch(audios, [TEXT])]
 
 
 @pytest.mark.parametrize("dtype", [torch.int16, torch.int32])

@@ -172,6 +172,31 @@ def test_longform_tree(port, recorder):
     assert ("fe.wait" in names) == (port.native_fe is not None)
 
 
+def test_longform_fe_counters(port, recorder, monkeypatch):
+    """longform.fe_early counts a call on the host FE and nothing on the
+    device FE; longform.fe_ready at most that, and one a call where
+    consts waits for the worker to drain."""
+    audios = [austen_audio(i) for i in range(2)]
+    for a in audios:
+        assert port.align_longform_batch([a], [TEXT])[0]
+    host = port.native_fe is not None
+    assert recorder.counts.get("longform.fe_early", 0) == 2 * host
+    assert recorder.counts.get("longform.fe_ready", 0) <= 2 * host
+    if not host:
+        return
+    consts = port._graph_consts
+
+    def drained(g):
+        port._fe_pool.submit(lambda: None).result()
+        return consts(g)
+
+    monkeypatch.setattr(port, "_graph_consts", drained)
+    before = recorder.counts.get("longform.fe_ready", 0)
+    assert port.align_longform_batch(audios[:1], [TEXT])[0]
+    assert recorder.counts["longform.fe_early"] == 3
+    assert recorder.counts["longform.fe_ready"] == before + 1
+
+
 def test_worker_spans_carry_their_request(ports, recorder):
     """fe.host runs on the host front end's worker thread, one span a
     call, under the request that submitted it, with no parent there."""

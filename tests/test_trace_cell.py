@@ -104,5 +104,8 @@ print(json.dumps([out["correct"], trace_cell.program(rec, bench.kind,
     assert root["children_cover_min"] >= 0.95
     assert {"graphs", "consts", "fe.wait", "score", "viterbi", "backtrace",
             "wait", "extract"} <= set(root["children_ms_p50"])
+    counts = root["counts"]
+    assert counts["longform.fe_early"] == root["calls"]
+    assert 0 <= counts.get("longform.fe_ready", 0) <= root["calls"]
     assert prog["bench_minus_root_ms"]["chapter"]["calls"] >= 1
     assert prog["counts"]["frames.scored"] >= prog["counts"]["frames.real"]

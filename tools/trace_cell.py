@@ -22,8 +22,10 @@ object with ``program`` added:
   ``padded_frame_share`` (100 x (1 - frames.real / frames.scored));
 * ``roots``: per program root (``batch.begin``, ``batch.end``,
   ``longform``) its calls, median ms, the share of its time its direct
-  children cover (lowest and median over calls) and each child's median
-  ms a call;
+  children cover (lowest and median over calls), each child's median
+  ms a call and the counters named after it (``longform.fe_early``,
+  ``longform.fe_ready``: the calls whose host FE was submitted before
+  ``graphs``, and had finished when ``consts`` ended);
 * ``bench_minus_root_ms``: per benchmark span (``begin``, ``end``,
   ``chapter``) the median over calls of its time less that of the
   program root it holds;
@@ -234,7 +236,9 @@ def roots(rec: spans.Recorder) -> dict:
                                                  for r in calls) * 1e3,
                      "children_cover_min": min(cover),
                      "children_cover_p50": statistics.median(cover),
-                     "children_ms_p50": per}
+                     "children_ms_p50": per,
+                     "counts": {k: v for k, v in rec.counts.items()
+                                if k.startswith(root + ".")}}
     return out
 
 
